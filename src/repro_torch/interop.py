@@ -8,8 +8,8 @@ give.  No JAX is needed on this side: a state the JAX package produced
 handed back and unflattened with the original tree definition.
 
 Leaf orders (the dataclass field order of the JAX package):
-``DeviceCSR``: ``cxadj, cadj, ecol, nnz`` (the CSC mirror's leaves would
-follow; that mirror comes in a later slice of the port and is refused).
+``DeviceCSR``: ``cxadj, cadj, ecol, nnz``, then, for a graph with the CSC
+mirror, ``rxadj, radj, erow, eperm``.
 ``MatchState``: ``cmatch, rmatch, phases, fallbacks, certified``.
 """
 from __future__ import annotations
@@ -24,31 +24,39 @@ from repro_torch.matching.device_csr import TorchCSR
 from repro_torch.matching.state import MatchState
 
 
+_MIRROR = ("rxadj", "radj", "erow", "eperm")   # the mirror's leaf order
+
+
 def _to(x, dtype, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(x, dtype=dtype)).to(dev)
 
 
 def csr_from_reference(leaves: Sequence[np.ndarray], nc: int, nr: int,
                        device=None) -> TorchCSR:
-    """A :class:`TorchCSR` from the leaves of a JAX ``DeviceCSR``."""
-    if len(leaves) != 4:
-        raise NotImplementedError(
-            f"expected the 4 leaves cxadj, cadj, ecol, nnz, got {len(leaves)};"
-            " a graph with the CSC mirror comes in slice 3 of the port")
-    cxadj, cadj, ecol, nnz = leaves
+    """A :class:`TorchCSR` from the leaves of a JAX ``DeviceCSR`` (4
+    leaves, or 8 with the CSC mirror)."""
+    if len(leaves) not in (4, 8):
+        raise ValueError(
+            f"expected the 4 leaves cxadj, cadj, ecol, nnz (then rxadj, "
+            f"radj, erow, eperm with the CSC mirror), got {len(leaves)}")
+    cxadj, cadj, ecol, nnz = leaves[:4]
     if np.ndim(nnz) != 0 or np.ndim(cadj) != 1:
         raise ValueError("a batched DeviceCSR cannot be carried across yet")
     dev = resolve_device(device)
+    mirror = dict(zip(_MIRROR, (_to(x, np.int32, dev) for x in leaves[4:])))
     return TorchCSR(cxadj=_to(cxadj, np.int32, dev),
                     cadj=_to(cadj, np.int32, dev),
                     ecol=_to(ecol, np.int32, dev),
-                    nnz=int(nnz), nc=int(nc), nr=int(nr))
+                    nnz=int(nnz), nc=int(nc), nr=int(nr), **mirror)
 
 
 def csr_to_reference(graph: TorchCSR) -> List[np.ndarray]:
     """The leaves of the equivalent JAX ``DeviceCSR``, as numpy arrays."""
-    return [graph.cxadj.cpu().numpy(), graph.cadj.cpu().numpy(),
-            graph.ecol.cpu().numpy(), np.asarray(graph.nnz, np.int32)]
+    leaves = [graph.cxadj.cpu().numpy(), graph.cadj.cpu().numpy(),
+              graph.ecol.cpu().numpy(), np.asarray(graph.nnz, np.int32)]
+    if graph.has_csc:
+        leaves += [getattr(graph, f).cpu().numpy() for f in _MIRROR]
+    return leaves
 
 
 def state_from_reference(leaves: Sequence[np.ndarray],

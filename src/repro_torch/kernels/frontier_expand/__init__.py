@@ -1,5 +1,9 @@
-from .ops import LAUNCHES, frontier_expand_fused, reset_launches
-from .ref import frontier_expand_fused_ref, frontier_expand_ref
+from .ops import (LAUNCHES, frontier_expand, frontier_expand_fused,
+                  frontier_expand_pull, reset_launches)
+from .ref import (frontier_expand_fused_ref, frontier_expand_pull_ref,
+                  frontier_expand_ref)
 
-__all__ = ["LAUNCHES", "frontier_expand_fused", "frontier_expand_fused_ref",
-           "frontier_expand_ref", "reset_launches"]
+__all__ = ["LAUNCHES", "frontier_expand", "frontier_expand_fused",
+           "frontier_expand_fused_ref", "frontier_expand_pull",
+           "frontier_expand_pull_ref", "frontier_expand_ref",
+           "reset_launches"]

@@ -1,20 +1,32 @@
-"""Fused frontier sweep: the wrapper of the hand-written CUDA kernel.
+"""Frontier sweeps: the wrappers of the hand-written CUDA kernels.
 
-:func:`frontier_expand_fused` returns the ``(nr+1,)`` int32 per-row winner
-vector of one BFS level (lowest proposing column per row, IINF = unreached,
-slot ``nr`` sealed to IINF).  On CUDA tensors it launches the kernel of
-``csrc/frontier_expand.cu``, which replaces the TPU kernels
-``_kernel_fused_wr`` / ``_kernel_fused_plain`` of the JAX package: one
-thread per edge slot, an ``atomicMin`` merge into a winner vector filled
-with IINF (the design is written out in the source).  On CPU tensors it
-returns its plain version, :func:`~.ref.frontier_expand_fused_ref`.  Any
-other device, dtype, layout or shape raises.  Edge slots and roots out of
-range are skipped on either device, so a malformed graph gives the same
-winners on both and the kernel never reads or writes out of bounds.
+Three sweeps of one BFS level, one kernel each in ``csrc/frontier_expand.cu``:
 
-The kernel is built and loaded at its first launch
+* :func:`frontier_expand_fused` returns the ``(nr+1,)`` int32 per-row winner
+  vector (lowest proposing column per row, IINF = unreached, slot ``nr``
+  sealed to IINF).  Its kernel replaces the TPU kernels
+  ``_kernel_fused_wr`` / ``_kernel_fused_plain`` of the JAX package: one
+  thread per edge slot, an ``atomicMin`` merge into a winner vector filled
+  with IINF.
+* :func:`frontier_expand` returns the ``(nnz_pad,)`` int32 per-edge
+  proposals (the column, or IINF); the caller merges them.  Its kernel
+  replaces ``_kernel_wr`` / ``_kernel_plain`` (the legacy path).
+* :func:`frontier_expand_pull` returns the fused sweep's winners over the
+  row-sorted CSC mirror (``radj``/``erow``).  Its kernel replaces
+  ``_kernel_pull_wr`` / ``_kernel_pull``: it tests the row side of the
+  predicate first, so the edges of reached rows cost no column reads and
+  no atomics.
+
+On CUDA tensors each launches its kernel (the designs are written out in
+the source); on CPU tensors each returns its plain version
+(:mod:`.ref`).  Any other device, dtype, layout or shape raises.  Edge
+slots and roots out of range are skipped on either device, so a malformed
+graph gives the same result on both and no kernel reads or writes out of
+bounds.
+
+The kernels are built and loaded at their first launch
 (:mod:`repro_torch.kernels._build`), never at import.  :data:`LAUNCHES`
-counts the launches of each body.
+counts the launches of each kernel body.
 """
 from __future__ import annotations
 
@@ -26,13 +38,24 @@ import torch
 
 from repro_torch.kernels._build import load_library
 
-from .ref import frontier_expand_fused_ref
+from .ref import (frontier_expand_fused_ref, frontier_expand_pull_ref,
+                  frontier_expand_ref)
+
+# sweep -> (C launcher, plain version); every launcher takes
+# (cols, rows, bfs, root, rmatch, level, nnz, nc, nr, out, stream)
+_SWEEPS = {
+    "frontier_expand": ("frontier_expand_launch", frontier_expand_ref),
+    "frontier_expand_fused": ("frontier_expand_fused_launch",
+                              frontier_expand_fused_ref),
+    "frontier_expand_pull": ("frontier_expand_pull_launch",
+                             frontier_expand_pull_ref),
+}
 
 # kernel body -> number of launches; the CPU path does not count
-LAUNCHES: Dict[str, int] = {"frontier_expand_fused_wr": 0,
-                            "frontier_expand_fused_plain": 0}
+LAUNCHES: Dict[str, int] = {f"{s}_{b}": 0 for s in _SWEEPS
+                            for b in ("wr", "plain")}
 
-_FN = None
+_FNS: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
@@ -40,47 +63,71 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _launcher():
-    global _FN
-    if _FN is None:
-        fn = load_library("frontier_expand").frontier_expand_fused_launch
+def _launcher(sweep: str):
+    fn = _FNS.get(sweep)
+    if fn is None:
+        fn = getattr(load_library("frontier_expand"), _SWEEPS[sweep][0])
         p = ctypes.c_void_p
         fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_int, p, p]
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[sweep] = fn
+    return fn
 
 
-def _check(ecol, cadj, bfs, root, rmatch, level) -> None:
-    named = {"ecol": ecol, "cadj": cadj, "bfs": bfs, "rmatch": rmatch}
+def _check(sweep, cols, rows, bfs, root, rmatch, level) -> None:
+    named = {"cols": cols, "rows": rows, "bfs": bfs, "rmatch": rmatch}
     if root is not None:
         named["root"] = root
     dev = bfs.device
     for name, t in named.items():
         if not isinstance(t, torch.Tensor):
-            raise TypeError(f"frontier_expand_fused: {name} must be a tensor")
+            raise TypeError(f"{sweep}: {name} must be a tensor")
         if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
             raise ValueError(
-                f"frontier_expand_fused: {name} must be a contiguous 1-D "
-                f"int32 tensor, got {t.dtype} of shape {tuple(t.shape)}")
+                f"{sweep}: {name} must be a contiguous 1-D int32 tensor, got "
+                f"{t.dtype} of shape {tuple(t.shape)}")
         if t.device != dev:
-            raise ValueError(
-                f"frontier_expand_fused: {name} is on {t.device}, bfs on "
-                f"{dev}; all inputs must share one device")
-    if ecol.shape != cadj.shape:
-        raise ValueError(f"frontier_expand_fused: ecol {tuple(ecol.shape)} "
-                         f"and cadj {tuple(cadj.shape)} differ")
+            raise ValueError(f"{sweep}: {name} is on {t.device}, bfs on "
+                             f"{dev}; all inputs must share one device")
+    if cols.shape != rows.shape:
+        raise ValueError(f"{sweep}: the column endpoints "
+                         f"{tuple(cols.shape)} and row endpoints "
+                         f"{tuple(rows.shape)} differ")
     if root is not None and root.shape != bfs.shape:
-        raise ValueError(f"frontier_expand_fused: root {tuple(root.shape)} "
-                         f"and bfs {tuple(bfs.shape)} differ")
+        raise ValueError(f"{sweep}: root {tuple(root.shape)} and bfs "
+                         f"{tuple(bfs.shape)} differ")
     if bfs.shape[0] < 1 or rmatch.shape[0] < 1:
-        raise ValueError("frontier_expand_fused: bfs and rmatch need their "
-                         "sentinel slot")
+        raise ValueError(f"{sweep}: bfs and rmatch need their sentinel slot")
     if (not isinstance(level, numbers.Integral) or isinstance(level, bool)
             or not -2**31 <= int(level) < 2**31):
-        raise TypeError(f"frontier_expand_fused: level must be an int32 "
-                        f"Python int, got {level!r}")
+        raise TypeError(f"{sweep}: level must be an int32 Python int, got "
+                        f"{level!r}")
+
+
+def _sweep(sweep, cols, rows, bfs, root, rmatch, level) -> torch.Tensor:
+    """Check, then the plain version on the CPU or the kernel on the card."""
+    _check(sweep, cols, rows, bfs, root, rmatch, level)
+    dev = bfs.device
+    if dev.type == "cpu":
+        return _SWEEPS[sweep][1](cols, rows, bfs, root, rmatch, int(level))
+    if dev.type != "cuda":
+        raise ValueError(f"{sweep}: no kernel for device {dev}")
+    nc = bfs.shape[0] - 1
+    nr = rmatch.shape[0] - 1
+    fn = _launcher(sweep)
+    n_out = cols.shape[0] if sweep == "frontier_expand" else nr + 1
+    out = torch.empty(n_out, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):        # the launcher uses the current device
+        err = fn(cols.data_ptr(), rows.data_ptr(), bfs.data_ptr(),
+                 root.data_ptr() if root is not None else None,
+                 rmatch.data_ptr(), int(level), int(cols.shape[0]), nc, nr,
+                 out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{sweep}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[f"{sweep}_{'wr' if root is not None else 'plain'}"] += 1
+    return out
 
 
 def frontier_expand_fused(ecol: torch.Tensor, cadj: torch.Tensor,
@@ -88,26 +135,24 @@ def frontier_expand_fused(ecol: torch.Tensor, cadj: torch.Tensor,
                           rmatch: torch.Tensor, level: int) -> torch.Tensor:
     """Per-row winners of one BFS level; ``root=None`` is the plain
     (non-WR) body.  ``level`` is a Python int, so no sync is needed."""
-    _check(ecol, cadj, bfs, root, rmatch, level)
-    dev = bfs.device
-    if dev.type == "cpu":
-        return frontier_expand_fused_ref(ecol, cadj, bfs, root, rmatch,
-                                         int(level))
-    if dev.type != "cuda":
-        raise ValueError(f"frontier_expand_fused: no kernel for device {dev}")
-    nc = bfs.shape[0] - 1
-    nr = rmatch.shape[0] - 1
-    fn = _launcher()
-    win = torch.empty(nr + 1, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):        # the launcher uses the current device
-        err = fn(ecol.data_ptr(), cadj.data_ptr(), bfs.data_ptr(),
-                 root.data_ptr() if root is not None else None,
-                 rmatch.data_ptr(), int(level), int(ecol.shape[0]), nc, nr,
-                 win.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"frontier_expand_fused: kernel launch failed with CUDA error "
-            f"{err}")
-    body = "wr" if root is not None else "plain"
-    LAUNCHES[f"frontier_expand_fused_{body}"] += 1
-    return win
+    return _sweep("frontier_expand_fused", ecol, cadj, bfs, root, rmatch,
+                  level)
+
+
+def frontier_expand(ecol: torch.Tensor, cadj: torch.Tensor,
+                    bfs: torch.Tensor, root: Optional[torch.Tensor],
+                    rmatch: torch.Tensor, level: int) -> torch.Tensor:
+    """Per-edge proposals of one BFS level, ``(nnz_pad,)``: the column of
+    each proposing edge slot, IINF elsewhere.  The per-row merge is the
+    caller's ``scatter_min``."""
+    return _sweep("frontier_expand", ecol, cadj, bfs, root, rmatch, level)
+
+
+def frontier_expand_pull(radj: torch.Tensor, erow: torch.Tensor,
+                         bfs: torch.Tensor, root: Optional[torch.Tensor],
+                         rmatch: torch.Tensor, level: int) -> torch.Tensor:
+    """Per-row winners of one BFS level over the CSC mirror's row-sorted
+    edges (``TorchCSR.with_csc``): the same vector as
+    :func:`frontier_expand_fused`, since min is the merge."""
+    return _sweep("frontier_expand_pull", radj, erow, bfs, root, rmatch,
+                  level)

@@ -1,11 +1,17 @@
-"""Public wrapper for the frontier-expansion kernel.
+"""Public wrappers for the frontier-expansion kernels.
 
-``frontier_expand_fused`` — fused sweep + per-row winner merge: the CUDA
-kernel on CUDA tensors, its plain PyTorch version on CPU tensors.  The
-legacy per-edge kernel and the pull kernel come in later slices.
+``frontier_expand``       — legacy per-edge proposal sweep (merge outside).
+``frontier_expand_fused`` — sweep + per-row winner merge in one kernel.
+``frontier_expand_pull``  — the fused sweep's winners over the CSC mirror.
+
+Each launches its CUDA kernel on CUDA tensors and takes its plain PyTorch
+version on CPU tensors.
 """
 from __future__ import annotations
 
-from .frontier_expand import LAUNCHES, frontier_expand_fused, reset_launches
+from .frontier_expand import (LAUNCHES, frontier_expand,
+                              frontier_expand_fused, frontier_expand_pull,
+                              reset_launches)
 
-__all__ = ["LAUNCHES", "frontier_expand_fused", "reset_launches"]
+__all__ = ["LAUNCHES", "frontier_expand", "frontier_expand_fused",
+           "frontier_expand_pull", "reset_launches"]

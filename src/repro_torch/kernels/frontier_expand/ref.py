@@ -7,11 +7,13 @@ for every edge e = (c, r):
                          or rmatch[r] == -1 )
   out[e]  = c if propose else IINF
 
-:func:`frontier_expand_ref` is that proposal sweep alone;
-:func:`frontier_expand_fused_ref` composes it with the deterministic per-row
-min-merge ("first writer wins" = lowest proposing column), which is the
-fused kernel's contract: a ``(nr+1,)`` winner vector with IINF in every
-unreached row and in the trailing sentinel slot.
+:func:`frontier_expand_ref` is that proposal sweep alone (the legacy
+proposal kernel's contract); :func:`frontier_expand_fused_ref` composes it
+with the deterministic per-row min-merge ("first writer wins" = lowest
+proposing column), which is the fused kernel's contract: a ``(nr+1,)``
+winner vector with IINF in every unreached row and in the trailing sentinel
+slot.  :func:`frontier_expand_pull_ref` is the pull kernel's: the same
+winners over the row-sorted CSC mirror.
 
 These run on any device.  The CPU path of the solver uses them, and the
 chip check holds the CUDA kernel against them.  Like the kernel, they skip
@@ -51,3 +53,11 @@ def frontier_expand_fused_ref(ecol, cadj, bfs, root, rmatch, level):
     win.scatter_reduce_(0, rows, prop, "amin", include_self=True)
     win[nr] = IINF
     return win
+
+
+def frontier_expand_pull_ref(radj, erow, bfs, root, rmatch, level):
+    """Proposals + per-row min-merge over the row-sorted (CSC) edge view:
+    the pull kernel's plain version.  The predicate is per edge and min is
+    the merge, so this is the fused plain version on permuted arrays, and
+    it skips the same out-of-range slots."""
+    return frontier_expand_fused_ref(radj, erow, bfs, root, rmatch, level)

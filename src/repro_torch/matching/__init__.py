@@ -5,7 +5,9 @@
 * :class:`Matcher` — facade whose :meth:`Matcher.run` runs a registered warm
   start (``"none" | "cheap" | "karp_sipser"``) and the APFB/APsB solver;
 * :class:`MatchState` / :class:`MatchStats` — results that stay on device
-  until the caller asks.
+  until the caller asks;
+* :data:`SOLVE_PATHS` — the registry of single-device solve paths (push,
+  legacy, adaptive, direction-optimizing), all bit-identical.
 
 Everything runs on the CUDA card unless the caller passes ``device="cpu"``
 when uploading the graph.
@@ -15,6 +17,7 @@ from .device_csr import GraphValidationError, TorchCSR, validate_structure
 from .state import MatchState, MatchStats
 from .warmstart import WARM_STARTS, register_warm_start, warm_start_names
 from .api import Matcher, maximum_matching_device
+from .paths import SOLVE_PATHS, SolvePath
 
 __all__ = [
     "MatcherConfig", "VARIANTS",
@@ -22,4 +25,5 @@ __all__ = [
     "MatchState", "MatchStats",
     "Matcher", "maximum_matching_device",
     "WARM_STARTS", "register_warm_start", "warm_start_names",
+    "SOLVE_PATHS", "SolvePath",
 ]

@@ -3,8 +3,8 @@ variant and a named warm start, and :meth:`Matcher.run` computes a maximum
 matching of a :class:`TorchCSR` graph on the graph's device.
 
 There is no compile step: the solver runs eagerly, its loops on the host
-and its array work on the device.  Batched ``run_many`` comes in a later
-slice of the port.
+and its array work on the device.  Every single-device config of the JAX
+package runs here; batched ``run_many`` comes in a later slice of the port.
 """
 from __future__ import annotations
 
@@ -16,7 +16,7 @@ import torch
 from . import solve
 from .config import MatcherConfig
 from .device_csr import TorchCSR
-from .solve import check_ported, make_solver
+from .solve import make_solver
 from .state import MatchState, MatchStats, empty_like_graph
 from .warmstart import get_warm_start
 
@@ -35,7 +35,6 @@ class Matcher:
     def __init__(self, config: MatcherConfig = MatcherConfig(),
                  warm_start: str = "none"):
         self.config = config.canonical()
-        check_ported(self.config)       # fail fast on unported sweep paths
         self.warm_start = warm_start
         get_warm_start(warm_start)      # fail fast on unknown names
         self.last_counts: Optional[dict] = None
@@ -67,8 +66,17 @@ class Matcher:
     def solve(self, graph: TorchCSR, state: MatchState) -> MatchState:
         """Run the solver from ``state`` (no warm start applied)."""
         self._check_state(graph, state)
+        kw = {}
+        if self.config.adaptive_frontier or self.config.dirop:
+            kw["cxadj"] = graph.cxadj
+        if self.config.dirop:
+            if not graph.has_csc:
+                raise ValueError(
+                    "MatcherConfig(dirop=True) needs the CSC mirror; build "
+                    "it once with graph.with_csc()")
+            kw.update(rxadj=graph.rxadj, radj=graph.radj, erow=graph.erow)
         cm, rm, phases, fb, cert = make_solver(self.config)(
-            graph.ecol, graph.cadj, state.cmatch, state.rmatch)
+            graph.ecol, graph.cadj, state.cmatch, state.rmatch, **kw)
         return MatchState(cmatch=cm, rmatch=rm,
                           phases=state.phases + phases,
                           fallbacks=state.fallbacks + fb,

@@ -2,13 +2,14 @@
 
 The same fields, defaults and validation as the JAX package's
 ``MatcherConfig``, field for field, so a config reads the same in both.
-The sweep knobs that name a path this package does not carry yet
-(``dirop``, ``adaptive_frontier``, ``use_pallas`` with ``pallas_fused=False``)
-are accepted here and refused by the solver (:func:`repro_torch.matching.
-solve.check_ported`).  ``use_pallas`` changes nothing in this package: a
-sweep over CUDA tensors always launches the hand-written kernel, a sweep
-over CPU tensors always takes its plain version, and the two are
-bit-identical, as the JAX package's jnp and Pallas paths are.
+The sweep knobs pick the same sweep per level as in the JAX package, and
+as there they never change the matching.  A kernel sweep over CUDA
+tensors always launches a hand-written kernel, over CPU tensors it takes
+the kernel's plain version.  ``use_pallas`` picks the kernel where the
+reference picks a Pallas kernel: the legacy proposal kernel (with
+``pallas_fused=False``) and the streaming pull kernel (with ``dirop``);
+elsewhere it changes nothing, since the fused kernel also stands in for the
+reference's jnp sweep.
 """
 from __future__ import annotations
 

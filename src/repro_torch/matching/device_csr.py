@@ -6,8 +6,10 @@ BipartiteCSR` (``cxadj`` (nc+1,), ``cadj``/``ecol`` (nnz_pad,), sentinel
 on, the CUDA card unless the caller names another.  Values, padding and the
 size-bucket rule (:func:`bucket_nnz`) are those of the JAX package's
 ``DeviceCSR``, so one instance pads to the same shapes in both packages.
+So is the optional CSC mirror of :meth:`TorchCSR.with_csc`, which the
+direction-optimizing solver pulls over.
 
-The CSC mirror, stacking into batches and sharding come in later slices.
+Stacking into batches and sharding come in later slices.
 """
 from __future__ import annotations
 
@@ -121,6 +123,12 @@ class TorchCSR:
     ``cxadj`` (nc+1,), ``cadj``/``ecol`` (nnz_pad,) int32 tensors on the
     same device; ``nnz`` (the true edge count), ``nc`` and ``nr`` are
     Python ints, so reading them costs no device sync.
+
+    Optional CSC mirror (all present or all ``None``, see :meth:`with_csc`):
+    ``rxadj`` (nr+1,) row offsets into the row-sorted edge list,
+    ``radj``/``erow`` (nnz_pad,) column/row endpoints in row-sorted order,
+    ``eperm`` (nnz_pad,) the CSR position of each row-sorted edge.  The
+    sentinels are those of the CSR side (``radj = nc``, ``erow = nr``).
     """
 
     cxadj: torch.Tensor
@@ -129,6 +137,10 @@ class TorchCSR:
     nnz: int
     nc: int
     nr: int
+    rxadj: Optional[torch.Tensor] = None
+    radj: Optional[torch.Tensor] = None
+    erow: Optional[torch.Tensor] = None
+    eperm: Optional[torch.Tensor] = None
 
     @property
     def nnz_pad(self) -> int:
@@ -139,9 +151,15 @@ class TorchCSR:
         return self.cadj.device
 
     @property
-    def bucket_key(self) -> Tuple[int, int, int]:
-        """The size bucket: (nc, nr, nnz_pad)."""
-        return (self.nc, self.nr, self.nnz_pad)
+    def has_csc(self) -> bool:
+        return self.rxadj is not None
+
+    @property
+    def bucket_key(self) -> Tuple:
+        """The size bucket: (nc, nr, nnz_pad), and ``"csc"`` when the
+        mirror is attached (the JAX package's key, so both agree)."""
+        key = (self.nc, self.nr, self.nnz_pad)
+        return key + ("csc",) if self.has_csc else key
 
     # -- host <-> device ------------------------------------------------------
     @classmethod
@@ -188,6 +206,33 @@ class TorchCSR:
                             cadj=self.cadj.cpu().numpy(),
                             ecol=self.ecol.cpu().numpy())
 
+    # -- the CSC mirror -------------------------------------------------------
+    def with_csc(self) -> "TorchCSR":
+        """Attach the row-major mirror (no-op if already present).
+
+        One stable sort of the edge list by row: padding edges carry
+        ``cadj = nr``, so they sort to the tail and stay inert sentinels in
+        the mirror too (``radj = nc``, ``erow = nr``).  ``rxadj[r]`` is the
+        first row-sorted slot of row ``r`` and ``rxadj[nr]`` the true edge
+        count; ``eperm`` maps each row-sorted slot back to its CSR position
+        (identity on the sentinel tail).
+        """
+        if self.has_csc:
+            return self
+        order = torch.argsort(self.cadj, stable=True)
+        erow = self.cadj.index_select(0, order)
+        rxadj = torch.searchsorted(
+            erow, torch.arange(self.nr + 1, dtype=torch.int32,
+                               device=self.device), out_int32=True)
+        return dataclasses.replace(
+            self, rxadj=rxadj, radj=self.ecol.index_select(0, order),
+            erow=erow, eperm=order.to(torch.int32))
+
+    def drop_csc(self) -> "TorchCSR":
+        """Return the bare graph (the mirror removed)."""
+        return dataclasses.replace(self, rxadj=None, radj=None, erow=None,
+                                   eperm=None)
+
     # -- bucketing ------------------------------------------------------------
     def pad_to(self, nnz_pad: int) -> "TorchCSR":
         """Grow the edge capacity on device (sentinel-fill the new slots)."""
@@ -196,10 +241,19 @@ class TorchCSR:
             return self
         assert nnz_pad > cur, f"cannot shrink edge capacity {cur} -> {nnz_pad}"
         extra = nnz_pad - cur
-        return dataclasses.replace(
-            self,
-            cadj=torch.cat([self.cadj, _full(extra, self.nr, self.device)]),
-            ecol=torch.cat([self.ecol, _full(extra, self.nc, self.device)]))
+        dev = self.device
+        g = dataclasses.replace(
+            self, cadj=torch.cat([self.cadj, _full(extra, self.nr, dev)]),
+            ecol=torch.cat([self.ecol, _full(extra, self.nc, dev)]))
+        if self.has_csc:
+            # mirror sentinels live at the tail too; the new slots map to
+            # the new CSR tail slots (identity), so eperm stays a permutation
+            tail = torch.arange(cur, nnz_pad, dtype=torch.int32, device=dev)
+            g = dataclasses.replace(
+                g, radj=torch.cat([self.radj, _full(extra, self.nc, dev)]),
+                erow=torch.cat([self.erow, _full(extra, self.nr, dev)]),
+                eperm=torch.cat([self.eperm, tail]))
+        return g
 
     def bucketed(self, lane: int = LANE) -> "TorchCSR":
         """Round the edge capacity up to the canonical power-of-two bucket."""
@@ -220,8 +274,23 @@ class TorchCSR:
         cxadj = self.cxadj
         if nc > self.nc:
             cxadj = torch.cat([cxadj, cxadj[-1:].expand(nc - self.nc)])
-        cadj = torch.where(self.cadj == self.nr, nr, self.cadj)
-        ecol = torch.where(self.ecol == self.nc, nc, self.ecol)
-        return dataclasses.replace(self, cxadj=cxadj.contiguous(),
-                                   cadj=cadj.to(torch.int32),
-                                   ecol=ecol.to(torch.int32), nc=nc, nr=nr)
+        g = dataclasses.replace(
+            self, cxadj=cxadj.contiguous(), cadj=self._resentinel("cadj", nr),
+            ecol=self._resentinel("ecol", nc), nc=nc, nr=nr)
+        if self.has_csc:
+            rxadj = self.rxadj
+            if nr > self.nr:
+                # new rows are edgeless: offsets repeat the true edge count
+                rxadj = torch.cat([rxadj, rxadj[-1:].expand(nr - self.nr)])
+            g = dataclasses.replace(
+                g, rxadj=rxadj.contiguous(),
+                radj=self._resentinel("radj", nc),
+                erow=self._resentinel("erow", nr))
+        return g
+
+    def _resentinel(self, field: str, n: int) -> torch.Tensor:
+        """``field`` with its old sentinel (``nr`` for row endpoints, ``nc``
+        for column endpoints) replaced by ``n``."""
+        old = self.nr if field in ("cadj", "erow") else self.nc
+        x = getattr(self, field)
+        return torch.where(x == old, n, x).to(torch.int32)

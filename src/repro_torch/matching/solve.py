@@ -3,12 +3,23 @@
 The same algorithm, step for step, as the JAX package's ``solve.py``, so
 both return the same matching bit for bit:
 
-* a BFS level is one edge-parallel sweep producing a per-row winner vector
-  (the lowest proposing column: the paper's "first writer wins" race made
-  deterministic), folded into the BFS state by :func:`_apply_winner`.  On a
-  CUDA graph the sweep is the hand-written kernel; on a CPU graph it is
-  the kernel's plain PyTorch version (:mod:`repro_torch.kernels.
-  frontier_expand`);
+* a BFS level is one sweep producing a per-row winner vector (the lowest
+  proposing column: the paper's "first writer wins" race made
+  deterministic), folded into the BFS state by :func:`_apply_winner`.  The
+  sweeps, all giving the same winners:
+
+  - push, the dense O(nnz) edge sweep: the fused kernel, or (``use_pallas``
+    with ``pallas_fused=False``, the legacy path) the per-edge proposal
+    kernel merged by :func:`scatter_min`;
+  - ``adaptive_frontier``: a compact column gather (O(cap·dmax), torch
+    ops) on levels whose frontier fits the geometry;
+  - ``dirop``: per level, a Beamer-style estimate picks push or pull; the
+    pull is a compact row gather over the CSC mirror (torch ops, when the
+    unreached rows fit) or, with ``use_pallas``, the pull kernel.
+
+  On a CUDA graph every kernel sweep is a hand-written kernel; on a CPU
+  graph it is the kernel's plain PyTorch version (:mod:`repro_torch.
+  kernels.frontier_expand`);
 * ``ALTERNATE`` (Alg. 3) walks all augmenting paths in lock-step;
 * ``FIXMATCHING`` repairs both directions, so every phase ends valid;
 * a cardinality guard re-runs ``ALTERNATE`` with a single walker if the
@@ -17,8 +28,11 @@ both return the same matching bit for bit:
 Where the JAX solver is one compiled ``lax.while_loop`` program, this one
 is Python loops over device tensors: each loop test reads one device value
 (a host sync), the BFS level is a Python int the loop owns, and a
-``lax.cond`` becomes a Python ``if`` on a synced value.  :data:`COUNTERS`
-counts the BFS levels, the ``ALTERNATE`` steps and the host syncs.
+``lax.cond`` becomes a Python ``if`` on a synced value (a level's
+adaptive or direction decision is read in the same sync as the previous
+level's flags, so it costs one sync per phase, not per level).
+:data:`COUNTERS` counts the BFS levels (and which sweep each ran), the
+``ALTERNATE`` steps and the host syncs.
 
 Indexing rules.  Every gather is ``index_select`` and every scatter
 ``scatter``/``scatter_reduce``/``index_fill``/``index_add_``, with int64
@@ -40,7 +54,9 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels.frontier_expand import frontier_expand_fused
+from repro_torch.kernels.frontier_expand import (frontier_expand,
+                                                 frontier_expand_fused,
+                                                 frontier_expand_pull)
 
 from .config import MatcherConfig
 from .device_csr import LANE
@@ -55,16 +71,23 @@ I32 = torch.int32
 
 @dataclasses.dataclass
 class SolveCounters:
-    """Plain counts of the eager solver's work, beside the kernel's
-    launch counts: BFS levels, ``ALTERNATE`` steps, and host syncs (each
-    read of a device value that the host loop waits for)."""
+    """Plain counts of the eager solver's work, beside the kernels'
+    launch counts: BFS levels, split by the sweep each ran (``push_levels``
+    the dense edge sweep, ``pull_levels`` a pull over the CSC mirror,
+    ``compact_levels`` the adaptive column gather), ``ALTERNATE`` steps,
+    and host syncs (each read of a device value that the host loop waits
+    for)."""
 
     levels: int = 0
+    push_levels: int = 0
+    pull_levels: int = 0
+    compact_levels: int = 0
     alternate_steps: int = 0
     host_syncs: int = 0
 
     def reset(self) -> None:
-        self.levels = self.alternate_steps = self.host_syncs = 0
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, 0)
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -83,24 +106,6 @@ def _sync(*flags: torch.Tensor) -> list:
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, dtype=I32, device=like.device)
-
-
-def check_ported(cfg: MatcherConfig) -> None:
-    """Refuse the configs whose sweep path this package does not carry
-    yet, naming the slice of the port that brings it."""
-    if cfg.dirop:
-        raise NotImplementedError(
-            "MatcherConfig(dirop=True) needs the CSC mirror and the pull "
-            "kernel, which come in slice 3 of the port (ROADMAP.md)")
-    if cfg.adaptive_frontier:
-        raise NotImplementedError(
-            "MatcherConfig(adaptive_frontier=True) comes in slice 3 of the "
-            "port (ROADMAP.md)")
-    if cfg.use_pallas and not cfg.pallas_fused:
-        raise NotImplementedError(
-            "MatcherConfig(use_pallas=True, pallas_fused=False) is the legacy "
-            "two-step kernel path, which comes in slice 2 of the port "
-            "(ROADMAP.md)")
 
 
 def scatter_min(n: int, index: torch.Tensor, values: torch.Tensor
@@ -140,11 +145,133 @@ def default_block_edges(nnz_pad: int, schedule: str) -> int:
 # ---------------------------------------------------------------------------
 # BFS level expansion — the paper's Algorithms 2 (GPUBFS) and 4 (GPUBFS-WR)
 # ---------------------------------------------------------------------------
-def _winner_full(ecol, cadj, bfs, root, rmatch, level: int) -> torch.Tensor:
-    """Dense O(nnz) sweep -> per-row winner vector (nr+1,).  The kernel on
-    a CUDA graph, its plain version on a CPU graph; ``use_pallas`` plays no
-    part (both of the reference's branches give these winners)."""
+def _winner_full(ecol, cadj, bfs, root, rmatch, level: int, *,
+                 use_pallas: bool = False, pallas_fused: bool = True
+                 ) -> torch.Tensor:
+    """Dense O(nnz) push sweep -> per-row winner vector (nr+1,).
+
+    The legacy path (``use_pallas`` and not ``pallas_fused``) is the
+    per-edge proposal kernel, merged here by :func:`scatter_min` as the
+    reference merges it outside its kernel; every other config is the fused
+    kernel (the reference's jnp and fused branches give the same winners).
+    A kernel on a CUDA graph, its plain version on a CPU graph.
+    """
+    if use_pallas and not pallas_fused:
+        nr = rmatch.shape[0] - 1
+        prop = frontier_expand(ecol, cadj, bfs, root, rmatch, level)
+        return scatter_min(nr, torch.where(prop < IINF, cadj, nr), prop)
     return frontier_expand_fused(ecol, cadj, bfs, root, rmatch, level)
+
+
+def _nonzero_fixed(mask: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
+    """``jnp.nonzero(mask, size=cap, fill_value=fill)[0]`` with no host
+    sync: the ascending indices of ``mask``, padded with ``fill`` to
+    ``cap`` (Trues past the first ``cap`` are dropped, as there).  Each
+    True lands at its rank (a cumsum); the rest go to a discard slot."""
+    n = mask.shape[0]
+    rank = torch.cumsum(mask, 0, dtype=torch.int64) - 1
+    slot = torch.where(mask, rank.clamp(max=cap), cap)
+    out = torch.full((cap + 1,), fill, dtype=I32, device=mask.device)
+    out.scatter_(0, slot, _arange(n, mask))
+    return out[:cap]
+
+
+def _unreached_rows(bfs, rmatch) -> torch.Tensor:
+    """The (nr,) mask of rows still reachable this phase, the row side of
+    the proposal predicate: unmatched-and-not-yet-endpoint rows, or rows
+    whose matched column is still UNVISITED.  Winners are IINF everywhere
+    else, which is what makes a pull restricted to these rows exact."""
+    nc = bfs.shape[0] - 1
+    rm = rmatch[:-1]
+    return (rm == -1) | ((rm >= 0) & (
+        bfs.index_select(0, rm.clamp(0, nc).long()) == UNVISITED))
+
+
+def _gather_adjacency(xadj, adj, ids, n: int, dmax: int):
+    """The compact gathers' shared step: for the (cap,) vertex ids (``n``
+    = padding) the (cap, dmax) adjacency slots via the offsets ``xadj``,
+    and which of them are real edges."""
+    nnz_pad = adj.shape[0]
+    starts = xadj.index_select(0, ids.clamp(max=n).long())
+    ends = xadj.index_select(0, (ids + 1).clamp(max=n).long())  # fill: deg 0
+    offs = _arange(dmax, ids)
+    eidx = starts[:, None] + offs[None, :]                      # (cap, dmax)
+    valid = offs[None, :] < (ends - starts)[:, None]
+    nbr = adj.index_select(0, eidx.clamp(0, nnz_pad - 1).reshape(-1).long())
+    return nbr.reshape(eidx.shape), valid
+
+
+def _winner_pull_compact(rxadj, radj, bfs, root, rmatch, level: int,
+                         unreached, *, cap: int, dmax: int) -> torch.Tensor:
+    """Compact pull sweep: gather the unreached rows' adjacency via the CSC
+    mirror, O(cap·dmax) torch ops instead of O(nnz).
+
+    Only called when every unreached row fits (at most ``cap`` rows, each
+    of degree at most ``dmax``); then each row's min over its proposing
+    columns is exactly the dense sweep's winner.
+    """
+    nc = bfs.shape[0] - 1
+    nr = rmatch.shape[0] - 1
+    # the column side of the proposal predicate, for every column at once
+    colok = bfs == level                                         # (nc+1,)
+    if root is not None:
+        colok &= bfs.index_select(0, root.clamp(0, nc).long()) >= UNVISITED
+    rows = _nonzero_fixed(unreached, cap, nr)                    # (cap,)
+    nbr, valid = _gather_adjacency(rxadj, radj, rows, nr, dmax)
+    cols = torch.where(valid, nbr, nc)
+    # colok[nc] is False (bfs NEG)
+    ok = valid & colok.index_select(0, cols.reshape(-1).long()).reshape(
+        cols.shape)
+    win_rows = torch.where(ok, cols, IINF).amin(dim=1)           # (cap,)
+    return scatter_min(nr, rows.clamp(max=nr), win_rows)
+
+
+def _winner_pull_stream(radj, erow, bfs, root, rmatch, level: int, *,
+                        use_pallas: bool) -> torch.Tensor:
+    """Streaming pull sweep over the whole CSC edge list.
+
+    With ``use_pallas`` it is the pull kernel.  Otherwise it is the dense
+    sweep on the permuted arrays, the fused kernel over ``radj``/``erow``,
+    which gives the reference's jnp form's winners (the reference takes
+    that form only on its sharded path; a single device pulls compactly).
+    """
+    if use_pallas:
+        return frontier_expand_pull(radj, erow, bfs, root, rmatch, level)
+    return frontier_expand_fused(radj, erow, bfs, root, rmatch, level)
+
+
+def _winner_compact(cxadj, cadj, bfs, rmatch, isf, *, cap: int,
+                    dmax: int) -> torch.Tensor:
+    """Compact column-gather sweep: O(cap·dmax) torch ops instead of
+    O(nnz).
+
+    ``isf`` is the (nc,) frontier mask (WR test already applied).  Only
+    called when the frontier fits (at most ``cap`` columns, each of degree
+    at most ``dmax``); then every proposal of the dense sweep is present
+    and the min-merge winner is bit-identical.
+    """
+    nc = bfs.shape[0] - 1
+    nr = rmatch.shape[0] - 1
+    cols = _nonzero_fixed(isf, cap, nc)                          # (cap,)
+    nbr, valid = _gather_adjacency(cxadj, cadj, cols, nc, dmax)
+    rows = torch.where(valid, nbr, nr)
+    cm = rmatch.index_select(0, rows.reshape(-1).long()).reshape(rows.shape)
+    col_unvis = bfs.index_select(
+        0, cm.clamp(0, nc).reshape(-1).long()).reshape(cm.shape) == UNVISITED
+    target = valid & (((cm >= 0) & col_unvis) | (cm == -1))
+    prop = torch.where(target, cols[:, None], IINF)
+    rows_ix = torch.where(target, rows, nr)
+    return scatter_min(nr, rows_ix.reshape(-1), prop.reshape(-1))
+
+
+def _frontier(bfs, root, level: int, wr: bool) -> torch.Tensor:
+    """The (nc,) frontier mask: columns at ``level`` (WR: whose root is
+    not yet satisfied)."""
+    nc = bfs.shape[0] - 1
+    isf = bfs[:-1] == level
+    if wr:
+        isf &= bfs.index_select(0, root[:-1].clamp(0, nc).long()) >= UNVISITED
+    return isf
 
 
 def _apply_winner(winner, bfs, root, pred, rmatch, level: int, *, wr: bool,
@@ -190,13 +317,121 @@ def _apply_winner(winner, bfs, root, pred, rmatch, level: int, *, wr: bool,
     return bfs, root, pred, rmatch, visit_r.any(), end_r.any()
 
 
+def _compact_plan(cxadj, bfs, root, level: int, *, wr: bool, cap: int,
+                  dmax: int):
+    """A level's adaptive decision, not yet read: (``eligible``, a 0-d
+    device bool: the frontier fits ``cap`` columns of degree at most
+    ``dmax``; the frontier mask the compact gather takes)."""
+    isf = _frontier(bfs, root, level, wr)
+    deg = cxadj[1:] - cxadj[:-1]
+    eligible = (isf.sum() <= cap) & (torch.where(isf, deg, 0).amax() <= dmax)
+    return eligible, isf
+
+
+def _dirop_plan(cxadj, rxadj, bfs, root, rmatch, level: int, dir_prev: bool,
+                *, wr: bool, use_pallas: bool, dirop_alpha: float,
+                dirop_beta: float, pull_cap: int, pull_dmax: int):
+    """A level's direction, not yet read: (``use_pull``, a 0-d device
+    bool; the unreached-row mask the compact pull takes).
+
+    The frontier columns' outgoing edges ``fe`` against the unreached
+    rows' incoming edges ``pe``, int sums compared in float32 as the
+    reference compares them: pull when ``fe * dirop_alpha > pe``, or, if
+    the previous level pulled (``dir_prev``, the hysteresis), while
+    ``fe * dirop_beta > pe``.  Without ``use_pallas`` the pull is the
+    compact row gather, so every unreached row must also fit its
+    (cap, dmax) geometry.
+    """
+    isf = _frontier(bfs, root, level, wr)
+    cdeg = cxadj[1:] - cxadj[:-1]
+    fe = torch.where(isf, cdeg, 0).sum().to(torch.float32)
+    unreached = _unreached_rows(bfs, rmatch)
+    rdeg = rxadj[1:] - rxadj[:-1]
+    pe = torch.where(unreached, rdeg, 0).sum().to(torch.float32)
+    pull = fe * dirop_alpha > pe
+    if dir_prev:
+        pull |= fe * dirop_beta > pe
+    if not use_pallas:
+        pull &= ((unreached.sum() <= pull_cap)
+                 & (torch.where(unreached, rdeg, 0).amax() <= pull_dmax))
+    return pull, unreached
+
+
 def _expand_level(ecol, cadj, bfs, root, pred, rmatch, level: int, *,
-                  wr: bool, wr_exact: bool):
-    """One level-synchronous frontier expansion. Returns updated state."""
-    winner = _winner_full(ecol, cadj, bfs, root if wr else None, rmatch,
-                          level)
+                  wr: bool, wr_exact: bool, use_pallas: bool = False,
+                  pallas_fused: bool = True, cxadj=None,
+                  adaptive: bool = False, compact_cap: int = 0,
+                  compact_dmax: int = 0, plan=None):
+    """One level-synchronous frontier expansion. Returns updated state.
+
+    ``adaptive`` (needs ``cxadj``) runs the compact column gather when the
+    frontier fits; the geometry must be resolved through ``MatcherConfig``
+    (0 = unresolved is an error, not a default).  ``plan`` is the level's
+    decision already read, ``(eligible, frontier mask)``; without it this
+    computes it (:func:`_compact_plan`) and reads it in one host sync.
+    """
+    rt = root if wr else None
+    if adaptive and plan is None:
+        assert cxadj is not None, "adaptive_frontier needs the cxadj offsets"
+        assert compact_cap > 0 and compact_dmax > 0, \
+            "resolve the compact geometry via MatcherConfig.resolve_cap/" \
+            "resolve_dmax (0 means unresolved, not a default)"
+        eligible, isf = _compact_plan(cxadj, bfs, root, level, wr=wr,
+                                      cap=compact_cap, dmax=compact_dmax)
+        plan = (bool(_sync(eligible)[0]), isf)
+    if plan is not None and plan[0]:
+        COUNTERS.compact_levels += 1
+        winner = _winner_compact(cxadj, cadj, bfs, rmatch, plan[1],
+                                 cap=compact_cap, dmax=compact_dmax)
+    else:
+        COUNTERS.push_levels += 1
+        winner = _winner_full(ecol, cadj, bfs, rt, rmatch, level,
+                              use_pallas=use_pallas,
+                              pallas_fused=pallas_fused)
     return _apply_winner(winner, bfs, root, pred, rmatch, level, wr=wr,
                          wr_exact=wr_exact)
+
+
+def _expand_level_dirop(ecol, cadj, cxadj, rxadj, radj, erow, bfs, root,
+                        pred, rmatch, level: int, dir_prev: bool, *,
+                        wr: bool, wr_exact: bool, use_pallas: bool,
+                        pallas_fused: bool, dirop_alpha: float,
+                        dirop_beta: float, pull_cap: int, pull_dmax: int,
+                        plan=None):
+    """Direction-optimizing frontier expansion (Beamer-style): the push
+    sweep, or a pull over the CSC mirror, as :func:`_dirop_plan` decides.
+    The pull is the compact row gather, or with ``use_pallas`` the pull
+    kernel, which streams the mirror and needs no geometry.  Either branch
+    gives the dense sweep's winners.
+
+    ``plan`` is the level's decision already read, ``(use_pull, unreached
+    mask)``; without it this computes it and reads it in one host sync.
+    Returns the updated state plus this level's direction (a Python bool).
+    """
+    rt = root if wr else None
+    if plan is None:
+        pull, unreached = _dirop_plan(
+            cxadj, rxadj, bfs, root, rmatch, level, dir_prev, wr=wr,
+            use_pallas=use_pallas, dirop_alpha=dirop_alpha,
+            dirop_beta=dirop_beta, pull_cap=pull_cap, pull_dmax=pull_dmax)
+        plan = (bool(_sync(pull)[0]), unreached)
+    use_pull, unreached = plan
+    if use_pull:
+        COUNTERS.pull_levels += 1
+        if use_pallas:
+            winner = _winner_pull_stream(radj, erow, bfs, rt, rmatch, level,
+                                         use_pallas=True)
+        else:
+            winner = _winner_pull_compact(rxadj, radj, bfs, rt, rmatch,
+                                          level, unreached, cap=pull_cap,
+                                          dmax=pull_dmax)
+    else:
+        COUNTERS.push_levels += 1
+        winner = _winner_full(ecol, cadj, bfs, rt, rmatch, level,
+                              use_pallas=use_pallas,
+                              pallas_fused=pallas_fused)
+    return _apply_winner(winner, bfs, root, pred, rmatch, level, wr=wr,
+                         wr_exact=wr_exact) + (use_pull,)
 
 
 # ---------------------------------------------------------------------------
@@ -267,29 +502,65 @@ def _cardinality(cmatch) -> torch.Tensor:
 # Drivers — Algorithm 1 (APsB) and its APFB variant
 # ---------------------------------------------------------------------------
 def make_solver(cfg: MatcherConfig):
-    """Build the matcher ``(ecol, cadj, cmatch, rmatch) -> (cmatch, rmatch,
-    phases, fallbacks, certified)``; the last three are Python values.
+    """Build the matcher ``(ecol, cadj, cmatch, rmatch[, cxadj, rxadj,
+    radj, erow]) -> (cmatch, rmatch, phases, fallbacks, certified)``; the
+    last three are Python values.
 
     ``certified`` is True iff the final phase's BFS proved no augmenting
     path remains (the matching is maximum, Berge).  A run cut short by a
     positive ``cfg.max_phases`` budget returns ``certified=False``; with
     ``cfg.degrade_maximal`` the matching is then made maximal by one greedy
-    augmentation round.  Raises ``NotImplementedError`` for a config whose
-    sweep path is not ported (:func:`check_ported`).
+    augmentation round.
+
+    ``cfg.adaptive_frontier`` also needs the ``cxadj`` offsets;
+    ``cfg.dirop`` needs ``cxadj`` and the CSC mirror (``rxadj``/``radj``/
+    ``erow`` of ``TorchCSR.with_csc``).  ``Matcher.solve`` passes them.
     """
-    check_ported(cfg)
     wr = cfg.kernel == "gpubfs_wr"
 
-    def match_fn(ecol, cadj, cmatch, rmatch):
+    def match_fn(ecol, cadj, cmatch, rmatch, cxadj=None, rxadj=None,
+                 radj=None, erow=None):
+        if cfg.adaptive_frontier and cxadj is None:
+            raise ValueError(
+                "adaptive_frontier needs the cxadj column offsets; call the "
+                "solver with cxadj= (Matcher.solve passes graph.cxadj)")
+        if cfg.dirop and (cxadj is None or rxadj is None or radj is None
+                          or erow is None):
+            raise ValueError(
+                "dirop needs cxadj plus the CSC mirror (rxadj/radj/erow); "
+                "build it with TorchCSR.with_csc() (Matcher.solve passes it "
+                "through when present)")
         nc = cmatch.shape[0] - 1
         nr = rmatch.shape[0] - 1
+        # compact/pull geometry: the one auto rule lives on MatcherConfig
+        compact_cap = cfg.resolve_cap(cfg.compact_cap, nc)
+        compact_dmax = cfg.resolve_dmax(cfg.compact_dmax)
+        pull_cap = cfg.resolve_cap(cfg.pull_cap, nr)
+        pull_dmax = cfg.resolve_dmax(cfg.pull_dmax)
+        sweep = dict(wr=wr, wr_exact=cfg.wr_exact, use_pallas=cfg.use_pallas,
+                     pallas_fused=cfg.pallas_fused)
+        dirop_kw = dict(dirop_alpha=cfg.dirop_alpha,
+                        dirop_beta=cfg.dirop_beta, pull_cap=pull_cap,
+                        pull_dmax=pull_dmax)
+
+        def plan_of(bfs, root, rmatch, level, dir_prev):
+            """A level's branch decision, unread (None: push only)."""
+            if cfg.dirop:
+                return _dirop_plan(cxadj, rxadj, bfs, root, rmatch, level,
+                                   dir_prev, wr=wr, use_pallas=cfg.use_pallas,
+                                   **dirop_kw)
+            if cfg.adaptive_frontier:
+                return _compact_plan(cxadj, bfs, root, level, wr=wr,
+                                     cap=compact_cap, dmax=compact_dmax)
+            return None
 
         def phase_bfs(cmatch, rmatch):
             """Inner loop of Alg. 1: level-synchronous BFS to exhaustion or
             first hit."""
             bfs, root = level0_state(cmatch)
             pred = torch.full((nr + 1,), nc, dtype=I32, device=cmatch.device)
-            level, ins, aug, aug_lvl = L0, True, False, IINF
+            level, ins, aug, aug_lvl, dir_prev = L0, True, False, IINF, False
+            plan = None       # the first level reads its own decision
 
             def go():
                 if cfg.algo == "apsb":
@@ -301,10 +572,26 @@ def make_solver(cfg: MatcherConfig):
                 return ins
 
             while go():
-                bfs, root, pred, rmatch, ins_t, aug_t = _expand_level(
-                    ecol, cadj, bfs, root, pred, rmatch, level, wr=wr,
-                    wr_exact=cfg.wr_exact)
-                ins, aug_l = (bool(v) for v in _sync(ins_t, aug_t))
+                if cfg.dirop:
+                    (bfs, root, pred, rmatch, ins_t, aug_t,
+                     dir_prev) = _expand_level_dirop(
+                        ecol, cadj, cxadj, rxadj, radj, erow, bfs, root,
+                        pred, rmatch, level, dir_prev, plan=plan,
+                        **dirop_kw, **sweep)
+                else:
+                    bfs, root, pred, rmatch, ins_t, aug_t = _expand_level(
+                        ecol, cadj, bfs, root, pred, rmatch, level,
+                        cxadj=cxadj, adaptive=cfg.adaptive_frontier,
+                        compact_cap=compact_cap, compact_dmax=compact_dmax,
+                        plan=plan, **sweep)
+                # the next level's decision rides on this level's read
+                nxt = plan_of(bfs, root, rmatch, level + 1, dir_prev)
+                if nxt is None:
+                    ins, aug_l = (bool(v) for v in _sync(ins_t, aug_t))
+                else:
+                    ins, aug_l, go_next = (
+                        bool(v) for v in _sync(ins_t, aug_t, nxt[0]))
+                    plan = (go_next, nxt[1])
                 COUNTERS.levels += 1
                 if aug_l and aug_lvl == IINF:
                     aug_lvl = level

@@ -113,6 +113,43 @@ def test_torch_csr_equals_device_csr(name):
     assert t.validate() is t
 
 
+_MIRROR = ("rxadj", "radj", "erow", "eperm")
+
+
+def _mirror_equal(t: TorchCSR, d: DeviceCSR):
+    _dev_equal(t, d)
+    assert t.has_csc and d.has_csc and t.bucket_key[-1] == "csc"
+    for f in _MIRROR:
+        x = getattr(t, f)
+        assert str(x.dtype) == "torch.int32", f
+        np.testing.assert_array_equal(x.numpy(), np.asarray(getattr(d, f)),
+                                      err_msg=f)
+
+
+@pytest.mark.parametrize("name", MINI)
+def test_csc_mirror_equals_device_csr(name):
+    """``with_csc`` field for field, and the mirror carried through every
+    shape operation, in either order of mirror and padding."""
+    g = _mini()[name]
+    t = TorchCSR.from_host(g, device="cpu").with_csc()
+    d = DeviceCSR.from_host(g).with_csc()
+    _mirror_equal(t, d)
+    assert t.with_csc() is t
+    _mirror_equal(t.pad_to(t.nnz_pad + 384), d.pad_to(d.nnz_pad + 384))
+    _mirror_equal(t.bucketed(), d.bucketed())
+    _mirror_equal(t.pad_vertices(g.nc + 7, g.nr + 3),
+                  d.pad_vertices(g.nc + 7, g.nr + 3))
+    _mirror_equal(t.bucketed().pad_vertices(g.nc + 1, g.nr + 9),
+                  d.bucketed().pad_vertices(g.nc + 1, g.nr + 9))
+    _mirror_equal(TorchCSR.from_host(g, device="cpu").bucketed()
+                  .pad_vertices(g.nc + 2, g.nr + 5).with_csc(),
+                  DeviceCSR.from_host(g).bucketed()
+                  .pad_vertices(g.nc + 2, g.nr + 5).with_csc())
+    bare = t.drop_csc()
+    assert not bare.has_csc and bare.bucket_key == d.drop_csc().bucket_key
+    _dev_equal(bare, d.drop_csc())
+
+
 def test_bucket_nnz_equals_reference():
     for n in (0, 1, 127, 128, 129, 1000, 4096, 4097, 10**6):
         assert bucket_nnz(n) == ref_bucket_nnz(n)

@@ -1,11 +1,13 @@
-"""The port's fused frontier sweep against the JAX package's.
+"""The port's frontier sweeps against the JAX package's.
 
-On CPU tensors the port's ``frontier_expand_fused`` is its plain PyTorch
-version; it must equal the JAX Pallas kernel run in interpret mode and the
-JAX oracle ``frontier_expand_fused_ref``, bit for bit, for the WR and the
-plain body, over several BFS levels of real probe states (the states the
-JAX solver itself reaches).  The CUDA kernel is held against the same plain
-version in ``tests/test_torch_gpu.py``, which runs only where there is a card.
+On CPU tensors the port's ``frontier_expand_fused``, ``frontier_expand``
+(legacy proposals) and ``frontier_expand_pull`` (winners over the CSC
+mirror) are their plain PyTorch versions; each must equal the JAX Pallas
+kernel run in interpret mode and the JAX oracle, bit for bit, for the WR
+and the plain body, over several BFS levels of real probe states (the
+states the JAX solver itself reaches).  The CUDA kernels are held against
+the same plain versions in ``tests/test_torch_gpu.py``, which runs only
+where there is a card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,14 +19,21 @@ from repro.graphs import random_bipartite
 from repro.kernels.frontier_expand import (
     frontier_expand as jax_frontier_expand,
     frontier_expand_fused as jax_fused,
-    frontier_expand_fused_ref as jax_fused_ref)
+    frontier_expand_fused_ref as jax_fused_ref,
+    frontier_expand_pull as jax_pull,
+    frontier_expand_pull_ref as jax_pull_ref,
+    frontier_expand_ref as jax_prop_ref)
+from repro.matching import DeviceCSR
 from repro.matching.solve import _apply_winner as jax_apply_winner
 from repro.matching.solve import level0_state as jax_level0_state
 
 from repro_torch.kernels.frontier_expand import (LAUNCHES,
+                                                 frontier_expand,
                                                  frontier_expand_fused,
+                                                 frontier_expand_pull,
                                                  frontier_expand_ref,
                                                  reset_launches)
+from repro_torch.matching import TorchCSR
 
 # the shapes of the JAX package's own fused-kernel test
 SHAPES = [
@@ -92,6 +101,47 @@ def test_fused_equals_jax_kernel_interpret(nc, nr, deg, pad, blk, wr):
     assert sum(LAUNCHES.values()) == 0
 
 
+@pytest.mark.parametrize("wr", [True, False], ids=["wr", "plain"])
+@pytest.mark.parametrize("nc,nr,deg,pad,blk", SHAPES)
+def test_legacy_and_pull_equal_jax_kernels_interpret(nc, nr, deg, pad, blk,
+                                                     wr):
+    """The legacy proposals and the pull winners equal the JAX kernels in
+    interpret mode and the JAX oracles at every probe level; the pull
+    winners also equal the push winners on the same state."""
+    g = random_bipartite(nc, nr, deg, seed=nc + 3 * nr, pad_to=pad)
+    d = DeviceCSR.from_host(g).with_csc()
+    t = TorchCSR.from_host(g, device="cpu").with_csc()
+    reset_launches()
+    n_levels = 0
+    for level, bfs, root, rm in _probe_levels(g, wr):
+        rt = root if wr else None
+        st = (_t(bfs), _t(root) if wr else None, _t(rm), level)
+        prop = frontier_expand(t.ecol, t.cadj, *st)
+        assert prop.dtype == torch.int32 and prop.shape == (t.nnz_pad,)
+        want = np.asarray(jax_frontier_expand(d.ecol, d.cadj, bfs, rt, rm,
+                                              level, block_edges=blk,
+                                              interpret=True))
+        np.testing.assert_array_equal(prop.numpy(), want,
+                                      err_msg=f"proposals level {level}")
+        np.testing.assert_array_equal(
+            want, np.asarray(jax_prop_ref(d.ecol, d.cadj, bfs, rt, rm,
+                                          jnp.int32(level))))
+        pull = frontier_expand_pull(t.radj, t.erow, *st)
+        assert pull.dtype == torch.int32 and pull.shape == (nr + 1,)
+        want = np.asarray(jax_pull(d.radj, d.erow, bfs, rt, rm, level,
+                                   block_edges=blk, interpret=True))
+        np.testing.assert_array_equal(pull.numpy(), want,
+                                      err_msg=f"pull level {level}")
+        np.testing.assert_array_equal(
+            want, np.asarray(jax_pull_ref(d.radj, d.erow, bfs, rt, rm,
+                                          jnp.int32(level))))
+        push = frontier_expand_fused(t.ecol, t.cadj, *st)
+        np.testing.assert_array_equal(pull.numpy(), push.numpy())
+        n_levels += 1
+    assert n_levels >= 2
+    assert sum(LAUNCHES.values()) == 0
+
+
 def test_sentinel_slot_sealed_and_unreached_rows_iinf():
     """Inputs no solver state would reach: every edge active, padding
     edges included.  The contract still holds: slot nr is IINF."""
@@ -144,11 +194,20 @@ def test_out_of_range_edge_slots_propose_nothing(wr):
     rmatch = rng.choice(np.array([-1, -3, 0, 7, 30, g.nc], np.int32),
                         g.nr + 1)
     rt = root if wr else None
-    got = frontier_expand_fused(_t(ecol), _t(cadj), _t(bfs),
-                                _t(rt) if wr else None, _t(rmatch), 2)
+    args = (_t(ecol), _t(cadj), _t(bfs), _t(rt) if wr else None,
+            _t(rmatch), 2)
     want = _winners_oracle(ecol, cadj, bfs, rt, rmatch, 2)
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(frontier_expand_fused(*args).numpy(), want)
+    np.testing.assert_array_equal(frontier_expand_pull(*args).numpy(), want)
     assert (want < 2**30).sum() > 5          # the test proposes something
+    # the proposals: the same skips, and the sentinel row nr is a row
+    prop = frontier_expand(*args).numpy()
+    for e, (c, r) in enumerate(zip(ecol.tolist(), cadj.tolist())):
+        ok = (0 <= c <= g.nc and 0 <= r <= g.nr and bfs[c] == 2
+              and (rt is None or (0 <= rt[c] <= g.nc and bfs[rt[c]] >= 1))
+              and (rmatch[r] == -1 or (rmatch[r] >= 0 and
+                                       bfs[min(rmatch[r], g.nc)] == 1)))
+        assert prop[e] == (c if ok else 2**30), e
 
 
 def test_wrapper_rejects_bad_inputs():
@@ -156,19 +215,20 @@ def test_wrapper_rejects_bad_inputs():
     e, c = _t(g.ecol), _t(g.cadj)
     bfs = torch.full((21,), 2, dtype=torch.int32)
     rm = torch.full((21,), -1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="int32"):
-        frontier_expand_fused(e.long(), c, bfs, None, rm, 2)
-    with pytest.raises(ValueError, match="contiguous"):
-        frontier_expand_fused(e, c, torch.stack([bfs, bfs], 1)[:, 0], None,
-                              rm, 2)
-    with pytest.raises(ValueError, match="differ"):
-        frontier_expand_fused(e, c[:-1], bfs, None, rm, 2)
-    with pytest.raises(ValueError, match="differ"):
-        frontier_expand_fused(e, c, bfs, bfs[:-1], rm, 2)
-    with pytest.raises(TypeError, match="level"):
-        frontier_expand_fused(e, c, bfs, None, rm, torch.tensor(2))
-    with pytest.raises(TypeError, match="level"):
-        frontier_expand_fused(e, c, bfs, None, rm, 2**31)
-    with pytest.raises(ValueError, match="device"):
-        frontier_expand_fused(e.to("meta"), c.to("meta"), bfs.to("meta"),
-                              None, rm.to("meta"), 2)
+    for sweep in (frontier_expand_fused, frontier_expand,
+                  frontier_expand_pull):
+        with pytest.raises(ValueError, match="int32"):
+            sweep(e.long(), c, bfs, None, rm, 2)
+        with pytest.raises(ValueError, match="contiguous"):
+            sweep(e, c, torch.stack([bfs, bfs], 1)[:, 0], None, rm, 2)
+        with pytest.raises(ValueError, match="differ"):
+            sweep(e, c[:-1], bfs, None, rm, 2)
+        with pytest.raises(ValueError, match="differ"):
+            sweep(e, c, bfs, bfs[:-1], rm, 2)
+        with pytest.raises(TypeError, match="level"):
+            sweep(e, c, bfs, None, rm, torch.tensor(2))
+        with pytest.raises(TypeError, match="level"):
+            sweep(e, c, bfs, None, rm, 2**31)
+        with pytest.raises(ValueError, match="device"):
+            sweep(e.to("meta"), c.to("meta"), bfs.to("meta"), None,
+                  rm.to("meta"), 2)

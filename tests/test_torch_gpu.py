@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 This file imports no JAX, so it runs on a card host that has only the
 port's dependencies: ``python -m pytest -q -m gpu tests/test_torch_gpu.py``.
@@ -10,11 +10,12 @@ import pytest
 import torch
 
 from repro_torch.graphs import instance_sets, random_bipartite
-from repro_torch.kernels.frontier_expand import (LAUNCHES,
-                                                 frontier_expand_fused,
-                                                 frontier_expand_fused_ref,
-                                                 reset_launches)
-from repro_torch.matching import Matcher, MatcherConfig, TorchCSR
+from repro_torch.kernels.frontier_expand import (
+    LAUNCHES, frontier_expand, frontier_expand_fused,
+    frontier_expand_fused_ref, frontier_expand_pull, frontier_expand_pull_ref,
+    frontier_expand_ref, reset_launches)
+from repro_torch.matching import (SOLVE_PATHS, Matcher, MatcherConfig,
+                                  TorchCSR)
 from repro_torch.matching.solve import _apply_winner, level0_state
 
 
@@ -57,21 +58,7 @@ def test_cuda_kernel_skips_out_of_range_slots_as_cpu_does():
     writing out of bounds, and gives the CPU version's winners."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    gen = torch.Generator().manual_seed(3)
-    g = random_bipartite(3000, 2500, 4.0, seed=9, pad_to=14001)
-    ecol = torch.from_numpy(g.ecol.copy())
-    cadj = torch.from_numpy(g.cadj.copy())
-    bad = torch.randperm(g.nnz, generator=gen)[:400]
-    ecol[bad[:100]] = -7
-    ecol[bad[100:200]] = g.nc + 5
-    cadj[bad[200:300]] = -1
-    cadj[bad[300:]] = g.nr + 3
-    bfs = torch.tensor([1, 2, 2, -2**30], dtype=torch.int32)[
-        torch.randint(0, 4, (g.nc + 1,), generator=gen)]
-    root = torch.randint(-3, g.nc + 4, (g.nc + 1,), generator=gen,
-                         dtype=torch.int32)
-    rmatch = torch.randint(-1, g.nc, (g.nr + 1,), generator=gen,
-                           dtype=torch.int32)
+    ecol, cadj, bfs, root, rmatch = _malformed(3)
     for rt in (root, None):
         want = frontier_expand_fused_ref(ecol, cadj, bfs, rt, rmatch, 2)
         got = frontier_expand_fused(
@@ -96,3 +83,103 @@ def test_cuda_run_equals_cpu_run():
             assert torch.equal(a.rmatch, b.rmatch.cpu()), name
             assert (int(a.phases), int(a.fallbacks), bool(a.certified)) == \
                 (int(b.phases), int(b.fallbacks), bool(b.certified)), name
+
+
+def _malformed(seed):
+    """A graph with negative and too-large rows and columns in its edge
+    slots, random levels, roots partly out of range, and a matching
+    state: the inputs of the out-of-range tests."""
+    gen = torch.Generator().manual_seed(seed)
+    g = random_bipartite(3000, 2500, 4.0, seed=9, pad_to=14001)
+    ecol = torch.from_numpy(g.ecol.copy())
+    cadj = torch.from_numpy(g.cadj.copy())
+    bad = torch.randperm(g.nnz, generator=gen)[:400]
+    ecol[bad[:100]] = -7
+    ecol[bad[100:200]] = g.nc + 5
+    cadj[bad[200:300]] = -1
+    cadj[bad[300:]] = g.nr + 3
+    bfs = torch.tensor([1, 2, 2, -2**30], dtype=torch.int32)[
+        torch.randint(0, 4, (g.nc + 1,), generator=gen)]
+    root = torch.randint(-3, g.nc + 4, (g.nc + 1,), generator=gen,
+                         dtype=torch.int32)
+    rmatch = torch.randint(-1, g.nc, (g.nr + 1,), generator=gen,
+                           dtype=torch.int32)
+    rmatch[-1] = -1                 # the sentinel row proposes (legacy)
+    return ecol, cadj, bfs, root, rmatch
+
+
+@pytest.mark.gpu
+def test_cuda_legacy_and_pull_kernels_equal_plain_versions():
+    """The proposal kernel (every edge slot) and the pull kernel (winners,
+    and equal to the fused kernel's) bit for bit at every level of a first
+    BFS phase, WR and plain body."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    g = random_bipartite(30000, 25000, 4.0, seed=8, pad_to=130001)
+    cpu = TorchCSR.from_host(g, device="cpu").with_csc()
+    dev = TorchCSR.from_host(g, device="cuda").with_csc()
+    for f in ("rxadj", "radj", "erow", "eperm"):
+        assert torch.equal(getattr(dev, f).cpu(), getattr(cpu, f)), f
+    warm = Matcher(warm_start="cheap").init(cpu)
+    reset_launches()
+    for wr in (True, False):
+        bfs, root = level0_state(warm.cmatch)
+        pred = torch.full((g.nr + 1,), g.nc, dtype=torch.int32)
+        rmatch, level, ins = warm.rmatch, 2, True
+        while ins:
+            rt = root if wr else None
+            st = (bfs.cuda(), rt.cuda() if wr else None, rmatch.cuda())
+            prop = frontier_expand(dev.ecol, dev.cadj, st[0], st[1], st[2],
+                                   level)
+            pull = frontier_expand_pull(dev.radj, dev.erow, st[0], st[1],
+                                        st[2], level)
+            push = frontier_expand_fused(dev.ecol, dev.cadj, st[0], st[1],
+                                         st[2], level)
+            torch.cuda.synchronize()
+            assert torch.equal(prop.cpu(), frontier_expand_ref(
+                cpu.ecol, cpu.cadj, bfs, rt, rmatch, level)), (wr, level)
+            want = frontier_expand_pull_ref(cpu.radj, cpu.erow, bfs, rt,
+                                            rmatch, level)
+            assert torch.equal(pull.cpu(), want), (wr, level)
+            assert torch.equal(pull, push), (wr, level)
+            bfs, root, pred, rmatch, ins_t, _ = _apply_winner(
+                want, bfs, root, pred, rmatch, level, wr=wr, wr_exact=False)
+            ins, level = bool(ins_t), level + 1
+    for k in ("frontier_expand", "frontier_expand_pull"):
+        assert LAUNCHES[f"{k}_wr"] > 0 and LAUNCHES[f"{k}_plain"] > 0, k
+
+
+@pytest.mark.gpu
+def test_cuda_legacy_and_pull_kernels_skip_out_of_range_slots():
+    """The malformed inputs of the fused kernel's test through the
+    proposal and the pull kernel: no read or write out of bounds, and the
+    CPU version's result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    ecol, cadj, bfs, root, rmatch = _malformed(4)
+    for rt in (root, None):
+        args = (bfs, rt, rmatch, 2)
+        cargs = (bfs.cuda(), None if rt is None else rt.cuda(),
+                 rmatch.cuda(), 2)
+        prop = frontier_expand(ecol.cuda(), cadj.cuda(), *cargs)
+        pull = frontier_expand_pull(ecol.cuda(), cadj.cuda(), *cargs)
+        torch.cuda.synchronize()
+        want = frontier_expand_ref(ecol, cadj, *args)
+        assert torch.equal(prop.cpu(), want)
+        assert int((want < 2**30).sum()) > 100
+        assert torch.equal(pull.cpu(),
+                           frontier_expand_pull_ref(ecol, cadj, *args))
+
+
+@pytest.mark.gpu
+def test_cuda_solve_paths_equal_cpu():
+    """Every registered solve path gives the same matching on the card and
+    on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    for name, g in instance_sets("mini").items():
+        for pname, path in SOLVE_PATHS.items():
+            a = path.run_host(g, device="cpu")
+            b = path.run_host(g, device="cuda")
+            assert (a[0] == b[0]).all() and (a[1] == b[1]).all(), \
+                (name, pname)

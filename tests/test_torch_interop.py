@@ -63,7 +63,29 @@ def test_csr_round_trip_and_refusals():
     back = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(d),
                                         csr_to_reference(t))
     assert back.bucket_key == d.bucket_key
-    with pytest.raises(NotImplementedError, match="CSC"):
-        csr_from_reference(_leaves(d.with_csc()), d.nc, d.nr, device="cpu")
+    with pytest.raises(ValueError, match="4 leaves"):
+        csr_from_reference(_leaves(d)[:3], d.nc, d.nr, device="cpu")
     with pytest.raises(ValueError, match="5 MatchState leaves"):
         state_from_reference(_leaves(d), device="cpu")
+
+
+@pytest.mark.parametrize("use_pallas", [False, True],
+                         ids=["dirop", "dirop_pallas"])
+def test_csc_mirror_round_trip_and_dirop_solve(use_pallas):
+    """A JAX graph with the CSC mirror crosses over with its mirror, solves
+    with ``dirop`` to JAX's result bit for bit, and crosses back."""
+    g = instance_sets("mini")["grid"]
+    d = DeviceCSR.from_host(g).bucketed().with_csc()
+    t = csr_from_reference(_leaves(d), d.nc, d.nr, device="cpu")
+    assert t.has_csc and t.bucket_key == d.bucket_key
+    for a, b in zip(csr_to_reference(t), _leaves(d)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    back = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(d),
+                                        csr_to_reference(t))
+    assert back.has_csc and back.bucket_key == d.bucket_key
+    kw = dict(dirop=True, use_pallas=use_pallas)
+    want = RefMatcher(RefConfig(**kw), "cheap").run(d)
+    out = Matcher(MatcherConfig(**kw), "cheap").run(t)
+    for a, b in zip(state_to_reference(out), _leaves(want)):
+        np.testing.assert_array_equal(a, b)

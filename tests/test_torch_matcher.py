@@ -3,8 +3,9 @@
 The matcher is deterministic, so the port must return the same matching bit
 for bit: ``cmatch``/``rmatch`` with their sentinel slots, ``phases``,
 ``fallbacks`` and ``certified``, over the paper's eight variants, the three
-warm starts on every corpus family, a phase budget with maximal
-degradation, a bounded BFS tail, and the numpy-in, numpy-out wrapper.  The
+warm starts on every corpus family (through every solve path), a phase
+budget with maximal degradation, a bounded BFS tail, and the numpy-in,
+numpy-out wrapper.  The
 port runs on the CPU, the JAX package with ``JAX_PLATFORMS=cpu``; the same
 comparison on the card is in ``chip_smoke.py``.
 """
@@ -21,8 +22,9 @@ from repro.matching import DeviceCSR, Matcher as RefMatcher
 from repro.matching import MatcherConfig as RefConfig, VARIANTS as REF_VARIANTS
 
 from repro_torch.core import is_maximal, maximum_matching
-from repro_torch.matching import (VARIANTS, Matcher, MatcherConfig,
-                                  TorchCSR, maximum_matching_device)
+from repro_torch.matching import (SOLVE_PATHS, VARIANTS, Matcher,
+                                  MatcherConfig, TorchCSR,
+                                  maximum_matching_device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,10 +57,31 @@ def test_run_equals_reference_over_variants(i):
         assert bool(out.certified)
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_default(family, ws):
+    return RefMatcher(RefConfig(), ws).run(DeviceCSR.from_host(_mini()[family]))
+
+
 @pytest.mark.parametrize("ws", ["none", "cheap", "karp_sipser"])
 @pytest.mark.parametrize("family", INSTANCE_FAMILIES)
 def test_run_equals_reference_over_families_and_warm_starts(family, ws):
-    _run_both(_mini()[family], {}, ws)
+    ours = Matcher(MatcherConfig(), ws).run(
+        TorchCSR.from_host(_mini()[family], device="cpu"))
+    _same(ours, _ref_default(family, ws))
+
+
+@pytest.mark.parametrize("ws", ["none", "cheap", "karp_sipser"])
+@pytest.mark.parametrize("family", INSTANCE_FAMILIES)
+def test_paths_equal_reference_over_families_and_warm_starts(family, ws):
+    """Every solve path of the port gives the JAX package's default-path
+    result, which the JAX package holds its own paths to bit for bit
+    (``tests/test_frontier_paths.py``)."""
+    g = _mini()[family]
+    for name in ("legacy", "adaptive", "dirop", "dirop_pallas"):
+        cfg = SOLVE_PATHS[name].configure(MatcherConfig())
+        t = TorchCSR.from_host(g, device="cpu")
+        ours = Matcher(cfg, ws).run(t.with_csc() if cfg.dirop else t)
+        _same(ours, _ref_default(family, ws))
 
 
 @pytest.mark.parametrize("cfg_kw", [

@@ -15,6 +15,7 @@ import repro.matching.solve as js
 import repro.matching.warmstart as jw
 from repro.graphs import instance_sets, random_bipartite
 from repro.matching import DeviceCSR, Matcher as RefMatcher
+from repro.matching import MatcherConfig as RefConfig
 
 import repro_torch.matching.solve as ts
 import repro_torch.matching.warmstart as tw
@@ -183,10 +184,52 @@ def test_warm_start_registry_mirrors_reference():
     dict(dirop=True), dict(adaptive_frontier=True),
     dict(use_pallas=True, pallas_fused=False)], ids=str)
 def test_unported_paths_raise(overrides):
-    with pytest.raises(NotImplementedError, match="slice"):
-        Matcher(MatcherConfig(**overrides))
-    with pytest.raises(NotImplementedError, match="slice"):
-        ts.make_solver(MatcherConfig(**overrides))
+    """Each config once refused as unported (``NotImplementedError``) now
+    raises nothing: it runs through its own sweeps and gives the JAX
+    package's result."""
+    g = instance_sets("mini")["kron"]
+    d = DeviceCSR.from_host(g)
+    t = TorchCSR.from_host(g, device="cpu")
+    if overrides.get("dirop"):
+        d, t = d.with_csc(), t.with_csc()
+    want = RefMatcher(RefConfig(**overrides), "cheap").run(d)
+    m = Matcher(MatcherConfig(**overrides), "cheap")
+    got = m.run(t)
+    _eq(got.cmatch, want.cmatch)
+    _eq(got.rmatch, want.rmatch)
+    assert (int(got.phases), int(got.fallbacks), bool(got.certified)) == \
+        (int(want.phases), int(want.fallbacks), bool(want.certified))
+    c = m.last_counts
+    assert c["levels"] == c["push_levels"] + c["pull_levels"] + \
+        c["compact_levels"]
+
+
+def test_dirop_requires_the_csc_mirror():
+    g = random_bipartite(64, 64, 2.0, seed=1)
+    m = Matcher(MatcherConfig(dirop=True))
+    with pytest.raises(ValueError, match="with_csc"):
+        m.run(TorchCSR.from_host(g, device="cpu"))
+    st = m.run(TorchCSR.from_host(g, device="cpu").with_csc())
+    want = RefMatcher(RefConfig(dirop=True)).run(
+        DeviceCSR.from_host(g).with_csc())
+    _eq(st.cmatch, want.cmatch)
+    solver = ts.make_solver(MatcherConfig(dirop=True))
+    t = TorchCSR.from_host(g, device="cpu")
+    with pytest.raises(ValueError, match="CSC mirror"):
+        solver(t.ecol, t.cadj, st.cmatch, st.rmatch, cxadj=t.cxadj)
+    with pytest.raises(ValueError, match="cxadj"):
+        ts.make_solver(MatcherConfig(adaptive_frontier=True))(
+            t.ecol, t.cadj, st.cmatch, st.rmatch)
+
+
+def test_dirop_config_validation():
+    with pytest.raises(ValueError, match="generalizes"):
+        MatcherConfig(dirop=True, adaptive_frontier=True)
+    with pytest.raises(AssertionError, match="hysteresis"):
+        MatcherConfig(dirop_alpha=8.0, dirop_beta=4.0)  # beta < alpha
+    a = MatcherConfig(dirop=True)
+    b = MatcherConfig(dirop=True, dirop_alpha=2.0, dirop_beta=2.0)
+    assert a != b and hash(a) != hash(b)
 
 
 def test_counters_count_levels_steps_and_syncs():
@@ -197,3 +240,21 @@ def test_counters_count_levels_steps_and_syncs():
     assert c["levels"] > 0 and c["alternate_steps"] > 0
     # one sync per level, per ALTERNATE step test, plus loop exits
     assert c["host_syncs"] >= c["levels"] + c["alternate_steps"]
+
+
+@pytest.mark.parametrize("overrides", [
+    dict(adaptive_frontier=True), dict(dirop=True),
+    dict(dirop=True, use_pallas=True)], ids=str)
+def test_branch_decision_rides_on_the_level_sync(overrides):
+    """The adaptive and direction-optimizing paths read each level's branch
+    decision in the same sync as the previous level's flags: one extra
+    sync per BFS phase (its first level), not one per level."""
+    g = instance_sets("mini")["comb"]
+    t = TorchCSR.from_host(g, device="cpu")
+    base = Matcher(MatcherConfig(), "cheap")
+    st = base.run(t)
+    m = Matcher(MatcherConfig(**overrides), "cheap")
+    m.run(t.with_csc() if overrides.get("dirop") else t)
+    assert m.last_counts["levels"] == base.last_counts["levels"]
+    assert m.last_counts["host_syncs"] == \
+        base.last_counts["host_syncs"] + int(st.phases)
