@@ -8,32 +8,52 @@ Run from the root of a checkout on a machine with a CUDA card::
 What it does, in order; any failure raises and the exit code is not 0:
 
 1. prints the card's name and power limit (``nvidia-smi``) and builds every
-   CUDA kernel of the port from ``src/repro_torch/csrc`` (``nvcc``,
-   ``sm_90a``), printing the build time; then worker processes make the
-   main-path graphs and their cardinalities by scipy, and solve the small
-   corpus on the CPU through every solve path (for step 4);
-2. drives the main path, ``TorchCSR.from_host`` (then ``with_csc`` for the
-   direction-optimizing paths) -> warm start -> APFB/APsB solve, on three
-   full-size graphs made by the port's own generators, through every solve
-   path: the fused push sweep, the legacy proposal kernel, the pull kernel,
-   the compact pull and the adaptive compact gather.  Every kernel launch
-   counter and solver counter is set to 0 just before each run and read
-   just after.  Each result is checked four ways: a valid matching, a
+   CUDA kernel of the port from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, ``sm_90a``, all started together), printing the build times and
+   register counts; then worker processes make the main-path graphs and
+   their cardinalities by scipy, and solve the small corpus on the CPU
+   through every solve path (for step 4);
+2. drives the matching main path, ``TorchCSR.from_host`` (then ``with_csc``
+   for the direction-optimizing paths) -> warm start -> APFB/APsB solve, on
+   three full-size graphs made by the port's own generators, through every
+   solve path: the fused push sweep, the legacy proposal kernel, the pull
+   kernel, the compact pull and the adaptive compact gather.  Every kernel
+   launch counter and solver counter is set to 0 just before each run and
+   read just after.  Each result is checked four ways: a valid matching, a
    cardinality equal to scipy's ``maximum_bipartite_matching`` (independent
    of the code under test), ``certified`` True, and the run's own kernel
    launched or compact branch taken;
-3. holds each kernel against its plain PyTorch version on the card, over
-   the first BFS phase of the main-path graphs, level by level, bit for bit
-   (tolerance 0: the outputs are integers): the fused sweep on every graph
-   and body, the proposal and the pull kernel on kron (WR) and the random
-   graph (plain), the pull kernel also against the fused one; and times
-   each kernel and plain version with CUDA events;
+3. holds each frontier kernel against its plain PyTorch version on the
+   card, over the first BFS phase of the main-path graphs, level by level,
+   bit for bit (tolerance 0: the outputs are integers): the fused sweep on
+   every graph and body, the proposal and the pull kernel on kron (WR) and
+   the random graph (plain), the pull kernel also against the fused one;
+   and times each kernel and plain version with CUDA events;
 4. solves ``instance_sets("small")`` (all nine families) through every
    solve path on the card and requires the CPU's ``cmatch``, ``rmatch``,
    ``phases``, ``fallbacks`` and ``certified``;
 5. profiles one more kron solve with ``torch.profiler`` (device time by
    kernel, the device's busy share of the wall time);
-6. prints one ``{"kernels": [...]}`` line, then as its last line
+6. holds the flash-attention kernel against its plain version on the card
+   (TF32 off): the shapes of ``tests/test_kernels.py`` in fp32 and bf16 and
+   granite-20b's layer shape (B=4, S=4096, H=48, KV=1, hd=128, bf16), both
+   masks, within 2e-5 (fp32) and 2e-2 (bf16), and at granite's shape also
+   in scaled norms (``FA_REL_TOL``) that a control with one key tile
+   dropped must exceed; times it, the plain version and
+   ``scaled_dot_product_attention`` (the yardstick, never called by the
+   port) at granite's shape;
+7. granite-20b at full width with two layers in fp32: the forward through
+   the kernel against the torch-op attention (1e-3), and teacher-forced
+   ``decode_step`` over 64 tokens against the forward (2e-3);
+8. the LM main path: granite-20b FULL, bf16, 52 layers, seeded weights.
+   ``build_prefill_step`` on 4 prompts of 4096 tokens with the flash-kernel
+   count set to 0 just before and read just after (52 launches, finite
+   logits); the same prefill through ``blockwise_attn`` (gap of the
+   last-position logits within ``LOGIT_GAP_TOL``) and once more with one
+   layer's attention zeroed (a control that must exceed the gap's gate);
+   greedy serving (batch 4, a 64-token prompt stepped, 16 tokens
+   generated); the prefill and serving profiled;
+9. prints one ``{"kernels": [...]}`` line, then as its last line
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.  It needs a CUDA card and the
@@ -41,6 +61,7 @@ repository's ``src/``; without either it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import multiprocessing
@@ -420,21 +441,19 @@ def kernel_checks(graphs) -> list:
     return rows
 
 
-def profile_main_path(entry, g) -> dict:
-    """Phase 5: one main-path solve again under ``torch.profiler``: device
-    time by kernel, and the device's busy share of the wall time (the
-    profiler's own cost lands in the wall time, so the share is a floor)."""
+def device_profile(fn, share_of: dict) -> dict:
+    """``fn()`` once under ``torch.profiler``: the wall time, the device's
+    kernel time and busy share of the wall time (the profiler's own cost
+    lands in the wall time, so the share is a floor), for each ``name:
+    text`` of ``share_of`` the share of device time of the kernels whose
+    name holds ``text``, and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.matching import Matcher, MatcherConfig, TorchCSR
 
-    graph = TorchCSR.from_host(g)
-    matcher = Matcher(MatcherConfig(**entry[3]), entry[4])
-    matcher.run(graph)                                  # warm the allocator
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        matcher.run(graph)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernel events only: a CPU op's device time repeats its kernels'
@@ -448,14 +467,27 @@ def profile_main_path(entry, g) -> dict:
             rows.append((us, evt.count, evt.key))
     rows.sort(reverse=True)
     device_s = sum(r[0] for r in rows) / 1e6
-    sweep_s = sum(r[0] for r in rows if "fused_sweep" in r[2]) / 1e6
-    out = dict(graph=label(entry), wall_s=wall,
+    out = dict(wall_s=wall,
                device_s=device_s if rows else "not measured",
-               busy_share=device_s / wall if rows else "not measured",
-               sweep_share_of_device=(sweep_s / device_s if rows
-                                      else "not measured"),
-               top=[dict(kernel=k[:80], ms=us / 1e3, count=n)
-                    for us, n, k in rows[:8]])
+               busy_share=device_s / wall if rows else "not measured")
+    for name, text in share_of.items():
+        part = sum(r[0] for r in rows if text in r[2]) / 1e6
+        out[f"{name}_share_of_device"] = (part / device_s if rows
+                                          else "not measured")
+    out["top"] = [dict(kernel=k[:80], ms=us / 1e3, count=n)
+                  for us, n, k in rows[:8]]
+    return out
+
+
+def profile_main_path(entry, g) -> dict:
+    """Phase 5: one main-path solve again under ``torch.profiler``."""
+    from repro_torch.matching import Matcher, MatcherConfig, TorchCSR
+
+    graph = TorchCSR.from_host(g)
+    matcher = Matcher(MatcherConfig(**entry[3]), entry[4])
+    matcher.run(graph)                                  # warm the allocator
+    out = dict(graph=label(entry), **device_profile(
+        lambda: matcher.run(graph), {"sweep": "fused_sweep"}))
     say("profile:", json.dumps(out))
     return out
 
@@ -482,6 +514,386 @@ def small_sets_bit_exact(cpu_results) -> None:
             f"{all(v[4] for v in cuda.values())}, card {cuda_s:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path: granite-20b, prefill + decode, flash attention (K4)
+# ---------------------------------------------------------------------------
+BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+CARD = "cuda"
+LM_ARCH = "granite-20b"
+LM_SEED = 0
+PREFILL_BATCH, PREFILL_SEQ = 4, 4096
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 64, 16
+# the two-layer full-width fp32 checks: batch, sequence
+FP32_BATCH, FP32_SEQ = 2, 64
+# (B, S, H, KV, hd) of tests/test_kernels.py, then granite-20b's layer
+FA_SHAPES = [(2, 512, 4, 2, 64), (1, 1024, 8, 8, 128), (2, 256, 4, 1, 64),
+             (1, 512, 6, 2, 128), (2, 256, 4, 4, 32)]
+FA_GRANITE = (PREFILL_BATCH, PREFILL_SEQ, 48, 1, 128)
+# the kernel tolerances of tests/test_kernels.py (rtol = atol)
+FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# At granite's shape the output is a softmax average over thousands of keys,
+# of typical magnitude ~sqrt(e / S), about as large as the elementwise 2e-2
+# floor.  There K4 is also held to |got - want| / |want| in two norms, the
+# l2 norm over the whole output and the max norm, each gated between the
+# kernel's reading and that of a control: the plain version with one key
+# tile (keys FA_DROP, the middle 64) masked for every query, which is what
+# a kernel that skips that tile returns.  Readings on an H100 (bf16, seed
+# LM_SEED; causal / full): kernel l2 0.0041 / 0.0047, max 0.0050 / 0.0163;
+# control l2 0.046 / 0.124, max 0.060 / 0.387.  The script fails if the
+# control does not exceed the gate.
+FA_REL_TOL = {"l2": 1.5e-2, "max": 3e-2}
+K4_TILE = 64                       # keys per step of flash_fwd<T, 128>
+FA_DROP = (PREFILL_SEQ // 2, PREFILL_SEQ // 2 + K4_TILE)
+K4_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:29"
+# Gate of the 52-layer bf16 prefill, pallas against xla: max |d| / max |ref|
+# of the last-position logits.  Both run bf16 end to end and differ only in
+# where the attention rounds (the kernel keeps p and its accumulator in
+# fp32; blockwise_attn, as the JAX package's, rounds p and the accumulator
+# to bf16), a perturbation of a few bf16 ulps (2^-8) per layer that the
+# residual stream carries through 52 layers.  The gate lies between that
+# reading and the same reading of a control prefill whose attention output
+# is zero in one layer (skip_attention).  Readings on an H100: pallas
+# 0.0098 (argmax 4/4), the control 0.21 (argmax 1/4).  A fault as small as
+# one dropped key tile stays under this gate; the kernel's scaled check
+# above is the one that sees it.  The script fails if the control does not
+# exceed the gate.  The model path is also held at 1e-3 in fp32
+# (fp32_checks).
+LOGIT_GAP_TOL = 5e-2
+
+
+def fa_flops(B, S, H, hd, causal: bool) -> int:
+    """Flops of one attention call: q.k and p.v, 2 hd each per (query,
+    key) pair the mask keeps."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    return 4 * B * H * hd * pairs
+
+
+def fa_bytes(B, S, H, KV, hd, itemsize) -> int:
+    """q, k and v read once, out written once."""
+    return itemsize * hd * B * S * (2 * H + 2 * KV)
+
+
+def fa_inputs(shape, dtype, gen):
+    B, S, H, KV, hd = shape
+    return [torch.randn(s, generator=gen, device=CARD).to(dtype)
+            for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+def fa_plain(q, k, v, causal):
+    """The plain version one batch element at a time (its fp32 scores are
+    12.9 GB at granite's shape for the whole batch)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    return torch.cat([flash_attention_ref(q[i:i + 1], k[i:i + 1],
+                                          v[i:i + 1], causal=causal)
+                      for i in range(q.shape[0])])
+
+
+def close(name, got, want, tol) -> float:
+    """Fail unless ``got`` is finite and within rtol = atol = ``tol`` of
+    ``want``; returns the largest absolute difference."""
+    torch.cuda.synchronize()
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    bad = int((err > tol + tol * want.abs()).sum())
+    say(f"{name}: max |d| {float(err.max()):.3e}, {bad} outside "
+        f"rtol = atol = {tol}")
+    if bad or not torch.isfinite(got).all():
+        fail(f"{name}: {bad} values outside rtol = atol = {tol}")
+    return float(err.max())
+
+
+def rel_gaps(got, want) -> dict:
+    """|got - want| / |want| in the l2 norm over all values and in the max
+    norm."""
+    d, w = (got.float() - want.float()), want.float()
+    return {"l2": float(d.norm() / w.norm()),
+            "max": float(d.abs().max() / w.abs().max())}
+
+
+def fa_tile_dropped(q, k, v, causal, lo, hi):
+    """Control: the plain version with keys [lo, hi) masked for every
+    query, one batch element at a time."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    keep = torch.ones(S, k.shape[1], dtype=torch.bool, device=q.device)
+    keep = keep.tril() if causal else keep
+    keep[:, lo:hi] = False
+    out = []
+    for i in range(B):
+        qg = q[i:i + 1].reshape(1, S, KV, H // KV, hd)
+        s = torch.einsum("bskgh,btkh->bkgst", qg, k[i:i + 1]).float()
+        s = (s * hd ** -0.5).masked_fill_(~keep, -1e30)
+        p = torch.softmax(s, dim=-1).to(q.dtype)
+        del s
+        out.append(torch.einsum("bkgst,btkh->bskgh", p, v[i:i + 1])
+                   .reshape(1, S, H, hd))
+    return torch.cat(out)
+
+
+def scaled_check(name, got, want, control) -> None:
+    """Fail unless ``got`` is within FA_REL_TOL of ``want`` in both norms
+    of ``rel_gaps`` and ``control`` is outside it in both."""
+    mine, ctrl = rel_gaps(got, want), rel_gaps(control, want)
+    row = dict(check=name, rel_gap=mine, control_rel_gap=ctrl,
+               tolerance=FA_REL_TOL)
+    say("flash scaled check:", json.dumps(row))
+    for norm, tol in FA_REL_TOL.items():
+        if not mine[norm] <= tol:
+            fail(f"{name}: |d| / |ref| in the {norm} norm {mine[norm]} > "
+                 f"{tol}")
+        if not ctrl[norm] > tol:
+            fail(f"{name}: the control (keys {FA_DROP} dropped) reads "
+                 f"{ctrl[norm]} in the {norm} norm, within the gate {tol}: "
+                 f"the gate would not see a dropped key tile")
+
+
+def flash_checks() -> dict:
+    """K4 against its plain version on the card at every checked shape and
+    both masks, and at granite's layer shape also in scaled norms against
+    a control; times at granite's layer shape.  Runs before the weights
+    exist.  Returns the kernel's entry, without ``launches``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    say("flash attention checks: TF32 off (torch.backends.cuda.matmul."
+        "allow_tf32 = False); tolerance rtol = atol = 2e-5 fp32, 2e-2 bf16")
+    gen = torch.Generator(device=CARD).manual_seed(LM_SEED)
+    worst = 0.0
+    cases = [(s, dt) for s in FA_SHAPES for dt in FA_TOL]
+    cases.append((FA_GRANITE, torch.bfloat16))
+    for shape, dtype in cases:
+        q, k, v = fa_inputs(shape, dtype, gen)
+        for causal in (True, False):
+            what = f"flash vs plain, {shape} {str(dtype)[6:]} causal={causal}"
+            got = flash_attention(q, k, v, causal=causal)
+            want = fa_plain(q, k, v, causal)
+            worst = max(worst, close(what, got, want, FA_TOL[dtype]))
+            if shape == FA_GRANITE:
+                scaled_check(what, got, want,
+                             fa_tile_dropped(q, k, v, causal, *FA_DROP))
+            del got, want
+        torch.cuda.empty_cache()
+    # q, k, v are granite's now
+    B, S, H, KV, hd = FA_GRANITE
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+    lib_err = float((lib.float() - fa_plain(q, k, v, True).float())
+                    .abs().max())
+    times = {}
+    for causal in (True, False):
+        times[causal] = dict(
+            ms=cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
+                       reps=5, warmup=1),
+            plain_ms=cuda_ms(lambda: fa_plain(q, k, v, causal), reps=2,
+                             warmup=1),
+            library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                            enable_gqa=True), reps=10))
+    flops = fa_flops(B, S, H, hd, True)
+    nbytes = fa_bytes(B, S, H, KV, hd, 2)
+    bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
+    row = dict(shape=FA_GRANITE, dtype="bfloat16", flops_causal=flops,
+               bytes=nbytes, bound_ms_causal=bound,
+               bound_ms_full=max(fa_flops(B, S, H, hd, False)
+                                 / BF16_FLOPS_PER_S,
+                                 nbytes / HBM_BYTES_PER_S) * 1e3,
+               causal=times[True], full=times[False],
+               sdpa_vs_plain_max_abs_err=lib_err)
+    say("flash attention at granite's layer shape:", json.dumps(row))
+    del q, k, v, qt, kt, vt, lib
+    torch.cuda.empty_cache()
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces=K4_REPLACES, launches=0, max_abs_err=worst,
+                ms=times[True]["ms"], plain_ms=times[True]["plain_ms"],
+                bound_ms=bound,
+                bound_by=("operations" if flops / BF16_FLOPS_PER_S
+                          >= nbytes / HBM_BYTES_PER_S else "bytes"),
+                library_ms=times[True]["library_ms"],
+                timed_on=f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal")
+
+
+def fp32_checks() -> None:
+    """granite-20b at full width, two layers, fp32 on the card: forward
+    with the kernel against forward with the torch-op attention (last
+    position, 1e-3), and teacher-forced decode against forward (2e-3, the
+    JAX package's test_decode_matches_forward tolerance)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+
+    cfg = get_config(LM_ARCH, n_layers=2, dtype="float32",
+                     attn_impl="pallas")
+    pallas = build_model(cfg)
+    xla = build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    params = pallas.init(LM_SEED)
+    gen = torch.Generator(device=CARD).manual_seed(LM_SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (FP32_BATCH, FP32_SEQ), generator=gen,
+                         device=CARD)
+    reset_launches()
+    full, _ = pallas.forward(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    if LAUNCHES["flash_attention"] != cfg.n_layers:
+        fail(f"fp32 forward launched the flash kernel "
+             f"{LAUNCHES['flash_attention']} times, not {cfg.n_layers}")
+    ref, _ = xla.forward(params, {"tokens": toks})
+    close("fp32 2-layer forward, pallas vs xla (last position)",
+          full[:, -1], ref[:, -1], 1e-3)
+    cache = pallas.init_cache(FP32_BATCH, FP32_SEQ)
+    outs = []
+    for t in range(FP32_SEQ):
+        lg, cache = pallas.decode_step(params, cache, toks[:, t:t + 1], t)
+        outs.append(lg[:, 0])
+    close(f"fp32 2-layer teacher-forced decode ({FP32_SEQ} steps) vs "
+          f"forward", torch.stack(outs, 1), full, 2e-3)
+    del params, cache, full, ref, outs
+    torch.cuda.empty_cache()
+
+
+def skip_attention(layer: int):
+    """A faulty flash kernel, for a control: its call for ``layer``
+    (counted from 0) returns zeros, every other call the kernel's output."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    calls = []
+
+    def fault(q, k, v, *, causal=True):
+        calls.append(None)
+        out = flash_attention(q, k, v, causal=causal)
+        return torch.zeros_like(out) if len(calls) == layer + 1 else out
+    return fault
+
+
+def with_attention(fault, fn):
+    """``fn()`` with ``fault`` in place of the flash kernel in the model."""
+    from repro_torch.models import attention as att
+    real, att.flash_attention = att.flash_attention, fault
+    try:
+        return fn()
+    finally:
+        att.flash_attention = real
+
+
+def timed(fn):
+    """(result, wall seconds, peak device bytes) of ``fn()``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+
+
+def lm_main_path() -> int:
+    """granite-20b FULL, bf16, 52 layers, seeded weights: the serving
+    prefill through the flash kernel (counts set to 0 just before, read
+    just after), the same prefill through the torch-op attention, and
+    greedy serving.  Returns the kernel's launches in the prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeCell, make_inputs
+    from repro_torch.kernels.flash_attention import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.train import build_prefill_step
+
+    cfg = get_config(LM_ARCH, attn_impl="pallas")
+    model = build_model(cfg)
+    params, init_s, _ = timed(lambda: model.init(LM_SEED))
+    say(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.params_count():,} parameters (analytic), "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+        f"initialised in {init_s:.1f} s")
+    batch = make_inputs(cfg, ShapeCell("prefill", PREFILL_SEQ, PREFILL_BATCH,
+                                       "prefill"), seed=LM_SEED)
+    prefill = build_prefill_step(model)
+    prefill(params, {"tokens": batch["tokens"][:1, :128]})   # warm-up
+    reset_launches()
+    logits, wall, peak = timed(lambda: prefill(params, batch))
+    launches = LAUNCHES["flash_attention"]
+    tokens = PREFILL_BATCH * PREFILL_SEQ
+    say("lm main path:", json.dumps(dict(
+        run="prefill", attn_impl="pallas", batch=PREFILL_BATCH,
+        seq=PREFILL_SEQ, wall_s=wall, prefill_tokens_per_s=tokens / wall,
+        peak_memory_bytes=peak, flash_launches=launches)))
+    if launches != cfg.n_layers:
+        fail(f"prefill launched the flash kernel {launches} times, not "
+             f"{cfg.n_layers}")
+    if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or \
+            not torch.isfinite(logits.float()).all():
+        fail(f"prefill logits {tuple(logits.shape)} not finite or not of "
+             f"shape ({PREFILL_BATCH}, 1, {cfg.vocab})")
+
+    xla = build_prefill_step(build_model(
+        dataclasses.replace(cfg, attn_impl="xla")))
+    ref, wall_x, peak_x = timed(lambda: xla(params, batch))
+    got, want = logits[:, 0].float(), ref[:, 0].float()
+    gap = float((got - want).abs().max() / want.abs().max())
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    say("lm main path:", json.dumps(dict(
+        run="prefill", attn_impl="xla (blockwise_attn)", wall_s=wall_x,
+        prefill_tokens_per_s=tokens / wall_x, peak_memory_bytes=peak_x,
+        pallas_vs_xla_rel_gap=gap, tolerance=LOGIT_GAP_TOL,
+        argmax_agree=f"{agree}/{PREFILL_BATCH}")))
+    if not gap <= LOGIT_GAP_TOL:
+        fail(f"prefill logits, pallas vs xla: max |d| / max |ref| = {gap} "
+             f"> {LOGIT_GAP_TOL}")
+    skipped = cfg.n_layers // 2
+    control, wall_c, _ = timed(lambda: with_attention(
+        skip_attention(skipped), lambda: prefill(params, batch)))
+    ctrl = control[:, 0].float()
+    ctrl_gap = float((ctrl - want).abs().max() / want.abs().max())
+    say("lm main path:", json.dumps(dict(
+        run="prefill, control", fault=f"attention of layer {skipped} zero",
+        wall_s=wall_c, control_vs_xla_rel_gap=ctrl_gap,
+        tolerance=LOGIT_GAP_TOL,
+        argmax_agree=f"{int((ctrl.argmax(-1) == want.argmax(-1)).sum())}"
+                     f"/{PREFILL_BATCH}")))
+    if not ctrl_gap > LOGIT_GAP_TOL:
+        fail(f"the control prefill reads {ctrl_gap}, within the gate "
+             f"{LOGIT_GAP_TOL}: the gate would not see that fault")
+    del logits, ref, control
+
+    prompt = make_inputs(cfg, ShapeCell("serve", SERVE_PROMPT, SERVE_BATCH,
+                                        "prefill"), seed=LM_SEED)["tokens"]
+    (out, t), wall_s, peak_s = timed(
+        lambda: generate(model, params, prompt, SERVE_GEN))
+    say("lm main path:", json.dumps(dict(
+        run="serve (prefill by stepping, greedy decode)", batch=SERVE_BATCH,
+        prompt=SERVE_PROMPT, generated=SERVE_GEN, wall_s=wall_s,
+        prompt_ms_per_step=t["prompt_s"] / t["prompt_steps"] * 1e3,
+        decode_ms_per_step=t["gen_s"] / t["gen_steps"] * 1e3,
+        peak_memory_bytes=peak_s, first_tokens=out[:, :4].tolist())))
+    if out.shape != (SERVE_BATCH, SERVE_GEN) or int(out.min()) < 0 or \
+            int(out.max()) >= cfg.vocab:
+        fail(f"serving gave tokens of shape {tuple(out.shape)} outside "
+             f"[0, {cfg.vocab})")
+
+    # where the time goes: the prefill and eight serve steps, profiled
+    say("profile:", json.dumps(dict(run="prefill, pallas", **device_profile(
+        lambda: prefill(params, batch), {"flash": "flash_fwd"}))))
+    say("profile:", json.dumps(dict(
+        run="serve, 4 prompt + 4 decode steps", **device_profile(
+            lambda: generate(model, params, prompt[:, :4], 5), {}))))
+    del params, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_phases() -> dict:
+    """Phases 6-8: K4 against its plain version, the fp32 two-layer checks,
+    the granite-20b main path.  Returns the kernel's entry."""
+    t0 = time.perf_counter()
+    entry = flash_checks()
+    phase("flash attention checks", t0)
+    t0 = time.perf_counter()
+    fp32_checks()
+    phase("fp32 two-layer checks", t0)
+    t0 = time.perf_counter()
+    entry["launches"] = lm_main_path()
+    phase("lm main path", t0)
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a card",
@@ -494,6 +906,7 @@ def main() -> int:
         return 2
     use_src()
     from repro_torch.kernels._build import load_library
+    from repro_torch.matching import SOLVE_PATHS
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -503,26 +916,37 @@ def main() -> int:
     say("torch", torch.__version__, "cuda", torch.version.cuda, "device",
         torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
-    lib = load_library("frontier_expand")
-    regs = [ln.strip() for ln in lib.build_log.splitlines()
-            if "registers" in ln]
-    say(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc "
-        f"{lib.build_seconds:.2f} s), {'; '.join(regs)}")
-
-    from repro_torch.matching import SOLVE_PATHS
+    sources = ["frontier_expand", "flash_attention"]
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
+        libs = dict(zip(sources, ex.map(load_library, sources)))
+    say(f"kernel builds (one nvcc per source, in parallel): "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, lib in libs.items():
+        regs = [ln.strip() for ln in lib.build_log.splitlines()
+                if "registers" in ln]
+        say(f"  {name}.cu: nvcc {lib.build_seconds:.2f} s, "
+            f"{'; '.join(regs)}")
 
     # graphs and the CPU half of the small-set check, in worker processes;
     # terminated on the way out whatever happens
-    pool = multiprocessing.get_context("spawn").Pool(
-        len(MAIN_PATH) + 2)
+    pool = multiprocessing.get_context("spawn").Pool(len(MAIN_PATH) + 2)
     try:
-        return run_phases(pool, list(SOLVE_PATHS))
+        kernels = run_phases(pool, list(SOLVE_PATHS))
     finally:
         pool.terminate()
         pool.join()
+    torch.cuda.empty_cache()
+    kernels.append(lm_phases())
+
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
 
 
-def run_phases(pool, paths) -> int:
+def run_phases(pool, paths) -> list:
+    """The matching paths (phases 2-5); returns their kernels' entries."""
     t0 = time.perf_counter()
     pending_graphs, cpu_small = start_workers(pool, paths)
     graphs = [(g, want) for g, want, *_ in collect_graphs(pending_graphs)]
@@ -560,11 +984,7 @@ def run_phases(pool, paths) -> int:
             bound_ms=row["bound_ms"], bound_by="bytes", library_ms=None,
             timed_on=row["graph"],
             levels_checked=sum(r["levels_checked"] for r in mine)))
-    say(json.dumps({"kernels": kernels}))
-    say(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels
 
 
 def phase(name: str, t0: float) -> None:

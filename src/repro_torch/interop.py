@@ -11,10 +11,13 @@ Leaf orders (the dataclass field order of the JAX package):
 ``DeviceCSR``: ``cxadj, cadj, ecol, nnz``, then, for a graph with the CSC
 mirror, ``rxadj, radj, erow, eperm``.
 ``MatchState``: ``cmatch, rmatch, phases, fallbacks, certified``.
+
+LM weights and KV caches are nested dicts in both packages, leaf for leaf
+(:func:`lm_params_from_reference`, :func:`lm_params_to_reference`).
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Any, List, Sequence
 
 import numpy as np
 import torch
@@ -80,3 +83,46 @@ def state_to_reference(state: MatchState) -> List[np.ndarray]:
     return [state.cmatch.cpu().numpy(), state.rmatch.cpu().numpy(),
             state.phases.cpu().numpy(), state.fallbacks.cpu().numpy(),
             state.certified.cpu().numpy()]
+
+
+def _leaf_to_torch(x, dev) -> Any:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
+            torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _leaf_to_numpy(x) -> Any:
+    if isinstance(x, int):               # the cache's Python-int position
+        return np.asarray(x, np.int32)
+    if x.dtype == torch.bfloat16:
+        import ml_dtypes                 # present wherever JAX is
+        return (x.detach().cpu().view(torch.int16).numpy().view(np.uint16)
+                .view(ml_dtypes.bfloat16))
+    return x.detach().cpu().numpy()
+
+
+def lm_params_from_reference(tree, device=None):
+    """A nested dict of tensors from a JAX LM tree (``Model.init``'s
+    params, or ``Model.init_cache``'s cache) converted with
+    ``jax.tree.map(np.asarray, ...)``.  Dtypes are kept; bfloat16 arrays
+    (``ml_dtypes``) become ``torch.bfloat16`` bit for bit."""
+    dev = resolve_device(device)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        return _leaf_to_torch(t, dev)
+
+    return walk(tree)
+
+
+def lm_params_to_reference(params):
+    """The nested dict of numpy arrays the JAX package's functions take
+    (``jax.tree.map(jnp.asarray, ...)`` restores its arrays): dtypes kept,
+    ``torch.bfloat16`` as ``ml_dtypes.bfloat16``, a Python-int cache
+    position as an int32 scalar."""
+    if isinstance(params, dict):
+        return {k: lm_params_to_reference(v) for k, v in params.items()}
+    return _leaf_to_numpy(params)

@@ -1,5 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
+The frontier sweeps (K1-K3) bit for bit; flash attention (K4) within the
+JAX package's kernel tolerances, 2e-5 in float32 (TF32 off) and 2e-2 in
+bfloat16 (``rtol = atol``).
+
 This file imports no JAX, so it runs on a card host that has only the
 port's dependencies: ``python -m pytest -q -m gpu tests/test_torch_gpu.py``.
 Where there is no card the test skips inside its body (the kernel has no
@@ -9,7 +13,9 @@ CPU mode); the CPU path is held against the JAX package in
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.graphs import instance_sets, random_bipartite
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.frontier_expand import (
     LAUNCHES, frontier_expand, frontier_expand_fused,
     frontier_expand_fused_ref, frontier_expand_pull, frontier_expand_pull_ref,
@@ -17,6 +23,8 @@ from repro_torch.kernels.frontier_expand import (
 from repro_torch.matching import (SOLVE_PATHS, Matcher, MatcherConfig,
                                   TorchCSR)
 from repro_torch.matching.solve import _apply_winner, level0_state
+from repro_torch.models import build_model
+from repro_torch.models.common import tree_map
 
 
 @pytest.mark.gpu
@@ -183,3 +191,91 @@ def test_cuda_solve_paths_equal_cpu():
             b = path.run_host(g, device="cuda")
             assert (a[0] == b[0]).all() and (a[1] == b[1]).all(), \
                 (name, pname)
+
+
+def _qkv(B, S, H, KV, hd, dtype, seed, Sk=None):
+    gen = torch.Generator().manual_seed(seed)
+    Sk = S if Sk is None else Sk
+    return [torch.randn(shape, generator=gen).to(dtype)
+            for shape in ((B, S, H, hd), (B, Sk, KV, hd), (B, Sk, KV, hd))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_equals_plain_version(dtype):
+    """Every head dim of the kernel, both masks, GQA, MQA with granite's
+    G = 48, S and Sk that divide no tile, Sk != S; the plain version runs
+    on the CPU in float32 matmuls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    fa.reset_launches()
+    n = 0
+    for B, S, H, KV, hd, Sk in [(2, 256, 4, 2, 16, None),
+                                (1, 300, 8, 8, 32, None),
+                                (2, 200, 6, 3, 64, 130),
+                                (1, 257, 48, 1, 128, None),
+                                (2, 100, 4, 1, 256, None)]:
+        q, k, v = _qkv(B, S, H, KV, hd, dtype, seed=S + hd, Sk=Sk)
+        for causal in (True, False):
+            got = fa.flash_attention(q.cuda(), k.cuda(), v.cuda(),
+                                     causal=causal)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_ref(q, k, v, causal=causal)
+            assert got.dtype == dtype and got.shape == q.shape
+            torch.testing.assert_close(got.cpu().float(), want.float(),
+                                       rtol=tol, atol=tol)
+            n += 1
+    assert fa.LAUNCHES["flash_attention"] == n
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_reads_strided_inputs():
+    """q, k, v as views of a fused QKV projection (no copy): the kernel
+    reads them through their strides."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(3)
+    qkv = torch.randn(2, 96, 6 + 2 + 2, 64, generator=gen)
+    q, k, v = qkv[:, :, :6], qkv[:, :, 6:8], qkv[:, :, 8:]
+    dev = qkv.cuda()
+    got = fa.flash_attention(dev[:, :, :6], dev[:, :, 6:8], dev[:, :, 8:])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), fa.flash_attention_ref(q, k, v),
+                               rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_flash_attention_refuses_what_it_has_no_kernel_for():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = (t.cuda() for t in _qkv(1, 8, 4, 2, 96, torch.float32, 0))
+    with pytest.raises(ValueError, match="head dim 96"):
+        fa.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="float32 and bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+
+
+@pytest.mark.gpu
+def test_cuda_model_pallas_equals_xla_and_cpu():
+    """A SMOKE granite model on the card: ``attn_impl="pallas"`` launches
+    the kernel once per layer and agrees with "xla" and with the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pallas = build_model(get_config("granite-20b", smoke=True,
+                                    attn_impl="pallas"))
+    xla = build_model(get_config("granite-20b", smoke=True))
+    params = pallas.init(0, device="cpu")
+    on_card = tree_map(lambda t: t.cuda(), params)
+    toks = torch.randint(0, 512, (2, 96), generator=torch.Generator()
+                         .manual_seed(1))
+    fa.reset_launches()
+    got, _ = pallas.forward(on_card, {"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == pallas.cfg.n_layers
+    ref, _ = xla.forward(on_card, {"tokens": toks.cuda()})
+    cpu, _ = pallas.forward(params, {"tokens": toks})
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=1e-4)
