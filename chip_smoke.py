@@ -10,7 +10,8 @@ What it does, in order; any failure raises and the exit code is not 0:
 1. prints the card's name and power limit (``nvidia-smi``) and builds every
    CUDA kernel of the port from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, ``sm_90a``, all started together), printing the build times and
-   register counts; then worker processes make the main-path graphs and
+   each kernel's registers and spills (the tensor-core flash body must not
+   spill); then worker processes make the main-path graphs and
    their cardinalities by scipy, and solve the small corpus on the CPU
    through every solve path (for step 4);
 2. drives the matching main path, ``TorchCSR.from_host`` (then ``with_csc``
@@ -35,11 +36,13 @@ What it does, in order; any failure raises and the exit code is not 0:
 5. profiles one more kron solve with ``torch.profiler`` (device time by
    kernel, the device's busy share of the wall time);
 6. holds the flash-attention kernel against its plain version on the card
-   (TF32 off): the shapes of ``tests/test_kernels.py`` in fp32 and bf16 and
-   granite-20b's layer shape (B=4, S=4096, H=48, KV=1, hd=128, bf16), both
-   masks, within 2e-5 (fp32) and 2e-2 (bf16), and at granite's shape also
-   in scaled norms (``FA_REL_TOL``) that a control with one key tile
-   dropped must exceed; times it, the plain version and
+   (TF32 off): the shapes of ``tests/test_kernels.py`` in fp32 (the CUDA-core
+   body, 2e-5) and bf16 (the tensor-core body, 2e-2) and granite-20b's
+   layer shape (B=4, S=4096, H=48, KV=1, hd=128, bf16), both masks, each
+   launch counted on the body its dtype routes to; at granite's shape also
+   in scaled norms (``FA_REL_TOL``: l2, max and the worst query row), each
+   of which a control with one key tile dropped must exceed; times it
+   (both masks, with its TFLOP/s), the plain version and
    ``scaled_dot_product_attention`` (the yardstick, never called by the
    port) at granite's shape;
 7. granite-20b at full width with two layers in fp32: the forward through
@@ -47,8 +50,8 @@ What it does, in order; any failure raises and the exit code is not 0:
    ``decode_step`` over 64 tokens against the forward (2e-3);
 8. the LM main path: granite-20b FULL, bf16, 52 layers, seeded weights.
    ``build_prefill_step`` on 4 prompts of 4096 tokens with the flash-kernel
-   count set to 0 just before and read just after (52 launches, finite
-   logits); the same prefill through ``blockwise_attn`` (gap of the
+   counts set to 0 just before and read just after (52 launches, all on the
+   tensor-core body; finite logits); the same prefill through ``blockwise_attn`` (gap of the
    last-position logits within ``LOGIT_GAP_TOL``) and once more with one
    layer's attention zeroed (a control that must exceed the gap's gate);
    greedy serving (batch 4, a 64-token prompt stepped, 16 tokens
@@ -66,6 +69,7 @@ import dataclasses
 import json
 import multiprocessing
 import os
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +119,32 @@ KERNELS = {          # kernel body -> the TPU kernel it replaces
     "frontier_expand_pull_wr": f"{_SRC}:233",
     "frontier_expand_pull_plain": f"{_SRC}:241",
 }
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spill bytes of each kernel in ``nvcc -Xptxas -v``
+    output, by kernel and template argument (``flash_fwd_tc<128>``); empty
+    for a library that was already built.  The registers are those of the
+    launch; a body that moves registers between warpgroups with
+    ``setmaxnreg`` gives its consumer warpgroups more."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            k = re.search(r"\d+((?:flash_fwd|fused_sweep|proposals|"
+                          r"pull_sweep|fill_iinf)\w*?)(?:IL[a-z](\d+)E|E)",
+                          m.group(1))
+            name = m.group(1) if k is None else k.group(1) + (
+                f"<{k.group(2)}>" if k.group(2) else "")
+            out[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and name:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def fail(msg: str) -> None:
@@ -531,29 +561,38 @@ FA_SHAPES = [(2, 512, 4, 2, 64), (1, 1024, 8, 8, 128), (2, 256, 4, 1, 64),
 FA_GRANITE = (PREFILL_BATCH, PREFILL_SEQ, 48, 1, 128)
 # the kernel tolerances of tests/test_kernels.py (rtol = atol)
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# the body each dtype must launch (the port's routing table)
+FA_BODY = {torch.float32: "flash_attention_simt",
+           torch.bfloat16: "flash_attention_tc"}
 # At granite's shape the output is a softmax average over thousands of keys,
 # of typical magnitude ~sqrt(e / S), about as large as the elementwise 2e-2
-# floor.  There K4 is also held to |got - want| / |want| in two norms, the
-# l2 norm over the whole output and the max norm, each gated between the
-# kernel's reading and that of a control: the plain version with one key
-# tile (keys FA_DROP, the middle 64) masked for every query, which is what
-# a kernel that skips that tile returns.  Readings on an H100 (bf16, seed
-# LM_SEED; causal / full): kernel l2 0.0041 / 0.0047, max 0.0050 / 0.0163;
-# control l2 0.046 / 0.124, max 0.060 / 0.387.  The script fails if the
-# control does not exceed the gate.
-FA_REL_TOL = {"l2": 1.5e-2, "max": 3e-2}
-K4_TILE = 64                       # keys per step of flash_fwd<T, 128>
+# floor.  There K4 is also held to |got - want| / |want| in three norms,
+# each gated between the kernel's reading and a control's.  The l2 norm
+# over the whole output and the max norm face the plain version with one
+# key tile (keys FA_DROP, one K4 tile in the middle) masked for every
+# query, which is what a kernel that skips that tile returns.  The worst
+# query row's l2 ratio faces the same tile masked for one 128-row query
+# tile only (FA_DROP_ROWS): a fault confined to a few rows, which the
+# whole-output norms hardly see, and the kind a wrong swizzle or diagonal
+# mask in one tile makes.  Readings on an H100 (bf16, seed LM_SEED; causal
+# / full): kernel l2 0.0043 / 0.0050, max 0.0050 / 0.0163, row 0.018 /
+# 0.019; control l2 0.066 / 0.177, max 0.074 / 0.483; one-query-tile
+# control row 0.90 / 0.79 (its whole-output l2 0.022 / 0.031).  The script
+# fails if a control does not exceed its gate.
+FA_REL_TOL = {"l2": 1.5e-2, "max": 3e-2, "row": 5e-2}
+K4_TILE = 128                      # keys per tile of flash_fwd_tc<128>
 FA_DROP = (PREFILL_SEQ // 2, PREFILL_SEQ // 2 + K4_TILE)
+FA_DROP_ROWS = (FA_DROP[1], FA_DROP[1] + 128)     # sees FA_DROP either way
 K4_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:29"
 # Gate of the 52-layer bf16 prefill, pallas against xla: max |d| / max |ref|
 # of the last-position logits.  Both run bf16 end to end and differ only in
-# where the attention rounds (the kernel keeps p and its accumulator in
-# fp32; blockwise_attn, as the JAX package's, rounds p and the accumulator
-# to bf16), a perturbation of a few bf16 ulps (2^-8) per layer that the
+# where the attention rounds (the kernel rounds p to bf16 and keeps its
+# accumulator in fp32; blockwise_attn, as the JAX package's, rounds p and
+# the accumulator to bf16), a perturbation of a few bf16 ulps (2^-8) per layer that the
 # residual stream carries through 52 layers.  The gate lies between that
 # reading and the same reading of a control prefill whose attention output
 # is zero in one layer (skip_attention).  Readings on an H100: pallas
-# 0.0098 (argmax 4/4), the control 0.21 (argmax 1/4).  A fault as small as
+# 0.0112 (argmax 4/4), the control 0.20 (argmax 2/4).  A fault as small as
 # one dropped key tile stays under this gate; the kernel's scaled check
 # above is the one that sees it.  The script fails if the control does not
 # exceed the gate.  The model path is also held at 1e-3 in fp32
@@ -603,21 +642,24 @@ def close(name, got, want, tol) -> float:
 
 
 def rel_gaps(got, want) -> dict:
-    """|got - want| / |want| in the l2 norm over all values and in the max
-    norm."""
+    """|got - want| / |want| in the l2 norm over all values, in the max
+    norm, and per query row (the worst row's l2 ratio over its hd
+    values)."""
     d, w = (got.float() - want.float()), want.float()
+    rows = d.norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
     return {"l2": float(d.norm() / w.norm()),
-            "max": float(d.abs().max() / w.abs().max())}
+            "max": float(d.abs().max() / w.abs().max()),
+            "row": float(rows.max())}
 
 
-def fa_tile_dropped(q, k, v, causal, lo, hi):
-    """Control: the plain version with keys [lo, hi) masked for every
-    query, one batch element at a time."""
+def fa_tile_dropped(q, k, v, causal, lo, hi, rows=(0, None)):
+    """Control: the plain version with keys [lo, hi) masked for the queries
+    ``rows`` (all by default), one batch element at a time."""
     B, S, H, hd = q.shape
     KV = k.shape[2]
     keep = torch.ones(S, k.shape[1], dtype=torch.bool, device=q.device)
     keep = keep.tril() if causal else keep
-    keep[:, lo:hi] = False
+    keep[rows[0]:rows[1], lo:hi] = False
     out = []
     for i in range(B):
         qg = q[i:i + 1].reshape(1, S, KV, H // KV, hd)
@@ -630,21 +672,27 @@ def fa_tile_dropped(q, k, v, causal, lo, hi):
     return torch.cat(out)
 
 
-def scaled_check(name, got, want, control) -> None:
-    """Fail unless ``got`` is within FA_REL_TOL of ``want`` in both norms
-    of ``rel_gaps`` and ``control`` is outside it in both."""
-    mine, ctrl = rel_gaps(got, want), rel_gaps(control, want)
-    row = dict(check=name, rel_gap=mine, control_rel_gap=ctrl,
-               tolerance=FA_REL_TOL)
-    say("flash scaled check:", json.dumps(row))
+def scaled_check(name, got, want, control, row_control) -> None:
+    """Fail unless ``got`` is within FA_REL_TOL of ``want`` in every norm of
+    ``rel_gaps`` and each control is outside its gate: ``control`` (the key
+    tile dropped for every query) in the l2 and max norms, ``row_control``
+    (dropped for one query tile) in the per-row norm."""
+    mine = rel_gaps(got, want)
+    ctrl, ctrl_rows = rel_gaps(control, want), rel_gaps(row_control, want)
+    seen = {"l2": ctrl["l2"], "max": ctrl["max"], "row": ctrl_rows["row"]}
+    say("flash scaled check:", json.dumps(dict(
+        check=name, rel_gap=mine, control_rel_gap=ctrl,
+        row_control_rel_gap=ctrl_rows, tolerance=FA_REL_TOL)))
     for norm, tol in FA_REL_TOL.items():
         if not mine[norm] <= tol:
             fail(f"{name}: |d| / |ref| in the {norm} norm {mine[norm]} > "
                  f"{tol}")
-        if not ctrl[norm] > tol:
-            fail(f"{name}: the control (keys {FA_DROP} dropped) reads "
-                 f"{ctrl[norm]} in the {norm} norm, within the gate {tol}: "
-                 f"the gate would not see a dropped key tile")
+        what = (f"keys {FA_DROP} dropped" + (
+            f" for queries {FA_DROP_ROWS}" if norm == "row" else ""))
+        if not seen[norm] > tol:
+            fail(f"{name}: the control ({what}) reads {seen[norm]} in the "
+                 f"{norm} norm, within the gate {tol}: the gate would not "
+                 f"see that fault")
 
 
 def flash_checks() -> dict:
@@ -652,7 +700,8 @@ def flash_checks() -> dict:
     both masks, and at granite's layer shape also in scaled norms against
     a control; times at granite's layer shape.  Runs before the weights
     exist.  Returns the kernel's entry, without ``launches``."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -666,12 +715,17 @@ def flash_checks() -> dict:
         q, k, v = fa_inputs(shape, dtype, gen)
         for causal in (True, False):
             what = f"flash vs plain, {shape} {str(dtype)[6:]} causal={causal}"
+            before = LAUNCHES[FA_BODY[dtype]]
             got = flash_attention(q, k, v, causal=causal)
+            if LAUNCHES[FA_BODY[dtype]] != before + 1:
+                fail(f"{what}: not launched on {FA_BODY[dtype]}")
             want = fa_plain(q, k, v, causal)
             worst = max(worst, close(what, got, want, FA_TOL[dtype]))
             if shape == FA_GRANITE:
                 scaled_check(what, got, want,
-                             fa_tile_dropped(q, k, v, causal, *FA_DROP))
+                             fa_tile_dropped(q, k, v, causal, *FA_DROP),
+                             fa_tile_dropped(q, k, v, causal, *FA_DROP,
+                                             rows=FA_DROP_ROWS))
             del got, want
         torch.cuda.empty_cache()
     # q, k, v are granite's now
@@ -685,11 +739,13 @@ def flash_checks() -> dict:
     for causal in (True, False):
         times[causal] = dict(
             ms=cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
-                       reps=5, warmup=1),
+                       reps=10),
             plain_ms=cuda_ms(lambda: fa_plain(q, k, v, causal), reps=2,
                              warmup=1),
             library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
                                             enable_gqa=True), reps=10))
+        times[causal]["tflops"] = (fa_flops(B, S, H, hd, causal)
+                                   / times[causal]["ms"] / 1e9)
     flops = fa_flops(B, S, H, hd, True)
     nbytes = fa_bytes(B, S, H, KV, hd, 2)
     bound = max(flops / BF16_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3
@@ -711,6 +767,7 @@ def flash_checks() -> dict:
                 bound_by=("operations" if flops / BF16_FLOPS_PER_S
                           >= nbytes / HBM_BYTES_PER_S else "bytes"),
                 library_ms=times[True]["library_ms"],
+                body="flash_fwd_tc<128>", tflops=times[True]["tflops"],
                 timed_on=f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal")
 
 
@@ -734,9 +791,11 @@ def fp32_checks() -> None:
     reset_launches()
     full, _ = pallas.forward(params, {"tokens": toks})
     torch.cuda.synchronize()
-    if LAUNCHES["flash_attention"] != cfg.n_layers:
-        fail(f"fp32 forward launched the flash kernel "
-             f"{LAUNCHES['flash_attention']} times, not {cfg.n_layers}")
+    say("fp32 2-layer forward, flash launches:", json.dumps(LAUNCHES))
+    if LAUNCHES["flash_attention_simt"] != cfg.n_layers or \
+            LAUNCHES["flash_attention"] != cfg.n_layers:
+        fail(f"fp32 forward launched the flash kernel {dict(LAUNCHES)}, not "
+             f"{cfg.n_layers} times on the CUDA-core body")
     ref, _ = xla.forward(params, {"tokens": toks})
     close("fp32 2-layer forward, pallas vs xla (last position)",
           full[:, -1], ref[:, -1], 1e-3)
@@ -809,15 +868,16 @@ def lm_main_path() -> int:
     prefill(params, {"tokens": batch["tokens"][:1, :128]})   # warm-up
     reset_launches()
     logits, wall, peak = timed(lambda: prefill(params, batch))
-    launches = LAUNCHES["flash_attention"]
+    launches, by_body = LAUNCHES["flash_attention"], dict(LAUNCHES)
     tokens = PREFILL_BATCH * PREFILL_SEQ
     say("lm main path:", json.dumps(dict(
         run="prefill", attn_impl="pallas", batch=PREFILL_BATCH,
         seq=PREFILL_SEQ, wall_s=wall, prefill_tokens_per_s=tokens / wall,
-        peak_memory_bytes=peak, flash_launches=launches)))
-    if launches != cfg.n_layers:
-        fail(f"prefill launched the flash kernel {launches} times, not "
-             f"{cfg.n_layers}")
+        peak_memory_bytes=peak, flash_launches=by_body)))
+    if launches != cfg.n_layers or \
+            by_body["flash_attention_tc"] != cfg.n_layers:
+        fail(f"prefill launched the flash kernel {by_body}, not "
+             f"{cfg.n_layers} times on the tensor-core body")
     if logits.shape != (PREFILL_BATCH, 1, cfg.vocab) or \
             not torch.isfinite(logits.float()).all():
         fail(f"prefill logits {tuple(logits.shape)} not finite or not of "
@@ -922,10 +982,13 @@ def main() -> int:
     say(f"kernel builds (one nvcc per source, in parallel): "
         f"{time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
-        regs = [ln.strip() for ln in lib.build_log.splitlines()
-                if "registers" in ln]
+        report = ptxas_report(lib.build_log)
         say(f"  {name}.cu: nvcc {lib.build_seconds:.2f} s, "
-            f"{'; '.join(regs)}")
+            f"{json.dumps(report)}")
+        spilled = {k: v for k, v in report.items()
+                   if k.startswith("flash_fwd_tc") and v["spill_bytes"]}
+        if spilled:
+            fail(f"tensor-core flash bodies spill registers: {spilled}")
 
     # graphs and the CPU half of the small-set check, in worker processes;
     # terminated on the way out whatever happens

@@ -4,9 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled by ``nvcc``
 for ``sm_90a`` into a shared library and loaded with :mod:`ctypes`; nothing
 includes PyTorch's headers, so a build takes seconds.  Libraries go to
 ``build/repro_torch_kernels/`` at the root of the checkout, named by the hash
-of their source and flags, so an edited source is rebuilt at its next use
-and an unchanged one is loaded as it is.  A missing ``nvcc`` or a failed
-build raises; nothing falls back.
+of their source, of every header under ``csrc/`` and of the flags, so an
+edited source or header is rebuilt at its next use and an unchanged one is
+loaded as it is.  A missing ``nvcc`` or a failed build raises; nothing
+falls back.
 
 Nothing here runs at import: the first kernel call builds.
 """
@@ -41,6 +42,18 @@ def _nvcc() -> str:
     return found
 
 
+def library_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is built: named by the hash
+    of the source, of every ``*.cuh`` and ``*.h`` under ``csrc/`` (any of
+    them may be included) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted([*CSRC.glob("*.cuh"), *CSRC.glob("*.h")]):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed.
 
@@ -52,9 +65,7 @@ def load_library(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    out = library_path(name)
     seconds, log = 0.0, "already built"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

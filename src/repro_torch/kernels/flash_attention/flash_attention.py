@@ -9,18 +9,30 @@ design is written out in the source.  The JAX wrapper's ``block_q``,
 ``block_k`` and ``interpret`` have no counterpart: the tile sizes are the
 source's own constants, and S need not divide them.
 
+The kernel has two bodies, and :func:`_route` picks one from the dtype and
+the head dim alone (:data:`ROUTES`): bfloat16 goes to the tensor-core body
+(``flash_fwd_tc``: TMA loads, ``wgmma`` for both products), float32 to the
+CUDA-core body (``flash_fwd_simt``), which keeps float32's 2e-5 tolerance
+that the tensor cores' TF32 cannot meet.  Every head dim of
+:data:`HEAD_DIMS` has both; no bfloat16 head dim is left on the CUDA-core
+body.  The tensor-core body reads q, k and v through TMA, which needs a
+16-byte-aligned base and (batch, sequence, head) strides that are
+multiples of 16 bytes (:func:`_tma_ready`); an input that has neither is
+first copied into a contiguous tensor, which the same kernel then reads.
+
 On CUDA tensors it launches the kernel (built at its first launch by
 :mod:`repro_torch.kernels._build`, never at import); on CPU tensors it
 returns the plain version (:mod:`.ref`).  Inputs of another dtype than
 float32 or bfloat16, of mixed devices or dtypes, or of mismatched shapes
-raise on either device; on the card a head dim outside
-:data:`HEAD_DIMS` raises too.  :data:`LAUNCHES` counts the kernel's
-launches.
+raise on either device; on the card a head dim outside :data:`HEAD_DIMS`
+raises too.  :data:`LAUNCHES` counts the kernel's launches: in all under
+``"flash_attention"``, and per body under ``"flash_attention_tc"`` and
+``"flash_attention_simt"``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -29,26 +41,67 @@ from repro_torch.kernels._build import load_library
 from .ref import flash_attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128, 256)        # the kernel's instantiations
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_GRID_MAX = 65535                          # CUDA grid y (heads), z (batch)
+# (dtype, head dim) -> the body that serves it
+ROUTES = {(dt, hd): body for dt, body in ((torch.bfloat16, "tc"),
+                                          (torch.float32, "simt"))
+          for hd in HEAD_DIMS}
+_GRID_MAX = 65535                          # CUDA grid y and z
+_TC_ROWS = 128                             # query rows per tensor-core CTA
 
-LAUNCHES: Dict[str, int] = {"flash_attention": 0}
-_FN = []
+LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0,
+                            "flash_attention_simt": 0}
+_FN: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
 
 
-def _launcher():
-    if not _FN:
-        fn = load_library("flash_attention").flash_attention_launch
+def _route(dtype: torch.dtype, hd: int) -> str:
+    """The body that serves ``dtype`` at head dim ``hd``: "tc" or "simt".
+    Raises for a pair that has none."""
+    body = ROUTES.get((dtype, hd))
+    if body is None:
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"flash_attention: {dtype}; float32 and "
+                             f"bfloat16 are supported")
+        raise ValueError(f"flash_attention: head dim {hd} has no kernel "
+                         f"instantiation; supported: {HEAD_DIMS}")
+    return body
+
+
+def _launcher(body: str):
+    fn = _FN.get(body)
+    if fn is None:
+        fn = getattr(load_library("flash_attention"),
+                     f"flash_attention_{body}_launch")
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
                        ctypes.POINTER(ctypes.c_longlong), p]
         fn.restype = ctypes.c_int
-        _FN.append(fn)
-    return _FN[0]
+        _FN[body] = fn
+    return fn
+
+
+def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """The (batch, sequence, head) element strides of ``t`` as a kernel
+    reads them: a dim of size 1 is never stepped along, so its stride,
+    which torch leaves arbitrary, is replaced by the packed one."""
+    out, packed = [], t.shape[3]
+    for i in (2, 1, 0):
+        out.append(t.stride(i) if t.shape[i] > 1 else packed)
+        packed = out[-1] * t.shape[i]
+    return out[2], out[1], out[0]
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """Whether TMA can read ``t`` in place: a dense head dim, a 16-byte
+    aligned base and (batch, sequence, head) strides of a multiple of 16
+    bytes."""
+    size = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
+            and all(s * size % 16 == 0 for s in _strides(t)))
 
 
 def _check(q, k, v, *, for_kernel: bool) -> None:
@@ -61,7 +114,7 @@ def _check(q, k, v, *, for_kernel: bool) -> None:
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be 4-D, got "
                              f"shape {tuple(t.shape)}")
-        if t.dtype not in _DTYPE_CODE:
+        if t.dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"flash_attention: {name} is {t.dtype}; "
                              f"float32 and bfloat16 are supported")
         if t.device != q.device:
@@ -84,12 +137,12 @@ def _check(q, k, v, *, for_kernel: bool) -> None:
         raise ValueError(f"flash_attention: empty input, q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
     if for_kernel:
-        if hd not in HEAD_DIMS:
-            raise ValueError(f"flash_attention: head dim {hd} has no kernel "
-                             f"instantiation; supported: {HEAD_DIMS}")
-        if H > _GRID_MAX or B > _GRID_MAX:
-            raise ValueError(f"flash_attention: H={H} and B={B} must be at "
-                             f"most {_GRID_MAX} (the launch grid)")
+        body = _route(q.dtype, hd)
+        tiles = -(-S // _TC_ROWS) if body == "tc" else 1
+        if max(H, B, tiles) > _GRID_MAX:
+            raise ValueError(f"flash_attention: H={H}, B={B} and S / "
+                             f"{_TC_ROWS} must be at most {_GRID_MAX} (the "
+                             f"launch grid)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -101,20 +154,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal=bool(causal))
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
-    # the kernel reads (b, s, h) through strides; the head dim must be dense
-    q, k, v = (t if t.stride(3) == 1 else t.contiguous() for t in (q, k, v))
     B, S, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
+    body = _route(q.dtype, hd)
+    if body == "tc":
+        q, k, v = (t if _tma_ready(t) else
+                   torch.empty(t.shape, dtype=t.dtype, device=dev).copy_(t)
+                   for t in (q, k, v))
+    else:   # the kernel reads (b, s, h) through strides; hd must be dense
+        q, k, v = (t if t.stride(3) == 1 else t.contiguous()
+                   for t in (q, k, v))
     out = torch.empty((B, S, H, hd), dtype=q.dtype, device=dev)
     strides = (ctypes.c_longlong * 12)(*(
-        t.stride(i) for t in (q, k, v, out) for i in range(3)))
+        s for t in (q, k, v, out) for s in _strides(t)))
     with torch.cuda.device(dev):        # the launcher uses the current device
-        err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), _DTYPE_CODE[q.dtype], B, S, Sk, H,
-                          KV, hd, int(bool(causal)), strides,
-                          torch.cuda.current_stream().cuda_stream)
+        err = _launcher(body)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), B, S, Sk, H, KV, hd,
+                              int(bool(causal)), strides,
+                              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"flash_attention: kernel launch failed with CUDA error {err}")
     LAUNCHES["flash_attention"] += 1
+    LAUNCHES[f"flash_attention_{body}"] += 1
     return out

@@ -16,6 +16,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.graphs import instance_sets, random_bipartite
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
 from repro_torch.kernels.frontier_expand import (
     LAUNCHES, frontier_expand, frontier_expand_fused,
     frontier_expand_fused_ref, frontier_expand_pull, frontier_expand_pull_ref,
@@ -244,6 +245,87 @@ def test_cuda_flash_attention_reads_strided_inputs():
     torch.cuda.synchronize()
     torch.testing.assert_close(got.cpu(), fa.flash_attention_ref(q, k, v),
                                rtol=2e-5, atol=2e-5)
+
+
+# (B, S, H, KV, Sk): S and Sk that divide no tile, Sk below and above S,
+# GQA, MQA with granite's G = 48
+_TC_CASES = [(2, 200, 6, 3, 130), (1, 257, 48, 1, 257), (1, 77, 4, 4, 300)]
+# chip_smoke.py's per-row gate: the worst query row's ||d|| / ||ref||
+_ROW_TOL = 5e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_cuda_tensor_core_body_equals_plain_version(hd):
+    """bfloat16 through the tensor-core body at every head dim, both masks,
+    within 2e-2 of the plain version on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    fa.reset_launches()
+    n = 0
+    for B, S, H, KV, Sk in _TC_CASES:
+        q, k, v = _qkv(B, S, H, KV, hd, torch.bfloat16, seed=S + Sk + hd,
+                       Sk=Sk)
+        for causal in (True, False):
+            got = fa.flash_attention(q.cuda(), k.cuda(), v.cuda(),
+                                     causal=causal)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_ref(q, k, v, causal=causal)
+            torch.testing.assert_close(got.cpu().float(), want.float(),
+                                       rtol=2e-2, atol=2e-2)
+            n += 1
+    assert fa.LAUNCHES["flash_attention_tc"] == n
+    assert fa.LAUNCHES["flash_attention_simt"] == 0
+
+
+def _worst_row(got, want):
+    d, w = got.float() - want.float(), want.float()
+    return float((d.norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max())
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_core_body_long_rows():
+    """1 x 4096 x 4 heads x 128, one K/V head, both masks: the worst query
+    row's ||d|| / ||ref|| stays within chip_smoke.py's per-row gate, which
+    the plain version with one key tile dropped for one 128-row query tile
+    exceeds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    q, k, v = (t.cuda() for t in _qkv(1, 4096, 4, 1, 128, torch.bfloat16,
+                                      seed=11))
+    for causal in (True, False):
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_ref(q, k, v, causal=causal)
+        keep = torch.ones(4096, 4096, dtype=torch.bool, device="cuda")
+        keep = keep.tril() if causal else keep
+        keep[2176:2304, 2048:2176] = False
+        s = torch.einsum("bshd,btd->bhst", q, k[:, :, 0]).float() * 128 ** -.5
+        p = torch.softmax(s.masked_fill(~keep, -1e30), -1).bfloat16()
+        control = torch.einsum("bhst,btd->bshd", p, v[:, :, 0])
+        assert _worst_row(got, want) <= _ROW_TOL < _worst_row(control, want)
+
+
+@pytest.mark.gpu
+def test_cuda_tensor_core_body_reads_views():
+    """bfloat16 views: the fused-QKV split and a transposed (B, H, S, hd)
+    tensor are read in place through TMA; a view whose base is 2 bytes off
+    a 16-byte boundary is first copied.  All equal the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(5)
+    qkv = torch.randn(2, 96, 10, 64, generator=gen).bfloat16().cuda()
+    bhsd = torch.randn(2, 6, 96, 64, generator=gen).bfloat16().cuda()
+    flat = torch.randn(2 * 96 * 6 * 64 + 1, generator=gen).bfloat16().cuda()
+    cases = [(qkv[:, :, :6], qkv[:, :, 6:8], qkv[:, :, 8:]),
+             (bhsd.transpose(1, 2), qkv[:, :, 6:8], qkv[:, :, 8:]),
+             (flat[1:].view(2, 96, 6, 64), qkv[:, :, 6:8], qkv[:, :, 8:])]
+    fa.reset_launches()
+    for q, k, v in cases:
+        got = fa.flash_attention(q, k, v)
+        want = fa.flash_attention_ref(*(t.cpu() for t in (q, k, v)))
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=2e-2, atol=2e-2)
+    assert fa.LAUNCHES["flash_attention_tc"] == len(cases)
 
 
 @pytest.mark.gpu
