@@ -27,14 +27,17 @@ What it does, in order; any failure raises and the exit code is not 0:
 3. holds each frontier kernel against its plain PyTorch version on the
    card, over the first BFS phase of the main-path graphs, level by level,
    bit for bit (tolerance 0: the outputs are integers): the fused sweep on
-   every graph and body, the proposal and the pull kernel on kron (WR) and
-   the random graph (plain), the pull kernel also against the fused one;
-   and times each kernel and plain version with CUDA events;
+   every graph and body (on kron also with the edge slots in a random
+   order and with ``ecol``/``cadj`` as views 1-3 slots into their
+   buffers), the proposal and the pull kernel on kron (WR) and the random
+   graph (plain), the pull kernel also against the fused one; and times
+   each kernel and plain version with CUDA events;
 4. solves ``instance_sets("small")`` (all nine families) through every
    solve path on the card and requires the CPU's ``cmatch``, ``rmatch``,
    ``phases``, ``fallbacks`` and ``certified``;
-5. profiles one more kron solve with ``torch.profiler`` (device time by
-   kernel, the device's busy share of the wall time);
+5. profiles one more solve of each main-path graph with ``torch.profiler``
+   (device time by kernel, the fused sweep's and torch's scatter kernels'
+   share, the device's busy share of the wall time);
 6. holds the flash-attention kernel against its plain version on the card
    (TF32 off): the shapes of ``tests/test_kernels.py`` in fp32 (the CUDA-core
    body, 2e-5) and bf16 (the tensor-core body, 2e-2) and granite-20b's
@@ -44,7 +47,8 @@ What it does, in order; any failure raises and the exit code is not 0:
    of which a control with one key tile dropped must exceed; times it
    (both masks, with its TFLOP/s), the plain version and
    ``scaled_dot_product_attention`` (the yardstick, never called by the
-   port) at granite's shape;
+   port) at granite's shape; and the fp32 body at granite's shape against
+   its plain version (2e-5), timed beside both in fp32;
 7. granite-20b at full width with two layers in fp32: the forward through
    the kernel against the torch-op attention (1e-3), and teacher-forced
    ``decode_step`` over 64 tokens against the forward (2e-3);
@@ -73,6 +77,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 
@@ -376,11 +381,37 @@ def main_path(graphs) -> list:
     return results
 
 
-def check_levels(graph, warm, wr: bool, wr_exact: bool, extra: bool) -> dict:
+def edge_variants(graph) -> dict:
+    """The fused kernel's other edge layouts, each the same edge set:
+    the slots in a seeded random order (ecol no longer sorted), and ecol /
+    cadj as views 1, 2 and 3 int32 slots into larger buffers (offsets of
+    4, 8 and 12 bytes, so the vector body has head and tail slots), also at
+    two offsets that differ (cadj then read slot by slot)."""
+    gen = torch.Generator(device=graph.ecol.device).manual_seed(15)
+    perm = torch.randperm(graph.ecol.numel(), generator=gen,
+                          device=graph.ecol.device)
+
+    def view(t, offset):
+        buf = torch.full((t.numel() + offset,), -99, dtype=torch.int32,
+                         device=t.device)
+        buf[offset:] = t
+        return buf[offset:]
+
+    out = {"permuted": (graph.ecol[perm], graph.cadj[perm])}
+    for oe, oc in ((1, 1), (2, 2), (3, 3), (1, 3)):
+        out[f"views at +{oe}/+{oc}"] = (view(graph.ecol, oe),
+                                        view(graph.cadj, oc))
+    return out
+
+
+def check_levels(graph, warm, wr: bool, wr_exact: bool, extra: bool,
+                 variants=None) -> dict:
     """The first BFS phase from ``warm``, level by level: the fused kernel
     against its plain version and, with ``extra``, the proposal kernel and
     the pull kernel against theirs (the pull also against the fused
-    kernel), all bit for bit.  Returns, per kernel, the states and the
+    kernel), all bit for bit; the fused kernel also on each of
+    ``variants`` (name -> (ecol, cadj), the same edges in another layout)
+    against the same winners.  Returns, per kernel, the states and the
     bound of each level."""
     from repro_torch.kernels.frontier_expand import (
         frontier_expand, frontier_expand_fused, frontier_expand_fused_ref,
@@ -409,6 +440,11 @@ def check_levels(graph, warm, wr: bool, wr_exact: bool, extra: bool) -> dict:
         win = frontier_expand_fused(*args)
         check("fused", win, frontier_expand_fused_ref(*args), args,
               push_bytes(*args))
+        for vname, (ve, vc) in (variants or {}).items():
+            if not torch.equal(frontier_expand_fused(ve, vc, *args[2:]),
+                               win):
+                fail(f"fused kernel ({body}) on the {vname} edges differs "
+                     f"from its plain version at level {level}")
         if extra:
             check("proposals", frontier_expand(*args),
                   frontier_expand_ref(*args), args, proposal_bytes(*args))
@@ -429,7 +465,8 @@ def check_levels(graph, warm, wr: bool, wr_exact: bool, extra: bool) -> dict:
 def kernel_checks(graphs) -> list:
     """Phase 3: each kernel against its plain version over the first BFS
     phase of the main-path graphs (the fused sweep on every graph and both
-    bodies, the proposal and pull kernels on kron WR and random plain),
+    bodies, on kron also with its edge slots permuted and as misaligned
+    views; the proposal and pull kernels on kron WR and random plain),
     timed with CUDA events."""
     from repro_torch.kernels.frontier_expand import (
         frontier_expand, frontier_expand_fused, frontier_expand_fused_ref,
@@ -449,10 +486,12 @@ def kernel_checks(graphs) -> list:
         if gi in (KRON, RANDOM):
             graph = graph.with_csc()
         warm = Matcher(MatcherConfig(**cfg_kw), ws).init(graph)
+        variants = edge_variants(graph) if gi == KRON else {}
         for wr in (True, False):
             extra = (gi, wr) in ((KRON, True), (RANDOM, False))
             per = check_levels(graph, warm, wr,
-                               wr and cfg_kw.get("wr_exact", False), extra)
+                               wr and cfg_kw.get("wr_exact", False), extra,
+                               variants)
             for kind, (states, bounds) in per.items():
                 if not states:
                     continue
@@ -464,24 +503,46 @@ def kernel_checks(graphs) -> list:
                            levels_checked=n, max_abs_err=0, kernel_ms=k_ms,
                            plain_ms=p_ms, bound_ms=sum(bounds) / n,
                            nnz_pad=graph.nnz_pad)
+                if kind == "fused":
+                    # each of the first 16 levels alone: [level, bound
+                    # ms, ms, rows won]
+                    row["per_level"] = [
+                        [a[5], b, cuda_ms(lambda: kernel(*a)),
+                         int((kernel(*a) < 2**30).sum())]
+                        for a, b in zip(states[:16], bounds)]
+                    # the sweep alone and the fill, in device time
+                    prof = device_profile(
+                        lambda: [kernel(*a) for a in states],
+                        {"sweep": "fused_sweep", "fill": "emset"})
+                    for part in ("sweep", "fill"):
+                        v = prof[f"{part}_ms"]
+                        row[f"device_ms_{part}"] = (
+                            v / n if isinstance(v, float) else v)
+                if kind == "fused" and variants:
+                    row["variants_checked"] = list(variants)
+                    ve, vc = variants["permuted"]
+                    row["kernel_ms_permuted"] = cuda_ms(
+                        lambda: [kernel(ve, vc, *a[2:]) for a in states]) / n
                 say("kernel vs plain:", json.dumps(row))
                 rows.append(row)
-        del graph, warm
+        del graph, warm, variants
         torch.cuda.empty_cache()
     return rows
 
 
-def device_profile(fn, share_of: dict) -> dict:
+def device_profile(fn, share_of: dict, split_ops=()) -> dict:
     """``fn()`` once under ``torch.profiler``: the wall time, the device's
     kernel time and busy share of the wall time (the profiler's own cost
     lands in the wall time, so the share is a floor), for each ``name:
-    text`` of ``share_of`` the share of device time of the kernels whose
-    name holds ``text``, and the top kernels."""
+    text`` of ``share_of`` the device time, launches and share of device
+    time of the kernels whose name holds ``text``, the top kernels, and
+    for each torch op named in ``split_ops`` its device time by input
+    shape."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=bool(split_ops)) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -502,11 +563,26 @@ def device_profile(fn, share_of: dict) -> dict:
                busy_share=device_s / wall if rows else "not measured")
     for name, text in share_of.items():
         part = sum(r[0] for r in rows if text in r[2]) / 1e6
+        out[f"{name}_ms"] = part * 1e3 if rows else "not measured"
+        out[f"{name}_launches"] = sum(r[1] for r in rows if text in r[2])
         out[f"{name}_share_of_device"] = (part / device_s if rows
                                           else "not measured")
     out["top"] = [dict(kernel=k[:80], ms=us / 1e3, count=n)
                   for us, n, k in rows[:8]]
+    if split_ops:
+        ops = [(getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0)), e.count, e.key,
+                str(e.input_shapes))
+               for e in prof.key_averages(group_by_input_shape=True)
+               if e.key in split_ops]
+        out["by_shape"] = [dict(op=k, shapes=sh[:100], ms=us / 1e3, count=n)
+                           for us, n, k, sh in sorted(ops, reverse=True)[:8]]
     return out
+
+
+# kernel-name fragments read in the profiles: the fused sweep K1, and torch's
+# scatter kernel (scatter_reduce and scatter_, the solver's min-scatters)
+PROFILE_SHARES = {"sweep": "fused_sweep", "scatter": "scatter_gather"}
 
 
 def profile_main_path(entry, g) -> dict:
@@ -517,7 +593,22 @@ def profile_main_path(entry, g) -> dict:
     matcher = Matcher(MatcherConfig(**entry[3]), entry[4])
     matcher.run(graph)                                  # warm the allocator
     out = dict(graph=label(entry), **device_profile(
-        lambda: matcher.run(graph), {"sweep": "fused_sweep"}))
+        lambda: matcher.run(graph), PROFILE_SHARES,
+        ("aten::scatter_reduce", "aten::scatter_", "aten::where",
+         "aten::arange")))
+    # every wait of the host for the card, counted by torch's sync debug
+    # mode, beside the solver's own count of the device values it reads
+    from repro_torch.matching.solve import COUNTERS
+    COUNTERS.reset()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            matcher.run(graph)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out["device_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
+    out["host_syncs"] = COUNTERS.host_syncs
     say("profile:", json.dumps(out))
     return out
 
@@ -548,6 +639,7 @@ def small_sets_bit_exact(cpu_results) -> None:
 # the LM serving path: granite-20b, prefill + decode, flash attention (K4)
 # ---------------------------------------------------------------------------
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+FP32_FLOPS_PER_S = 67e12           # H100 SXM fp32 on the CUDA cores
 CARD = "cuda"
 LM_ARCH = "granite-20b"
 LM_SEED = 0
@@ -759,6 +851,7 @@ def flash_checks() -> dict:
     say("flash attention at granite's layer shape:", json.dumps(row))
     del q, k, v, qt, kt, vt, lib
     torch.cuda.empty_cache()
+    fp32 = fp32_granite(gen)
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces=K4_REPLACES, launches=0, max_abs_err=worst,
@@ -768,7 +861,52 @@ def flash_checks() -> dict:
                           >= nbytes / HBM_BYTES_PER_S else "bytes"),
                 library_ms=times[True]["library_ms"],
                 body="flash_fwd_tc<128>", tflops=times[True]["tflops"],
-                timed_on=f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal")
+                timed_on=f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal",
+                fp32=fp32)
+
+
+def fp32_granite(gen) -> dict:
+    """K4's fp32 body (``flash_fwd_simt``, CUDA cores) at granite's layer
+    shape, both masks, TF32 off: against its plain version (2e-5), then
+    timed beside the plain version and ``scaled_dot_product_attention`` in
+    fp32.  Its bound: flops over the fp32 peak of the CUDA cores, or bytes
+    over HBM bandwidth, whichever is larger."""
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention)
+
+    B, S, H, KV, hd = FA_GRANITE
+    q, k, v = fa_inputs(FA_GRANITE, torch.float32, gen)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes = fa_bytes(B, S, H, KV, hd, 4)
+    out = dict(body="flash_fwd_simt<128>", shape=FA_GRANITE, dtype="float32",
+               tf32=torch.backends.cuda.matmul.allow_tf32)
+    for causal in (True, False):
+        what = f"flash vs plain, {FA_GRANITE} float32 causal={causal}"
+        before = LAUNCHES["flash_attention_simt"]
+        got = flash_attention(q, k, v, causal=causal)
+        if LAUNCHES["flash_attention_simt"] != before + 1:
+            fail(f"{what}: not launched on flash_attention_simt")
+        err = close(what, got, fa_plain(q, k, v, causal),
+                    FA_TOL[torch.float32])
+        del got
+        flops = fa_flops(B, S, H, hd, causal)
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal), reps=5)
+        out["causal" if causal else "full"] = dict(
+            ms=ms, tflops=flops / ms / 1e9, max_abs_err=err,
+            plain_ms=cuda_ms(lambda: fa_plain(q, k, v, causal), reps=2,
+                             warmup=1),
+            library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                            enable_gqa=True), reps=5),
+            bound_ms=max(flops / FP32_FLOPS_PER_S,
+                         nbytes / HBM_BYTES_PER_S) * 1e3,
+            bound_by=("operations" if flops / FP32_FLOPS_PER_S
+                      >= nbytes / HBM_BYTES_PER_S else "bytes"))
+        torch.cuda.empty_cache()
+    say("flash attention fp32 at granite's layer shape:", json.dumps(out))
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
 
 
 def fp32_checks() -> None:
@@ -1026,7 +1164,8 @@ def run_phases(pool, paths) -> list:
     small_sets_bit_exact(cpu_small)
     phase("small sets", t0)
     t0 = time.perf_counter()
-    profile_main_path(MAIN_PATH[KRON], graphs[KRON][0])
+    for entry, (g, _) in zip(MAIN_PATH, graphs):
+        profile_main_path(entry, g)
     phase("profile", t0)
 
     # one line for the kernels, each timed on the main-path graph of its

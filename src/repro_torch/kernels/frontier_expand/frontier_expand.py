@@ -5,9 +5,10 @@ Three sweeps of one BFS level, one kernel each in ``csrc/frontier_expand.cu``:
 * :func:`frontier_expand_fused` returns the ``(nr+1,)`` int32 per-row winner
   vector (lowest proposing column per row, IINF = unreached, slot ``nr``
   sealed to IINF).  Its kernel replaces the TPU kernels
-  ``_kernel_fused_wr`` / ``_kernel_fused_plain`` of the JAX package: one
-  thread per edge slot, an ``atomicMin`` merge into a winner vector filled
-  with IINF.
+  ``_kernel_fused_wr`` / ``_kernel_fused_plain`` of the JAX package: four
+  edge slots a thread through 16-byte loads (``ecol``/``cadj`` may be views
+  at any 4-byte offset and need not be sorted), an atomic-min merge, sent
+  only where it lowers the winner, into a vector filled with IINF.
 * :func:`frontier_expand` returns the ``(nnz_pad,)`` int32 per-edge
   proposals (the column, or IINF); the caller merges them.  Its kernel
   replaces ``_kernel_wr`` / ``_kernel_plain`` (the legacy path).

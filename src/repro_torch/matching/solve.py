@@ -35,11 +35,12 @@ level's flags, so it costs one sync per phase, not per level).
 ``ALTERNATE`` steps and the host syncs.
 
 Indexing rules.  Every gather is ``index_select`` and every scatter
-``scatter``/``scatter_reduce``/``index_fill``/``index_add_``, with int64
-indices and int32 values.  Unlike JAX, which clamps or drops an
-out-of-range index, these raise on the CPU (and fault on the card), so the
-clamps of the reference are all kept and the CPU tests show that no index
-leaves its range.
+``scatter``/``scatter_reduce``, with int64 indices and int32 values; a
+scatter whose entries do not all take part goes through
+:func:`scatter_kept`, which sends those entries to no shared slot.
+Unlike JAX, which clamps or drops an out-of-range index, these raise on
+the CPU (and fault on the card), so the clamps of the reference are all
+kept and the CPU tests show that no index leaves its range.
 
 State layout (all int32, one sentinel slot at the end of every array):
 ``bfs`` (nc+1,) BFS level per column (L0-1 == 1 unvisited, L0 == 2 roots,
@@ -108,17 +109,68 @@ def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, dtype=I32, device=like.device)
 
 
+# the identity of each int32 reduction: an entry that carries it changes no
+# slot
+_IDENTITY = {"amin": 2**31 - 1, "amax": -2**31, "sum": 0}
+
+
+def scatter_kept(out: torch.Tensor, index: torch.Tensor, values, keep,
+                 reduce: str | None = None) -> torch.Tensor:
+    """``out`` with ``values`` (a tensor like ``index``, or a scalar)
+    scattered into it at ``index`` for the entries where ``keep`` holds:
+    reduced by ``reduce`` ("amin", "amax" or "sum", ``include_self``), or
+    written when ``reduce`` is None.  ``out`` itself is not changed.
+
+    The entries that do not take part share no slot.  The reference sends
+    them all to one sentinel slot, which on the card is one address taking
+    every one of their writes or atomics, one after another.  Here, in a
+    reduction, entry ``i`` carries the reduction's identity to slot ``i mod
+    len(out)``, which it leaves as it was; in a plain write, to a slot of
+    its own past the end of a longer buffer, which is then dropped.  Either
+    way the kept entries give what the sentinel form gives, with no host
+    sync and no compaction.
+    """
+    n1, m = out.shape[0], index.shape[0]
+    spread = torch.arange(m, device=out.device)
+    index = index.long()
+    if reduce is None:
+        buf = torch.cat([out, out.new_empty(m)])
+        spread.add_(n1)
+        buf.scatter_(0, torch.where(keep, index, spread, out=spread), values)
+        return buf[:n1]
+    if not isinstance(values, torch.Tensor):
+        # a fill, not torch.tensor(values): a host-to-card copy waits for
+        # the stream
+        values = torch.full((m,), values, dtype=out.dtype, device=out.device)
+    if m > n1:
+        spread.remainder_(n1)
+    return out.scatter_reduce(
+        0, torch.where(keep, index, spread, out=spread),
+        torch.where(keep, values, _IDENTITY[reduce]), reduce,
+        include_self=True)
+
+
 def scatter_min(n: int, index: torch.Tensor, values: torch.Tensor
                 ) -> torch.Tensor:
     """Deterministic "first writer wins": per-slot min over proposals.
 
-    ``index`` may use slot ``n`` as the discard sentinel; the sentinel slot
-    is reset to the identity so it never reads back as a winner.
+    ``index`` may use slot ``n`` as the discard sentinel and ``values`` IINF
+    for "no proposal"; neither kind of entry touches a slot
+    (:func:`scatter_kept`), so the sentinel slot stays the identity and
+    never reads back as a winner.
     """
     out = torch.full((n + 1,), IINF, dtype=I32, device=values.device)
-    out.scatter_reduce_(0, index.long(), values, "amin", include_self=True)
-    out[n] = IINF
-    return out
+    return scatter_kept(out, index, values, (index < n) & (values < IINF),
+                        "amin")
+
+
+def _seal(t: torch.Tensor, value) -> torch.Tensor:
+    """Set the trailing sentinel slot of ``t`` to ``value``, in place.  A
+    ``fill_`` that takes the number as its argument: item assignment
+    (``t[n] = value``) copies the number from the host and so waits for the
+    card."""
+    t[-1:].fill_(value)
+    return t
 
 
 def level0_state(cmatch: torch.Tensor):
@@ -127,8 +179,8 @@ def level0_state(cmatch: torch.Tensor):
     ``root`` (own index if root, else ``nc``)."""
     nc = cmatch.shape[0] - 1
     matched = cmatch >= 0
-    bfs = torch.full_like(cmatch, L0).masked_fill_(matched, UNVISITED)
-    bfs[nc] = NEG
+    bfs = _seal(torch.full_like(cmatch, L0).masked_fill_(matched, UNVISITED),
+                NEG)
     root = torch.where(matched, nc, _arange(nc + 1, cmatch))
     return bfs, root
 
@@ -159,7 +211,7 @@ def _winner_full(ecol, cadj, bfs, root, rmatch, level: int, *,
     if use_pallas and not pallas_fused:
         nr = rmatch.shape[0] - 1
         prop = frontier_expand(ecol, cadj, bfs, root, rmatch, level)
-        return scatter_min(nr, torch.where(prop < IINF, cadj, nr), prop)
+        return scatter_min(nr, cadj, prop)
     return frontier_expand_fused(ecol, cadj, bfs, root, rmatch, level)
 
 
@@ -167,13 +219,11 @@ def _nonzero_fixed(mask: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
     """``jnp.nonzero(mask, size=cap, fill_value=fill)[0]`` with no host
     sync: the ascending indices of ``mask``, padded with ``fill`` to
     ``cap`` (Trues past the first ``cap`` are dropped, as there).  Each
-    True lands at its rank (a cumsum); the rest go to a discard slot."""
+    True lands at its rank (a cumsum); the rest touch no slot."""
     n = mask.shape[0]
     rank = torch.cumsum(mask, 0, dtype=torch.int64) - 1
-    slot = torch.where(mask, rank.clamp(max=cap), cap)
-    out = torch.full((cap + 1,), fill, dtype=I32, device=mask.device)
-    out.scatter_(0, slot, _arange(n, mask))
-    return out[:cap]
+    out = torch.full((cap,), fill, dtype=I32, device=mask.device)
+    return scatter_kept(out, rank, _arange(n, mask), mask & (rank < cap))
 
 
 def _unreached_rows(bfs, rmatch) -> torch.Tensor:
@@ -281,10 +331,11 @@ def _apply_winner(winner, bfs, root, pred, rmatch, level: int, *, wr: bool,
 
     Returns ``(bfs, root, pred, rmatch, vertex_inserted, aug_found)``, the
     last two as 0-d device bools.  The reference's ``.at[i].set`` becomes
-    ``index_fill``/``scatter``, whose order on duplicate indices is
-    unspecified; it cannot matter here: the visited rows' matched columns
-    are distinct (``rmatch`` is a valid matching during a phase), and every
-    other row writes the sentinel slot ``nc`` with one common value.
+    :func:`scatter_kept`, whose order on duplicate indices is unspecified;
+    it cannot matter here: the visited rows' matched columns are distinct
+    (``rmatch`` is a valid matching during a phase), and the other rows
+    touch no slot.  The reference's other rows write the sentinel slots,
+    ``root[nc]`` with 0, which is sealed here to the same value.
     """
     nc = bfs.shape[0] - 1
     nr = pred.shape[0] - 1
@@ -295,11 +346,10 @@ def _apply_winner(winner, bfs, root, pred, rmatch, level: int, *, wr: bool,
     visit_r = upd_r & (cm_r >= 0)                         # Alg.2 l.8-12
     end_r = upd_r & (cm_r == -1)                          # Alg.2 l.14-17
 
-    vidx = torch.where(visit_r, cm_r, nc).long()
-    bfs = bfs.index_fill(0, vidx, level + 1)
+    bfs = scatter_kept(bfs, cm_r, level + 1, visit_r)
     if wr:
         rootvals = root.index_select(0, winner.clamp(0, nc).long())
-        root = root.scatter(0, vidx, torch.where(visit_r, rootvals, 0))
+        root = _seal(scatter_kept(root, cm_r, rootvals, visit_r), 0)
         # mark the root "satisfied": plain WR writes L0-2, the exact variant
         # encodes the endpoint row as -(r+1) so ALTERNATE can start only the
         # winning endpoint of each tree (paper Sec. 3, last paragraph).
@@ -308,11 +358,9 @@ def _apply_winner(winner, bfs, root, pred, rmatch, level: int, *, wr: bool,
         else:
             enc = torch.full((nr + 1,), FOUND, dtype=I32,
                              device=winner.device)
-        bfs = bfs.scatter_reduce(0, torch.where(end_r, rootvals, nc).long(),
-                                 torch.where(end_r, enc, IINF), "amin",
-                                 include_self=True)
+        bfs = scatter_kept(bfs, rootvals, enc, end_r, "amin")
     rmatch = torch.where(end_r, -2, rmatch)
-    bfs[nc] = NEG                                         # restore sentinel
+    _seal(bfs, NEG)                                       # restore sentinel
 
     return bfs, root, pred, rmatch, visit_r.any(), end_r.any()
 
@@ -604,11 +652,9 @@ def make_solver(cfg: MatcherConfig):
             if cfg.wr_exact:
                 # only the winning endpoint of each satisfied tree starts a walker
                 enc = bfs[:-1]                                   # (nc,)
-                endpoint = torch.where(enc <= -1, -(enc + 1), nr)
-                wins = torch.zeros(nr + 1, dtype=torch.bool,
-                                   device=bfs.device)
-                wins = wins.index_fill(0, endpoint.long(), True)
-                wins[nr] = False
+                wins = _seal(scatter_kept(
+                    torch.zeros(nr + 1, dtype=torch.bool, device=bfs.device),
+                    -(enc + 1), True, enc <= -1), False)
                 mask = mask & wins
             return mask
 

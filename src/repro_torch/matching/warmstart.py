@@ -17,7 +17,8 @@ from typing import Callable, Tuple
 
 import torch
 
-from .solve import I32, IINF, _arange, _fix_matching, _sync, scatter_min
+from .solve import (I32, IINF, _arange, _fix_matching, _seal, _sync,
+                    scatter_kept, scatter_min)
 
 InitFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
                   Tuple[torch.Tensor, torch.Tensor]]
@@ -37,8 +38,8 @@ def cheap_init(ecol, cadj, cmatch, rmatch):
     each proposed row accepts its lowest proposing column; accepted pairs
     commit.  Rounds repeat until no proposal survives -> a maximal greedy
     matching.  The commit scatter writes distinct columns (a column proposes
-    to one row, so it wins at most one), plus the sentinel slot ``nc`` with
-    one common value, so its order on duplicates cannot matter.
+    to one row, so it wins at most one), so its order on duplicates cannot
+    matter.
     """
     nc = cmatch.shape[0] - 1
     nr = rmatch.shape[0] - 1
@@ -55,9 +56,7 @@ def cheap_init(ecol, cadj, cmatch, rmatch):
                              torch.where(propose, cols, IINF))
         won = best_c < IINF                                  # per-row accept
         rmatch = torch.where(won, best_c, rmatch)
-        cmatch = cmatch.scatter(0, torch.where(won, best_c, nc).long(),
-                                torch.where(won, rows, cmatch[nc]))
-        cmatch[nc] = -3
+        cmatch = _seal(scatter_kept(cmatch, best_c, rows, won), -3)
         if not _sync(won.any())[0]:
             return cmatch, rmatch
 
@@ -75,14 +74,13 @@ def karp_sipser_init(ecol, cadj, cmatch, rmatch):
     ecol_l, cadj_l = ecol.long(), cadj.long()       # once per graph
     cols = _arange(nc + 1, cmatch)
     rows = _arange(nr + 1, rmatch)
-    ones = torch.ones(ecol.shape[0], dtype=I32, device=ecol.device)
     while True:
         alive = ((cmatch.index_select(0, ecol_l) == -1)
                  & (rmatch.index_select(0, cadj_l) == -1))
-        cdeg = torch.zeros(nc + 1, dtype=I32, device=ecol.device).index_add_(
-            0, torch.where(alive, ecol, nc).long(), ones)
-        rdeg = torch.zeros(nr + 1, dtype=I32, device=ecol.device).index_add_(
-            0, torch.where(alive, cadj, nr).long(), ones)
+        cdeg = scatter_kept(torch.zeros(nc + 1, dtype=I32, device=ecol.device),
+                            ecol_l, 1, alive, "sum")
+        rdeg = scatter_kept(torch.zeros(nr + 1, dtype=I32, device=ecol.device),
+                            cadj_l, 1, alive, "sum")
         # forced edges: endpoint with residual degree 1
         forced = alive & ((cdeg.index_select(0, ecol_l) == 1)
                           | (rdeg.index_select(0, cadj_l) == 1))
@@ -98,11 +96,9 @@ def karp_sipser_init(ecol, cadj, cmatch, rmatch):
         rmatch = torch.where(won_r & (rmatch == -1), prop_c, rmatch)
         # commit winning columns (repair: only pairs where row accepted col)
         won_pair = won_r & (rmatch == prop_c)
-        cmatch = cmatch.scatter_reduce(
-            0, torch.where(won_pair, prop_c.clamp(0, nc), nc).long(),
-            torch.where(won_pair, rows, -1), "amax", include_self=True)
-        cmatch[nc] = -3
-        rmatch[nr] = -3
+        cmatch = _seal(scatter_kept(cmatch, prop_c.clamp(0, nc), rows,
+                                    won_pair, "amax"), -3)
+        _seal(rmatch, -3)
         if not _sync(forced.any())[0]:
             break
     cmatch, rmatch = cheap_init(ecol, cadj, cmatch, rmatch)

@@ -78,6 +78,169 @@ def test_cuda_kernel_skips_out_of_range_slots_as_cpu_does():
         assert int((want < 2**30).sum()) > 100
 
 
+def _view(t, offset):
+    """``t`` on the card as a view ``offset`` int32 slots into a larger
+    buffer, so its base is 4 * offset bytes past an allocation's."""
+    buf = torch.full((t.numel() + offset,), -99, dtype=torch.int32,
+                     device="cuda")
+    buf[offset:] = t.cuda()
+    return buf[offset:]
+
+
+def _phase_states(ecol, cadj, cmatch, rmatch, wr):
+    """The (bfs, root, rmatch, level) of each level of a first BFS phase
+    from a matching, walked on the CPU with the plain version."""
+    nc, nr = cmatch.shape[0] - 1, rmatch.shape[0] - 1
+    bfs, root = level0_state(cmatch)
+    pred = torch.full((nr + 1,), nc, dtype=torch.int32)
+    level, out = 2, []
+    while True:
+        out.append((bfs, root if wr else None, rmatch, level))
+        win = frontier_expand_fused_ref(ecol, cadj, bfs, out[-1][1], rmatch,
+                                        level)
+        bfs, root, pred, rmatch, ins, _ = _apply_winner(
+            win, bfs, root, pred, rmatch, level, wr=wr, wr_exact=False)
+        level += 1
+        if not bool(ins):
+            return out
+
+
+def _fused_on_card(ecol, cadj, state, offsets=(0, 0)):
+    bfs, root, rmatch, level = state
+    return frontier_expand_fused(
+        _view(ecol, offsets[0]), _view(cadj, offsets[1]), bfs.cuda(),
+        None if root is None else root.cuda(), rmatch.cuda(), level).cpu()
+
+
+# ecol / cadj offsets in int32 slots: both at one offset, and at two that
+# differ modulo 16 bytes (cadj then read slot by slot)
+_OFFSETS = [(0, 0), (1, 1), (2, 2), (3, 3), (1, 3), (0, 2), (3, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wr", [True, False], ids=["wr", "plain"])
+def test_cuda_fused_sweep_reads_views_at_every_offset(wr):
+    """ecol and cadj as views 1, 2 and 3 slots into their buffers (the
+    vector body's head and tail slots), at every level of a first BFS
+    phase: the plain version's winners bit for bit, each view launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = random_bipartite(20000, 18000, 4.0, seed=12, pad_to=80003)
+    cpu = TorchCSR.from_host(g, device="cpu")
+    warm = Matcher(warm_start="cheap").init(cpu)
+    states = _phase_states(cpu.ecol, cpu.cadj, warm.cmatch, warm.rmatch, wr)
+    assert len(states) >= 3
+    reset_launches()
+    for st in states:
+        want = frontier_expand_fused_ref(cpu.ecol, cpu.cadj, *st)
+        for off in _OFFSETS:
+            assert torch.equal(_fused_on_card(cpu.ecol, cpu.cadj, st, off),
+                               want), (off, st[3])
+    body = "wr" if wr else "plain"
+    assert LAUNCHES[f"frontier_expand_fused_{body}"] == \
+        len(states) * len(_OFFSETS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nnz", [0, 1, 3, 127, 129])
+def test_cuda_fused_sweep_short_edge_lists(nnz):
+    """Edge counts that leave 0-3 slots past the last whole vector, at
+    every offset, both bodies, half the columns on the frontier."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(nnz)
+    nc, nr = 40, 30
+    ecol = torch.randint(0, nc + 1, (nnz,), generator=gen, dtype=torch.int32)
+    cadj = torch.randint(0, nr + 1, (nnz,), generator=gen, dtype=torch.int32)
+    bfs = torch.tensor([1, 2], dtype=torch.int32)[
+        torch.randint(0, 2, (nc + 1,), generator=gen)]
+    bfs[nc] = -2**30
+    root = torch.randint(0, nc + 1, (nc + 1,), generator=gen,
+                         dtype=torch.int32)
+    rmatch = torch.randint(-1, nc, (nr + 1,), generator=gen,
+                           dtype=torch.int32)
+    for rt in (root, None):
+        st = (bfs, rt, rmatch, 2)
+        want = frontier_expand_fused_ref(ecol, cadj, *st)
+        if nnz >= 127:
+            assert int((want < 2**30).sum()) > 0
+        for off in _OFFSETS:
+            assert torch.equal(_fused_on_card(ecol, cadj, st, off), want), \
+                (off, rt is None)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_sweep_unsorted_edges():
+    """A random permutation of a graph's edge slots (ecol no longer
+    sorted): the winners of every level of a first BFS phase, both bodies,
+    equal the plain version's on the permuted and on the sorted slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = random_bipartite(20000, 18000, 4.0, seed=13, pad_to=80001)
+    cpu = TorchCSR.from_host(g, device="cpu")
+    warm = Matcher(warm_start="cheap").init(cpu)
+    perm = torch.randperm(cpu.ecol.shape[0],
+                          generator=torch.Generator().manual_seed(13))
+    ecol, cadj = cpu.ecol[perm], cpu.cadj[perm]
+    for wr in (True, False):
+        for st in _phase_states(cpu.ecol, cpu.cadj, warm.cmatch,
+                                warm.rmatch, wr):
+            want = frontier_expand_fused_ref(cpu.ecol, cpu.cadj, *st)
+            assert torch.equal(frontier_expand_fused_ref(ecol, cadj, *st),
+                               want)
+            for off in ((0, 0), (1, 2)):
+                assert torch.equal(_fused_on_card(ecol, cadj, st, off),
+                                   want), (wr, st[3], off)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_sweep_hot_row():
+    """One free row that 6000 frontier columns propose to (and a few other
+    rows that many do), in shuffled slot order: the lowest proposing column
+    wins, as in the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    gen = torch.Generator().manual_seed(21)
+    nc, nr = 8000, 50
+    cols = torch.arange(nc, dtype=torch.int32)
+    ecol = torch.cat([cols, cols[:3000], cols])
+    cadj = torch.cat([torch.zeros(nc, dtype=torch.int32),
+                      torch.full((3000,), 7, dtype=torch.int32),
+                      torch.randint(1, nr, (nc,), generator=gen,
+                                    dtype=torch.int32)])
+    perm = torch.randperm(ecol.shape[0], generator=gen)
+    ecol, cadj = ecol[perm], cadj[perm]
+    bfs = torch.full((nc + 1,), 1, dtype=torch.int32)
+    bfs[2000:] = 2                       # columns 2000.. are on the frontier
+    bfs[nc] = -2**30
+    rmatch = torch.full((nr + 1,), -1, dtype=torch.int32)
+    rmatch[nr] = -3
+    for root in (torch.arange(nc + 1, dtype=torch.int32), None):
+        st = (bfs, root, rmatch, 2)
+        want = frontier_expand_fused_ref(ecol, cadj, *st)
+        assert int(want[0]) == 2000 and int(want[7]) == 2000
+        for off in ((0, 0), (3, 1)):
+            assert torch.equal(_fused_on_card(ecol, cadj, st, off), want)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_sweep_skips_out_of_range_slots_in_views():
+    """The malformed inputs (out-of-range rows, columns and roots) through
+    views at every offset: no read or write out of bounds, the CPU's
+    winners."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    ecol, cadj, bfs, root, rmatch = _malformed(5)
+    for rt in (root, None):
+        st = (bfs, rt, rmatch, 2)
+        want = frontier_expand_fused_ref(ecol, cadj, *st)
+        assert int((want < 2**30).sum()) > 100
+        for off in _OFFSETS:
+            assert torch.equal(_fused_on_card(ecol, cadj, st, off), want), \
+                off
+    torch.cuda.synchronize()
+
+
 @pytest.mark.gpu
 def test_cuda_run_equals_cpu_run():
     """The whole solve on the card equals the solve on the CPU."""
