@@ -29,9 +29,13 @@ What it does, in order; any failure raises and the exit code is not 0:
    bit for bit (tolerance 0: the outputs are integers): the fused sweep on
    every graph and body (on kron also with the edge slots in a random
    order and with ``ecol``/``cadj`` as views 1-3 slots into their
-   buffers), the proposal and the pull kernel on kron (WR) and the random
-   graph (plain), the pull kernel also against the fused one; and times
-   each kernel and plain version with CUDA events;
+   buffers), the proposal kernel, the pull kernel and the pull's column
+   pass (``frontier_bits``) on kron (WR) and the random graph (plain), the
+   pull kernel also against the fused one; times each kernel and plain
+   version with CUDA events, each level alone too, prints the pull's and
+   the fused sweep's times level by level side by side, and splits each
+   kernel's device time (the pull's into column pass, sweep and fill)
+   with ``torch.profiler``;
 4. solves ``instance_sets("small")`` (all nine families) through every
    solve path on the card and requires the CPU's ``cmatch``, ``rmatch``,
    ``phases``, ``fallbacks`` and ``certified``;
@@ -98,22 +102,23 @@ _APSB_EXACT = dict(algo="apsb", wr_exact=True)
 # path's overrides, warm start, what the run must show: a launch counter or
 # a solver counter that must be > 0, and counters that must stay 0)
 PATH_RUNS = [
-    (KRON, "legacy", dict(), "cheap", "frontier_expand_wr",
+    (KRON, "legacy", dict(), "cheap", ("frontier_expand_wr",),
      ("frontier_expand_fused_wr", "frontier_expand_fused_plain")),
     (RANDOM, "legacy", dict(kernel="gpubfs"), "karp_sipser",
-     "frontier_expand_plain", ()),
-    (KRON, "dirop_pallas", dict(), "cheap", "frontier_expand_pull_wr", ()),
+     ("frontier_expand_plain",), ()),
+    (KRON, "dirop_pallas", dict(), "cheap",
+     ("frontier_expand_pull_wr", "frontier_bits_wr"), ()),
     # forced pull: every level streams the mirror
     (RANDOM, "dirop_pallas", dict(kernel="gpubfs", dirop_alpha=1e6,
                                   dirop_beta=1e6), "karp_sipser",
-     "frontier_expand_pull_plain", ()),
+     ("frontier_expand_pull_plain", "frontier_bits_plain"), ()),
     # the auto pull geometry (1024 rows of degree <= 8) admits the compact
     # pull on no level of this grid (the first run shows it); a quarter of
     # the rows does, still a gather of fewer slots than the dense sweep's
-    (GRID, "dirop", _APSB_EXACT, "cheap", "push_levels", ()),
+    (GRID, "dirop", _APSB_EXACT, "cheap", ("push_levels",), ()),
     (GRID, "dirop", dict(_APSB_EXACT, pull_cap=1 << 18), "cheap",
-     "pull_levels", ()),
-    (GRID, "adaptive", _APSB_EXACT, "cheap", "compact_levels", ()),
+     ("pull_levels",), ()),
+    (GRID, "adaptive", _APSB_EXACT, "cheap", ("compact_levels",), ()),
 ]
 _SRC = "src/repro/kernels/frontier_expand/frontier_expand.py"
 KERNELS = {          # kernel body -> the TPU kernel it replaces
@@ -123,6 +128,10 @@ KERNELS = {          # kernel body -> the TPU kernel it replaces
     "frontier_expand_plain": f"{_SRC}:154",
     "frontier_expand_pull_wr": f"{_SRC}:233",
     "frontier_expand_pull_plain": f"{_SRC}:241",
+    # the pull's column pass: the column half of _proposals (:125) that
+    # _kernel_pull_wr / _kernel_pull evaluate per edge
+    "frontier_bits_wr": f"{_SRC}:233",
+    "frontier_bits_plain": f"{_SRC}:241",
 }
 
 
@@ -137,7 +146,8 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             k = re.search(r"\d+((?:flash_fwd|fused_sweep|proposals|"
-                          r"pull_sweep|fill_iinf)\w*?)(?:IL[a-z](\d+)E|E)",
+                          r"pull_sweep|frontier_bits)\w*?)"
+                          r"(?:IL[a-z](\d+)E|E)",
                           m.group(1))
             name = m.group(1) if k is None else k.group(1) + (
                 f"<{k.group(2)}>" if k.group(2) else "")
@@ -293,6 +303,18 @@ def pull_bytes(radj, erow, bfs, root, rmatch, level: int) -> int:
             + 4 * cols * (2 if root is not None else 1) + 4 * (nr + 1))
 
 
+def bits_bytes(bfs, root, level: int) -> int:
+    """Bytes the pull's column pass must move: bfs whole, the
+    ceil((nc+1)/32) words written; WR also root for each column on the
+    frontier and bfs once per distinct root of those."""
+    nc = bfs.numel() - 1
+    nbytes = 4 * (nc + 1) + 4 * ((nc + 32) // 32)
+    if root is not None:
+        on = bfs == level
+        nbytes += 4 * int(on.sum()) + 4 * distinct(root[on], nc)
+    return nbytes
+
+
 def bound_ms(nbytes: int) -> float:
     """Least time on this card to move ``nbytes`` over HBM bandwidth."""
     return nbytes / HBM_BYTES_PER_S * 1e3
@@ -351,7 +373,7 @@ def main_path(graphs) -> list:
         body = "wr" if entry[3].get("kernel", "gpubfs_wr") == "gpubfs_wr" \
             else "plain"
         runs.append((i, "jnp", entry[3], entry[4],
-                     f"frontier_expand_fused_{body}", ()))
+                     (f"frontier_expand_fused_{body}",), ()))
     runs += PATH_RUNS
     results = []
     for gi, path, cfg_kw, ws, must, zero in runs:
@@ -371,9 +393,10 @@ def main_path(graphs) -> list:
             fail(f"{what}: cardinality {card} != scipy's {want}")
         if not row["certified"]:
             fail(f"{what}: result not certified maximum")
-        seen = row["launches"].get(must, row.get(must))
-        if not seen:
-            fail(f"{what}: {must} is {seen}, the run did not take its path")
+        for m in must:
+            seen = row["launches"].get(m, row.get(m))
+            if not seen:
+                fail(f"{what}: {m} is {seen}, the run did not take its path")
         for k in zero:
             if row["launches"][k]:
                 fail(f"{what}: {k} launched {row['launches'][k]} times")
@@ -407,14 +430,15 @@ def edge_variants(graph) -> dict:
 def check_levels(graph, warm, wr: bool, wr_exact: bool, extra: bool,
                  variants=None) -> dict:
     """The first BFS phase from ``warm``, level by level: the fused kernel
-    against its plain version and, with ``extra``, the proposal kernel and
-    the pull kernel against theirs (the pull also against the fused
-    kernel), all bit for bit; the fused kernel also on each of
-    ``variants`` (name -> (ecol, cadj), the same edges in another layout)
-    against the same winners.  Returns, per kernel, the states and the
-    bound of each level."""
+    against its plain version and, with ``extra``, the proposal kernel,
+    the pull kernel and the pull's column pass against theirs (the pull
+    also against the fused kernel), all bit for bit; the fused kernel also
+    on each of ``variants`` (name -> (ecol, cadj), the same edges in
+    another layout) against the same winners.  Returns, per kernel, one
+    dict a level: its arguments, bound, level and rows won."""
     from repro_torch.kernels.frontier_expand import (
-        frontier_expand, frontier_expand_fused, frontier_expand_fused_ref,
+        frontier_bits, frontier_bits_ref, frontier_expand,
+        frontier_expand_fused, frontier_expand_fused_ref,
         frontier_expand_pull, frontier_expand_pull_ref, frontier_expand_ref)
     from repro_torch.matching.solve import _apply_winner, level0_state
 
@@ -423,7 +447,7 @@ def check_levels(graph, warm, wr: bool, wr_exact: bool, extra: bool,
     pred = torch.full((nr + 1,), nc, dtype=torch.int32,
                       device=warm.cmatch.device)
     rmatch, level = warm.rmatch, 2
-    out = {k: ([], []) for k in ("fused", "proposals", "pull")}
+    out = {k: [] for k in ("fused", "proposals", "pull", "bits")}
     body = "WR" if wr else "plain"
 
     def check(name, got, want, args, nbytes):
@@ -431,13 +455,14 @@ def check_levels(graph, warm, wr: bool, wr_exact: bool, extra: bool,
         if not torch.equal(got, want):
             fail(f"{name} ({body}) differs from its plain version at "
                  f"level {level}")
-        out[name][0].append(args)
-        out[name][1].append(bound_ms(nbytes))
+        out[name].append(dict(args=args, bound=bound_ms(nbytes),
+                              level=level, won=won))
 
     while True:
         rt = root if wr else None
         args = (graph.ecol, graph.cadj, bfs, rt, rmatch, level)
         win = frontier_expand_fused(*args)
+        won = int((win < 2**30).sum())
         check("fused", win, frontier_expand_fused_ref(*args), args,
               push_bytes(*args))
         for vname, (ve, vc) in (variants or {}).items():
@@ -455,6 +480,9 @@ def check_levels(graph, warm, wr: bool, wr_exact: bool, extra: bool,
             if not torch.equal(pull, win):
                 fail(f"pull kernel ({body}) differs from the fused kernel "
                      f"at level {level}")
+            bargs = (bfs, rt, level)
+            check("bits", frontier_bits(*bargs), frontier_bits_ref(*bargs),
+                  bargs, bits_bytes(*bargs))
         bfs, root, pred, rmatch, ins, _ = _apply_winner(
             win, bfs, root, pred, rmatch, level, wr=wr, wr_exact=wr_exact)
         level += 1
@@ -462,14 +490,26 @@ def check_levels(graph, warm, wr: bool, wr_exact: bool, extra: bool,
             return out
 
 
+# kernel -> the parts of its device time in the profiler: part -> a
+# fragment of the device kernels' names
+SPLITS = {"fused": {"sweep": "fused_sweep", "fill": "emset"},
+          "proposals": {"sweep": "proposals"},
+          "pull": {"bits": "frontier_bits", "sweep": "pull_sweep",
+                   "fill": "emset"},
+          "bits": {"bits": "frontier_bits"}}
+
+
 def kernel_checks(graphs) -> list:
     """Phase 3: each kernel against its plain version over the first BFS
     phase of the main-path graphs (the fused sweep on every graph and both
     bodies, on kron also with its edge slots permuted and as misaligned
-    views; the proposal and pull kernels on kron WR and random plain),
-    timed with CUDA events."""
+    views; the proposal kernel, the pull kernel and its column pass on
+    kron WR and random plain), timed with CUDA events over the phase and
+    each of its first 16 levels alone, and in profiler device time by
+    part; the pull beside the fused sweep level by level."""
     from repro_torch.kernels.frontier_expand import (
-        frontier_expand, frontier_expand_fused, frontier_expand_fused_ref,
+        frontier_bits, frontier_bits_ref, frontier_expand,
+        frontier_expand_fused, frontier_expand_fused_ref,
         frontier_expand_pull, frontier_expand_pull_ref, frontier_expand_ref)
     from repro_torch.matching import Matcher, MatcherConfig, TorchCSR
 
@@ -478,7 +518,8 @@ def kernel_checks(graphs) -> list:
            "proposals": ("frontier_expand", frontier_expand,
                          frontier_expand_ref),
            "pull": ("frontier_expand_pull", frontier_expand_pull,
-                    frontier_expand_pull_ref)}
+                    frontier_expand_pull_ref),
+           "bits": ("frontier_bits", frontier_bits, frontier_bits_ref)}
     rows = []
     for gi, (entry, (g, _)) in enumerate(zip(MAIN_PATH, graphs)):
         expr, cfg_kw, ws = label(entry), entry[3], entry[4]
@@ -492,32 +533,33 @@ def kernel_checks(graphs) -> list:
             per = check_levels(graph, warm, wr,
                                wr and cfg_kw.get("wr_exact", False), extra,
                                variants)
-            for kind, (states, bounds) in per.items():
-                if not states:
+            mine = {}
+            for kind, levels in per.items():
+                if not levels:
                     continue
                 name, kernel, plain = fns[kind]
+                states = [lv["args"] for lv in levels]
                 n = len(states)
                 k_ms = cuda_ms(lambda: [kernel(*a) for a in states]) / n
                 p_ms = cuda_ms(lambda: [plain(*a) for a in states]) / n
                 row = dict(graph=expr, kernel=f"{name}_{'wr' if wr else 'plain'}",
                            levels_checked=n, max_abs_err=0, kernel_ms=k_ms,
-                           plain_ms=p_ms, bound_ms=sum(bounds) / n,
+                           plain_ms=p_ms,
+                           bound_ms=sum(lv["bound"] for lv in levels) / n,
                            nnz_pad=graph.nnz_pad)
-                if kind == "fused":
-                    # each of the first 16 levels alone: [level, bound
-                    # ms, ms, rows won]
-                    row["per_level"] = [
-                        [a[5], b, cuda_ms(lambda: kernel(*a)),
-                         int((kernel(*a) < 2**30).sum())]
-                        for a, b in zip(states[:16], bounds)]
-                    # the sweep alone and the fill, in device time
-                    prof = device_profile(
-                        lambda: [kernel(*a) for a in states],
-                        {"sweep": "fused_sweep", "fill": "emset"})
-                    for part in ("sweep", "fill"):
-                        v = prof[f"{part}_ms"]
-                        row[f"device_ms_{part}"] = (
-                            v / n if isinstance(v, float) else v)
+                # each of the first 16 levels alone: [level, bound ms, ms,
+                # rows won]
+                row["per_level"] = [
+                    [lv["level"], lv["bound"],
+                     cuda_ms(lambda: kernel(*lv["args"])), lv["won"]]
+                    for lv in levels[:16]]
+                # device time by part (the pull: column pass, sweep, fill)
+                prof = device_profile(lambda: [kernel(*a) for a in states],
+                                      SPLITS[kind])
+                for part in SPLITS[kind]:
+                    v = prof[f"{part}_ms"]
+                    row[f"device_ms_{part}"] = (
+                        v / n if isinstance(v, float) else v)
                 if kind == "fused" and variants:
                     row["variants_checked"] = list(variants)
                     ve, vc = variants["permuted"]
@@ -525,6 +567,16 @@ def kernel_checks(graphs) -> list:
                         lambda: [kernel(ve, vc, *a[2:]) for a in states]) / n
                 say("kernel vs plain:", json.dumps(row))
                 rows.append(row)
+                mine[kind] = row
+            if "pull" in mine:
+                # does the pull pay on the card: [level, rows won, fused
+                # ms, pull ms, its column pass ms, fused bound, pull bound]
+                say("pull vs push per level:", json.dumps(dict(
+                    graph=expr, body="WR" if wr else "plain", levels=[
+                        [f[0], f[3], f[2], p[2], b[2], f[1], p[1]]
+                        for f, p, b in zip(mine["fused"]["per_level"],
+                                           mine["pull"]["per_level"],
+                                           mine["bits"]["per_level"])])))
         del graph, warm, variants
         torch.cuda.empty_cache()
     return rows
@@ -1185,7 +1237,8 @@ def run_phases(pool, paths) -> list:
             ms=row["kernel_ms"], plain_ms=row["plain_ms"],
             bound_ms=row["bound_ms"], bound_by="bytes", library_ms=None,
             timed_on=row["graph"],
-            levels_checked=sum(r["levels_checked"] for r in mine)))
+            levels_checked=sum(r["levels_checked"] for r in mine),
+            **{k: v for k, v in row.items() if k.startswith("device_ms_")}))
     return kernels
 
 

@@ -1,12 +1,14 @@
 // Frontier sweeps for Hopper (sm_90a): one BFS level of the paper's
-// GPUBFS / GPUBFS-WR (Alg. 2 / Alg. 4).  Three kernels, each a template on
-// WR (the GPUBFS-WR root test), each replacing two TPU kernels of
-// repro/kernels/frontier_expand/frontier_expand.py:
+// GPUBFS / GPUBFS-WR (Alg. 2 / Alg. 4).  Three sweeps, each replacing two
+// TPU kernels of repro/kernels/frontier_expand/frontier_expand.py, each with
+// a body per WR (the GPUBFS-WR root test; the pull's sits in its column
+// pass):
 //
 //   fused_sweep  <- frontier_expand_fused: _kernel_fused_wr / _kernel_fused_plain
 //                   (merge in _merge_tile)                             [K1]
 //   proposals    <- frontier_expand: _kernel_wr / _kernel_plain (legacy) [K2]
-//   pull_sweep   <- frontier_expand_pull: _kernel_pull_wr / _kernel_pull
+//   frontier_bits + pull_sweep
+//                <- frontier_expand_pull: _kernel_pull_wr / _kernel_pull
 //                   (merge in _merge_tile_pull)                        [K3]
 //
 // The predicate all three evaluate for an edge (c, r) (the TPU kernels'
@@ -74,32 +76,60 @@
 // Contract: prop is the (nnz_pad,) int32 vector holding ecol[e] for every
 // proposing edge slot e and IINF for every other slot; the caller merges
 // (scatter_min over rows).  The TPU kernel writes one edge tile per grid
-// step; here one thread per edge slot (grid-stride) with K1's early exit
-// stores its slot, so the store of all nnz_pad slots is coalesced and no
-// fill pass is needed.  Unlike K1 the sentinel row nr is a valid row here
-// (the plain version proposes to it; the caller's merge discards it).
+// step.  Here K1's body does the reading: four slots a thread through one
+// 16-byte load of ecol with the next four in flight, the bfs[c] (WR: root,
+// then bfs[root]) loads of a group issued before any test, cadj (a vector
+// where it shares ecol's offset modulo 16 bytes) and the row half read only
+// for a group with an active slot, the same cache policies and head / tail
+// slots, the grid from the occupancy calculator.  Each group is written
+// with one streaming 16-byte store (st.global.cs: evict-first in L2) where
+// prop + head is 16-byte aligned (prop is the wrapper's own allocation, so
+// this fails only when ecol is a view at another offset), else four
+// scalar ones.  Every slot is written exactly once: no fill.  Unlike K1 the
+// sentinel row nr is a valid row here (the plain version proposes to it;
+// the caller's merge discards it).
 // Bound: bytes, K1's per-level count without the winner write and with
 // the 4 * nnz_pad proposal write (chip_smoke.py).
 //
-// ---- K3, pull_sweep --------------------------------------------------------
+// ---- K3, frontier_bits + pull_sweep ---------------------------------------
 // Contract: K1's winner vector, computed over the CSC mirror, whose edge
 // slots are sorted by row (radj = column, erow = row; sentinels nc / nr at
 // the tail).  The TPU kernel skips the in-VMEM merge of a row-sorted tile
-// that proposes nothing (_merge_tile_pull).  The CUDA form of that skip:
-// in pull order the row half of the predicate is the cheap one: erow
-// streams, and rows being sorted, neighbouring threads mostly share a row,
-// so rmatch[r] is read nearly coalesced and bfs[rmatch[r]] once per row (a
-// broadcast within the warp).  A thread tests it first (row free, or its
-// matched column UNVISITED) and only then reads radj[e] and the column half
-// (bfs[c], WR bfs[root[c]], random reads), then merges with atomicMin.  A warp whose
-// rows are all reached leaves after coalesced reads and issues no atomic.
+// that proposes nothing (_merge_tile_pull).  Two launches here, after the
+// IINF fill of win (cuMemsetD32Async, as K1):
+//  * frontier_bits<WR> evaluates the column half of the predicate once per
+//    column: bit c & 31 of word c >> 5 is bfs[c] == level (WR: and root[c]
+//    in [0, nc] and bfs[root[c]] >= UNVISITED), for every c in [0, nc]
+//    (column nc from bfs[nc] like any other).  A warp takes 128 columns at
+//    a time: four coalesced bfs loads a lane, issued together (WR: root
+//    and bfs[root] only for columns on the frontier), then four
+//    __ballot_sync words, each written once by one lane.  The words are
+//    ceil((nc+1)/32) int32 the wrapper allocates (512 KB at 4 M columns).
+//  * pull_sweep (one body for both: the root test is in the bits) streams
+//    erow four slots a thread like K1 streams ecol (16-byte loads, the next
+//    four in flight, evict-first, head and tail slots scalar).  Rows are
+//    sorted, so neighbouring slots share rmatch[r] and bfs[rmatch[r]]: the
+//    row half is tested first (row free, or its matched column UNVISITED),
+//    and only a group with an unreached row reads radj and tests each
+//    column as one bit of the bitmap, read through L1 (ld.global.nc,
+//    evict-last in L1 and in L2; the shared-memory carveout is set to its
+//    minimum so that L1 holds as much of the bitmap as it can).  A column
+//    test made per edge would pay bfs[c] (WR also root[c], then
+//    bfs[root[c]], each waiting on the one before) for every edge of an
+//    unreached row, a 32-byte sector each; this pays one read that mostly
+//    hits L1.  A group's slots of one row merge in registers (min), then
+//    K1's tested atomic min.  The slots may come in any order: the merge is
+//    a min, the bitmap is per column.  (Skipping the row reads of a slot
+//    whose row is its left neighbour's came out slower: L1 already serves
+//    the repeats.)
 // Winners equal K1's on the same edge set: min is the merge.
 // Bound: bytes, per level.  A call must read erow whole (4 * nnz_pad);
 // rmatch once per distinct row of the mirror; bfs of the matched column once
 // per distinct matched row; radj only for the edges of unreached rows; bfs
 // (and, WR, root) once per distinct column those edges touch; and write win
 // (4(nr+1)).  chip_smoke.py counts these bytes from each level's inputs,
-// over 3.35 TB/s.
+// over 3.35 TB/s.  The bitmap pass reads bfs whole, more than that count:
+// a cost of the design, which the bound does not hide.
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -109,7 +139,6 @@ namespace {
 constexpr int kUnvisited = 1;
 constexpr int kIinf = 1 << 30;
 constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;   // 8 x 256 threads fill an SM's 2048 slots
 
 // ---- loads with a cache policy --------------------------------------------
 // createpolicy gives a 64-bit L2 policy; every load or atomic below carries
@@ -156,16 +185,18 @@ __device__ __forceinline__ int ld_win(const int* p, uint64_t pol) {
   return v;
 }
 
+// The pull's column bits: kept in L1 ahead of the row state, evict-last
+// in L2.
+__device__ __forceinline__ int ld_bits(const int* p, uint64_t pol) {
+  int v;
+  asm("ld.global.nc.L1::evict_last.L2::cache_hint.s32 %0, [%1], %2;\n"
+      : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
 __device__ __forceinline__ void red_min(int* p, int v, uint64_t pol) {
   asm volatile("red.global.min.L2::cache_hint.s32 [%0], %1, %2;\n"
                :: "l"(p), "r"(v), "l"(pol) : "memory");
-}
-
-__global__ void fill_iinf(int* __restrict__ win, int n) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    win[i] = kIinf;
-  }
 }
 
 // What every slot of a sweep reads besides its own edge, and the policies.
@@ -178,14 +209,30 @@ struct SweepState {
   uint64_t stream, keep;           // evict-first, evict-last
 };
 
-// N slots with columns c[] and rows at rows[0..N): the predicate, then the
-// tested atomic min.  Each step issues its N loads before it tests any.
-// rows_vec: rows is 16-byte aligned and read as one vector (N == 4).
+// Slots [0, head) of an edge array lie before its first 16-byte boundary,
+// [end, nnz) after its last whole vector; in between nvec vectors of four.
+struct Split {
+  int64_t head, nvec, end;
+};
+
+__device__ __forceinline__ Split split_slots(const int* p, int64_t nnz) {
+  const int64_t lead = (int64_t)(((16 - ((uintptr_t)p & 15)) & 15) >> 2);
+  const int64_t head = lead < nnz ? lead : nnz;
+  const int64_t nvec = (nnz - head) >> 2;
+  return Split{head, nvec, head + 4 * nvec};
+}
+
+// The predicate over N slots with columns c[] and rows at rows[0..N): which
+// slots propose (act) and their rows (r), rows in [0, row_end) counting.
+// Each step issues its N loads before it tests any.  rows_vec: rows is
+// 16-byte aligned and read as one vector (N == 4).  Returns false, with
+// every act[] false and r[] unset, when no slot passes the column half;
+// the rows are read only otherwise.
 template <bool WR, int N>
-__device__ __forceinline__ void sweep_slots(const int (&c)[N],
-                                            const int* rows, bool rows_vec,
-                                            const SweepState& s) {
-  bool act[N];
+__device__ __forceinline__ bool propose(const int (&c)[N], const int* rows,
+                                        bool rows_vec, unsigned row_end,
+                                        const SweepState& s, bool (&act)[N],
+                                        int (&r)[N]) {
   int b[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
@@ -211,8 +258,7 @@ __device__ __forceinline__ void sweep_slots(const int (&c)[N],
   bool any = false;
 #pragma unroll
   for (int j = 0; j < N; ++j) any = any || act[j];
-  if (!any) return;
-  int r[N];
+  if (!any) return false;
   if constexpr (N == 4) {
     if (rows_vec) {
       const int4 v = ld_stream4(rows, s.stream);
@@ -230,8 +276,7 @@ __device__ __forceinline__ void sweep_slots(const int (&c)[N],
   int cm[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    // sentinel row nr stays IINF; out of range: skipped
-    act[j] = act[j] && (unsigned)r[j] < (unsigned)s.nr;
+    act[j] = act[j] && (unsigned)r[j] < row_end;   // out of range: skipped
     cm[j] = act[j] ? ld_state(s.rmatch + r[j], s.keep) : 0;
   }
 #pragma unroll
@@ -239,12 +284,25 @@ __device__ __forceinline__ void sweep_slots(const int (&c)[N],
     b[j] = act[j] && cm[j] >= 0
                ? ld_state(s.bfs + min(cm[j], s.nc), s.keep) : kUnvisited;
   }
-  int w[N];
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     act[j] = act[j] && (cm[j] == -1 || (cm[j] >= 0 && b[j] == kUnvisited));
-    w[j] = act[j] ? ld_win(s.win + r[j], s.keep) : 0;
   }
+  return true;
+}
+
+// K1's N slots: the predicate, then the tested atomic min.
+template <bool WR, int N>
+__device__ __forceinline__ void sweep_slots(const int (&c)[N],
+                                            const int* rows, bool rows_vec,
+                                            const SweepState& s) {
+  bool act[N];
+  int r[N];
+  // the sentinel row nr stays IINF
+  if (!propose<WR, N>(c, rows, rows_vec, (unsigned)s.nr, s, act, r)) return;
+  int w[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) w[j] = act[j] ? ld_win(s.win + r[j], s.keep) : 0;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
     if (act[j] && w[j] > c[j]) red_min(s.win + r[j], c[j], s.keep);
@@ -259,110 +317,235 @@ __global__ void __launch_bounds__(kThreads)
                 int nc, int nr, int* __restrict__ win) {
   const SweepState s{bfs, root, rmatch, win, level, nc, nr,
                      evict_first_policy(), evict_last_policy()};
-  // slots [0, head) lie before ecol's first 16-byte boundary, [end, nnz)
-  // after its last whole vector; the launcher refuses a pointer that is not
-  // 4-byte aligned
-  const int64_t lead = (int64_t)(((16 - ((uintptr_t)ecol & 15)) & 15) >> 2);
-  const int64_t head = lead < nnz ? lead : nnz;
-  const int64_t nvec = (nnz - head) >> 2;
-  const int64_t end = head + 4 * nvec;
-  const bool rows_vec = (((uintptr_t)(cadj + head)) & 15) == 0;
-  if (blockIdx.x == 0 && threadIdx.x < head + (nnz - end)) {
-    const int64_t e = threadIdx.x < head ? (int64_t)threadIdx.x
-                                         : end + (threadIdx.x - head);
+  // the launcher refuses a pointer that is not 4-byte aligned
+  const Split sp = split_slots(ecol, nnz);
+  const bool rows_vec = (((uintptr_t)(cadj + sp.head)) & 15) == 0;
+  if (blockIdx.x == 0 && threadIdx.x < sp.head + (nnz - sp.end)) {
+    const int64_t e = threadIdx.x < sp.head ? (int64_t)threadIdx.x
+                                            : sp.end + (threadIdx.x - sp.head);
     const int c[1] = {ld_stream(ecol + e, s.stream)};
     sweep_slots<WR, 1>(c, cadj + e, false, s);
   }
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= nvec) return;
-  const int* base = ecol + head;
+  if (k >= sp.nvec) return;
+  const int* base = ecol + sp.head;
   int4 next = ld_stream4(base + 4 * k, s.stream);
-  for (; k < nvec; k += stride) {
+  for (; k < sp.nvec; k += stride) {
     const int c[4] = {next.x, next.y, next.z, next.w};
-    if (k + stride < nvec) {
+    if (k + stride < sp.nvec) {
       next = ld_stream4(base + 4 * (k + stride), s.stream);
     }
-    sweep_slots<WR, 4>(c, cadj + head + 4 * k, rows_vec, s);
+    sweep_slots<WR, 4>(c, cadj + sp.head + 4 * k, rows_vec, s);
   }
 }
 
 template <bool WR>
-__global__ void proposals(const int* __restrict__ ecol,
-                          const int* __restrict__ cadj,
-                          const int* __restrict__ bfs,
-                          const int* __restrict__ root,
-                          const int* __restrict__ rmatch, int level,
-                          int64_t nnz, int nc, int nr,
-                          int* __restrict__ prop) {
+__global__ void __launch_bounds__(kThreads)
+    proposals(const int* __restrict__ ecol, const int* __restrict__ cadj,
+              const int* __restrict__ bfs, const int* __restrict__ root,
+              const int* __restrict__ rmatch, int level, int64_t nnz, int nc,
+              int nr, int* __restrict__ prop) {
+  const SweepState s{bfs, root, rmatch, nullptr, level, nc, nr,
+                     evict_first_policy(), evict_last_policy()};
+  // row nr is a row here: rows [0, nr] count
+  const unsigned row_end = (unsigned)nr + 1u;
+  const Split sp = split_slots(ecol, nnz);
+  const bool rows_vec = (((uintptr_t)(cadj + sp.head)) & 15) == 0;
+  const bool out_vec = (((uintptr_t)(prop + sp.head)) & 15) == 0;
+  if (blockIdx.x == 0 && threadIdx.x < sp.head + (nnz - sp.end)) {
+    const int64_t e = threadIdx.x < sp.head ? (int64_t)threadIdx.x
+                                            : sp.end + (threadIdx.x - sp.head);
+    const int c[1] = {ld_stream(ecol + e, s.stream)};
+    bool act[1];
+    int r[1];
+    propose<WR, 1>(c, cadj + e, false, row_end, s, act, r);
+    __stcs(prop + e, act[0] ? c[0] : kIinf);
+  }
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < nnz;
-       e += stride) {
-    int out = kIinf;
-    const int c = __ldg(ecol + e);
-    if ((unsigned)c <= (unsigned)nc && __ldg(bfs + c) == level) {
-      bool alive = true;
-      if (WR) {
-        const int rt = __ldg(root + c);
-        alive = (unsigned)rt <= (unsigned)nc && __ldg(bfs + rt) >= kUnvisited;
-      }
-      const int r = alive ? __ldg(cadj + e) : -1;
-      if ((unsigned)r <= (unsigned)nr) {            // row nr is in range here
-        const int cm = __ldg(rmatch + r);
-        if (cm == -1 || (cm >= 0 && __ldg(bfs + min(cm, nc)) == kUnvisited)) {
-          out = c;
-        }
-      }
+  int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= sp.nvec) return;
+  const int* base = ecol + sp.head;
+  int4 next = ld_stream4(base + 4 * k, s.stream);
+  for (; k < sp.nvec; k += stride) {
+    const int c[4] = {next.x, next.y, next.z, next.w};
+    if (k + stride < sp.nvec) {
+      next = ld_stream4(base + 4 * (k + stride), s.stream);
     }
-    prop[e] = out;
+    bool act[4];
+    int r[4];
+    propose<WR, 4>(c, cadj + sp.head + 4 * k, rows_vec, row_end, s, act, r);
+    const int4 o = make_int4(act[0] ? c[0] : kIinf, act[1] ? c[1] : kIinf,
+                             act[2] ? c[2] : kIinf, act[3] ? c[3] : kIinf);
+    int* out = prop + sp.head + 4 * k;
+    if (out_vec) {
+      __stcs(reinterpret_cast<int4*>(out), o);
+    } else {
+      __stcs(out, o.x);
+      __stcs(out + 1, o.y);
+      __stcs(out + 2, o.z);
+      __stcs(out + 3, o.w);
+    }
   }
 }
 
+// K3's column pass: one bit per column c in [0, nc], a warp 128 columns
+// (four words) at a time.
 template <bool WR>
-__global__ void pull_sweep(const int* __restrict__ radj,
-                           const int* __restrict__ erow,
-                           const int* __restrict__ bfs,
-                           const int* __restrict__ root,
-                           const int* __restrict__ rmatch, int level,
-                           int64_t nnz, int nc, int nr,
-                           int* __restrict__ win) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < nnz;
-       e += stride) {
-    // row half first: streamed erow, nearly coalesced rmatch / bfs[cm]
-    const int r = __ldg(erow + e);
-    // sentinel row nr stays IINF; out of range: skipped
-    if ((unsigned)r >= (unsigned)nr) continue;
-    const int cm = __ldg(rmatch + r);
-    if (!(cm == -1 || (cm >= 0 && __ldg(bfs + min(cm, nc)) == kUnvisited))) {
-      continue;
+__global__ void __launch_bounds__(kThreads)
+    frontier_bits(const int* __restrict__ bfs, const int* __restrict__ root,
+                  int level, int nc, int* __restrict__ bits) {
+  const uint64_t keep = evict_last_policy();
+  const int lane = threadIdx.x & 31;
+  const int64_t nwords = ((int64_t)nc + 32) >> 5;
+  const int64_t chunks = (nwords + 3) >> 2;
+  const int64_t warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
+  // k is the same for the whole warp, so every lane reaches each ballot
+  for (int64_t k = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       k < chunks; k += warps) {
+    bool on[4];
+    int b[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t c = 128 * k + 32 * j + lane;
+      on[j] = c <= nc;
+      b[j] = on[j] ? ld_state(bfs + c, keep) : 0;
     }
-    // column half: random reads, only for the edges of unreached rows
-    const int c = __ldg(radj + e);
-    if ((unsigned)c > (unsigned)nc || __ldg(bfs + c) != level) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) on[j] = on[j] && b[j] == level;
     if (WR) {
-      const int rt = __ldg(root + c);
-      if ((unsigned)rt > (unsigned)nc || __ldg(bfs + rt) < kUnvisited) continue;
+      int rt[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        rt[j] = on[j] ? ld_state(root + 128 * k + 32 * j + lane, keep) : -1;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        on[j] = on[j] && (unsigned)rt[j] <= (unsigned)nc;
+        b[j] = on[j] ? ld_state(bfs + rt[j], keep) : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) on[j] = on[j] && b[j] >= kUnvisited;
     }
-    atomicMin(win + r, c);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const unsigned word = __ballot_sync(0xffffffffu, on[j]);
+      if (lane == j && 4 * k + j < nwords) bits[4 * k + j] = (int)word;
+    }
+  }
+}
+
+// What every slot of the pull sweep reads besides its own edge.
+struct PullState {
+  const int* __restrict__ bits;
+  const int* __restrict__ bfs;
+  const int* __restrict__ rmatch;
+  int* __restrict__ win;
+  int nc, nr;
+  uint64_t stream, keep;           // evict-first, evict-last
+};
+
+// K3's N slots with rows r[] and columns at cols[0..N): the row half, then
+// (for a group with an unreached row) the column bits, a merge of the
+// group's slots of one row, and the tested atomic min.  cols_vec: cols is
+// 16-byte aligned and read as one vector (N == 4).
+template <int N>
+__device__ __forceinline__ void pull_slots(const int (&r)[N],
+                                           const int* cols, bool cols_vec,
+                                           const PullState& s) {
+  bool act[N];
+  int cm[N], b[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    // sentinel row nr stays IINF; out of range: skipped
+    act[j] = (unsigned)r[j] < (unsigned)s.nr;
+    cm[j] = act[j] ? ld_state(s.rmatch + r[j], s.keep) : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    b[j] = act[j] && cm[j] >= 0
+               ? ld_state(s.bfs + min(cm[j], s.nc), s.keep) : kUnvisited;
+  }
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    act[j] = act[j] && (cm[j] == -1 || (cm[j] >= 0 && b[j] == kUnvisited));
+    any = any || act[j];
+  }
+  if (!any) return;
+  int c[N];
+  if constexpr (N == 4) {
+    if (cols_vec) {
+      const int4 v = ld_stream4(cols, s.stream);
+      c[0] = v.x; c[1] = v.y; c[2] = v.z; c[3] = v.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        c[j] = act[j] ? ld_stream(cols + j, s.stream) : -1;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) c[j] = ld_stream(cols + j, s.stream);
+  }
+  int w[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    act[j] = act[j] && (unsigned)c[j] <= (unsigned)s.nc;  // out of range
+    w[j] = act[j] ? ld_bits(s.bits + (c[j] >> 5), s.keep) : 0;
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    act[j] = act[j] && (((unsigned)w[j] >> (c[j] & 31)) & 1u);
+  }
+  // slots of one row hand the lower column on to the next: one atomic a
+  // row and group
+#pragma unroll
+  for (int j = 1; j < N; ++j) {
+    if (act[j - 1] && r[j] == r[j - 1]) {
+      c[j] = act[j] ? min(c[j], c[j - 1]) : c[j - 1];
+      act[j] = true;
+      act[j - 1] = false;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) w[j] = act[j] ? ld_win(s.win + r[j], s.keep) : 0;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (act[j] && w[j] > c[j]) red_min(s.win + r[j], c[j], s.keep);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    pull_sweep(const int* __restrict__ radj, const int* __restrict__ erow,
+               const int* __restrict__ bits, const int* __restrict__ bfs,
+               const int* __restrict__ rmatch, int64_t nnz, int nc, int nr,
+               int* __restrict__ win) {
+  const PullState s{bits, bfs, rmatch, win, nc, nr, evict_first_policy(),
+                    evict_last_policy()};
+  const Split sp = split_slots(erow, nnz);
+  const bool cols_vec = (((uintptr_t)(radj + sp.head)) & 15) == 0;
+  if (blockIdx.x == 0 && threadIdx.x < sp.head + (nnz - sp.end)) {
+    const int64_t e = threadIdx.x < sp.head ? (int64_t)threadIdx.x
+                                            : sp.end + (threadIdx.x - sp.head);
+    const int r[1] = {ld_stream(erow + e, s.stream)};
+    pull_slots<1>(r, radj + e, false, s);
+  }
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= sp.nvec) return;
+  const int* base = erow + sp.head;
+  int4 next = ld_stream4(base + 4 * k, s.stream);
+  for (; k < sp.nvec; k += stride) {
+    const int r[4] = {next.x, next.y, next.z, next.w};
+    if (k + stride < sp.nvec) {
+      next = ld_stream4(base + 4 * (k + stride), s.stream);
+    }
+    pull_slots<4>(r, radj + sp.head + 4 * k, cols_vec, s);
   }
 }
 
 }  // namespace
-
-// Launch geometry of K2 and K3: one block of kThreads per kThreads edge
-// slots, at most kBlocksPerSm blocks on each SM of the current device
-// (grid-stride beyond).
-static cudaError_t max_blocks(int* out) {
-  int device = 0, sm_count = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount,
-                                 device);
-  }
-  *out = (sm_count > 0 ? sm_count : 1) * kBlocksPerSm;
-  return err;
-}
 
 static int blocks_for(long long n, int cap) {
   long long want = (n + kThreads - 1) / kThreads;
@@ -371,11 +554,11 @@ static int blocks_for(long long n, int cap) {
 
 // Each launcher runs on `stream` of the current device.  `root` may be null
 // (the plain body).  Returns cudaGetLastError() after the launches
-// (0 = success).  The argument order is the same for all three:
+// (0 = success).  The argument order is the same for all three sweeps:
 // (column endpoints, row endpoints, bfs, root, rmatch, level, slots, nc, nr,
-// output, stream).
+// output, [the pull's bitmap,] stream).
 
-// K1's winner fill: cuMemsetD32Async, fetched from the driver once through
+// The winner fill: cuMemsetD32Async, fetched from the driver once through
 // the runtime (no -lcuda), since IINF is no byte pattern for cudaMemset.
 using MemsetD32 = CUresult (*)(CUdeviceptr, unsigned int, size_t, CUstream);
 
@@ -397,11 +580,22 @@ static MemsetD32 memset_d32() {
   return fn;
 }
 
-// K1's grid: as many blocks of kThreads as fit on the card at this body's
-// occupancy, once per body and device.
-template <bool WR>
-static cudaError_t sweep_blocks(int* out) {
-  static int cached[64] = {0};
+static cudaError_t fill_iinf(int* win, int nr, cudaStream_t s) {
+  const MemsetD32 fill = memset_d32();
+  if (fill == nullptr) return cudaErrorSymbolNotFound;
+  if (fill((CUdeviceptr)win, (unsigned int)kIinf, (size_t)nr + 1,
+           (CUstream)s) != CUDA_SUCCESS) {
+    return cudaErrorLaunchFailure;
+  }
+  return cudaSuccess;
+}
+
+// A kernel's grid: as many blocks of kThreads as fit on the card at its
+// occupancy (cudaOccupancyMaxActiveBlocksPerMultiprocessor, for its
+// registers), once per kernel body and device; `cached` is the body's own.
+// `max_l1`: set the body's shared-memory carveout to its minimum first.
+static cudaError_t card_blocks(const void* kernel, int (&cached)[64],
+                               int* out, bool max_l1 = false) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -411,13 +605,42 @@ static cudaError_t sweep_blocks(int* out) {
     err = cudaDeviceGetAttribute(&sm_count, cudaDevAttrMultiProcessorCount,
                                  device);
     if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fused_sweep<WR>, kThreads, 0);
+    if (max_l1) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+          (int)cudaSharedmemCarveoutMaxL1);
+      if (err != cudaSuccess) return err;
+    }
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
     if (err != cudaSuccess) return err;
     cached[device] = (sm_count > 0 ? sm_count : 1) * (per_sm > 0 ? per_sm : 1);
   }
   *out = cached[device];
   return cudaSuccess;
+}
+
+template <bool WR>
+static cudaError_t fused_blocks(int* out) {
+  static int cached[64] = {0};
+  return card_blocks((const void*)fused_sweep<WR>, cached, out);
+}
+
+template <bool WR>
+static cudaError_t proposal_blocks(int* out) {
+  static int cached[64] = {0};
+  return card_blocks((const void*)proposals<WR>, cached, out);
+}
+
+template <bool WR>
+static cudaError_t bits_blocks(int* out) {
+  static int cached[64] = {0};
+  return card_blocks((const void*)frontier_bits<WR>, cached, out);
+}
+
+static cudaError_t pull_blocks(int* out) {
+  static int cached[64] = {0};
+  return card_blocks((const void*)pull_sweep, cached, out, true);
 }
 
 // K1: win (nr+1,) per-row winners over the CSR edge list.  ecol and cadj
@@ -430,17 +653,13 @@ extern "C" int frontier_expand_fused_launch(
   if (((uintptr_t)ecol | (uintptr_t)cadj) & 3) {
     return (int)cudaErrorMisalignedAddress;
   }
-  const MemsetD32 fill = memset_d32();
-  if (fill == nullptr) return (int)cudaErrorSymbolNotFound;
   cudaStream_t s = (cudaStream_t)stream;
-  if (fill((CUdeviceptr)win, (unsigned int)kIinf, (size_t)nr + 1,
-           (CUstream)s) != CUDA_SUCCESS) {
-    return (int)cudaErrorLaunchFailure;
-  }
+  cudaError_t err = fill_iinf(win, nr, s);
+  if (err != cudaSuccess) return (int)err;
   if (nnz > 0) {
     int cap = 0;
-    cudaError_t err = root != nullptr ? sweep_blocks<true>(&cap)
-                                      : sweep_blocks<false>(&cap);
+    err = root != nullptr ? fused_blocks<true>(&cap)
+                          : fused_blocks<false>(&cap);
     if (err != cudaSuccess) return (int)err;
     // one thread per four slots; block 0 also takes the <= 6 scalar slots
     const int blocks = blocks_for((nnz + 3) / 4, cap);
@@ -455,17 +674,22 @@ extern "C" int frontier_expand_fused_launch(
   return (int)cudaGetLastError();
 }
 
-// K2: prop (nnz,) per-edge proposals; every slot is written.
+// K2: prop (nnz,) per-edge proposals; every slot is written.  ecol and cadj
+// as K1's.
 extern "C" int frontier_expand_launch(
     const int* ecol, const int* cadj, const int* bfs, const int* root,
     const int* rmatch, int level, long long nnz, int nc, int nr, int* prop,
     void* stream) {
-  int cap = 0;
-  cudaError_t err = max_blocks(&cap);
-  if (err != cudaSuccess) return (int)err;
+  if (((uintptr_t)ecol | (uintptr_t)cadj | (uintptr_t)prop) & 3) {
+    return (int)cudaErrorMisalignedAddress;
+  }
   cudaStream_t s = (cudaStream_t)stream;
   if (nnz > 0) {
-    const int blocks = blocks_for(nnz, cap);
+    int cap = 0;
+    const cudaError_t err = root != nullptr ? proposal_blocks<true>(&cap)
+                                            : proposal_blocks<false>(&cap);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = blocks_for((nnz + 3) / 4, cap);
     if (root != nullptr) {
       proposals<true><<<blocks, kThreads, 0, s>>>(
           ecol, cadj, bfs, root, rmatch, level, (int64_t)nnz, nc, nr, prop);
@@ -477,25 +701,51 @@ extern "C" int frontier_expand_launch(
   return (int)cudaGetLastError();
 }
 
-// K3: win (nr+1,) per-row winners over the row-sorted CSC mirror.
+// K3's column pass alone: bits (ceil((nc+1)/32),) int32 words.
+extern "C" int frontier_bits_launch(const int* bfs, const int* root,
+                                    int level, int nc, int* bits,
+                                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  int cap = 0;
+  const cudaError_t err = root != nullptr ? bits_blocks<true>(&cap)
+                                          : bits_blocks<false>(&cap);
+  if (err != cudaSuccess) return (int)err;
+  // one warp per 128 columns
+  const long long chunks = ((long long)nc + 128) / 128;
+  const int blocks = blocks_for(32 * chunks, cap);
+  if (root != nullptr) {
+    frontier_bits<true><<<blocks, kThreads, 0, s>>>(bfs, root, level, nc,
+                                                    bits);
+  } else {
+    frontier_bits<false><<<blocks, kThreads, 0, s>>>(bfs, root, level, nc,
+                                                     bits);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K3: win (nr+1,) per-row winners over the row-sorted CSC mirror, through
+// the column bitmap `bits` (the caller's scratch, ceil((nc+1)/32) words).
+// radj and erow may be views at any 4-byte offset, as K1's edges.
 extern "C" int frontier_expand_pull_launch(
     const int* radj, const int* erow, const int* bfs, const int* root,
     const int* rmatch, int level, long long nnz, int nc, int nr, int* win,
-    void* stream) {
-  int cap = 0;
-  cudaError_t err = max_blocks(&cap);
-  if (err != cudaSuccess) return (int)err;
+    int* bits, void* stream) {
+  if (((uintptr_t)radj | (uintptr_t)erow) & 3) {
+    return (int)cudaErrorMisalignedAddress;
+  }
   cudaStream_t s = (cudaStream_t)stream;
-  fill_iinf<<<blocks_for(nr + 1LL, cap), kThreads, 0, s>>>(win, nr + 1);
+  cudaError_t err = fill_iinf(win, nr, s);
+  if (err != cudaSuccess) return (int)err;
+  const int bits_err = frontier_bits_launch(bfs, root, level, nc, bits,
+                                            stream);
+  if (bits_err != 0) return bits_err;
   if (nnz > 0) {
-    const int blocks = blocks_for(nnz, cap);
-    if (root != nullptr) {
-      pull_sweep<true><<<blocks, kThreads, 0, s>>>(
-          radj, erow, bfs, root, rmatch, level, (int64_t)nnz, nc, nr, win);
-    } else {
-      pull_sweep<false><<<blocks, kThreads, 0, s>>>(
-          radj, erow, bfs, root, rmatch, level, (int64_t)nnz, nc, nr, win);
-    }
+    int cap = 0;
+    err = pull_blocks(&cap);
+    if (err != cudaSuccess) return (int)err;
+    const int blocks = blocks_for((nnz + 3) / 4, cap);
+    pull_sweep<<<blocks, kThreads, 0, s>>>(radj, erow, bits, bfs, rmatch,
+                                           (int64_t)nnz, nc, nr, win);
   }
   return (int)cudaGetLastError();
 }

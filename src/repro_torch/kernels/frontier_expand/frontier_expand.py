@@ -11,12 +11,15 @@ Three sweeps of one BFS level, one kernel each in ``csrc/frontier_expand.cu``:
   only where it lowers the winner, into a vector filled with IINF.
 * :func:`frontier_expand` returns the ``(nnz_pad,)`` int32 per-edge
   proposals (the column, or IINF); the caller merges them.  Its kernel
-  replaces ``_kernel_wr`` / ``_kernel_plain`` (the legacy path).
+  replaces ``_kernel_wr`` / ``_kernel_plain`` (the legacy path) and reads
+  as the fused one does, writing four slots with one streaming store.
 * :func:`frontier_expand_pull` returns the fused sweep's winners over the
-  row-sorted CSC mirror (``radj``/``erow``).  Its kernel replaces
-  ``_kernel_pull_wr`` / ``_kernel_pull``: it tests the row side of the
-  predicate first, so the edges of reached rows cost no column reads and
-  no atomics.
+  row-sorted CSC mirror (``radj``/``erow``).  It replaces
+  ``_kernel_pull_wr`` / ``_kernel_pull`` with two kernels: the column pass
+  (:func:`frontier_bits`, one bit per column into scratch the wrapper
+  allocates) and a sweep that streams ``erow`` four slots a thread, tests
+  the row side of the predicate first and the column side as one bit, so
+  the edges of reached rows cost no column reads and no atomics.
 
 On CUDA tensors each launches its kernel (the designs are written out in
 the source); on CPU tensors each returns its plain version
@@ -27,7 +30,8 @@ bounds.
 
 The kernels are built and loaded at their first launch
 (:mod:`repro_torch.kernels._build`), never at import.  :data:`LAUNCHES`
-counts the launches of each kernel body.
+counts the launches of each kernel body; a pull counts one column pass
+(``frontier_bits_*``) beside its sweep.
 """
 from __future__ import annotations
 
@@ -39,21 +43,29 @@ import torch
 
 from repro_torch.kernels._build import load_library
 
-from .ref import (frontier_expand_fused_ref, frontier_expand_pull_ref,
-                  frontier_expand_ref)
+from .ref import (frontier_bits_ref, frontier_expand_fused_ref,
+                  frontier_expand_pull_ref, frontier_expand_ref)
 
-# sweep -> (C launcher, plain version); every launcher takes
+_P, _I = ctypes.c_void_p, ctypes.c_int
 # (cols, rows, bfs, root, rmatch, level, nnz, nc, nr, out, stream)
-_SWEEPS = {
-    "frontier_expand": ("frontier_expand_launch", frontier_expand_ref),
-    "frontier_expand_fused": ("frontier_expand_fused_launch",
+_SWEEP_ARGS = [_P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _P, _P]
+# kernel -> (C launcher, its argument types, plain version); the pull takes
+# its column bitmap before the stream
+_KERNELS = {
+    "frontier_expand": ("frontier_expand_launch", _SWEEP_ARGS,
+                        frontier_expand_ref),
+    "frontier_expand_fused": ("frontier_expand_fused_launch", _SWEEP_ARGS,
                               frontier_expand_fused_ref),
     "frontier_expand_pull": ("frontier_expand_pull_launch",
+                             _SWEEP_ARGS[:-1] + [_P, _P],
                              frontier_expand_pull_ref),
+    # (bfs, root, level, nc, bits, stream)
+    "frontier_bits": ("frontier_bits_launch", [_P, _P, _I, _I, _P, _P],
+                      frontier_bits_ref),
 }
 
 # kernel body -> number of launches; the CPU path does not count
-LAUNCHES: Dict[str, int] = {f"{s}_{b}": 0 for s in _SWEEPS
+LAUNCHES: Dict[str, int] = {f"{s}_{b}": 0 for s in _KERNELS
                             for b in ("wr", "plain")}
 
 _FNS: Dict[str, object] = {}
@@ -64,22 +76,23 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _launcher(sweep: str):
-    fn = _FNS.get(sweep)
+def _launcher(kernel: str):
+    fn = _FNS.get(kernel)
     if fn is None:
-        fn = getattr(load_library("frontier_expand"), _SWEEPS[sweep][0])
-        p = ctypes.c_void_p
-        fn.argtypes = [p, p, p, p, p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_int, p, p]
+        name, argtypes, _ = _KERNELS[kernel]
+        fn = getattr(load_library("frontier_expand"), name)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _FNS[sweep] = fn
+        _FNS[kernel] = fn
     return fn
 
 
-def _check(sweep, cols, rows, bfs, root, rmatch, level) -> None:
-    named = {"cols": cols, "rows": rows, "bfs": bfs, "rmatch": rmatch}
+def _check_state(sweep, named, bfs, root, level) -> None:
+    """Every tensor of ``named`` (and ``root`` unless None) a contiguous 1-D
+    int32 tensor on ``bfs``'s device; ``root`` shaped as ``bfs``; ``level``
+    an int32 Python int."""
     if root is not None:
-        named["root"] = root
+        named = dict(named, root=root)
     dev = bfs.device
     for name, t in named.items():
         if not isinstance(t, torch.Tensor):
@@ -91,43 +104,73 @@ def _check(sweep, cols, rows, bfs, root, rmatch, level) -> None:
         if t.device != dev:
             raise ValueError(f"{sweep}: {name} is on {t.device}, bfs on "
                              f"{dev}; all inputs must share one device")
-    if cols.shape != rows.shape:
-        raise ValueError(f"{sweep}: the column endpoints "
-                         f"{tuple(cols.shape)} and row endpoints "
-                         f"{tuple(rows.shape)} differ")
     if root is not None and root.shape != bfs.shape:
         raise ValueError(f"{sweep}: root {tuple(root.shape)} and bfs "
                          f"{tuple(bfs.shape)} differ")
-    if bfs.shape[0] < 1 or rmatch.shape[0] < 1:
-        raise ValueError(f"{sweep}: bfs and rmatch need their sentinel slot")
+    if bfs.shape[0] < 1:
+        raise ValueError(f"{sweep}: bfs needs its sentinel slot")
     if (not isinstance(level, numbers.Integral) or isinstance(level, bool)
             or not -2**31 <= int(level) < 2**31):
         raise TypeError(f"{sweep}: level must be an int32 Python int, got "
                         f"{level!r}")
 
 
+def _check(sweep, cols, rows, bfs, root, rmatch, level) -> None:
+    _check_state(sweep, {"cols": cols, "rows": rows, "bfs": bfs,
+                         "rmatch": rmatch}, bfs, root, level)
+    if cols.shape != rows.shape:
+        raise ValueError(f"{sweep}: the column endpoints "
+                         f"{tuple(cols.shape)} and row endpoints "
+                         f"{tuple(rows.shape)} differ")
+    if rmatch.shape[0] < 1:
+        raise ValueError(f"{sweep}: rmatch needs its sentinel slot")
+
+
+def _on_card(kernel: str, dev) -> bool:
+    """False on the CPU (the plain version runs), True on a CUDA device."""
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: no kernel for device {dev}")
+    return True
+
+
+def _launch(kernel: str, dev, root, *args) -> None:
+    """``kernel``'s launcher with ``args`` on the current stream of
+    ``dev``; raises on a CUDA error, counts the launch of each kernel body
+    it runs."""
+    with torch.cuda.device(dev):        # the launcher uses the current device
+        err = _launcher(kernel)(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"{kernel}: kernel launch failed with CUDA error {err}")
+    body = "wr" if root is not None else "plain"
+    LAUNCHES[f"{kernel}_{body}"] += 1
+    if kernel == "frontier_expand_pull":
+        LAUNCHES[f"frontier_bits_{body}"] += 1
+
+
+def _bitmap(bfs) -> torch.Tensor:
+    """Scratch for the column bits: ``ceil((nc+1)/32)`` int32 words."""
+    return torch.empty((bfs.shape[0] + 31) // 32, dtype=torch.int32,
+                       device=bfs.device)
+
+
 def _sweep(sweep, cols, rows, bfs, root, rmatch, level) -> torch.Tensor:
     """Check, then the plain version on the CPU or the kernel on the card."""
     _check(sweep, cols, rows, bfs, root, rmatch, level)
     dev = bfs.device
-    if dev.type == "cpu":
-        return _SWEEPS[sweep][1](cols, rows, bfs, root, rmatch, int(level))
-    if dev.type != "cuda":
-        raise ValueError(f"{sweep}: no kernel for device {dev}")
+    if not _on_card(sweep, dev):
+        return _KERNELS[sweep][2](cols, rows, bfs, root, rmatch, int(level))
     nc = bfs.shape[0] - 1
     nr = rmatch.shape[0] - 1
-    fn = _launcher(sweep)
     n_out = cols.shape[0] if sweep == "frontier_expand" else nr + 1
     out = torch.empty(n_out, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):        # the launcher uses the current device
-        err = fn(cols.data_ptr(), rows.data_ptr(), bfs.data_ptr(),
-                 root.data_ptr() if root is not None else None,
-                 rmatch.data_ptr(), int(level), int(cols.shape[0]), nc, nr,
-                 out.data_ptr(), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"{sweep}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[f"{sweep}_{'wr' if root is not None else 'plain'}"] += 1
+    scratch = [_bitmap(bfs)] if sweep == "frontier_expand_pull" else []
+    _launch(sweep, dev, root, cols.data_ptr(), rows.data_ptr(),
+            bfs.data_ptr(), root.data_ptr() if root is not None else None,
+            rmatch.data_ptr(), int(level), int(cols.shape[0]), nc, nr,
+            out.data_ptr(), *[t.data_ptr() for t in scratch])
     return out
 
 
@@ -147,6 +190,21 @@ def frontier_expand(ecol: torch.Tensor, cadj: torch.Tensor,
     each proposing edge slot, IINF elsewhere.  The per-row merge is the
     caller's ``scatter_min``."""
     return _sweep("frontier_expand", ecol, cadj, bfs, root, rmatch, level)
+
+
+def frontier_bits(bfs: torch.Tensor, root: Optional[torch.Tensor],
+                  level: int) -> torch.Tensor:
+    """The pull's column pass alone: ``ceil((nc+1)/32)`` int32 words, bit
+    ``c & 31`` of word ``c >> 5`` set where column c passes the column half
+    of the predicate (``root=None``: the plain body)."""
+    _check_state("frontier_bits", {"bfs": bfs}, bfs, root, level)
+    if not _on_card("frontier_bits", bfs.device):
+        return frontier_bits_ref(bfs, root, int(level))
+    bits = _bitmap(bfs)
+    _launch("frontier_bits", bfs.device, root, bfs.data_ptr(),
+            root.data_ptr() if root is not None else None, int(level),
+            bfs.shape[0] - 1, bits.data_ptr())
+    return bits
 
 
 def frontier_expand_pull(radj: torch.Tensor, erow: torch.Tensor,

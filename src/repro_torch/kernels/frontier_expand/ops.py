@@ -3,15 +3,16 @@
 ``frontier_expand``       — legacy per-edge proposal sweep (merge outside).
 ``frontier_expand_fused`` — sweep + per-row winner merge in one kernel.
 ``frontier_expand_pull``  — the fused sweep's winners over the CSC mirror.
+``frontier_bits``         — the pull's column pass alone (one bit a column).
 
 Each launches its CUDA kernel on CUDA tensors and takes its plain PyTorch
 version on CPU tensors.
 """
 from __future__ import annotations
 
-from .frontier_expand import (LAUNCHES, frontier_expand,
+from .frontier_expand import (LAUNCHES, frontier_bits, frontier_expand,
                               frontier_expand_fused, frontier_expand_pull,
                               reset_launches)
 
-__all__ = ["LAUNCHES", "frontier_expand", "frontier_expand_fused",
-           "frontier_expand_pull", "reset_launches"]
+__all__ = ["LAUNCHES", "frontier_bits", "frontier_expand",
+           "frontier_expand_fused", "frontier_expand_pull", "reset_launches"]

@@ -13,7 +13,9 @@ with the deterministic per-row min-merge ("first writer wins" = lowest
 proposing column), which is the fused kernel's contract: a ``(nr+1,)``
 winner vector with IINF in every unreached row and in the trailing sentinel
 slot.  :func:`frontier_expand_pull_ref` is the pull kernel's: the same
-winners over the row-sorted CSC mirror.
+winners over the row-sorted CSC mirror.  :func:`frontier_bits_ref` is the
+pull kernel's column pass: the ``active`` half above, once per column,
+packed 32 columns to an int32 word.
 
 These run on any device.  The CPU path of the solver uses them, and the
 chip check holds the CUDA kernel against them.  Like the kernel, they skip
@@ -61,3 +63,22 @@ def frontier_expand_pull_ref(radj, erow, bfs, root, rmatch, level):
     the merge, so this is the fused plain version on permuted arrays, and
     it skips the same out-of-range slots."""
     return frontier_expand_fused_ref(radj, erow, bfs, root, rmatch, level)
+
+
+def frontier_bits_ref(bfs, root, level):
+    """The column half of the predicate for every column c in [0, nc],
+    packed: bit ``c & 31`` of word ``c >> 5`` is ``bfs[c] == level`` (and,
+    WR, ``root[c]`` in [0, nc] with ``bfs[root[c]] >= UNVISITED``).
+    ``ceil((nc+1)/32)`` int32 words; the bits past column nc are 0."""
+    nc = bfs.shape[0] - 1
+    on = bfs == level
+    if root is not None:
+        on &= (root >= 0) & (root <= nc)
+        on &= bfs.index_select(0, root.clamp(0, nc).long()) >= UNVISITED
+    n_words = (nc + 32) // 32
+    flat = torch.zeros(n_words * 32, dtype=torch.int64, device=bfs.device)
+    flat[:nc + 1] = on.long()
+    weights = torch.ones(32, dtype=torch.int64, device=bfs.device) << \
+        torch.arange(32, device=bfs.device)
+    words = (flat.view(n_words, 32) * weights).sum(1)       # [0, 2^32)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)

@@ -9,6 +9,8 @@ states the JAX solver itself reaches).  The CUDA kernels are held against
 the same plain versions in ``tests/test_torch_gpu.py``, which runs only
 where there is a card.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,12 +30,18 @@ from repro.matching.solve import _apply_winner as jax_apply_winner
 from repro.matching.solve import level0_state as jax_level0_state
 
 from repro_torch.kernels.frontier_expand import (LAUNCHES,
+                                                 frontier_bits,
+                                                 frontier_bits_ref,
                                                  frontier_expand,
                                                  frontier_expand_fused,
                                                  frontier_expand_pull,
                                                  frontier_expand_ref,
                                                  reset_launches)
 from repro_torch.matching import TorchCSR
+
+# the module, not the function the package exports under the same name
+jax_kernels = importlib.import_module(
+    "repro.kernels.frontier_expand.frontier_expand")
 
 # the shapes of the JAX package's own fused-kernel test
 SHAPES = [
@@ -176,11 +184,10 @@ def _winners_oracle(ecol, cadj, bfs, root, rmatch, level):
     return win
 
 
-@pytest.mark.parametrize("wr", [True, False], ids=["wr", "plain"])
-def test_out_of_range_edge_slots_propose_nothing(wr):
-    """Edge slots with a column outside [0, nc] or a row outside [0, nr),
-    and columns whose root is outside [0, nc], are skipped, as the CUDA
-    kernel skips them; nothing raises and no other row changes."""
+def _malformed_inputs():
+    """A graph with out-of-range columns and rows in its edge slots, NEG
+    levels, roots from -3 to nc + 3 and a matching state: (g, ecol, cadj,
+    bfs, root, rmatch) as numpy arrays."""
     rng = np.random.default_rng(11)
     g = random_bipartite(60, 50, 4.0, seed=5, pad_to=400)
     ecol, cadj = g.ecol.copy(), g.cadj.copy()
@@ -193,6 +200,15 @@ def test_out_of_range_edge_slots_propose_nothing(wr):
     root = rng.integers(-3, g.nc + 4, g.nc + 1).astype(np.int32)
     rmatch = rng.choice(np.array([-1, -3, 0, 7, 30, g.nc], np.int32),
                         g.nr + 1)
+    return g, ecol, cadj, bfs, root, rmatch
+
+
+@pytest.mark.parametrize("wr", [True, False], ids=["wr", "plain"])
+def test_out_of_range_edge_slots_propose_nothing(wr):
+    """Edge slots with a column outside [0, nc] or a row outside [0, nr),
+    and columns whose root is outside [0, nc], are skipped, as the CUDA
+    kernel skips them; nothing raises and no other row changes."""
+    g, ecol, cadj, bfs, root, rmatch = _malformed_inputs()
     rt = root if wr else None
     args = (_t(ecol), _t(cadj), _t(bfs), _t(rt) if wr else None,
             _t(rmatch), 2)
@@ -232,3 +248,107 @@ def test_wrapper_rejects_bad_inputs():
         with pytest.raises(ValueError, match="device"):
             sweep(e.to("meta"), c.to("meta"), bfs.to("meta"), None,
                   rm.to("meta"), 2)
+
+
+def _jax_column_half(bfs, root, level):
+    """The column half of the JAX package's ``_proposals`` for every column
+    c in [0, nc]: each column as the one edge (c, 0), row 0 free, so the
+    row half holds everywhere."""
+    nc = len(bfs) - 1
+    active = jax_kernels._proposals(
+        jnp.int32(level), jnp.arange(nc + 1, dtype=jnp.int32),
+        jnp.zeros(nc + 1, jnp.int32), jnp.asarray(bfs),
+        None if root is None else jnp.asarray(root),
+        jnp.array([-1], jnp.int32))
+    return np.asarray(active)
+
+
+def _unpack(words, nc):
+    """Bit ``c & 31`` of word ``c >> 5`` for c in [0, nc], and the bits
+    past column nc (which must be 0)."""
+    assert words.dtype == torch.int32 and words.shape == ((nc + 32) // 32,)
+    bits = np.unpackbits(words.numpy().view(np.uint8), bitorder="little")
+    return bits[:nc + 1].astype(bool), bits[nc + 1:]
+
+
+@pytest.mark.parametrize("wr", [True, False], ids=["wr", "plain"])
+@pytest.mark.parametrize("nc,nr,deg,pad,blk", SHAPES)
+def test_frontier_bits_equal_jax_column_half(nc, nr, deg, pad, blk, wr):
+    """The pull's column pass (its plain version, and the wrapper on the
+    CPU) unpacked equals the column half of the JAX ``_proposals`` at
+    every probe level, bit for bit."""
+    g = random_bipartite(nc, nr, deg, seed=nc + 5 * nr, pad_to=pad)
+    reset_launches()
+    n_levels = 0
+    for level, bfs, root, rm in _probe_levels(g, wr):
+        rt = root if wr else None
+        want = _jax_column_half(bfs, rt, level)
+        args = (_t(bfs), _t(root) if wr else None, level)
+        words = frontier_bits_ref(*args)
+        got, past = _unpack(words, g.nc)
+        np.testing.assert_array_equal(got, want, err_msg=f"level {level}")
+        assert not past.any()
+        assert torch.equal(frontier_bits(*args), words)
+        n_levels += 1
+    assert n_levels >= 2
+    assert sum(LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("wr", [True, False], ids=["wr", "plain"])
+@pytest.mark.parametrize("n_cols", [1, 31, 32, 33, 65])
+def test_frontier_bits_tail_word_equals_jax_column_half(n_cols, wr):
+    """nc + 1 columns that fill a word, stop short of one or spill one
+    bit into the next: the same bits as the JAX column half, the bits past
+    column nc zero."""
+    rng = np.random.default_rng(n_cols)
+    nc = n_cols - 1
+    bfs = rng.choice(np.array([1, 2, 2, 3], np.int32), nc + 1)
+    root = rng.integers(0, nc + 1, nc + 1).astype(np.int32) if wr else None
+    want = _jax_column_half(bfs, root, 2)
+    assert want.any()
+    got, past = _unpack(frontier_bits_ref(
+        _t(bfs), None if root is None else _t(root), 2), nc)
+    np.testing.assert_array_equal(got, want)
+    assert not past.any()
+
+
+@pytest.mark.parametrize("wr", [True, False], ids=["wr", "plain"])
+def test_frontier_bits_on_malformed_inputs(wr):
+    """The malformed state of ``test_out_of_range_edge_slots_propose_nothing``
+    (NEG levels, roots from -3 to nc + 3).  Every column whose root is not
+    negative (the plain body: every column) gets the JAX column half's bit,
+    a too-large root included (JAX's gather fills INT_MIN there, which is
+    no live level).  A negative root is out of range for the port and its
+    column stays off, as the numpy oracle says; the JAX gather would wrap
+    it to bfs[nc + 1 + root] instead, a state no solver reaches."""
+    g, _, _, bfs, root, _ = _malformed_inputs()
+    rt = root if wr else None
+    got, past = _unpack(frontier_bits_ref(
+        _t(bfs), _t(rt) if wr else None, 2), g.nc)
+    assert not past.any()
+    want = _jax_column_half(bfs, rt, 2)
+    kept = root >= 0 if wr else np.ones(g.nc + 1, bool)
+    np.testing.assert_array_equal(got[kept], want[kept])
+    oracle = bfs == 2
+    if wr:
+        ok = (root >= 0) & (root <= g.nc)
+        oracle &= ok & (bfs[np.clip(root, 0, g.nc)] >= 1)
+        assert (root > g.nc).any() and (root < 0).any()
+    np.testing.assert_array_equal(got, oracle)
+    assert got.sum() > 5
+
+
+def test_frontier_bits_wrapper_rejects_bad_inputs():
+    bfs = torch.full((21,), 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        frontier_bits(bfs.long(), None, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        frontier_bits(torch.stack([bfs, bfs], 1)[:, 0], None, 2)
+    with pytest.raises(ValueError, match="differ"):
+        frontier_bits(bfs, bfs[:-1], 2)
+    with pytest.raises(ValueError, match="sentinel"):
+        frontier_bits(bfs[:0], None, 2)
+    with pytest.raises(TypeError, match="level"):
+        frontier_bits(bfs, None, 2**31)
+    with pytest.raises(ValueError, match="device"):
+        frontier_bits(bfs.to("meta"), None, 2)

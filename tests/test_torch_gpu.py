@@ -18,9 +18,9 @@ from repro_torch.graphs import instance_sets, random_bipartite
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.flash_attention.flash_attention import HEAD_DIMS
 from repro_torch.kernels.frontier_expand import (
-    LAUNCHES, frontier_expand, frontier_expand_fused,
-    frontier_expand_fused_ref, frontier_expand_pull, frontier_expand_pull_ref,
-    frontier_expand_ref, reset_launches)
+    LAUNCHES, frontier_bits, frontier_bits_ref, frontier_expand,
+    frontier_expand_fused, frontier_expand_fused_ref, frontier_expand_pull,
+    frontier_expand_pull_ref, frontier_expand_ref, reset_launches)
 from repro_torch.matching import (SOLVE_PATHS, Matcher, MatcherConfig,
                                   TorchCSR)
 from repro_torch.matching.solve import _apply_winner, level0_state
@@ -105,16 +105,61 @@ def _phase_states(ecol, cadj, cmatch, rmatch, wr):
             return out
 
 
-def _fused_on_card(ecol, cadj, state, offsets=(0, 0)):
+def _on_card(sweep, cols, rows, state, offsets=(0, 0)):
+    """``sweep`` on the card with its edge arrays as views ``offsets``
+    slots into their buffers; the result on the CPU."""
     bfs, root, rmatch, level = state
-    return frontier_expand_fused(
-        _view(ecol, offsets[0]), _view(cadj, offsets[1]), bfs.cuda(),
+    return sweep(
+        _view(cols, offsets[0]), _view(rows, offsets[1]), bfs.cuda(),
         None if root is None else root.cuda(), rmatch.cuda(), level).cpu()
+
+
+def _fused_on_card(ecol, cadj, state, offsets=(0, 0)):
+    return _on_card(frontier_expand_fused, ecol, cadj, state, offsets)
 
 
 # ecol / cadj offsets in int32 slots: both at one offset, and at two that
 # differ modulo 16 bytes (cadj then read slot by slot)
 _OFFSETS = [(0, 0), (1, 1), (2, 2), (3, 3), (1, 3), (0, 2), (3, 0)]
+
+
+def _short_edges(nnz):
+    """``nnz`` random edge slots over 40 columns and 30 rows (the sentinels
+    included), half the columns on level 2, random roots and matches."""
+    gen = torch.Generator().manual_seed(nnz)
+    nc, nr = 40, 30
+    ecol = torch.randint(0, nc + 1, (nnz,), generator=gen, dtype=torch.int32)
+    cadj = torch.randint(0, nr + 1, (nnz,), generator=gen, dtype=torch.int32)
+    bfs = torch.tensor([1, 2], dtype=torch.int32)[
+        torch.randint(0, 2, (nc + 1,), generator=gen)]
+    bfs[nc] = -2**30
+    root = torch.randint(0, nc + 1, (nc + 1,), generator=gen,
+                         dtype=torch.int32)
+    rmatch = torch.randint(-1, nc, (nr + 1,), generator=gen,
+                           dtype=torch.int32)
+    return ecol, cadj, bfs, root, rmatch
+
+
+def _hot_rows(shuffle=True):
+    """One free row that 6000 frontier columns propose to and row 7 that
+    1000 do, beside random edges; shuffled slots, or sorted by row (the
+    CSC order)."""
+    gen = torch.Generator().manual_seed(21)
+    nc, nr = 8000, 50
+    cols = torch.arange(nc, dtype=torch.int32)
+    ecol = torch.cat([cols, cols[:3000], cols])
+    cadj = torch.cat([torch.zeros(nc, dtype=torch.int32),
+                      torch.full((3000,), 7, dtype=torch.int32),
+                      torch.randint(1, nr, (nc,), generator=gen,
+                                    dtype=torch.int32)])
+    order = (torch.randperm(ecol.shape[0], generator=gen) if shuffle
+             else torch.argsort(cadj, stable=True))
+    bfs = torch.full((nc + 1,), 1, dtype=torch.int32)
+    bfs[2000:] = 2                       # columns 2000.. are on the frontier
+    bfs[nc] = -2**30
+    rmatch = torch.full((nr + 1,), -1, dtype=torch.int32)
+    rmatch[nr] = -3
+    return ecol[order], cadj[order], bfs, rmatch
 
 
 @pytest.mark.gpu
@@ -148,17 +193,7 @@ def test_cuda_fused_sweep_short_edge_lists(nnz):
     every offset, both bodies, half the columns on the frontier."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    gen = torch.Generator().manual_seed(nnz)
-    nc, nr = 40, 30
-    ecol = torch.randint(0, nc + 1, (nnz,), generator=gen, dtype=torch.int32)
-    cadj = torch.randint(0, nr + 1, (nnz,), generator=gen, dtype=torch.int32)
-    bfs = torch.tensor([1, 2], dtype=torch.int32)[
-        torch.randint(0, 2, (nc + 1,), generator=gen)]
-    bfs[nc] = -2**30
-    root = torch.randint(0, nc + 1, (nc + 1,), generator=gen,
-                         dtype=torch.int32)
-    rmatch = torch.randint(-1, nc, (nr + 1,), generator=gen,
-                           dtype=torch.int32)
+    ecol, cadj, bfs, root, rmatch = _short_edges(nnz)
     for rt in (root, None):
         st = (bfs, rt, rmatch, 2)
         want = frontier_expand_fused_ref(ecol, cadj, *st)
@@ -200,21 +235,8 @@ def test_cuda_fused_sweep_hot_row():
     wins, as in the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    gen = torch.Generator().manual_seed(21)
-    nc, nr = 8000, 50
-    cols = torch.arange(nc, dtype=torch.int32)
-    ecol = torch.cat([cols, cols[:3000], cols])
-    cadj = torch.cat([torch.zeros(nc, dtype=torch.int32),
-                      torch.full((3000,), 7, dtype=torch.int32),
-                      torch.randint(1, nr, (nc,), generator=gen,
-                                    dtype=torch.int32)])
-    perm = torch.randperm(ecol.shape[0], generator=gen)
-    ecol, cadj = ecol[perm], cadj[perm]
-    bfs = torch.full((nc + 1,), 1, dtype=torch.int32)
-    bfs[2000:] = 2                       # columns 2000.. are on the frontier
-    bfs[nc] = -2**30
-    rmatch = torch.full((nr + 1,), -1, dtype=torch.int32)
-    rmatch[nr] = -3
+    ecol, cadj, bfs, rmatch = _hot_rows()
+    nc = bfs.shape[0] - 1
     for root in (torch.arange(nc + 1, dtype=torch.int32), None):
         st = (bfs, root, rmatch, 2)
         want = frontier_expand_fused_ref(ecol, cadj, *st)
@@ -355,6 +377,145 @@ def test_cuda_solve_paths_equal_cpu():
             b = path.run_host(g, device="cuda")
             assert (a[0] == b[0]).all() and (a[1] == b[1]).all(), \
                 (name, pname)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wr", [True, False], ids=["wr", "plain"])
+def test_cuda_proposals_read_views_at_every_offset(wr):
+    """The proposal kernel with ecol and cadj as views 1-3 slots into their
+    buffers (head and tail slots; its 16-byte store then falls back to
+    four scalar ones), at every level of a first BFS phase: every edge
+    slot bit for bit, each view launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = random_bipartite(20000, 18000, 4.0, seed=16, pad_to=80003)
+    cpu = TorchCSR.from_host(g, device="cpu")
+    warm = Matcher(warm_start="cheap").init(cpu)
+    states = _phase_states(cpu.ecol, cpu.cadj, warm.cmatch, warm.rmatch, wr)
+    assert len(states) >= 3
+    reset_launches()
+    for st in states:
+        want = frontier_expand_ref(cpu.ecol, cpu.cadj, *st)
+        for off in _OFFSETS:
+            assert torch.equal(_on_card(frontier_expand, cpu.ecol, cpu.cadj,
+                                        st, off), want), (off, st[3])
+    body = "wr" if wr else "plain"
+    assert LAUNCHES[f"frontier_expand_{body}"] == len(states) * len(_OFFSETS)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nnz", [0, 1, 3, 127, 129])
+def test_cuda_proposals_short_edge_lists(nnz):
+    """Edge counts that leave 0-3 slots past the last whole vector, at
+    every offset, both bodies: every slot written once, as the plain
+    version writes it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    ecol, cadj, bfs, root, rmatch = _short_edges(nnz)
+    for rt in (root, None):
+        st = (bfs, rt, rmatch, 2)
+        want = frontier_expand_ref(ecol, cadj, *st)
+        if nnz >= 127:
+            assert int((want < 2**30).sum()) > 0
+        for off in _OFFSETS:
+            got = _on_card(frontier_expand, ecol, cadj, st, off)
+            assert got.shape == (nnz,) and torch.equal(got, want), \
+                (off, rt is None)
+
+
+@pytest.mark.gpu
+def test_cuda_proposals_hot_row():
+    """The hot rows of the fused kernel's test through the proposal
+    kernel: every slot as the plain version has it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    ecol, cadj, bfs, rmatch = _hot_rows()
+    nc = bfs.shape[0] - 1
+    for root in (torch.arange(nc + 1, dtype=torch.int32), None):
+        st = (bfs, root, rmatch, 2)
+        want = frontier_expand_ref(ecol, cadj, *st)
+        assert int((want < 2**30).sum()) > 6000
+        for off in ((0, 0), (3, 1)):
+            assert torch.equal(_on_card(frontier_expand, ecol, cadj, st, off),
+                               want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_cols", [1, 31, 32, 33, 65])
+def test_cuda_pull_bitmap_tail_words(n_cols):
+    """nc + 1 columns that fill a word, stop short of one or spill one bit
+    into the next: the column pass's words (bits past column nc zero) and
+    the pull's winners, on row-sorted and on shuffled slots, both bodies,
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    gen = torch.Generator().manual_seed(n_cols)
+    nc, nr, nnz = n_cols - 1, 20, 301
+    radj = torch.randint(0, nc + 1, (nnz,), generator=gen, dtype=torch.int32)
+    erow = torch.randint(0, nr + 1, (nnz,), generator=gen, dtype=torch.int32)
+    order = torch.argsort(erow, stable=True)
+    bfs = torch.tensor([1, 2, 2], dtype=torch.int32)[
+        torch.randint(0, 3, (nc + 1,), generator=gen)]
+    root = torch.randint(-2, nc + 3, (nc + 1,), generator=gen,
+                         dtype=torch.int32)
+    rmatch = torch.randint(-2, max(nc, 1), (nr + 1,), generator=gen,
+                           dtype=torch.int32)
+    reset_launches()
+    for rt in (root, None):
+        words = frontier_bits(bfs.cuda(), None if rt is None else rt.cuda(),
+                              2)
+        assert torch.equal(words.cpu(), frontier_bits_ref(bfs, rt, 2))
+        for cols, rows in ((radj[order], erow[order]), (radj, erow)):
+            st = (bfs, rt, rmatch, 2)
+            want = frontier_expand_pull_ref(cols, rows, *st)
+            for off in ((0, 0), (1, 2)):
+                assert torch.equal(_on_card(frontier_expand_pull, cols, rows,
+                                            st, off), want), (off, rt is None)
+    assert LAUNCHES["frontier_bits_wr"] == 1 + 4
+    assert LAUNCHES["frontier_expand_pull_wr"] == 4
+
+
+@pytest.mark.gpu
+def test_cuda_pull_hot_row():
+    """The hot rows through the pull kernel, the slots sorted by row (as
+    the CSC mirror has them) and shuffled: the lowest proposing column
+    wins, as in the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for shuffle in (False, True):
+        cols, rows, bfs, rmatch = _hot_rows(shuffle)
+        nc = bfs.shape[0] - 1
+        for root in (torch.arange(nc + 1, dtype=torch.int32), None):
+            st = (bfs, root, rmatch, 2)
+            want = frontier_expand_pull_ref(cols, rows, *st)
+            assert int(want[0]) == 2000 and int(want[7]) == 2000
+            for off in ((0, 0), (3, 1)):
+                assert torch.equal(_on_card(frontier_expand_pull, cols, rows,
+                                            st, off), want), (shuffle, off)
+
+
+@pytest.mark.gpu
+def test_cuda_pull_unsorted_slots():
+    """The CSC mirror's slots in a random order (erow no longer sorted) and
+    as views: the pull's winners at every level of a first BFS phase, both
+    bodies, equal the plain version's on the sorted slots."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    g = random_bipartite(20000, 18000, 4.0, seed=14, pad_to=80001)
+    cpu = TorchCSR.from_host(g, device="cpu").with_csc()
+    warm = Matcher(warm_start="cheap").init(cpu)
+    perm = torch.randperm(cpu.radj.shape[0],
+                          generator=torch.Generator().manual_seed(14))
+    radj, erow = cpu.radj[perm], cpu.erow[perm]
+    for wr in (True, False):
+        for st in _phase_states(cpu.ecol, cpu.cadj, warm.cmatch,
+                                warm.rmatch, wr):
+            want = frontier_expand_pull_ref(cpu.radj, cpu.erow, *st)
+            for off in ((0, 0), (1, 2)):
+                assert torch.equal(_on_card(frontier_expand_pull, radj, erow,
+                                            st, off), want), (wr, st[3], off)
+                assert torch.equal(_on_card(frontier_expand_pull, cpu.radj,
+                                            cpu.erow, st, off), want)
 
 
 def _qkv(B, S, H, KV, hd, dtype, seed, Sk=None):
