@@ -12,18 +12,31 @@ What it does, in order; any failure raises and the exit code is not 0:
    source, ``sm_90a``, all started together), printing the build times and
    each kernel's registers and spills (the tensor-core flash body must not
    spill); then worker processes make the main-path graphs and
-   their cardinalities by scipy, and solve the small corpus on the CPU
-   through every solve path (for step 4);
+   their cardinalities by scipy, solve each main-path graph on the CPU
+   (for step 2) and solve the small corpus on the CPU through every solve
+   path (for step 4);
 2. drives the matching main path, ``TorchCSR.from_host`` (then ``with_csc``
    for the direction-optimizing paths) -> warm start -> APFB/APsB solve, on
    three full-size graphs made by the port's own generators, through every
    solve path: the fused push sweep, the legacy proposal kernel, the pull
-   kernel, the compact pull and the adaptive compact gather.  Every kernel
-   launch counter and solver counter is set to 0 just before each run and
-   read just after.  Each result is checked four ways: a valid matching, a
-   cardinality equal to scipy's ``maximum_bipartite_matching`` (independent
-   of the code under test), ``certified`` True, and the run's own kernel
-   launched or compact branch taken;
+   kernel, the compact pull and the adaptive compact gather.  ``Matcher.
+   run`` is one compile-cache entry per (bucket, config, warm start) whose
+   steps are CUDA graphs and whose loops are conditional WHILE nodes: each
+   run is made cold (the entry built and its graphs captured, as a jit
+   compile) and then warm (a cache hit, no new capture), each timed with
+   its upload (``upload_s``, ``TorchCSR.
+   from_host`` alone, beside the wall), and once more under torch's sync
+   debug mode, whose count of host waits must be the solver's own
+   ``host_syncs``.  Every kernel launch counter (device counters, so
+   replayed launches count) and solver counter is set to 0 just before each
+   run and read just after; the warm run is the one the launch checks read.
+   Each result is checked five ways: a valid matching, a cardinality equal
+   to scipy's ``maximum_bipartite_matching`` (independent of the code under
+   test), ``certified`` True, the CPU's state bit for bit (a worker's run of
+   the main-path config on the same graph; every path gives the same
+   state), and the run's own kernel launched or compact branch taken.  The
+   entry's bytes are read: its static buffers, and the memory the card
+   holds for it (buffers and the graphs' pool);
 3. holds each frontier kernel against its plain PyTorch version on the
    card, over the first BFS phase of the main-path graphs, level by level,
    bit for bit (tolerance 0: the outputs are integers): the fused sweep on
@@ -31,8 +44,11 @@ What it does, in order; any failure raises and the exit code is not 0:
    order and with ``ecol``/``cadj`` as views 1-3 slots into their
    buffers), the proposal kernel, the pull kernel and the pull's column
    pass (``frontier_bits``) on kron (WR) and the random graph (plain), the
-   pull kernel also against the fused one; times each kernel and plain
-   version with CUDA events, each level alone too, prints the pull's and
+   pull kernel also against the fused one, and each sweep with its level
+   read from a device scalar and an open gate (as the captured solve
+   launches it) against the immediate; times each kernel (both ways) and
+   plain version with CUDA events, each level alone too, prints the pull's
+   and
    the fused sweep's times level by level side by side, and splits each
    kernel's device time (the pull's into column pass, sweep and fill)
    with ``torch.profiler``;
@@ -41,7 +57,8 @@ What it does, in order; any failure raises and the exit code is not 0:
    ``phases``, ``fallbacks`` and ``certified``;
 5. profiles one more solve of each main-path graph with ``torch.profiler``
    (device time by kernel, the fused sweep's and torch's scatter kernels'
-   share, the device's busy share of the wall time);
+   share, the device's busy share of the wall time), and times one in CUDA
+   events (the card's span from the first launch to the last);
 6. holds the flash-attention kernel against its plain version on the card
    (TF32 off): the shapes of ``tests/test_kernels.py`` in fp32 (the CUDA-core
    body, 2e-5) and bf16 (the tensor-core body, 2e-2) and granite-20b's
@@ -197,6 +214,22 @@ def make_graph(entry):
     return g, int((m >= 0).sum()), t1 - t0, time.perf_counter() - t1
 
 
+def main_path_cpu(entry) -> tuple:
+    """Worker process: one main-path graph solved on the CPU with its
+    main-path config and warm start.  Returns the outcome and the seconds
+    it took."""
+    use_src()
+    torch.set_num_threads(2)
+    from repro_torch import graphs
+    from repro_torch.matching import Matcher, MatcherConfig, TorchCSR
+    name, args, kw = entry[:3]
+    g = getattr(graphs, name)(*args, **kw)
+    t0 = time.perf_counter()
+    state = Matcher(MatcherConfig(**entry[3]), entry[4]).run(
+        TorchCSR.from_host(g, device="cpu"))
+    return outcome(state), time.perf_counter() - t0
+
+
 def small_sets_cpu(path: str) -> dict:
     """Worker process: ``instance_sets("small")`` solved on the CPU through
     one solve path; family -> (cmatch, rmatch, phases, fallbacks,
@@ -224,10 +257,12 @@ def outcome(state) -> tuple:
 
 
 def start_workers(pool, paths) -> tuple:
-    """Start the graph workers and the CPU small-set workers together."""
+    """Start the graph workers, the CPU main-path workers and the CPU
+    small-set workers together."""
     graphs = [pool.apply_async(make_graph, (e,)) for e in MAIN_PATH]
+    cpu = [pool.apply_async(main_path_cpu, (e,)) for e in MAIN_PATH]
     small = {p: pool.apply_async(small_sets_cpu, (p,)) for p in paths}
-    return graphs, small
+    return graphs, cpu, small
 
 
 def collect_graphs(pending) -> list:
@@ -330,22 +365,23 @@ def warm_up() -> None:
     torch.cuda.synchronize()
 
 
-def solve_once(g, cfg, ws: str) -> tuple:
-    """One run through the user's entry points, every launch and solver
-    count set to 0 just before it; returns (state, row of measurements)."""
+def counted_run(g, cfg, ws: str) -> tuple:
+    """``TorchCSR.from_host`` (and ``with_csc``) then ``Matcher.run``, every
+    launch and solver count set to 0 just before and read just after;
+    returns (state, graph, row): the wall, the upload alone, the counts."""
     from repro_torch.kernels.frontier_expand import LAUNCHES, reset_launches
     from repro_torch.matching import Matcher, TorchCSR
     from repro_torch.matching.solve import COUNTERS
 
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launches()
     COUNTERS.reset()
     t0 = time.perf_counter()
     graph = TorchCSR.from_host(g)
+    torch.cuda.synchronize()
+    upload = time.perf_counter() - t0
     csc_s = 0.0
     if cfg.dirop:
-        torch.cuda.synchronize()
         t1 = time.perf_counter()
         graph = graph.with_csc()
         torch.cuda.synchronize()
@@ -353,20 +389,100 @@ def solve_once(g, cfg, ws: str) -> tuple:
     state = Matcher(cfg, ws).run(graph)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    row = dict(wall_s=wall, with_csc_s=csc_s, phases=int(state.phases),
-               fallbacks=int(state.fallbacks),
-               certified=bool(state.certified),
-               launches=dict(LAUNCHES), **COUNTERS.as_dict(),
-               max_memory_allocated=torch.cuda.max_memory_allocated())
-    return state, row
+    return state, graph, dict(wall_s=wall, upload_s=upload, with_csc_s=csc_s,
+                              launches=dict(LAUNCHES), **COUNTERS.as_dict())
 
 
-def main_path(graphs) -> list:
-    """Phase 2: every run of ``MAIN_PATH`` and ``PATH_RUNS``, each checked
-    against scipy and for its own kernel or branch.  ``graphs`` holds
-    (graph, scipy cardinality) pairs."""
+def sync_debug_count(matcher, graph) -> tuple:
+    """``matcher.run(graph)`` under torch's sync debug mode: (waits of the
+    host for the card that it reports, the solver's own host syncs)."""
+    from repro_torch.matching.solve import COUNTERS
+    torch.cuda.synchronize()
+    before = COUNTERS.host_syncs
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            matcher.run(graph)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return (sum("synchroniz" in str(w.message) for w in caught),
+            COUNTERS.host_syncs - before)
+
+
+WARM_RUNS = 3
+
+
+def solve_once(g, cfg, ws: str) -> tuple:
+    """One configuration cold (its cache entry built, graphs captured) and
+    ``WARM_RUNS`` times warm (hits: no new entry, no new capture), each
+    through the user's entry points with every count set to 0 just before
+    it; then one run under the sync debug mode.  Returns (last warm state,
+    cold state, row): the last warm run's counts, the best warm wall and
+    all of them, the cold wall, and the entry's bytes."""
+    from repro_torch.matching import Matcher, compile_cache_info
+    from repro_torch.matching.cache import compile_cache_entry
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    misses = compile_cache_info()["misses"]
+    cold, graph, cold_row = counted_run(g, cfg, ws)
+    key = compile_cache_info()["keys"][-1]
+    prog = compile_cache_entry(key)
+    if compile_cache_info()["misses"] != misses + 1 or prog is None:
+        fail(f"the cold run of {cfg.name} built no cache entry")
+    dev = graph.device
+    captures = prog.captures(dev)
+    del graph
+    torch.cuda.empty_cache()
+    # the entry's buffers and its graphs' pool, less the state it returned
+    entry_reserved = (torch.cuda.memory_reserved() - reserved
+                      - 4 * (cold.cmatch.numel() + cold.rmatch.numel()))
+    torch.cuda.reset_peak_memory_stats()
+    # three warm runs, each with its upload: the best wall is reported (the
+    # upload from pageable host memory varies from run to run)
+    walls = []
+    for _ in range(WARM_RUNS):
+        warm, graph, row = counted_run(g, cfg, ws)
+        walls.append(row["wall_s"])
+    if compile_cache_info()["misses"] != misses + 1:
+        fail(f"the warm run of {cfg.name} missed the cache")
+    if prog.captures(dev) != captures:
+        fail(f"the warm run of {cfg.name} captured "
+             f"{prog.captures(dev) - captures} more graphs")
+    debug_waits, debug_syncs = sync_debug_count(Matcher(cfg, ws), graph)
+    row.update(
+        cold_wall_s=cold_row["wall_s"], cold_upload_s=cold_row["upload_s"],
+        warm_wall_s=min(walls), warm_walls_s=walls,
+        cold_host_syncs=cold_row["host_syncs"],
+        cold_launches=cold_row["launches"], sync_debug_waits=debug_waits,
+        sync_debug_host_syncs=debug_syncs, graphs_captured=captures,
+        entry_static_bytes=prog.static_bytes(dev),
+        entry_bytes=prog.nbytes(dev), entry_reserved_bytes=entry_reserved,
+        phases=int(warm.phases), fallbacks=int(warm.fallbacks),
+        certified=bool(warm.certified),
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    return warm, cold, row
+
+
+def same_outcome(a, b) -> bool:
+    ca, ra, *rest_a = a
+    cb, rb, *rest_b = b
+    return bool((ca == cb).all() and (ra == rb).all()) and rest_a == rest_b
+
+
+def main_path(graphs) -> tuple:
+    """Phase 2: every run of ``MAIN_PATH`` and ``PATH_RUNS``, cold and warm,
+    each checked against scipy, the warm state against the cold one, for
+    no wait beyond its host syncs and for its own kernel or branch.
+    ``graphs`` holds (graph, scipy cardinality) pairs.  The cache is
+    cleared after each graph's runs.  Returns the rows and, per run, its
+    main-path graph and warm outcome (for :func:`check_cpu`)."""
     from repro_torch.core import validate_matching
-    from repro_torch.matching import SOLVE_PATHS, MatcherConfig
+    from repro_torch.matching import (SOLVE_PATHS, MatcherConfig,
+                                      compile_cache_clear)
 
     runs = []
     for i, entry in enumerate(MAIN_PATH):
@@ -375,24 +491,35 @@ def main_path(graphs) -> list:
         runs.append((i, "jnp", entry[3], entry[4],
                      (f"frontier_expand_fused_{body}",), ()))
     runs += PATH_RUNS
-    results = []
-    for gi, path, cfg_kw, ws, must, zero in runs:
+    runs.sort(key=lambda r: r[0])                     # graph by graph
+    results, outcomes = [], []
+    for i, (gi, path, cfg_kw, ws, must, zero) in enumerate(runs):
         (g, want), expr = graphs[gi], label(MAIN_PATH[gi])
         cfg = SOLVE_PATHS[path].configure(MatcherConfig(**cfg_kw))
-        state, row = solve_once(g, cfg, ws)
+        state, cold, row = solve_once(g, cfg, ws)
+        got = outcome(state)
+        outcomes.append((gi, path, got))
+        same_cold = same_outcome(got, outcome(cold))
         cm, rm = state.to_host()
         card = validate_matching(g, cm, rm)
         row = dict(graph=expr, path=path, config=cfg.name,
                    overrides={k: v for k, v in dataclasses.asdict(cfg).items()
                               if v != getattr(MatcherConfig(), k)},
                    warm_start=ws, nc=g.nc, nr=g.nr, nnz=g.nnz,
-                   cardinality=card, scipy_cardinality=want, **row)
+                   cardinality=card, scipy_cardinality=want,
+                   cold_equal_warm=same_cold, **row)
         say("main path:", json.dumps(row))
         what = f"{expr} via {path}"
         if card != want:
             fail(f"{what}: cardinality {card} != scipy's {want}")
         if not row["certified"]:
             fail(f"{what}: result not certified maximum")
+        if not same_cold:
+            fail(f"{what}: the warm run's state differs from the cold run's")
+        if row["sync_debug_waits"] != row["sync_debug_host_syncs"]:
+            fail(f"{what}: the sync debug mode saw "
+                 f"{row['sync_debug_waits']} waits for "
+                 f"{row['sync_debug_host_syncs']} host syncs")
         for m in must:
             seen = row["launches"].get(m, row.get(m))
             if not seen:
@@ -401,7 +528,26 @@ def main_path(graphs) -> list:
             if row["launches"][k]:
                 fail(f"{what}: {k} launched {row['launches'][k]} times")
         results.append(row)
-    return results
+        if i + 1 == len(runs) or runs[i + 1][0] != gi:
+            del state, cold
+            compile_cache_clear()
+            torch.cuda.empty_cache()
+    return results, outcomes
+
+
+def check_cpu(outcomes, cpu_pending) -> None:
+    """Every main-path and path run's state equals the CPU's bit for bit:
+    the workers' runs of each main-path graph with its main-path config
+    (``cpu_pending``); every path gives that config's state."""
+    cpu = {}
+    for gi, path, got in outcomes:
+        if gi not in cpu:
+            cpu[gi], cpu_s = cpu_pending[gi].get()
+            say(f"cpu run of {label(MAIN_PATH[gi])}: {cpu_s:.1f} s")
+        if not same_outcome(got, cpu[gi]):
+            fail(f"{label(MAIN_PATH[gi])} via {path}: the card's state "
+                 f"differs from the CPU's")
+    say(f"main path: all {len(outcomes)} runs equal the CPU's state")
 
 
 def edge_variants(graph) -> dict:
@@ -427,6 +573,15 @@ def edge_variants(graph) -> dict:
     return out
 
 
+def device_args(kind: str, args: tuple) -> tuple:
+    """A kernel's arguments as the captured solve passes them: the level a
+    0-d int32 tensor on the card, and (the sweeps) an open gate."""
+    level = torch.full((), args[-1], dtype=torch.int32, device=CARD)
+    if kind == "bits":
+        return (*args[:-1], level)
+    return (*args[:-1], level, torch.ones_like(level))
+
+
 def check_levels(graph, warm, wr: bool, wr_exact: bool, extra: bool,
                  variants=None) -> dict:
     """The first BFS phase from ``warm``, level by level: the fused kernel
@@ -434,8 +589,10 @@ def check_levels(graph, warm, wr: bool, wr_exact: bool, extra: bool,
     the pull kernel and the pull's column pass against theirs (the pull
     also against the fused kernel), all bit for bit; the fused kernel also
     on each of ``variants`` (name -> (ecol, cadj), the same edges in
-    another layout) against the same winners.  Returns, per kernel, one
-    dict a level: its arguments, bound, level and rows won."""
+    another layout) against the same winners; each also with its level
+    read from a device scalar and an open gate (:func:`device_args`)
+    against its immediate-level launch.  Returns, per kernel, one dict a
+    level: its arguments, bound, level and rows won."""
     from repro_torch.kernels.frontier_expand import (
         frontier_bits, frontier_bits_ref, frontier_expand,
         frontier_expand_fused, frontier_expand_fused_ref,
@@ -450,11 +607,14 @@ def check_levels(graph, warm, wr: bool, wr_exact: bool, extra: bool,
     out = {k: [] for k in ("fused", "proposals", "pull", "bits")}
     body = "WR" if wr else "plain"
 
-    def check(name, got, want, args, nbytes):
+    def check(name, fn, got, want, args, nbytes):
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             fail(f"{name} ({body}) differs from its plain version at "
                  f"level {level}")
+        if not torch.equal(fn(*device_args(name, args)), got):
+            fail(f"{name} ({body}) with its level on the card differs from "
+                 f"its launch with the immediate at level {level}")
         out[name].append(dict(args=args, bound=bound_ms(nbytes),
                               level=level, won=won))
 
@@ -463,26 +623,26 @@ def check_levels(graph, warm, wr: bool, wr_exact: bool, extra: bool,
         args = (graph.ecol, graph.cadj, bfs, rt, rmatch, level)
         win = frontier_expand_fused(*args)
         won = int((win < 2**30).sum())
-        check("fused", win, frontier_expand_fused_ref(*args), args,
-              push_bytes(*args))
+        check("fused", frontier_expand_fused, win,
+              frontier_expand_fused_ref(*args), args, push_bytes(*args))
         for vname, (ve, vc) in (variants or {}).items():
             if not torch.equal(frontier_expand_fused(ve, vc, *args[2:]),
                                win):
                 fail(f"fused kernel ({body}) on the {vname} edges differs "
                      f"from its plain version at level {level}")
         if extra:
-            check("proposals", frontier_expand(*args),
+            check("proposals", frontier_expand, frontier_expand(*args),
                   frontier_expand_ref(*args), args, proposal_bytes(*args))
             pargs = (graph.radj, graph.erow, bfs, rt, rmatch, level)
             pull = frontier_expand_pull(*pargs)
-            check("pull", pull, frontier_expand_pull_ref(*pargs), pargs,
-                  pull_bytes(*pargs))
+            check("pull", frontier_expand_pull, pull,
+                  frontier_expand_pull_ref(*pargs), pargs, pull_bytes(*pargs))
             if not torch.equal(pull, win):
                 fail(f"pull kernel ({body}) differs from the fused kernel "
                      f"at level {level}")
             bargs = (bfs, rt, level)
-            check("bits", frontier_bits(*bargs), frontier_bits_ref(*bargs),
-                  bargs, bits_bytes(*bargs))
+            check("bits", frontier_bits, frontier_bits(*bargs),
+                  frontier_bits_ref(*bargs), bargs, bits_bytes(*bargs))
         bfs, root, pred, rmatch, ins, _ = _apply_winner(
             win, bfs, root, pred, rmatch, level, wr=wr, wr_exact=wr_exact)
         level += 1
@@ -511,7 +671,8 @@ def kernel_checks(graphs) -> list:
         frontier_bits, frontier_bits_ref, frontier_expand,
         frontier_expand_fused, frontier_expand_fused_ref,
         frontier_expand_pull, frontier_expand_pull_ref, frontier_expand_ref)
-    from repro_torch.matching import Matcher, MatcherConfig, TorchCSR
+    from repro_torch.matching import (Matcher, MatcherConfig, TorchCSR,
+                                      compile_cache_clear)
 
     fns = {"fused": ("frontier_expand_fused", frontier_expand_fused,
                      frontier_expand_fused_ref),
@@ -541,10 +702,12 @@ def kernel_checks(graphs) -> list:
                 states = [lv["args"] for lv in levels]
                 n = len(states)
                 k_ms = cuda_ms(lambda: [kernel(*a) for a in states]) / n
+                dev_states = [device_args(kind, a) for a in states]
+                kd_ms = cuda_ms(lambda: [kernel(*a) for a in dev_states]) / n
                 p_ms = cuda_ms(lambda: [plain(*a) for a in states]) / n
                 row = dict(graph=expr, kernel=f"{name}_{'wr' if wr else 'plain'}",
                            levels_checked=n, max_abs_err=0, kernel_ms=k_ms,
-                           plain_ms=p_ms,
+                           kernel_ms_device_level=kd_ms, plain_ms=p_ms,
                            bound_ms=sum(lv["bound"] for lv in levels) / n,
                            nnz_pad=graph.nnz_pad)
                 # each of the first 16 levels alone: [level, bound ms, ms,
@@ -578,6 +741,7 @@ def kernel_checks(graphs) -> list:
                                            mine["pull"]["per_level"],
                                            mine["bits"]["per_level"])])))
         del graph, warm, variants
+        compile_cache_clear()
         torch.cuda.empty_cache()
     return rows
 
@@ -643,24 +807,26 @@ def profile_main_path(entry, g) -> dict:
 
     graph = TorchCSR.from_host(g)
     matcher = Matcher(MatcherConfig(**entry[3]), entry[4])
-    matcher.run(graph)                                  # warm the allocator
+    matcher.run(graph)                      # the cache entry and its graphs
     out = dict(graph=label(entry), **device_profile(
         lambda: matcher.run(graph), PROFILE_SHARES,
         ("aten::scatter_reduce", "aten::scatter_", "aten::where",
          "aten::arange")))
+    # the card's span of one warm solve in CUDA events (the profiler may
+    # not see every kernel inside a conditional node's body)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    matcher.run(graph)
+    end.record()
+    end.synchronize()
+    out["event_wall_s"] = time.perf_counter() - t0
+    out["event_span_s"] = start.elapsed_time(end) / 1e3
     # every wait of the host for the card, counted by torch's sync debug
     # mode, beside the solver's own count of the device values it reads
-    from repro_torch.matching.solve import COUNTERS
-    COUNTERS.reset()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            matcher.run(graph)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    out["device_syncs"] = sum("synchroniz" in str(w.message) for w in caught)
-    out["host_syncs"] = COUNTERS.host_syncs
+    out["device_syncs"], out["host_syncs"] = sync_debug_count(matcher, graph)
     say("profile:", json.dumps(out))
     return out
 
@@ -1166,7 +1332,7 @@ def main() -> int:
     say("torch", torch.__version__, "cuda", torch.version.cuda, "device",
         torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
-    sources = ["frontier_expand", "flash_attention"]
+    sources = ["frontier_expand", "graph_loop", "flash_attention"]
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as ex:
         libs = dict(zip(sources, ex.map(load_library, sources)))
     say(f"kernel builds (one nvcc per source, in parallel): "
@@ -1182,7 +1348,7 @@ def main() -> int:
 
     # graphs and the CPU half of the small-set check, in worker processes;
     # terminated on the way out whatever happens
-    pool = multiprocessing.get_context("spawn").Pool(len(MAIN_PATH) + 2)
+    pool = multiprocessing.get_context("spawn").Pool(2 * len(MAIN_PATH) + 1)
     try:
         kernels = run_phases(pool, list(SOLVE_PATHS))
     finally:
@@ -1200,24 +1366,30 @@ def main() -> int:
 
 def run_phases(pool, paths) -> list:
     """The matching paths (phases 2-5); returns their kernels' entries."""
+    from repro_torch.matching import compile_cache_clear
     t0 = time.perf_counter()
-    pending_graphs, cpu_small = start_workers(pool, paths)
+    pending_graphs, cpu_main, cpu_small = start_workers(pool, paths)
     graphs = [(g, want) for g, want, *_ in collect_graphs(pending_graphs)]
     phase("graphs and scipy cardinalities", t0)
 
     t0 = time.perf_counter()
     warm_up()
-    runs = main_path(graphs)
+    runs, outcomes = main_path(graphs)
     phase("main path", t0)
     t0 = time.perf_counter()
     checks = kernel_checks(graphs)
     phase("kernel checks", t0)
     t0 = time.perf_counter()
     small_sets_bit_exact(cpu_small)
-    phase("small sets", t0)
+    compile_cache_clear()
+    check_cpu(outcomes, cpu_main)
+    del outcomes
+    phase("small sets and the main path against the CPU", t0)
     t0 = time.perf_counter()
     for entry, (g, _) in zip(MAIN_PATH, graphs):
         profile_main_path(entry, g)
+        compile_cache_clear()
+        torch.cuda.empty_cache()
     phase("profile", t0)
 
     # one line for the kernels, each timed on the main-path graph of its
@@ -1235,6 +1407,7 @@ def run_phases(pool, paths) -> list:
             launches=sum(r["launches"][name] for r in runs),
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=row["kernel_ms"], plain_ms=row["plain_ms"],
+            ms_device_level=row["kernel_ms_device_level"],
             bound_ms=row["bound_ms"], bound_by="bytes", library_ms=None,
             timed_on=row["graph"],
             levels_checked=sum(r["levels_checked"] for r in mine),

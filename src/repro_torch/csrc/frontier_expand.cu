@@ -22,6 +22,13 @@
 // cannot make a kernel read or write out of bounds.  The plain versions
 // (kernels/frontier_expand/ref.py) skip the same slots.
 //
+// Launches inside CUDA graphs.  The solver captures its BFS levels into
+// CUDA graphs and replays them level after level, so every sweep reads its
+// level from a device pointer (or takes it as an immediate), runs only
+// where a device gate is set, and counts itself in a device counter when it
+// runs (struct Launch).  The gate and the level cost one cached load a
+// thread.
+//
 // ---- K1, fused_sweep -------------------------------------------------------
 // Contract (identical to the TPU kernel's): win is the (nr+1,) int32 vector
 // holding, for each row r, the lowest column c of a proposing edge (c, r),
@@ -199,6 +206,33 @@ __device__ __forceinline__ void red_min(int* p, int v, uint64_t pol) {
                :: "l"(p), "r"(v), "l"(pol) : "memory");
 }
 
+// How a launch finds its level and whether it runs, so that a launch
+// captured in a CUDA graph can be replayed at every level.  level_ptr:
+// read the level from device memory (null: the immediate `level`).  gate:
+// an int32 flag in device memory; where it is 0 the launch does no work and
+// writes nothing (null: always on).  count: where the launch runs, block 0
+// adds one to it (null: not counted).
+struct Launch {
+  int level;
+  const int* level_ptr;
+  const int* gate;
+  unsigned long long* count;
+};
+
+// Whether the launch runs; counts it once if so.  Every thread of the grid
+// reads the same gate, so the whole grid returns or none of it does.
+__device__ __forceinline__ bool launch_on(const Launch& l) {
+  if (l.gate != nullptr && *l.gate == 0) return false;
+  if (l.count != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    atomicAdd(l.count, 1ull);
+  }
+  return true;
+}
+
+__device__ __forceinline__ int launch_level(const Launch& l) {
+  return l.level_ptr != nullptr ? *l.level_ptr : l.level;
+}
+
 // What every slot of a sweep reads besides its own edge, and the policies.
 struct SweepState {
   const int* __restrict__ bfs;
@@ -313,9 +347,10 @@ template <bool WR>
 __global__ void __launch_bounds__(kThreads)
     fused_sweep(const int* __restrict__ ecol, const int* __restrict__ cadj,
                 const int* __restrict__ bfs, const int* __restrict__ root,
-                const int* __restrict__ rmatch, int level, int64_t nnz,
+                const int* __restrict__ rmatch, Launch launch, int64_t nnz,
                 int nc, int nr, int* __restrict__ win) {
-  const SweepState s{bfs, root, rmatch, win, level, nc, nr,
+  if (!launch_on(launch)) return;           // win keeps its IINF fill
+  const SweepState s{bfs, root, rmatch, win, launch_level(launch), nc, nr,
                      evict_first_policy(), evict_last_policy()};
   // the launcher refuses a pointer that is not 4-byte aligned
   const Split sp = split_slots(ecol, nnz);
@@ -344,10 +379,20 @@ template <bool WR>
 __global__ void __launch_bounds__(kThreads)
     proposals(const int* __restrict__ ecol, const int* __restrict__ cadj,
               const int* __restrict__ bfs, const int* __restrict__ root,
-              const int* __restrict__ rmatch, int level, int64_t nnz, int nc,
-              int nr, int* __restrict__ prop) {
-  const SweepState s{bfs, root, rmatch, nullptr, level, nc, nr,
-                     evict_first_policy(), evict_last_policy()};
+              const int* __restrict__ rmatch, Launch launch, int64_t nnz,
+              int nc, int nr, int* __restrict__ prop) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  if (!launch_on(launch)) {
+    // gated off: no proposal, every slot IINF (prop is the wrapper's
+    // torch.empty, so it must still be written)
+    for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < nnz;
+         e += stride) {
+      __stcs(prop + e, kIinf);
+    }
+    return;
+  }
+  const SweepState s{bfs, root, rmatch, nullptr, launch_level(launch), nc,
+                     nr, evict_first_policy(), evict_last_policy()};
   // row nr is a row here: rows [0, nr] count
   const unsigned row_end = (unsigned)nr + 1u;
   const Split sp = split_slots(ecol, nnz);
@@ -362,7 +407,6 @@ __global__ void __launch_bounds__(kThreads)
     propose<WR, 1>(c, cadj + e, false, row_end, s, act, r);
     __stcs(prop + e, act[0] ? c[0] : kIinf);
   }
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   int64_t k = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= sp.nvec) return;
   const int* base = ecol + sp.head;
@@ -394,7 +438,9 @@ __global__ void __launch_bounds__(kThreads)
 template <bool WR>
 __global__ void __launch_bounds__(kThreads)
     frontier_bits(const int* __restrict__ bfs, const int* __restrict__ root,
-                  int level, int nc, int* __restrict__ bits) {
+                  Launch launch, int nc, int* __restrict__ bits) {
+  if (!launch_on(launch)) return;
+  const int level = launch_level(launch);
   const uint64_t keep = evict_last_policy();
   const int lane = threadIdx.x & 31;
   const int64_t nwords = ((int64_t)nc + 32) >> 5;
@@ -519,8 +565,9 @@ __device__ __forceinline__ void pull_slots(const int (&r)[N],
 __global__ void __launch_bounds__(kThreads)
     pull_sweep(const int* __restrict__ radj, const int* __restrict__ erow,
                const int* __restrict__ bits, const int* __restrict__ bfs,
-               const int* __restrict__ rmatch, int64_t nnz, int nc, int nr,
-               int* __restrict__ win) {
+               const int* __restrict__ rmatch, Launch launch, int64_t nnz,
+               int nc, int nr, int* __restrict__ win) {
+  if (!launch_on(launch)) return;           // win keeps its IINF fill
   const PullState s{bits, bfs, rmatch, win, nc, nr, evict_first_policy(),
                     evict_last_policy()};
   const Split sp = split_slots(erow, nnz);
@@ -548,15 +595,30 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 static int blocks_for(long long n, int cap) {
+  // at least one block, so that every launch that runs is counted
   long long want = (n + kThreads - 1) / kThreads;
+  if (want < 1) want = 1;
   return (int)(want < cap ? want : cap);
 }
 
 // Each launcher runs on `stream` of the current device.  `root` may be null
 // (the plain body).  Returns cudaGetLastError() after the launches
 // (0 = success).  The argument order is the same for all three sweeps:
-// (column endpoints, row endpoints, bfs, root, rmatch, level, slots, nc, nr,
-// output, [the pull's bitmap,] stream).
+// (column endpoints, row endpoints, bfs, root, rmatch, level, level_ptr,
+// gate, slots, nc, nr, output, [the pull's bitmap,] counts, stream).
+// level_ptr, gate and counts may be null (see Launch).  A launch captured
+// in a CUDA graph keeps its arguments, so a graph replayed level after
+// level passes level_ptr and gate, and the fill below stays outside the
+// gate: a gated-off K1 or K3 leaves win all IINF.  counts is an array of
+// eight launch counters, one per kernel body, in the order of Slot.
+
+enum Slot { kProposals = 0, kFused = 2, kPull = 4, kBits = 6 };
+
+static unsigned long long* slot(unsigned long long* counts, Slot kernel,
+                                const int* root) {
+  return counts == nullptr ? nullptr
+                           : counts + kernel + (root != nullptr ? 0 : 1);
+}
 
 // The winner fill: cuMemsetD32Async, fetched from the driver once through
 // the runtime (no -lcuda), since IINF is no byte pattern for cudaMemset.
@@ -648,7 +710,8 @@ static cudaError_t pull_blocks(int* out) {
 // refused (cudaErrorMisalignedAddress), never read.
 extern "C" int frontier_expand_fused_launch(
     const int* ecol, const int* cadj, const int* bfs, const int* root,
-    const int* rmatch, int level, long long nnz, int nc, int nr, int* win,
+    const int* rmatch, int level, const int* level_ptr, const int* gate,
+    long long nnz, int nc, int nr, int* win, unsigned long long* counts,
     void* stream) {
   if (((uintptr_t)ecol | (uintptr_t)cadj) & 3) {
     return (int)cudaErrorMisalignedAddress;
@@ -656,96 +719,97 @@ extern "C" int frontier_expand_fused_launch(
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = fill_iinf(win, nr, s);
   if (err != cudaSuccess) return (int)err;
-  if (nnz > 0) {
-    int cap = 0;
-    err = root != nullptr ? fused_blocks<true>(&cap)
-                          : fused_blocks<false>(&cap);
-    if (err != cudaSuccess) return (int)err;
-    // one thread per four slots; block 0 also takes the <= 6 scalar slots
-    const int blocks = blocks_for((nnz + 3) / 4, cap);
-    if (root != nullptr) {
-      fused_sweep<true><<<blocks, kThreads, 0, s>>>(
-          ecol, cadj, bfs, root, rmatch, level, (int64_t)nnz, nc, nr, win);
-    } else {
-      fused_sweep<false><<<blocks, kThreads, 0, s>>>(
-          ecol, cadj, bfs, root, rmatch, level, (int64_t)nnz, nc, nr, win);
-    }
+  int cap = 0;
+  err = root != nullptr ? fused_blocks<true>(&cap) : fused_blocks<false>(&cap);
+  if (err != cudaSuccess) return (int)err;
+  const Launch l{level, level_ptr, gate, slot(counts, kFused, root)};
+  // one thread per four slots; block 0 also takes the <= 6 scalar slots
+  const int blocks = blocks_for((nnz + 3) / 4, cap);
+  if (root != nullptr) {
+    fused_sweep<true><<<blocks, kThreads, 0, s>>>(
+        ecol, cadj, bfs, root, rmatch, l, (int64_t)nnz, nc, nr, win);
+  } else {
+    fused_sweep<false><<<blocks, kThreads, 0, s>>>(
+        ecol, cadj, bfs, root, rmatch, l, (int64_t)nnz, nc, nr, win);
   }
   return (int)cudaGetLastError();
 }
 
-// K2: prop (nnz,) per-edge proposals; every slot is written.  ecol and cadj
-// as K1's.
+// K2: prop (nnz,) per-edge proposals; every slot is written (IINF
+// everywhere where the gate is off).  ecol and cadj as K1's.
 extern "C" int frontier_expand_launch(
     const int* ecol, const int* cadj, const int* bfs, const int* root,
-    const int* rmatch, int level, long long nnz, int nc, int nr, int* prop,
+    const int* rmatch, int level, const int* level_ptr, const int* gate,
+    long long nnz, int nc, int nr, int* prop, unsigned long long* counts,
     void* stream) {
   if (((uintptr_t)ecol | (uintptr_t)cadj | (uintptr_t)prop) & 3) {
     return (int)cudaErrorMisalignedAddress;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  if (nnz > 0) {
-    int cap = 0;
-    const cudaError_t err = root != nullptr ? proposal_blocks<true>(&cap)
-                                            : proposal_blocks<false>(&cap);
-    if (err != cudaSuccess) return (int)err;
-    const int blocks = blocks_for((nnz + 3) / 4, cap);
-    if (root != nullptr) {
-      proposals<true><<<blocks, kThreads, 0, s>>>(
-          ecol, cadj, bfs, root, rmatch, level, (int64_t)nnz, nc, nr, prop);
-    } else {
-      proposals<false><<<blocks, kThreads, 0, s>>>(
-          ecol, cadj, bfs, root, rmatch, level, (int64_t)nnz, nc, nr, prop);
-    }
+  int cap = 0;
+  const cudaError_t err = root != nullptr ? proposal_blocks<true>(&cap)
+                                          : proposal_blocks<false>(&cap);
+  if (err != cudaSuccess) return (int)err;
+  const Launch l{level, level_ptr, gate, slot(counts, kProposals, root)};
+  const int blocks = blocks_for((nnz + 3) / 4, cap);
+  if (root != nullptr) {
+    proposals<true><<<blocks, kThreads, 0, s>>>(
+        ecol, cadj, bfs, root, rmatch, l, (int64_t)nnz, nc, nr, prop);
+  } else {
+    proposals<false><<<blocks, kThreads, 0, s>>>(
+        ecol, cadj, bfs, root, rmatch, l, (int64_t)nnz, nc, nr, prop);
   }
   return (int)cudaGetLastError();
 }
 
-// K3's column pass alone: bits (ceil((nc+1)/32),) int32 words.
+// K3's column pass alone: bits (ceil((nc+1)/32),) int32 words (not written
+// where the gate is off).
 extern "C" int frontier_bits_launch(const int* bfs, const int* root,
-                                    int level, int nc, int* bits,
+                                    int level, const int* level_ptr,
+                                    const int* gate, int nc, int* bits,
+                                    unsigned long long* counts,
                                     void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   int cap = 0;
   const cudaError_t err = root != nullptr ? bits_blocks<true>(&cap)
                                           : bits_blocks<false>(&cap);
   if (err != cudaSuccess) return (int)err;
+  const Launch l{level, level_ptr, gate, slot(counts, kBits, root)};
   // one warp per 128 columns
   const long long chunks = ((long long)nc + 128) / 128;
   const int blocks = blocks_for(32 * chunks, cap);
   if (root != nullptr) {
-    frontier_bits<true><<<blocks, kThreads, 0, s>>>(bfs, root, level, nc,
-                                                    bits);
+    frontier_bits<true><<<blocks, kThreads, 0, s>>>(bfs, root, l, nc, bits);
   } else {
-    frontier_bits<false><<<blocks, kThreads, 0, s>>>(bfs, root, level, nc,
-                                                     bits);
+    frontier_bits<false><<<blocks, kThreads, 0, s>>>(bfs, root, l, nc, bits);
   }
   return (int)cudaGetLastError();
 }
 
 // K3: win (nr+1,) per-row winners over the row-sorted CSC mirror, through
 // the column bitmap `bits` (the caller's scratch, ceil((nc+1)/32) words).
-// radj and erow may be views at any 4-byte offset, as K1's edges.
+// radj and erow may be views at any 4-byte offset, as K1's edges.  The
+// gate holds for both launches.
 extern "C" int frontier_expand_pull_launch(
     const int* radj, const int* erow, const int* bfs, const int* root,
-    const int* rmatch, int level, long long nnz, int nc, int nr, int* win,
-    int* bits, void* stream) {
+    const int* rmatch, int level, const int* level_ptr, const int* gate,
+    long long nnz, int nc, int nr, int* win, int* bits,
+    unsigned long long* counts, void* stream) {
   if (((uintptr_t)radj | (uintptr_t)erow) & 3) {
     return (int)cudaErrorMisalignedAddress;
   }
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = fill_iinf(win, nr, s);
   if (err != cudaSuccess) return (int)err;
-  const int bits_err = frontier_bits_launch(bfs, root, level, nc, bits,
-                                            stream);
+  const int bits_err = frontier_bits_launch(bfs, root, level, level_ptr, gate,
+                                            nc, bits, counts, stream);
   if (bits_err != 0) return bits_err;
-  if (nnz > 0) {
-    int cap = 0;
-    err = pull_blocks(&cap);
-    if (err != cudaSuccess) return (int)err;
-    const int blocks = blocks_for((nnz + 3) / 4, cap);
-    pull_sweep<<<blocks, kThreads, 0, s>>>(radj, erow, bits, bfs, rmatch,
-                                           (int64_t)nnz, nc, nr, win);
-  }
+  int cap = 0;
+  err = pull_blocks(&cap);
+  if (err != cudaSuccess) return (int)err;
+  const Launch l{level, level_ptr, gate, slot(counts, kPull, root)};
+  const int blocks = blocks_for((nnz + 3) / 4, cap);
+  pull_sweep<<<blocks, kThreads, 0, s>>>(radj, erow, bits, bfs, rmatch, l,
+                                         (int64_t)nnz, nc, nr, win);
   return (int)cudaGetLastError();
 }

@@ -28,16 +28,27 @@ slots and roots out of range are skipped on either device, so a malformed
 graph gives the same result on both and no kernel reads or writes out of
 bounds.
 
+The solver captures these launches in CUDA graphs and replays them level
+after level, so a captured launch cannot take its level as a number.  Each
+sweep takes ``level`` as a Python int or as a 0-d int32 tensor on its
+device, which the kernel reads when it runs, and an optional ``gate``, a 0-d
+int32 tensor: where it is 0 the launch does nothing, and the sweep returns
+no winner (all IINF) or no proposal.  The plain versions take the same.
+
 The kernels are built and loaded at their first launch
 (:mod:`repro_torch.kernels._build`), never at import.  :data:`LAUNCHES`
-counts the launches of each kernel body; a pull counts one column pass
-(``frontier_bits_*``) beside its sweep.
+counts the launches of each kernel body that ran (gate on): the kernels
+add to counters on the card, so launches replayed from a CUDA graph count
+too, and reading :data:`LAUNCHES` reads the counters (a host sync).  A pull
+counts one column pass (``frontier_bits_*``) beside its sweep.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import numbers
-from typing import Dict, Optional
+import threading
+from typing import Dict, Iterator, Mapping, Optional, Union
 
 import torch
 
@@ -47,33 +58,91 @@ from .ref import (frontier_bits_ref, frontier_expand_fused_ref,
                   frontier_expand_pull_ref, frontier_expand_ref)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# (cols, rows, bfs, root, rmatch, level, nnz, nc, nr, out, stream)
-_SWEEP_ARGS = [_P, _P, _P, _P, _P, _I, ctypes.c_longlong, _I, _I, _P, _P]
-# kernel -> (C launcher, its argument types, plain version); the pull takes
-# its column bitmap before the stream
+# (cols, rows, bfs, root, rmatch, level, level_ptr, gate, nnz, nc, nr, out)
+_SWEEP_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, ctypes.c_longlong, _I, _I, _P]
+# kernel -> (C launcher, its argument types, plain version); every launcher
+# ends with (counts, stream), the pull takes its column bitmap before them
 _KERNELS = {
-    "frontier_expand": ("frontier_expand_launch", _SWEEP_ARGS,
+    "frontier_expand": ("frontier_expand_launch", _SWEEP_ARGS + [_P, _P],
                         frontier_expand_ref),
-    "frontier_expand_fused": ("frontier_expand_fused_launch", _SWEEP_ARGS,
+    "frontier_expand_fused": ("frontier_expand_fused_launch",
+                              _SWEEP_ARGS + [_P, _P],
                               frontier_expand_fused_ref),
     "frontier_expand_pull": ("frontier_expand_pull_launch",
-                             _SWEEP_ARGS[:-1] + [_P, _P],
+                             _SWEEP_ARGS + [_P, _P, _P],
                              frontier_expand_pull_ref),
-    # (bfs, root, level, nc, bits, stream)
-    "frontier_bits": ("frontier_bits_launch", [_P, _P, _I, _I, _P, _P],
+    # (bfs, root, level, level_ptr, gate, nc, bits, counts, stream)
+    "frontier_bits": ("frontier_bits_launch",
+                      [_P, _P, _I, _P, _P, _I, _P, _P, _P],
                       frontier_bits_ref),
 }
+# the kernel bodies, in the order of the source's launch counters (Slot)
+_BODIES = tuple(f"{s}_{b}" for s in _KERNELS for b in ("wr", "plain"))
 
-# kernel body -> number of launches; the CPU path does not count
-LAUNCHES: Dict[str, int] = {f"{s}_{b}": 0 for s in _KERNELS
-                            for b in ("wr", "plain")}
+Level = Union[int, torch.Tensor]
+
+_COUNTS: Dict[torch.device, torch.Tensor] = {}
+_COUNTS_LOCK = threading.Lock()
+_LOCAL = threading.local()          # .uncounted: launches of this thread
+
+
+def _counts(dev) -> torch.Tensor:
+    """The (8,) int64 launch counters of a card, made at its first launch.
+    Made outside any CUDA graph capture: a graph that made them would zero
+    them at every replay."""
+    counts = _COUNTS.get(dev)
+    if counts is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "frontier sweeps: the first launch on a device cannot be "
+                "captured in a CUDA graph; launch once before capturing")
+        with _COUNTS_LOCK:
+            counts = _COUNTS.setdefault(
+                dev, torch.zeros(len(_BODIES), dtype=torch.int64,
+                                 device=dev))
+    return counts
+
+
+class _Launches(Mapping):
+    """Kernel body -> launches that ran, summed over the cards: a read of
+    the device counters, and so a host sync.  The CPU path counts nothing.
+    """
+
+    def __getitem__(self, body: str) -> int:
+        i = _BODIES.index(body)
+        return sum(int(c[i]) for c in list(_COUNTS.values()))
+
+    def __iter__(self) -> Iterator[str]:
+        return iter(_BODIES)
+
+    def __len__(self) -> int:
+        return len(_BODIES)
+
+    def __repr__(self) -> str:
+        return repr(dict(self))
+
+
+LAUNCHES = _Launches()
 
 _FNS: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Set every launch counter to 0 (in place, on the card's stream)."""
+    for counts in list(_COUNTS.values()):
+        counts.zero_()
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches of the calling thread inside this block are not counted
+    (the warm-up runs before a capture)."""
+    before = getattr(_LOCAL, "uncounted", False)
+    _LOCAL.uncounted = True
+    try:
+        yield
+    finally:
+        _LOCAL.uncounted = before
 
 
 def _launcher(kernel: str):
@@ -87,10 +156,18 @@ def _launcher(kernel: str):
     return fn
 
 
-def _check_state(sweep, named, bfs, root, level) -> None:
+def _check_scalar(sweep, name, t, dev) -> None:
+    if (not isinstance(t, torch.Tensor) or t.dtype != torch.int32
+            or t.dim() != 0 or t.device != dev):
+        raise TypeError(f"{sweep}: {name} must be a 0-d int32 tensor on "
+                        f"{dev}, got {t!r}")
+
+
+def _check_state(sweep, named, bfs, root, level, gate=None) -> None:
     """Every tensor of ``named`` (and ``root`` unless None) a contiguous 1-D
     int32 tensor on ``bfs``'s device; ``root`` shaped as ``bfs``; ``level``
-    an int32 Python int."""
+    an int32 Python int or a 0-d int32 tensor on that device, ``gate`` None
+    or such a tensor."""
     if root is not None:
         named = dict(named, root=root)
     dev = bfs.device
@@ -109,15 +186,19 @@ def _check_state(sweep, named, bfs, root, level) -> None:
                          f"{tuple(bfs.shape)} differ")
     if bfs.shape[0] < 1:
         raise ValueError(f"{sweep}: bfs needs its sentinel slot")
-    if (not isinstance(level, numbers.Integral) or isinstance(level, bool)
+    if isinstance(level, torch.Tensor):
+        _check_scalar(sweep, "level", level, dev)
+    elif (not isinstance(level, numbers.Integral) or isinstance(level, bool)
             or not -2**31 <= int(level) < 2**31):
-        raise TypeError(f"{sweep}: level must be an int32 Python int, got "
-                        f"{level!r}")
+        raise TypeError(f"{sweep}: level must be an int32 Python int or a "
+                        f"0-d int32 tensor, got {level!r}")
+    if gate is not None:
+        _check_scalar(sweep, "gate", gate, dev)
 
 
-def _check(sweep, cols, rows, bfs, root, rmatch, level) -> None:
+def _check(sweep, cols, rows, bfs, root, rmatch, level, gate) -> None:
     _check_state(sweep, {"cols": cols, "rows": rows, "bfs": bfs,
-                         "rmatch": rmatch}, bfs, root, level)
+                         "rmatch": rmatch}, bfs, root, level, gate)
     if cols.shape != rows.shape:
         raise ValueError(f"{sweep}: the column endpoints "
                          f"{tuple(cols.shape)} and row endpoints "
@@ -135,19 +216,26 @@ def _on_card(kernel: str, dev) -> bool:
     return True
 
 
-def _launch(kernel: str, dev, root, *args) -> None:
+def _level_args(level: Level, gate) -> tuple:
+    """The launcher's (level, level_ptr, gate) for a Python int or a 0-d
+    tensor level and an optional gate."""
+    if isinstance(level, torch.Tensor):
+        return 0, level.data_ptr(), None if gate is None else gate.data_ptr()
+    return int(level), None, None if gate is None else gate.data_ptr()
+
+
+def _launch(kernel: str, dev, *args) -> None:
     """``kernel``'s launcher with ``args`` on the current stream of
-    ``dev``; raises on a CUDA error, counts the launch of each kernel body
-    it runs."""
+    ``dev``, then the launch counters (none inside :func:`uncounted`);
+    raises on a CUDA error.  The kernels count each body that runs."""
+    counts = _counts(dev)
+    ptr = None if getattr(_LOCAL, "uncounted", False) else counts.data_ptr()
     with torch.cuda.device(dev):        # the launcher uses the current device
-        err = _launcher(kernel)(*args, torch.cuda.current_stream().cuda_stream)
+        err = _launcher(kernel)(*args, ptr,
+                                torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"{kernel}: kernel launch failed with CUDA error {err}")
-    body = "wr" if root is not None else "plain"
-    LAUNCHES[f"{kernel}_{body}"] += 1
-    if kernel == "frontier_expand_pull":
-        LAUNCHES[f"frontier_bits_{body}"] += 1
 
 
 def _bitmap(bfs) -> torch.Tensor:
@@ -156,62 +244,73 @@ def _bitmap(bfs) -> torch.Tensor:
                        device=bfs.device)
 
 
-def _sweep(sweep, cols, rows, bfs, root, rmatch, level) -> torch.Tensor:
+def _sweep(sweep, cols, rows, bfs, root, rmatch, level, gate
+           ) -> torch.Tensor:
     """Check, then the plain version on the CPU or the kernel on the card."""
-    _check(sweep, cols, rows, bfs, root, rmatch, level)
+    _check(sweep, cols, rows, bfs, root, rmatch, level, gate)
     dev = bfs.device
     if not _on_card(sweep, dev):
-        return _KERNELS[sweep][2](cols, rows, bfs, root, rmatch, int(level))
+        return _KERNELS[sweep][2](cols, rows, bfs, root, rmatch, level,
+                                  gate=gate)
     nc = bfs.shape[0] - 1
     nr = rmatch.shape[0] - 1
     n_out = cols.shape[0] if sweep == "frontier_expand" else nr + 1
     out = torch.empty(n_out, dtype=torch.int32, device=dev)
     scratch = [_bitmap(bfs)] if sweep == "frontier_expand_pull" else []
-    _launch(sweep, dev, root, cols.data_ptr(), rows.data_ptr(),
+    _launch(sweep, dev, cols.data_ptr(), rows.data_ptr(),
             bfs.data_ptr(), root.data_ptr() if root is not None else None,
-            rmatch.data_ptr(), int(level), int(cols.shape[0]), nc, nr,
-            out.data_ptr(), *[t.data_ptr() for t in scratch])
+            rmatch.data_ptr(), *_level_args(level, gate),
+            int(cols.shape[0]), nc, nr, out.data_ptr(),
+            *[t.data_ptr() for t in scratch])
     return out
 
 
 def frontier_expand_fused(ecol: torch.Tensor, cadj: torch.Tensor,
                           bfs: torch.Tensor, root: Optional[torch.Tensor],
-                          rmatch: torch.Tensor, level: int) -> torch.Tensor:
+                          rmatch: torch.Tensor, level: Level,
+                          gate: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
     """Per-row winners of one BFS level; ``root=None`` is the plain
-    (non-WR) body.  ``level`` is a Python int, so no sync is needed."""
+    (non-WR) body.  No host sync, whether ``level`` is an int or a device
+    scalar.  Gate off: all IINF."""
     return _sweep("frontier_expand_fused", ecol, cadj, bfs, root, rmatch,
-                  level)
+                  level, gate)
 
 
 def frontier_expand(ecol: torch.Tensor, cadj: torch.Tensor,
                     bfs: torch.Tensor, root: Optional[torch.Tensor],
-                    rmatch: torch.Tensor, level: int) -> torch.Tensor:
+                    rmatch: torch.Tensor, level: Level,
+                    gate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-edge proposals of one BFS level, ``(nnz_pad,)``: the column of
-    each proposing edge slot, IINF elsewhere.  The per-row merge is the
-    caller's ``scatter_min``."""
-    return _sweep("frontier_expand", ecol, cadj, bfs, root, rmatch, level)
+    each proposing edge slot, IINF elsewhere (everywhere with the gate
+    off).  The per-row merge is the caller's ``scatter_min``."""
+    return _sweep("frontier_expand", ecol, cadj, bfs, root, rmatch, level,
+                  gate)
 
 
 def frontier_bits(bfs: torch.Tensor, root: Optional[torch.Tensor],
-                  level: int) -> torch.Tensor:
+                  level: Level) -> torch.Tensor:
     """The pull's column pass alone: ``ceil((nc+1)/32)`` int32 words, bit
     ``c & 31`` of word ``c >> 5`` set where column c passes the column half
     of the predicate (``root=None``: the plain body)."""
     _check_state("frontier_bits", {"bfs": bfs}, bfs, root, level)
     if not _on_card("frontier_bits", bfs.device):
-        return frontier_bits_ref(bfs, root, int(level))
+        return frontier_bits_ref(bfs, root, level)
     bits = _bitmap(bfs)
-    _launch("frontier_bits", bfs.device, root, bfs.data_ptr(),
-            root.data_ptr() if root is not None else None, int(level),
-            bfs.shape[0] - 1, bits.data_ptr())
+    _launch("frontier_bits", bfs.device, bfs.data_ptr(),
+            root.data_ptr() if root is not None else None,
+            *_level_args(level, None), bfs.shape[0] - 1, bits.data_ptr())
     return bits
 
 
 def frontier_expand_pull(radj: torch.Tensor, erow: torch.Tensor,
                          bfs: torch.Tensor, root: Optional[torch.Tensor],
-                         rmatch: torch.Tensor, level: int) -> torch.Tensor:
+                         rmatch: torch.Tensor, level: Level,
+                         gate: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Per-row winners of one BFS level over the CSC mirror's row-sorted
     edges (``TorchCSR.with_csc``): the same vector as
-    :func:`frontier_expand_fused`, since min is the merge."""
+    :func:`frontier_expand_fused`, since min is the merge.  Gate off: all
+    IINF."""
     return _sweep("frontier_expand_pull", radj, erow, bfs, root, rmatch,
-                  level)
+                  level, gate)

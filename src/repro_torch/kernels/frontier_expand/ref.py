@@ -18,10 +18,13 @@ pull kernel's column pass: the ``active`` half above, once per column,
 packed 32 columns to an int32 word.
 
 These run on any device.  The CPU path of the solver uses them, and the
-chip check holds the CUDA kernel against them.  Like the kernel, they skip
-an edge slot whose column is outside [0, nc] or whose row is outside
-[0, nr], and a column whose root is outside [0, nc]: such a slot proposes
-nothing, so a malformed graph gives the same winners on either device.
+chip check holds the CUDA kernel against them.  ``level`` is a Python int
+or a 0-d int32 tensor; ``gate`` (the sweeps', optional) a 0-d tensor that,
+where 0, leaves no proposal and no winner, as a gated-off kernel does.
+Like the kernel, they skip an edge slot whose column is outside [0, nc]
+or whose row is outside [0, nr], and a column whose root is outside
+[0, nc]: such a slot proposes nothing, so a malformed graph gives the
+same winners on either device.
 """
 from __future__ import annotations
 
@@ -31,9 +34,11 @@ UNVISITED = 1
 IINF = 2**30
 
 
-def frontier_expand_ref(ecol, cadj, bfs, root, rmatch, level):
+def frontier_expand_ref(ecol, cadj, bfs, root, rmatch, level, gate=None):
     nc, nr = bfs.shape[0] - 1, rmatch.shape[0] - 1
     ok = (ecol >= 0) & (ecol <= nc) & (cadj >= 0) & (cadj <= nr)
+    if gate is not None:
+        ok &= gate != 0
     ecol_l = torch.where(ok, ecol, nc).long()
     active = ok & (bfs.index_select(0, ecol_l) == level)
     if root is not None:
@@ -46,23 +51,26 @@ def frontier_expand_ref(ecol, cadj, bfs, root, rmatch, level):
     return torch.where(target, ecol, IINF)
 
 
-def frontier_expand_fused_ref(ecol, cadj, bfs, root, rmatch, level):
+def frontier_expand_fused_ref(ecol, cadj, bfs, root, rmatch, level,
+                              gate=None):
     """Proposals + per-row min-merge: the fused kernel's plain version."""
     nr = rmatch.shape[0] - 1
-    prop = frontier_expand_ref(ecol, cadj, bfs, root, rmatch, level)
+    prop = frontier_expand_ref(ecol, cadj, bfs, root, rmatch, level, gate)
     rows = torch.where(prop < IINF, cadj, nr).long()
     win = torch.full((nr + 1,), IINF, dtype=torch.int32, device=prop.device)
     win.scatter_reduce_(0, rows, prop, "amin", include_self=True)
-    win[nr] = IINF
+    win[nr:].fill_(IINF)
     return win
 
 
-def frontier_expand_pull_ref(radj, erow, bfs, root, rmatch, level):
+def frontier_expand_pull_ref(radj, erow, bfs, root, rmatch, level,
+                             gate=None):
     """Proposals + per-row min-merge over the row-sorted (CSC) edge view:
     the pull kernel's plain version.  The predicate is per edge and min is
     the merge, so this is the fused plain version on permuted arrays, and
     it skips the same out-of-range slots."""
-    return frontier_expand_fused_ref(radj, erow, bfs, root, rmatch, level)
+    return frontier_expand_fused_ref(radj, erow, bfs, root, rmatch, level,
+                                     gate)
 
 
 def frontier_bits_ref(bfs, root, level):
@@ -77,7 +85,7 @@ def frontier_bits_ref(bfs, root, level):
         on &= bfs.index_select(0, root.clamp(0, nc).long()) >= UNVISITED
     n_words = (nc + 32) // 32
     flat = torch.zeros(n_words * 32, dtype=torch.int64, device=bfs.device)
-    flat[:nc + 1] = on.long()
+    flat[:nc + 1].copy_(on)
     weights = torch.ones(32, dtype=torch.int64, device=bfs.device) << \
         torch.arange(32, device=bfs.device)
     words = (flat.view(n_words, 32) * weights).sum(1)       # [0, 2^32)

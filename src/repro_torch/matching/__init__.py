@@ -7,7 +7,9 @@
 * :class:`MatchState` / :class:`MatchStats` — results that stay on device
   until the caller asks;
 * :data:`SOLVE_PATHS` — the registry of single-device solve paths (push,
-  legacy, adaptive, direction-optimizing), all bit-identical.
+  legacy, adaptive, direction-optimizing), all bit-identical;
+* the compile cache (:mod:`.cache`): one program per (bucket shape,
+  config, warm start, entry point), its CUDA graphs captured once.
 
 Everything runs on the CUDA card unless the caller passes ``device="cpu"``
 when uploading the graph.
@@ -17,6 +19,8 @@ from .device_csr import GraphValidationError, TorchCSR, validate_structure
 from .state import MatchState, MatchStats
 from .warmstart import WARM_STARTS, register_warm_start, warm_start_names
 from .api import Matcher, maximum_matching_device
+from .cache import (compile_cache_clear, compile_cache_info,
+                    compile_cache_key, get_compiled)
 from .paths import SOLVE_PATHS, SolvePath
 
 __all__ = [
@@ -26,4 +30,6 @@ __all__ = [
     "Matcher", "maximum_matching_device",
     "WARM_STARTS", "register_warm_start", "warm_start_names",
     "SOLVE_PATHS", "SolvePath",
+    "compile_cache_clear", "compile_cache_info", "compile_cache_key",
+    "get_compiled",
 ]

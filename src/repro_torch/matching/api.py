@@ -2,34 +2,39 @@
 variant and a named warm start, and :meth:`Matcher.run` computes a maximum
 matching of a :class:`TorchCSR` graph on the graph's device.
 
-There is no compile step: the solver runs eagerly, its loops on the host
-and its array work on the device.  Every single-device config of the JAX
-package runs here; batched ``run_many`` comes in a later slice of the port.
+As the JAX package compiles warm start and solve into one program per
+size bucket, ``run`` takes one entry of the compile cache (:mod:`.cache`)
+per (bucket shape, config, warm start, entry point): a
+:class:`~repro_torch.matching.solve.MatcherProgram`.  On a CUDA card its
+steps are CUDA graphs captured at the first call (the cold call, as a jit
+compile) and replayed after, each loop one conditional WHILE node on the
+card; the host reads the device twice a phase.  On the CPU the same steps
+run uncaptured.  Every single-device config of the JAX package runs here;
+batched ``run_many`` comes in a later slice of the port.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
-import torch
-
-from . import solve
+from .cache import compile_cache_fit, compile_cache_key, get_compiled
 from .config import MatcherConfig
 from .device_csr import TorchCSR
-from .solve import make_solver
-from .state import MatchState, MatchStats, empty_like_graph
-from .warmstart import get_warm_start
+from .device_loop import COUNTERS, SolveCounters
+from .solve import MatcherProgram
+from .state import MatchState, MatchStats
+from .warmstart import get_warm_start, stages, warm_start_version
 
 
 class Matcher:
-    """A paper variant + warm start.
+    """A paper variant + warm start, one cached program per size bucket.
 
     >>> m = Matcher(MatcherConfig(algo="apfb"), warm_start="karp_sipser")
     >>> state = m.run(graph)            # init + solve on graph.device
     >>> int(state.cardinality)
 
     ``last_counts`` holds the solver counts (BFS levels, ``ALTERNATE``
-    steps, host syncs) of the last :meth:`run`.
+    steps, host syncs) of the last :meth:`run`; the device counts are read
+    when it is first accessed, so ``run`` itself does not wait for them.
     """
 
     def __init__(self, config: MatcherConfig = MatcherConfig(),
@@ -37,7 +42,14 @@ class Matcher:
         self.config = config.canonical()
         self.warm_start = warm_start
         get_warm_start(warm_start)      # fail fast on unknown names
-        self.last_counts: Optional[dict] = None
+        self._counts = None
+        self._last_counts: Optional[dict] = None
+
+    @property
+    def last_counts(self) -> Optional[dict]:
+        if self._last_counts is None and self._counts is not None:
+            self._last_counts = SolveCounters.between(*self._counts)
+        return self._last_counts
 
     @staticmethod
     def _check_state(graph: TorchCSR, state: MatchState) -> None:
@@ -53,50 +65,64 @@ class Matcher:
             raise ValueError(f"MatchState on {state.cmatch.device}, graph on "
                              f"{graph.device}")
 
+    def _check_graph(self, graph: TorchCSR) -> None:
+        if self.config.dirop and not graph.has_csc:
+            raise ValueError(
+                "MatcherConfig(dirop=True) needs the CSC mirror; build it "
+                "once with graph.with_csc()")
+
+    def _cache_tag(self, cold: bool):
+        """Warm-start identity for the compile cache; versioned so that
+        re-registering a name invalidates programs built from the old fn."""
+        if not cold:
+            return "<resume>"
+        return (self.warm_start, warm_start_version(self.warm_start))
+
+    def _call(self, graph: TorchCSR, cfg, entry: str,
+              state: Optional[MatchState]) -> MatchState:
+        """Run the cache entry of ``(graph's bucket, cfg, warm start or
+        resume, entry)`` on ``graph`` from ``state``; then hold the cache
+        to its byte budget, the entry just run kept."""
+        cold = state is None or entry == "init"
+        key = compile_cache_key(graph.bucket_key, cfg, self._cache_tag(cold),
+                                entry)
+        ws = stages(self.warm_start) if cold else None
+        prog = get_compiled(key, lambda: MatcherProgram(
+            graph.nc, graph.nr, graph.nnz_pad, cfg, ws))
+        out = prog(graph, state)
+        compile_cache_fit(keep=key)
+        return out
+
     def init(self, graph: TorchCSR, state: Optional[MatchState] = None
              ) -> MatchState:
-        """Warm-start-initialized state (no solve)."""
-        if state is None:
-            state = empty_like_graph(graph)
-        self._check_state(graph, state)
-        cm, rm = get_warm_start(self.warm_start)(
-            graph.ecol, graph.cadj, state.cmatch, state.rmatch)
-        return dataclasses.replace(state, cmatch=cm, rmatch=rm)
+        """Warm-start-initialized state (no solve): the ``"init"`` entry."""
+        if state is not None:
+            self._check_state(graph, state)
+        return self._call(graph, None, "init", state)
 
     def solve(self, graph: TorchCSR, state: MatchState) -> MatchState:
-        """Run the solver from ``state`` (no warm start applied)."""
+        """Run the solver from ``state`` (no warm start applied): the
+        resume entry, as :meth:`run` with a state."""
         self._check_state(graph, state)
-        kw = {}
-        if self.config.adaptive_frontier or self.config.dirop:
-            kw["cxadj"] = graph.cxadj
-        if self.config.dirop:
-            if not graph.has_csc:
-                raise ValueError(
-                    "MatcherConfig(dirop=True) needs the CSC mirror; build "
-                    "it once with graph.with_csc()")
-            kw.update(rxadj=graph.rxadj, radj=graph.radj, erow=graph.erow)
-        cm, rm, phases, fb, cert = make_solver(self.config)(
-            graph.ecol, graph.cadj, state.cmatch, state.rmatch, **kw)
-        return MatchState(cmatch=cm, rmatch=rm,
-                          phases=state.phases + phases,
-                          fallbacks=state.fallbacks + fb,
-                          certified=torch.full((), cert, dtype=torch.bool,
-                                               device=cm.device))
+        self._check_graph(graph)
+        return self._call(graph, self.config, "run", state)
 
     def run(self, graph: TorchCSR, state: Optional[MatchState] = None
             ) -> MatchState:
         """Maximum matching on the graph's device.
 
-        ``state=None``: warm start, then solve.  With an explicit ``state``
-        (e.g. resuming after graph updates) the warm start is skipped and
-        the solver continues from it.
+        ``state=None``: warm start, then solve, in one entry.  With an
+        explicit ``state`` (e.g. resuming after graph updates) the warm
+        start is skipped and the solver continues from it.
         """
-        before = solve.COUNTERS.as_dict()
-        if state is None:
-            state = self.init(graph)
-        out = self.solve(graph, state)
-        after = solve.COUNTERS.as_dict()
-        self.last_counts = {k: after[k] - before[k] for k in after}
+        cold = state is None
+        if not cold:
+            self._check_state(graph, state)
+        self._check_graph(graph)
+        before = COUNTERS.snapshot(graph.device)
+        out = self._call(graph, self.config, "run", state)
+        self._counts = (before, COUNTERS.snapshot(graph.device))
+        self._last_counts = None
         return out
 
     def stats(self, state: MatchState) -> MatchStats:

@@ -1,4 +1,4 @@
-"""Eager PyTorch solver for the paper's GPU matching algorithms (APFB / APsB).
+"""PyTorch solver for the paper's GPU matching algorithms (APFB / APsB).
 
 The same algorithm, step for step, as the JAX package's ``solve.py``, so
 both return the same matching bit for bit:
@@ -25,14 +25,18 @@ both return the same matching bit for bit:
 * a cardinality guard re-runs ``ALTERNATE`` with a single walker if the
   speculative phase gained nothing.
 
-Where the JAX solver is one compiled ``lax.while_loop`` program, this one
-is Python loops over device tensors: each loop test reads one device value
-(a host sync), the BFS level is a Python int the loop owns, and a
-``lax.cond`` becomes a Python ``if`` on a synced value (a level's
-adaptive or direction decision is read in the same sync as the previous
-level's flags, so it costs one sync per phase, not per level).
-:data:`COUNTERS` counts the BFS levels (and which sweep each ran), the
-``ALTERNATE`` steps and the host syncs.
+Where the JAX solver is one compiled program of ``lax.while_loop``s, this
+one is device steps over the static buffers of a
+:class:`~repro_torch.matching.device_loop.Program` (:class:`Solver`): the
+BFS level and the ``ALTERNATE`` step are loop steps that run while their
+``live`` flags are set, each loop one CUDA conditional WHILE node on a
+card, and the phase bookkeeping is one-shot steps between them.  On the two paths
+whose ``lax.cond`` picks between torch-op sweeps (``adaptive_frontier``,
+and ``dirop`` without ``use_pallas``) each branch's level is a graph of its
+own under an IF node on the device's decision, so only the taken branch
+runs.  The host reads the device twice a phase: the BFS verdict ``aug``,
+and the cardinality guard.  :class:`MatcherProgram` is one compile-cache
+entry: warm start and solve for one size bucket.
 
 Indexing rules.  Every gather is ``index_select`` and every scatter
 ``scatter``/``scatter_reduce``, with int64 indices and int32 values; a
@@ -52,6 +56,8 @@ augmenting-path endpoint.
 from __future__ import annotations
 
 import dataclasses
+import types
+from typing import Optional, Sequence
 
 import torch
 
@@ -61,6 +67,13 @@ from repro_torch.kernels.frontier_expand import (frontier_expand,
 
 from .config import MatcherConfig
 from .device_csr import LANE
+from .device_loop import (ALT, COMPACT, COUNTERS, LEVELS, PULL, PUSH,
+                          Branch, Buffers, Loop, Once, Program,
+                          SolveCounters)
+from .state import SENTINEL, MatchState
+
+__all__ = ["COUNTERS", "SolveCounters", "MatcherProgram", "Solver",
+           "make_solver", "scatter_kept", "scatter_min"]
 
 L0 = 2                       # paper's suggested start level (keeps bfs positive)
 UNVISITED = 1                # L0 - 1
@@ -68,41 +81,6 @@ FOUND = 0                    # L0 - 2 : root's augmenting path already found (WR
 NEG = -(2**30)               # sentinel level: never active, never unvisited
 IINF = 2**30                 # scatter-min identity
 I32 = torch.int32
-
-
-@dataclasses.dataclass
-class SolveCounters:
-    """Plain counts of the eager solver's work, beside the kernels'
-    launch counts: BFS levels, split by the sweep each ran (``push_levels``
-    the dense edge sweep, ``pull_levels`` a pull over the CSC mirror,
-    ``compact_levels`` the adaptive column gather), ``ALTERNATE`` steps,
-    and host syncs (each read of a device value that the host loop waits
-    for)."""
-
-    levels: int = 0
-    push_levels: int = 0
-    pull_levels: int = 0
-    compact_levels: int = 0
-    alternate_steps: int = 0
-    host_syncs: int = 0
-
-    def reset(self) -> None:
-        for f in dataclasses.fields(self):
-            setattr(self, f.name, 0)
-
-    def as_dict(self) -> dict:
-        return dataclasses.asdict(self)
-
-
-COUNTERS = SolveCounters()
-
-
-def _sync(*flags: torch.Tensor) -> list:
-    """Read device bools/ints in ONE host sync (counted)."""
-    COUNTERS.host_syncs += 1
-    if len(flags) == 1:
-        return [flags[0].item()]
-    return torch.stack([f.to(I32) for f in flags]).tolist()
 
 
 def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
@@ -115,11 +93,13 @@ _IDENTITY = {"amin": 2**31 - 1, "amax": -2**31, "sum": 0}
 
 
 def scatter_kept(out: torch.Tensor, index: torch.Tensor, values, keep,
-                 reduce: str | None = None) -> torch.Tensor:
-    """``out`` with ``values`` (a tensor like ``index``, or a scalar)
-    scattered into it at ``index`` for the entries where ``keep`` holds:
-    reduced by ``reduce`` ("amin", "amax" or "sum", ``include_self``), or
-    written when ``reduce`` is None.  ``out`` itself is not changed.
+                 reduce: str | None = None,
+                 inplace: bool = False) -> torch.Tensor:
+    """``out`` with ``values`` (a tensor like ``index``, a 0-d tensor or a
+    scalar) scattered into it at ``index`` for the entries where ``keep``
+    holds: reduced by ``reduce`` ("amin", "amax" or "sum",
+    ``include_self``), or written when ``reduce`` is None.  ``out`` itself
+    is not changed, unless ``inplace`` (a reduction only) writes into it.
 
     The entries that do not take part share no slot.  The reference sends
     them all to one sentinel slot, which on the card is one address taking
@@ -133,7 +113,10 @@ def scatter_kept(out: torch.Tensor, index: torch.Tensor, values, keep,
     n1, m = out.shape[0], index.shape[0]
     spread = torch.arange(m, device=out.device)
     index = index.long()
+    if isinstance(values, torch.Tensor) and values.dim() == 0:
+        values = values.to(out.dtype).expand(m)
     if reduce is None:
+        assert not inplace, "an in-place scatter_kept must reduce"
         buf = torch.cat([out, out.new_empty(m)])
         spread.add_(n1)
         buf.scatter_(0, torch.where(keep, index, spread, out=spread), values)
@@ -144,10 +127,10 @@ def scatter_kept(out: torch.Tensor, index: torch.Tensor, values, keep,
         values = torch.full((m,), values, dtype=out.dtype, device=out.device)
     if m > n1:
         spread.remainder_(n1)
-    return out.scatter_reduce(
-        0, torch.where(keep, index, spread, out=spread),
-        torch.where(keep, values, _IDENTITY[reduce]), reduce,
-        include_self=True)
+    scatter = out.scatter_reduce_ if inplace else out.scatter_reduce
+    return scatter(0, torch.where(keep, index, spread, out=spread),
+                   torch.where(keep, values, _IDENTITY[reduce]), reduce,
+                   include_self=True)
 
 
 def scatter_min(n: int, index: torch.Tensor, values: torch.Tensor
@@ -196,23 +179,25 @@ def default_block_edges(nnz_pad: int, schedule: str) -> int:
 
 # ---------------------------------------------------------------------------
 # BFS level expansion — the paper's Algorithms 2 (GPUBFS) and 4 (GPUBFS-WR)
+# ``level`` is a Python int or a 0-d int32 device tensor throughout.
 # ---------------------------------------------------------------------------
-def _winner_full(ecol, cadj, bfs, root, rmatch, level: int, *,
-                 use_pallas: bool = False, pallas_fused: bool = True
-                 ) -> torch.Tensor:
+def _winner_full(ecol, cadj, bfs, root, rmatch, level, *,
+                 use_pallas: bool = False, pallas_fused: bool = True,
+                 gate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense O(nnz) push sweep -> per-row winner vector (nr+1,).
 
     The legacy path (``use_pallas`` and not ``pallas_fused``) is the
     per-edge proposal kernel, merged here by :func:`scatter_min` as the
     reference merges it outside its kernel; every other config is the fused
     kernel (the reference's jnp and fused branches give the same winners).
-    A kernel on a CUDA graph, its plain version on a CPU graph.
+    A kernel on a CUDA graph, its plain version on a CPU graph.  ``gate``
+    (a 0-d int32 tensor) off: no winner.
     """
     if use_pallas and not pallas_fused:
         nr = rmatch.shape[0] - 1
-        prop = frontier_expand(ecol, cadj, bfs, root, rmatch, level)
+        prop = frontier_expand(ecol, cadj, bfs, root, rmatch, level, gate)
         return scatter_min(nr, cadj, prop)
-    return frontier_expand_fused(ecol, cadj, bfs, root, rmatch, level)
+    return frontier_expand_fused(ecol, cadj, bfs, root, rmatch, level, gate)
 
 
 def _nonzero_fixed(mask: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
@@ -251,7 +236,7 @@ def _gather_adjacency(xadj, adj, ids, n: int, dmax: int):
     return nbr.reshape(eidx.shape), valid
 
 
-def _winner_pull_compact(rxadj, radj, bfs, root, rmatch, level: int,
+def _winner_pull_compact(rxadj, radj, bfs, root, rmatch, level,
                          unreached, *, cap: int, dmax: int) -> torch.Tensor:
     """Compact pull sweep: gather the unreached rows' adjacency via the CSC
     mirror, O(cap·dmax) torch ops instead of O(nnz).
@@ -276,8 +261,9 @@ def _winner_pull_compact(rxadj, radj, bfs, root, rmatch, level: int,
     return scatter_min(nr, rows.clamp(max=nr), win_rows)
 
 
-def _winner_pull_stream(radj, erow, bfs, root, rmatch, level: int, *,
-                        use_pallas: bool) -> torch.Tensor:
+def _winner_pull_stream(radj, erow, bfs, root, rmatch, level, *,
+                        use_pallas: bool,
+                        gate: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Streaming pull sweep over the whole CSC edge list.
 
     With ``use_pallas`` it is the pull kernel.  Otherwise it is the dense
@@ -286,8 +272,9 @@ def _winner_pull_stream(radj, erow, bfs, root, rmatch, level: int, *,
     that form only on its sharded path; a single device pulls compactly).
     """
     if use_pallas:
-        return frontier_expand_pull(radj, erow, bfs, root, rmatch, level)
-    return frontier_expand_fused(radj, erow, bfs, root, rmatch, level)
+        return frontier_expand_pull(radj, erow, bfs, root, rmatch, level,
+                                    gate)
+    return frontier_expand_fused(radj, erow, bfs, root, rmatch, level, gate)
 
 
 def _winner_compact(cxadj, cadj, bfs, rmatch, isf, *, cap: int,
@@ -314,7 +301,7 @@ def _winner_compact(cxadj, cadj, bfs, rmatch, isf, *, cap: int,
     return scatter_min(nr, rows_ix.reshape(-1), prop.reshape(-1))
 
 
-def _frontier(bfs, root, level: int, wr: bool) -> torch.Tensor:
+def _frontier(bfs, root, level, wr: bool) -> torch.Tensor:
     """The (nc,) frontier mask: columns at ``level`` (WR: whose root is
     not yet satisfied)."""
     nc = bfs.shape[0] - 1
@@ -324,32 +311,39 @@ def _frontier(bfs, root, level: int, wr: bool) -> torch.Tensor:
     return isf
 
 
-def _apply_winner(winner, bfs, root, pred, rmatch, level: int, *, wr: bool,
-                  wr_exact: bool):
+def _apply_winner(winner, bfs, root, pred, rmatch, level, *, wr: bool,
+                  wr_exact: bool, inplace: bool = False):
     """Fold a per-row winner vector into the BFS state (the paper's Alg. 2
     lines 8-17 / Alg. 4 lines 11-18).
 
     Returns ``(bfs, root, pred, rmatch, vertex_inserted, aug_found)``, the
-    last two as 0-d device bools.  The reference's ``.at[i].set`` becomes
-    :func:`scatter_kept`, whose order on duplicate indices is unspecified;
-    it cannot matter here: the visited rows' matched columns are distinct
-    (``rmatch`` is a valid matching during a phase), and the other rows
-    touch no slot.  The reference's other rows write the sentinel slots,
-    ``root[nc]`` with 0, which is sealed here to the same value.
+    last two as 0-d device bools; ``inplace``: the four state tensors are
+    updated in place and returned, else new ones.  The reference's
+    ``.at[i].set`` becomes a reduction of :func:`scatter_kept` that gives
+    the same values: a row is reached only through a matched column that
+    is UNVISITED, with ``root`` still ``nc``, and the matched columns of
+    the visited rows are distinct (``rmatch`` is a valid matching during a
+    phase), so their new level is the max and their new root the min of
+    old and new; the other rows touch no slot.  The reference's other rows
+    write the sentinel slots, ``root[nc]`` with 0, which is sealed here to
+    the same value.
     """
+    if not inplace:
+        bfs, root, pred, rmatch = (bfs.clone(), root.clone(), pred.clone(),
+                                   rmatch.clone())
     nc = bfs.shape[0] - 1
     nr = pred.shape[0] - 1
     upd_r = winner < IINF                                 # (nr+1,) rows reached
 
-    pred = torch.where(upd_r, winner, pred)
     cm_r = rmatch                                         # row-wise matched col
     visit_r = upd_r & (cm_r >= 0)                         # Alg.2 l.8-12
     end_r = upd_r & (cm_r == -1)                          # Alg.2 l.14-17
 
-    bfs = scatter_kept(bfs, cm_r, level + 1, visit_r)
+    scatter_kept(bfs, cm_r, level + 1, visit_r, "amax", inplace=True)
     if wr:
         rootvals = root.index_select(0, winner.clamp(0, nc).long())
-        root = _seal(scatter_kept(root, cm_r, rootvals, visit_r), 0)
+        scatter_kept(root, cm_r, rootvals, visit_r, "amin", inplace=True)
+        _seal(root, 0)
         # mark the root "satisfied": plain WR writes L0-2, the exact variant
         # encodes the endpoint row as -(r+1) so ALTERNATE can start only the
         # winning endpoint of each tree (paper Sec. 3, last paragraph).
@@ -358,14 +352,15 @@ def _apply_winner(winner, bfs, root, pred, rmatch, level: int, *, wr: bool,
         else:
             enc = torch.full((nr + 1,), FOUND, dtype=I32,
                              device=winner.device)
-        bfs = scatter_kept(bfs, rootvals, enc, end_r, "amin")
-    rmatch = torch.where(end_r, -2, rmatch)
+        scatter_kept(bfs, rootvals, enc, end_r, "amin", inplace=True)
+    torch.where(upd_r, winner, pred, out=pred)
+    rmatch.masked_fill_(end_r, -2)               # cm_r's last use is above
     _seal(bfs, NEG)                                       # restore sentinel
 
     return bfs, root, pred, rmatch, visit_r.any(), end_r.any()
 
 
-def _compact_plan(cxadj, bfs, root, level: int, *, wr: bool, cap: int,
+def _compact_plan(cxadj, bfs, root, level, *, wr: bool, cap: int,
                   dmax: int):
     """A level's adaptive decision, not yet read: (``eligible``, a 0-d
     device bool: the frontier fits ``cap`` columns of degree at most
@@ -376,8 +371,8 @@ def _compact_plan(cxadj, bfs, root, level: int, *, wr: bool, cap: int,
     return eligible, isf
 
 
-def _dirop_plan(cxadj, rxadj, bfs, root, rmatch, level: int, dir_prev: bool,
-                *, wr: bool, use_pallas: bool, dirop_alpha: float,
+def _dirop_plan(cxadj, rxadj, bfs, root, rmatch, level, dir_prev, *,
+                wr: bool, use_pallas: bool, dirop_alpha: float,
                 dirop_beta: float, pull_cap: int, pull_dmax: int):
     """A level's direction, not yet read: (``use_pull``, a 0-d device
     bool; the unreached-row mask the compact pull takes).
@@ -385,10 +380,10 @@ def _dirop_plan(cxadj, rxadj, bfs, root, rmatch, level: int, dir_prev: bool,
     The frontier columns' outgoing edges ``fe`` against the unreached
     rows' incoming edges ``pe``, int sums compared in float32 as the
     reference compares them: pull when ``fe * dirop_alpha > pe``, or, if
-    the previous level pulled (``dir_prev``, the hysteresis), while
-    ``fe * dirop_beta > pe``.  Without ``use_pallas`` the pull is the
-    compact row gather, so every unreached row must also fit its
-    (cap, dmax) geometry.
+    the previous level pulled (``dir_prev``, a bool or a 0-d device bool:
+    the hysteresis), while ``fe * dirop_beta > pe``.  Without
+    ``use_pallas`` the pull is the compact row gather, so every unreached
+    row must also fit its (cap, dmax) geometry.
     """
     isf = _frontier(bfs, root, level, wr)
     cdeg = cxadj[1:] - cxadj[:-1]
@@ -396,134 +391,82 @@ def _dirop_plan(cxadj, rxadj, bfs, root, rmatch, level: int, dir_prev: bool,
     unreached = _unreached_rows(bfs, rmatch)
     rdeg = rxadj[1:] - rxadj[:-1]
     pe = torch.where(unreached, rdeg, 0).sum().to(torch.float32)
-    pull = fe * dirop_alpha > pe
-    if dir_prev:
-        pull |= fe * dirop_beta > pe
+    pull = (fe * dirop_alpha > pe) | (dir_prev & (fe * dirop_beta > pe))
     if not use_pallas:
         pull &= ((unreached.sum() <= pull_cap)
                  & (torch.where(unreached, rdeg, 0).amax() <= pull_dmax))
     return pull, unreached
 
 
-def _expand_level(ecol, cadj, bfs, root, pred, rmatch, level: int, *,
-                  wr: bool, wr_exact: bool, use_pallas: bool = False,
-                  pallas_fused: bool = True, cxadj=None,
-                  adaptive: bool = False, compact_cap: int = 0,
-                  compact_dmax: int = 0, plan=None):
-    """One level-synchronous frontier expansion. Returns updated state.
-
-    ``adaptive`` (needs ``cxadj``) runs the compact column gather when the
-    frontier fits; the geometry must be resolved through ``MatcherConfig``
-    (0 = unresolved is an error, not a default).  ``plan`` is the level's
-    decision already read, ``(eligible, frontier mask)``; without it this
-    computes it (:func:`_compact_plan`) and reads it in one host sync.
-    """
-    rt = root if wr else None
-    if adaptive and plan is None:
-        assert cxadj is not None, "adaptive_frontier needs the cxadj offsets"
-        assert compact_cap > 0 and compact_dmax > 0, \
-            "resolve the compact geometry via MatcherConfig.resolve_cap/" \
-            "resolve_dmax (0 means unresolved, not a default)"
-        eligible, isf = _compact_plan(cxadj, bfs, root, level, wr=wr,
-                                      cap=compact_cap, dmax=compact_dmax)
-        plan = (bool(_sync(eligible)[0]), isf)
-    if plan is not None and plan[0]:
-        COUNTERS.compact_levels += 1
-        winner = _winner_compact(cxadj, cadj, bfs, rmatch, plan[1],
-                                 cap=compact_cap, dmax=compact_dmax)
-    else:
-        COUNTERS.push_levels += 1
-        winner = _winner_full(ecol, cadj, bfs, rt, rmatch, level,
-                              use_pallas=use_pallas,
-                              pallas_fused=pallas_fused)
-    return _apply_winner(winner, bfs, root, pred, rmatch, level, wr=wr,
-                         wr_exact=wr_exact)
-
-
-def _expand_level_dirop(ecol, cadj, cxadj, rxadj, radj, erow, bfs, root,
-                        pred, rmatch, level: int, dir_prev: bool, *,
-                        wr: bool, wr_exact: bool, use_pallas: bool,
-                        pallas_fused: bool, dirop_alpha: float,
-                        dirop_beta: float, pull_cap: int, pull_dmax: int,
-                        plan=None):
-    """Direction-optimizing frontier expansion (Beamer-style): the push
-    sweep, or a pull over the CSC mirror, as :func:`_dirop_plan` decides.
-    The pull is the compact row gather, or with ``use_pallas`` the pull
-    kernel, which streams the mirror and needs no geometry.  Either branch
-    gives the dense sweep's winners.
-
-    ``plan`` is the level's decision already read, ``(use_pull, unreached
-    mask)``; without it this computes it and reads it in one host sync.
-    Returns the updated state plus this level's direction (a Python bool).
-    """
-    rt = root if wr else None
-    if plan is None:
-        pull, unreached = _dirop_plan(
-            cxadj, rxadj, bfs, root, rmatch, level, dir_prev, wr=wr,
-            use_pallas=use_pallas, dirop_alpha=dirop_alpha,
-            dirop_beta=dirop_beta, pull_cap=pull_cap, pull_dmax=pull_dmax)
-        plan = (bool(_sync(pull)[0]), unreached)
-    use_pull, unreached = plan
-    if use_pull:
-        COUNTERS.pull_levels += 1
-        if use_pallas:
-            winner = _winner_pull_stream(radj, erow, bfs, rt, rmatch, level,
-                                         use_pallas=True)
-        else:
-            winner = _winner_pull_compact(rxadj, radj, bfs, rt, rmatch,
-                                          level, unreached, cap=pull_cap,
-                                          dmax=pull_dmax)
-    else:
-        COUNTERS.push_levels += 1
-        winner = _winner_full(ecol, cadj, bfs, rt, rmatch, level,
-                              use_pallas=use_pallas,
-                              pallas_fused=pallas_fused)
-    return _apply_winner(winner, bfs, root, pred, rmatch, level, wr=wr,
-                         wr_exact=wr_exact) + (use_pull,)
-
-
 # ---------------------------------------------------------------------------
 # ALTERNATE (Alg. 3) + FIXMATCHING
 # ---------------------------------------------------------------------------
-def _alternate(cmatch, rmatch, pred, start_mask, max_steps: int):
-    """Lock-step speculative alternation of all augmenting paths.
+def _walkers(B: Buffers, start_mask: torch.Tensor) -> None:
+    """Start the ``ALTERNATE`` walkers at the rows of ``start_mask``: ``cur``
+    (the walker's row or -1), ``pmc`` (``pred[cur]``, hoisted), ``steps``
+    0, ``alt_live`` whether any walker runs."""
+    nr = B.pred.shape[0] - 1
+    cur = torch.where(start_mask, B.rows, -1)
+    B.cur.copy_(cur)
+    B.pmc.copy_(B.pred.index_select(0, cur.clamp(0, nr).long()))
+    B.steps.zero_()
+    B.alt_live.copy_((cur >= 0).any())
 
-    ``start_mask`` selects the endpoint rows that launch walkers.  Writes of
-    concurrent walkers are merged with min-scatters; the paper's line-8
-    predecessor check breaks walkers that would chase another path.  One
-    ``pred`` gather per step, carried to the next.  The reference skips the
-    two scatters on a step where every walker broke; here they always run,
-    which gives the same matching and the same step count.  Returns
-    ``(cmatch, rmatch, steps)`` with ``steps`` a Python int.
+
+def _alternate_step(B: Buffers, max_steps: int) -> None:
+    """One lock-step ``ALTERNATE`` step over the walk's matching ``acm`` /
+    ``arm``.
+
+    Writes of concurrent walkers are merged with min-scatters; the paper's
+    line-8 predecessor check breaks walkers that would chase another path.
+    One ``pred`` gather per step, carried to the next.  The reference skips
+    the two scatters on a step where every walker broke; here they always
+    run, which gives the same matching and the same step count.
+    ``alt_live`` stays set while ``steps < max_steps`` and a walker is left.
     """
-    nc = cmatch.shape[0] - 1
+    nc = B.acm.shape[0] - 1
+    nr = B.arm.shape[0] - 1
+    cur, mc = B.cur, B.pmc                                # matched_col = pred[cur]
+    active = cur >= 0
+    curc = cur.clamp(0, nr)
+    mcc = mc.clamp(0, nc)
+    mr = B.acm.index_select(0, mcc.long())                # matched_row (snapshot)
+    pmr = B.pred.index_select(0, mr.clamp(0, nr).long())  # the step's gather
+    # paper line 8: if predecessor[matched_row] == matched_col: break
+    brk = active & (mr >= 0) & (pmr == mc)
+    act = active & ~brk
+    # cmatch[mc] <- cur ; rmatch[cur] <- mc  (speculative, min-merged)
+    cprop = scatter_min(nc, torch.where(act, mcc, nc),
+                        torch.where(act, cur, IINF))
+    rprop = scatter_min(nr, torch.where(act, curc, nr),
+                        torch.where(act, mc, IINF))
+    torch.where(cprop < IINF, cprop, B.acm, out=B.acm)
+    torch.where(rprop < IINF, rprop, B.arm, out=B.arm)
+    B.cur.copy_(mr.masked_fill_(~act, -1))            # walk on to matched_row
+    B.pmc.copy_(pmr)
+    B.steps.add_(1)
+    B.counts[ALT].add_(1)
+    B.alt_live.copy_((B.steps < max_steps) & (B.cur >= 0).any())
+
+
+def _alternate(cmatch, rmatch, pred, start_mask, max_steps: int):
+    """Lock-step speculative alternation of all augmenting paths, on its
+    own: the ``ALTERNATE`` loop of the solver (:func:`_alternate_step`)
+    run uncaptured from ``start_mask``.  Returns ``(cmatch, rmatch,
+    steps)`` with ``steps`` a Python int."""
+    P = Program(cmatch.device, capture=False)
     nr = rmatch.shape[0] - 1
-    rows = _arange(nr + 1, rmatch)
-    cur = torch.where(start_mask, rows, -1)
-    pmc = pred.index_select(0, cur.clamp(0, nr).long())   # pred[cur], hoisted
-    steps = 0
-    while steps < max_steps and _sync((cur >= 0).any())[0]:
-        active = cur >= 0
-        curc = cur.clamp(0, nr)
-        mc = pmc                                          # matched_col = pred[cur]
-        mcc = mc.clamp(0, nc)
-        mr = cmatch.index_select(0, mcc.long())           # matched_row (snapshot)
-        pmr = pred.index_select(0, mr.clamp(0, nr).long())  # the step's gather
-        # paper line 8: if predecessor[matched_row] == matched_col: break
-        brk = active & (mr >= 0) & (pmr == mc)
-        act = active & ~brk
-        # cmatch[mc] <- cur ; rmatch[cur] <- mc  (speculative, min-merged)
-        cprop = scatter_min(nc, torch.where(act, mcc, nc),
-                            torch.where(act, cur, IINF))
-        cmatch = torch.where(cprop < IINF, cprop, cmatch)
-        rprop = scatter_min(nr, torch.where(act, curc, nr),
-                            torch.where(act, mc, IINF))
-        rmatch = torch.where(rprop < IINF, rprop, rmatch)
-        cur = torch.where(act, mr, -1)
-        pmc = pmr
-        steps += 1
-    COUNTERS.alternate_steps += steps
-    return cmatch, rmatch, steps
+    P.constant("acm", cmatch.clone())
+    P.constant("arm", rmatch.clone())
+    P.constant("pred", pred)
+    P.constant("rows", _arange(nr + 1, rmatch))
+    P.alloc("cur", nr + 1)
+    P.alloc("pmc", nr + 1)
+    P.scalars(("steps", "alt_live"))
+    _walkers(P.buf, start_mask)
+    P.loop(Loop("alt", lambda B: _alternate_step(B, max_steps), "alt_live",
+                start=False))
+    return P.buf.acm, P.buf.arm, int(P.buf.steps)
 
 
 def _fix_matching(cmatch, rmatch):
@@ -547,12 +490,404 @@ def _cardinality(cmatch) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Drivers — Algorithm 1 (APsB) and its APFB variant
+# Drivers — Algorithm 1 (APsB) and its APFB variant, as device steps
 # ---------------------------------------------------------------------------
+# the loops' scalars, in the Program's order; level .. bfs_live are set
+# together at the start of a phase
+SCALARS = ("level", "ins", "aug", "aug_lvl", "dir_prev", "bfs_live", "plan",
+           "steps", "alt_live", "gained", "ws_live", "phases", "fallbacks",
+           "certified")
+_PHASE_START = (L0, 1, 0, IINF, 0, 1)
+
+
+class Solver:
+    """The APFB/APsB solve of one config and graph size: the steps over a
+    :class:`Program`'s buffers, and the host loop that runs them
+    (:meth:`run`).
+
+    Steps: ``phase_begin`` (the BFS state at L0; the first level's branch
+    decision), the BFS level (a loop step run while ``bfs_live`` is set; on
+    the branching paths one step per branch, picked by ``plan``),
+    ``alt_begin`` (the walkers), ``ALTERNATE`` (a loop step run while
+    ``alt_live`` is set), ``alt_end`` (the
+    repair and the cardinality guard, which also starts the single walker
+    of the fallback), ``fallback_end``, ``commit`` and ``phase_done`` (the
+    phase count), ``finish`` (``certified``).
+
+    ``bfs_live`` carries the exact stopping rules of the reference's inner
+    loop: APFB runs while a vertex was inserted; APsB also stops at its
+    first augmenting level; ``tail_levels`` runs at most that many levels
+    past it.  ``cfg.max_phases`` and ``cfg.degrade_maximal`` act on the
+    host, from values it has read.
+    """
+
+    def __init__(self, cfg: MatcherConfig, nc: int, nr: int):
+        self.cfg, self.nc, self.nr = cfg, nc, nr
+        self.wr = cfg.kernel == "gpubfs_wr"
+        # compact/pull geometry: the one auto rule lives on MatcherConfig
+        self.compact_cap = cfg.resolve_cap(cfg.compact_cap, nc)
+        self.compact_dmax = cfg.resolve_dmax(cfg.compact_dmax)
+        self.pull_cap = cfg.resolve_cap(cfg.pull_cap, nr)
+        self.pull_dmax = cfg.resolve_dmax(cfg.pull_dmax)
+        self.max_steps = 2 * (min(nc, nr) + 2)
+        self.limit = cfg.max_phases if cfg.max_phases > 0 else nc + 2
+        # the lax.cond of these two picks between torch-op sweeps: one step
+        # per branch, picked by the level's decision ``plan``
+        self.branching = cfg.adaptive_frontier or (cfg.dirop
+                                                   and not cfg.use_pallas)
+        self.phase_begin = Once("phase_begin", self._phase_begin)
+        body = self._level
+        if self.branching:
+            body = Branch("plan", lambda B: self._branch_level(B, True),
+                          lambda B: self._branch_level(B, False))
+        self.level = Loop("level", body, "bfs_live", start=False)
+        self.alt_begin = Once("alt_begin", self._alt_begin)
+        self.alt = Loop("alt", self._alternate, "alt_live", start=False)
+        self.alt_end = Once("alt_end", self._alt_end)
+        self.fallback_end = Once("fallback_end", self._fallback_end)
+        self.commit = Once("commit", self._commit)
+        self.phase_done = Once("phase_done", self._phase_done)
+        self.finish = Once("finish", self._finish)
+
+    @property
+    def needs_cxadj(self) -> bool:
+        return self.cfg.adaptive_frontier or self.cfg.dirop
+
+    def alloc(self, P: Program) -> None:
+        """The solver's own buffers (the graph, the matching, ``rows`` and
+        the scalars are the entry's)."""
+        nc, nr = self.nc, self.nr
+        for name in ("bfs", "root", "acm"):
+            P.alloc(name, nc + 1)
+        for name in ("pred", "rmb", "arm", "cur", "pmc"):
+            P.alloc(name, nr + 1)
+        P.constant("phase_start", torch.tensor(_PHASE_START, dtype=I32))
+        P.buf["bfs_scalars"] = P.scalar_slice("level", "bfs_live")
+
+    # -- steps ----------------------------------------------------------------
+    def _sweep_kw(self) -> dict:
+        return dict(use_pallas=self.cfg.use_pallas,
+                    pallas_fused=self.cfg.pallas_fused)
+
+    def _plan(self, B: Buffers) -> torch.Tensor:
+        """This level's branch decision (a 0-d device bool)."""
+        if self.cfg.dirop:
+            return _dirop_plan(
+                B.cxadj, B.rxadj, B.bfs, B.root, B.rmb, B.level,
+                B.dir_prev != 0, wr=self.wr, use_pallas=self.cfg.use_pallas,
+                dirop_alpha=self.cfg.dirop_alpha,
+                dirop_beta=self.cfg.dirop_beta, pull_cap=self.pull_cap,
+                pull_dmax=self.pull_dmax)[0]
+        return _compact_plan(B.cxadj, B.bfs, B.root, B.level, wr=self.wr,
+                             cap=self.compact_cap, dmax=self.compact_dmax)[0]
+
+    def _phase_begin(self, B: Buffers) -> None:
+        bfs, root = level0_state(B.cmatch)
+        B.bfs.copy_(bfs)
+        B.root.copy_(root)
+        B.pred.fill_(self.nc)
+        B.rmb.copy_(B.rmatch)
+        B.bfs_scalars.copy_(B.phase_start)
+        if self.branching:
+            B.plan.copy_(self._plan(B))
+
+    def _fold(self, B: Buffers, winner: torch.Tensor) -> None:
+        """Fold a level's winners into the BFS state, then the level's
+        bookkeeping: ``aug_lvl``, ``ins``, ``aug``, ``level`` and
+        ``bfs_live`` (Alg. 1 l.9-10 for APsB, the tail bound)."""
+        *_, ins, aug_t = _apply_winner(
+            winner, B.bfs, B.root, B.pred, B.rmb, B.level, wr=self.wr,
+            wr_exact=self.cfg.wr_exact, inplace=True)
+        B.aug_lvl.copy_(torch.where(aug_t & (B.aug_lvl == IINF), B.level,
+                                    B.aug_lvl))
+        aug = (B.aug != 0) | aug_t
+        B.ins.copy_(ins)
+        B.aug.copy_(aug)
+        B.level.add_(1)
+        if self.cfg.algo == "apsb":
+            go = ins & ~aug                              # Alg.1 l.9-10 break
+        elif self.cfg.tail_levels > 0:
+            # bounded tail: at most tail_levels past the first augmenting
+            # level (beyond-paper, see MatcherConfig)
+            go = ins & (B.level <= B.aug_lvl + self.cfg.tail_levels)
+        else:
+            go = ins
+        B.bfs_live.copy_(go)
+
+    def _level(self, B: Buffers) -> None:
+        """One BFS level: the push sweep, or with ``dirop`` + ``use_pallas``
+        both kernels, each gated by the level's direction (decided on the
+        device), so that only one of them sweeps."""
+        rt = B.root if self.wr else None
+        if self.cfg.dirop:
+            pull = self._plan(B)
+            winner = torch.minimum(
+                _winner_full(B.ecol, B.cadj, B.bfs, rt, B.rmb, B.level,
+                             gate=(~pull).to(I32), **self._sweep_kw()),
+                _winner_pull_stream(B.radj, B.erow, B.bfs, rt, B.rmb,
+                                    B.level, use_pallas=True,
+                                    gate=pull.to(I32)))
+            B.dir_prev.copy_(pull)
+            B.counts[LEVELS].add_(1)
+            B.counts[PUSH].add_(~pull)
+            B.counts[PULL].add_(pull)
+        else:
+            winner = _winner_full(B.ecol, B.cadj, B.bfs, rt, B.rmb, B.level,
+                                  **self._sweep_kw())
+            B.counts[LEVELS:PUSH + 1].add_(1)
+        self._fold(B, winner)
+
+    def _branch_level(self, B: Buffers, take: bool) -> None:
+        """One BFS level of a branching path: the push sweep, or (``take``)
+        the compact column gather (``adaptive_frontier``) or the compact
+        pull (``dirop``); then the next level's decision."""
+        rt = B.root if self.wr else None
+        if not take:
+            slot = PUSH
+            winner = _winner_full(B.ecol, B.cadj, B.bfs, rt, B.rmb, B.level,
+                                  **self._sweep_kw())
+        elif self.cfg.adaptive_frontier:
+            slot = COMPACT
+            winner = _winner_compact(
+                B.cxadj, B.cadj, B.bfs, B.rmb,
+                _frontier(B.bfs, B.root, B.level, self.wr),
+                cap=self.compact_cap, dmax=self.compact_dmax)
+        else:
+            slot = PULL
+            winner = _winner_pull_compact(
+                B.rxadj, B.radj, B.bfs, rt, B.rmb, B.level,
+                _unreached_rows(B.bfs, B.rmb), cap=self.pull_cap,
+                dmax=self.pull_dmax)
+        B.counts[LEVELS].add_(1)
+        B.counts[slot].add_(1)
+        if self.cfg.dirop:
+            B.dir_prev.fill_(int(take))
+        self._fold(B, winner)
+        B.plan.copy_(self._plan(B))
+
+    def _start_mask(self, B: Buffers) -> torch.Tensor:
+        mask = B.rmb == -2
+        if self.cfg.wr_exact:
+            # only the winning endpoint of each satisfied tree starts a walker
+            enc = B.bfs[:-1]                                   # (nc,)
+            wins = _seal(scatter_kept(
+                torch.zeros(self.nr + 1, dtype=torch.bool,
+                            device=enc.device),
+                -(enc + 1), True, enc <= -1), False)
+            mask = mask & wins
+        return mask
+
+    def _alt_begin(self, B: Buffers) -> None:
+        mask = self._start_mask(B)
+        B.acm.copy_(B.cmatch)
+        B.arm.copy_(torch.where(mask, -2, B.rmatch))
+        _walkers(B, mask)
+
+    def _alternate(self, B: Buffers) -> None:
+        _alternate_step(B, self.max_steps)
+
+    def _alt_end(self, B: Buffers) -> None:
+        """FIXMATCHING of the walk, then the guard: if the speculative phase
+        gained nothing, restart from the phase's matching with exactly one
+        walker on one shortest path (a single walker cannot conflict).
+        argmax over an int mask is the first True: the lowest endpoint
+        row."""
+        cm1, rm1 = _fix_matching(B.acm, B.arm)
+        gained = _cardinality(cm1) > _cardinality(B.cmatch)
+        B.gained.copy_(gained)
+        B.acm.copy_(torch.where(gained, cm1, B.cmatch))
+        B.arm.copy_(torch.where(gained, rm1, B.rmatch))
+        any_ep = B.rmb == -2
+        first = torch.argmax(any_ep.to(I32)).reshape(1)
+        one = torch.zeros(self.nr + 1, dtype=torch.bool, device=first.device)
+        one = one.scatter(0, first, (any_ep.any() & ~gained).reshape(1))
+        _walkers(B, one)
+        B.fallbacks.add_(~gained)
+
+    def _fallback_end(self, B: Buffers) -> None:
+        cm, rm = _fix_matching(B.acm, B.arm)
+        B.acm.copy_(cm)
+        B.arm.copy_(rm)
+
+    def _commit(self, B: Buffers) -> None:
+        B.cmatch.copy_(B.acm)
+        B.rmatch.copy_(B.arm)
+        B.phases.add_(1)
+
+    def _phase_done(self, B: Buffers) -> None:
+        B.phases.add_(1)
+
+    def _finish(self, B: Buffers) -> None:
+        # aug is the last BFS verdict: False means the phase found no
+        # augmenting path — Berge certifies the matching maximum.  A
+        # budget-truncated exit leaves aug True: valid but uncertified.
+        B.certified.copy_(B.aug == 0)
+
+    # -- the host loop --------------------------------------------------------
+    def run(self, P: Program) -> None:
+        """The solve from the matching in ``cmatch`` / ``rmatch``: the
+        phases, each a BFS and (if it found an augmenting path) an
+        ``ALTERNATE`` walk.  The host reads the device once a phase for the
+        BFS verdict and once an augmenting phase for the guard."""
+        P.scalar_slice("phases", "fallbacks").zero_()
+        phases, aug = 0, True
+        while aug and phases < self.limit:
+            P.once(self.phase_begin)
+            P.loop(self.level)
+            aug = P.read("aug")[0]
+            if aug:
+                P.once(self.alt_begin)
+                P.loop(self.alt)
+                P.once(self.alt_end)
+                if not P.read("gained")[0]:
+                    P.loop(self.alt)
+                    P.once(self.fallback_end)
+                P.once(self.commit)
+            else:
+                P.once(self.phase_done)
+            phases += 1
+        P.once(self.finish)
+        if self.cfg.degrade_maximal and self.cfg.max_phases > 0 and aug:
+            # one speculative greedy round restores maximality (local
+            # import: warmstart.py imports solver internals from here)
+            from .warmstart import CHEAP
+            P.run_stages(CHEAP)
+
+
+# ---------------------------------------------------------------------------
+# One compile-cache entry: warm start and solve for one size bucket
+# ---------------------------------------------------------------------------
+class MatcherProgram:
+    """The counterpart of one compiled program of the JAX package: the warm
+    start ``stages`` (None: the state is given) and the solve of ``cfg``
+    (None: warm start only) for graphs of one size bucket, ``(nc, nr,
+    nnz_pad)``.
+
+    Per device it holds a :class:`Program`: the static buffers (the graph's
+    arrays, its CSC mirror where the config pulls, the matching, the
+    solver's state and the loops' scalars) and, on a card, the captured
+    graphs.  A call copies its graph and state into the buffers and runs
+    the steps (replays them on a card), so two graphs of one bucket each
+    get their own answer.  Calls are serialized by the entry's lock.
+    """
+
+    def __init__(self, nc: int, nr: int, nnz_pad: int,
+                 cfg: Optional[MatcherConfig], stages: Optional[Sequence]):
+        self.nc, self.nr, self.nnz_pad = nc, nr, nnz_pad
+        self.cfg = cfg
+        self.stages = tuple(stages or ())
+        self.solver = Solver(cfg, nc, nr) if cfg is not None else None
+        self._programs: dict = {}
+
+    def program(self, device) -> Program:
+        """The entry's :class:`Program` on ``device`` (built on first use;
+        its graphs are captured at the first run of each step)."""
+        device = torch.device(device)
+        P = self._programs.get(device)
+        if P is None:
+            P = self._programs[device] = self._build(device)
+        return P
+
+    def _build(self, device) -> Program:
+        nc, nr, m = self.nc, self.nr, self.nnz_pad
+        # every loop ends within nc + nr + 4 iterations (levels, ALTERNATE
+        # steps, warm-start rounds); the guard stops a runaway past that
+        P = Program(device, loop_limit=nc + nr + 8)
+        P.alloc("ecol", m)
+        P.alloc("cadj", m)
+        solver = self.solver
+        if solver is not None and solver.needs_cxadj:
+            P.alloc("cxadj", nc + 1)
+        if solver is not None and self.cfg.dirop:
+            P.alloc("rxadj", nr + 1)
+            P.alloc("radj", m)
+            P.alloc("erow", m)
+        degrade = (self.cfg is not None and self.cfg.degrade_maximal
+                   and self.cfg.max_phases > 0)
+        if degrade or self.stages:
+            # the warm starts' edge gathers and scatters take int64 indices
+            P.alloc("ecol_l", m, torch.int64)
+            P.alloc("cadj_l", m, torch.int64)
+        P.alloc("cmatch", nc + 1)
+        P.alloc("rmatch", nr + 1)
+        P.constant("rows", torch.arange(nr + 1, dtype=I32, device=device))
+        P.constant("cols", torch.arange(nc + 1, dtype=I32, device=device))
+        P.scalars(SCALARS)
+        if solver is not None:
+            solver.alloc(P)
+        return P
+
+    def load(self, P: Program, graph, state: Optional[MatchState]) -> None:
+        """Copy ``graph`` and ``state`` (None: all unmatched) into the
+        buffers of ``P``."""
+        B = P.buf
+        for name in ("ecol", "cadj", "cxadj", "rxadj", "radj", "erow"):
+            if name in B:
+                B[name].copy_(getattr(graph, name))
+        if "ecol_l" in B:
+            B.ecol_l.copy_(graph.ecol)
+            B.cadj_l.copy_(graph.cadj)
+        B.runaway.zero_()
+        if state is None:
+            _seal(B.cmatch.fill_(-1), SENTINEL)
+            _seal(B.rmatch.fill_(-1), SENTINEL)
+        else:
+            B.cmatch.copy_(state.cmatch)
+            B.rmatch.copy_(state.rmatch)
+
+    def __call__(self, graph, state: Optional[MatchState] = None
+                 ) -> MatchState:
+        """Warm start (if the entry has one) and solve (if it has a
+        config) of ``graph`` from ``state`` (None: all unmatched)."""
+        P = self.program(graph.device)
+        with P.lock:
+            self.load(P, graph, state)
+            P.run_stages(self.stages)
+            if self.solver is not None:
+                self.solver.run(P)
+            P.check()           # a loop after the last read: read its guard
+            B = P.buf
+            cm, rm = B.cmatch.clone(), B.rmatch.clone()
+            if self.solver is None:
+                if state is None:
+                    zero = torch.zeros((), dtype=I32, device=cm.device)
+                    return MatchState(cmatch=cm, rmatch=rm, phases=zero,
+                                      fallbacks=zero.clone(),
+                                      certified=zero.bool())
+                return dataclasses.replace(state, cmatch=cm, rmatch=rm)
+            phases, fallbacks = B.phases.clone(), B.fallbacks.clone()
+            if state is not None:
+                phases += state.phases
+                fallbacks += state.fallbacks
+            return MatchState(cmatch=cm, rmatch=rm, phases=phases,
+                              fallbacks=fallbacks,
+                              certified=B.certified != 0)
+
+    def nbytes(self, device=None) -> int:
+        """Bytes the entry holds on ``device`` (None: on every device): its
+        static buffers and the card memory its captures reserved."""
+        if device is None:
+            return sum(P.total_bytes() for P in self._programs.values())
+        P = self._programs.get(torch.device(device))
+        return 0 if P is None else P.total_bytes()
+
+    def static_bytes(self, device) -> int:
+        """Bytes of the static buffers on ``device`` (the graphs' memory
+        pool not included)."""
+        P = self._programs.get(torch.device(device))
+        return 0 if P is None else P.nbytes()
+
+    def captures(self, device) -> int:
+        """CUDA graphs captured on ``device`` so far."""
+        P = self._programs.get(torch.device(device))
+        return 0 if P is None else P.total_captures()
+
+
 def make_solver(cfg: MatcherConfig):
     """Build the matcher ``(ecol, cadj, cmatch, rmatch[, cxadj, rxadj,
-    radj, erow]) -> (cmatch, rmatch, phases, fallbacks, certified)``; the
-    last three are Python values.
+    radj, erow]) -> (cmatch, rmatch, phases, fallbacks, certified)``, the
+    last three 0-d device tensors: the solver steps in an entry of its own
+    (not the compile cache).
 
     ``certified`` is True iff the final phase's BFS proved no augmenting
     path remains (the matching is maximum, Berge).  A run cut short by a
@@ -564,7 +899,6 @@ def make_solver(cfg: MatcherConfig):
     ``cfg.dirop`` needs ``cxadj`` and the CSC mirror (``rxadj``/``radj``/
     ``erow`` of ``TorchCSR.with_csc``).  ``Matcher.solve`` passes them.
     """
-    wr = cfg.kernel == "gpubfs_wr"
 
     def match_fn(ecol, cadj, cmatch, rmatch, cxadj=None, rxadj=None,
                  radj=None, erow=None):
@@ -578,123 +912,15 @@ def make_solver(cfg: MatcherConfig):
                 "dirop needs cxadj plus the CSC mirror (rxadj/radj/erow); "
                 "build it with TorchCSR.with_csc() (Matcher.solve passes it "
                 "through when present)")
-        nc = cmatch.shape[0] - 1
-        nr = rmatch.shape[0] - 1
-        # compact/pull geometry: the one auto rule lives on MatcherConfig
-        compact_cap = cfg.resolve_cap(cfg.compact_cap, nc)
-        compact_dmax = cfg.resolve_dmax(cfg.compact_dmax)
-        pull_cap = cfg.resolve_cap(cfg.pull_cap, nr)
-        pull_dmax = cfg.resolve_dmax(cfg.pull_dmax)
-        sweep = dict(wr=wr, wr_exact=cfg.wr_exact, use_pallas=cfg.use_pallas,
-                     pallas_fused=cfg.pallas_fused)
-        dirop_kw = dict(dirop_alpha=cfg.dirop_alpha,
-                        dirop_beta=cfg.dirop_beta, pull_cap=pull_cap,
-                        pull_dmax=pull_dmax)
-
-        def plan_of(bfs, root, rmatch, level, dir_prev):
-            """A level's branch decision, unread (None: push only)."""
-            if cfg.dirop:
-                return _dirop_plan(cxadj, rxadj, bfs, root, rmatch, level,
-                                   dir_prev, wr=wr, use_pallas=cfg.use_pallas,
-                                   **dirop_kw)
-            if cfg.adaptive_frontier:
-                return _compact_plan(cxadj, bfs, root, level, wr=wr,
-                                     cap=compact_cap, dmax=compact_dmax)
-            return None
-
-        def phase_bfs(cmatch, rmatch):
-            """Inner loop of Alg. 1: level-synchronous BFS to exhaustion or
-            first hit."""
-            bfs, root = level0_state(cmatch)
-            pred = torch.full((nr + 1,), nc, dtype=I32, device=cmatch.device)
-            level, ins, aug, aug_lvl, dir_prev = L0, True, False, IINF, False
-            plan = None       # the first level reads its own decision
-
-            def go():
-                if cfg.algo == "apsb":
-                    return ins and not aug               # Alg.1 l.9-10 break
-                if cfg.tail_levels > 0:
-                    # bounded tail: at most tail_levels past the first
-                    # augmenting level (beyond-paper, see MatcherConfig)
-                    return ins and level <= aug_lvl + cfg.tail_levels
-                return ins
-
-            while go():
-                if cfg.dirop:
-                    (bfs, root, pred, rmatch, ins_t, aug_t,
-                     dir_prev) = _expand_level_dirop(
-                        ecol, cadj, cxadj, rxadj, radj, erow, bfs, root,
-                        pred, rmatch, level, dir_prev, plan=plan,
-                        **dirop_kw, **sweep)
-                else:
-                    bfs, root, pred, rmatch, ins_t, aug_t = _expand_level(
-                        ecol, cadj, bfs, root, pred, rmatch, level,
-                        cxadj=cxadj, adaptive=cfg.adaptive_frontier,
-                        compact_cap=compact_cap, compact_dmax=compact_dmax,
-                        plan=plan, **sweep)
-                # the next level's decision rides on this level's read
-                nxt = plan_of(bfs, root, rmatch, level + 1, dir_prev)
-                if nxt is None:
-                    ins, aug_l = (bool(v) for v in _sync(ins_t, aug_t))
-                else:
-                    ins, aug_l, go_next = (
-                        bool(v) for v in _sync(ins_t, aug_t, nxt[0]))
-                    plan = (go_next, nxt[1])
-                COUNTERS.levels += 1
-                if aug_l and aug_lvl == IINF:
-                    aug_lvl = level
-                level += 1
-                aug = aug or aug_l
-            return bfs, root, pred, rmatch, aug
-
-        def start_mask_fn(bfs, rmatch):
-            mask = rmatch == -2
-            if cfg.wr_exact:
-                # only the winning endpoint of each satisfied tree starts a walker
-                enc = bfs[:-1]                                   # (nc,)
-                wins = _seal(scatter_kept(
-                    torch.zeros(nr + 1, dtype=torch.bool, device=bfs.device),
-                    -(enc + 1), True, enc <= -1), False)
-                mask = mask & wins
-            return mask
-
-        max_steps = 2 * (min(nc, nr) + 2)
-        limit = cfg.max_phases if cfg.max_phases > 0 else nc + 2
-        phases, fallbacks, aug = 0, 0, True
-        while aug and phases < limit:
-            cm0, rm0 = cmatch, rmatch                            # phase snapshot
-            bfs, root, pred, rmatch_b, aug = phase_bfs(cmatch, rmatch)
-            if aug:
-                mask = start_mask_fn(bfs, rmatch_b)
-                cm1, rm1, _ = _alternate(cm0, torch.where(mask, -2, rm0),
-                                         pred, mask, max_steps)
-                cm1, rm1 = _fix_matching(cm1, rm1)
-                if not _sync(_cardinality(cm1) > _cardinality(cm0))[0]:
-                    # guard: the speculative phase gained nothing -> augment
-                    # exactly one shortest path on the snapshot (a single
-                    # walker cannot conflict).  argmax over an int mask is
-                    # the first True: the lowest endpoint row.
-                    any_ep = rmatch_b == -2
-                    first = torch.argmax(any_ep.to(I32)).reshape(1)
-                    one = torch.zeros(nr + 1, dtype=torch.bool,
-                                      device=cm0.device)
-                    one = one.scatter(0, first, any_ep.any().reshape(1))
-                    cm2, rm2, _ = _alternate(cm0, rm0, pred, one, max_steps)
-                    cm1, rm1 = _fix_matching(cm2, rm2)
-                    fallbacks += 1
-                cmatch, rmatch = cm1, rm1
-            else:
-                cmatch, rmatch = cm0, rm0
-            phases += 1
-        # aug is the last BFS verdict: False means the phase found no
-        # augmenting path — Berge certifies the matching maximum.  A
-        # budget-truncated exit leaves aug True: valid but uncertified.
-        certified = not aug
-        if cfg.degrade_maximal and cfg.max_phases > 0 and not certified:
-            # one speculative greedy round restores maximality (local
-            # import: warmstart.py imports solver internals from here)
-            from .warmstart import cheap_init
-            cmatch, rmatch = cheap_init(ecol, cadj, cmatch, rmatch)
-        return cmatch, rmatch, phases, fallbacks, certified
+        nc, nr = cmatch.shape[0] - 1, rmatch.shape[0] - 1
+        graph = types.SimpleNamespace(ecol=ecol, cadj=cadj, cxadj=cxadj,
+                                      rxadj=rxadj, radj=radj, erow=erow,
+                                      device=cmatch.device)
+        zero = torch.zeros((), dtype=I32, device=cmatch.device)
+        state = MatchState(cmatch=cmatch, rmatch=rmatch, phases=zero,
+                           fallbacks=zero, certified=zero.bool())
+        out = MatcherProgram(nc, nr, ecol.shape[0], cfg, None)(graph, state)
+        return (out.cmatch, out.rmatch, out.phases, out.fallbacks,
+                out.certified)
 
     return match_fn

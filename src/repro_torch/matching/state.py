@@ -19,7 +19,9 @@ SENTINEL = -3  # value of the trailing sentinel slot
 
 
 def _scalar(value, dtype, device) -> torch.Tensor:
-    return torch.tensor(value, dtype=dtype, device=device)
+    """A 0-d device scalar made by a fill: ``torch.tensor(value,
+    device=...)`` copies from the host and waits for the card."""
+    return torch.full((), value, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +47,9 @@ class MatchState:
         dev = resolve_device(device)
         cm = torch.full((nc + 1,), -1, dtype=torch.int32, device=dev)
         rm = torch.full((nr + 1,), -1, dtype=torch.int32, device=dev)
-        cm[nc] = SENTINEL
-        rm[nr] = SENTINEL
+        # fills, not item assignment (a copy from the host, which waits)
+        cm[nc:].fill_(SENTINEL)
+        rm[nr:].fill_(SENTINEL)
         return cls(cmatch=cm, rmatch=rm,
                    phases=_scalar(0, torch.int32, dev),
                    fallbacks=_scalar(0, torch.int32, dev),

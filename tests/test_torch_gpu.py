@@ -685,3 +685,287 @@ def test_cuda_model_pallas_equals_xla_and_cpu():
     cpu, _ = pallas.forward(params, {"tokens": toks})
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=1e-4)
+
+
+# ---- the captured solve: one cache entry per bucket, graphs replayed -----
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+
+
+def _outcome(state):
+    return (state.cmatch.cpu(), state.rmatch.cpu(), int(state.phases),
+            int(state.fallbacks), bool(state.certified))
+
+
+def _same_outcome(a, b, what):
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), what
+    assert a[2:] == b[2:], what
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ws", ["cheap", "karp_sipser"])
+def test_cuda_captured_run_equals_cpu_run_on_every_path(ws):
+    """Every solve path, captured and replayed on the card, gives the CPU's
+    state bit for bit, with the CPU's device counts (levels by sweep,
+    ``ALTERNATE`` steps) and its host syncs."""
+    _card()
+    from repro_torch.matching.cache import compile_cache_clear
+    compile_cache_clear()
+    for name in ("kron", "grid", "comb"):
+        g = instance_sets("mini")[name]
+        for pname, path in SOLVE_PATHS.items():
+            cfg = path.configure(MatcherConfig())
+            runs = []
+            for dev in ("cpu", "cuda"):
+                t = TorchCSR.from_host(g, device=dev)
+                m = Matcher(cfg, ws)
+                st = m.run(t.with_csc() if cfg.dirop else t)
+                runs.append((_outcome(st), m.last_counts))
+            _same_outcome(runs[0][0], runs[1][0], (name, pname))
+            assert runs[0][1] == runs[1][1], (name, pname)
+
+
+@pytest.mark.gpu
+def test_cuda_second_run_is_a_cache_hit_with_no_capture():
+    _card()
+    from repro_torch.matching.cache import (compile_cache_clear,
+                                            compile_cache_entry,
+                                            compile_cache_info)
+    compile_cache_clear()
+    g = TorchCSR.from_host(instance_sets("mini")["rand"])
+    m = Matcher(MatcherConfig(), "cheap")
+    first = _outcome(m.run(g))
+    key = compile_cache_info()["keys"][0]
+    prog = compile_cache_entry(key)
+    captured = prog.captures(g.device)
+    # the entry's bytes count its graphs' pool beside its static buffers
+    assert captured > 0 and prog.nbytes(g.device) > \
+        prog.static_bytes(g.device) > 0
+    second = _outcome(m.run(g))
+    _same_outcome(first, second, "second run")
+    assert prog.captures(g.device) == captured
+    info = compile_cache_info()
+    assert (info["misses"], info["hits"]) == (1, 1)
+
+
+@pytest.mark.gpu
+def test_cuda_graphs_of_one_bucket_each_get_their_own_answer():
+    """Graphs of one bucket in turn through one captured entry: each gets
+    the answer of its own CPU run (stale static buffers would give the
+    previous graph's)."""
+    _card()
+    from repro_torch.matching.cache import compile_cache_clear
+    compile_cache_clear()
+    gs = [random_bipartite(300, 280, 3.0, seed=s, pad_to=2048)
+          for s in (11, 12, 13)]
+    for pname in ("jnp", "dirop_pallas"):
+        cfg = SOLVE_PATHS[pname].configure(MatcherConfig())
+        m = Matcher(cfg, "karp_sipser")
+        for g in gs + gs[:1]:
+            runs = []
+            for dev in ("cpu", "cuda"):
+                t = TorchCSR.from_host(g, device=dev)
+                runs.append(_outcome(Matcher(cfg, "karp_sipser").run(
+                    t.with_csc() if cfg.dirop else t) if dev == "cpu"
+                    else m.run(t.with_csc() if cfg.dirop else t)))
+            _same_outcome(runs[0], runs[1], pname)
+
+
+@pytest.mark.gpu
+def test_cuda_replayed_launches_are_counted():
+    """The launch counters live on the card: launches replayed from a
+    captured graph count, a warm-up's and a gated-off launch do not."""
+    _card()
+    from repro_torch.matching.cache import compile_cache_clear
+    from repro_torch.matching.solve import COUNTERS
+    compile_cache_clear()
+    g = TorchCSR.from_host(instance_sets("mini")["kron"])
+    m = Matcher(MatcherConfig(), "cheap")
+    m.run(g)                                         # captures
+    for _ in range(2):
+        reset_launches()
+        COUNTERS.reset()
+        m.run(g)
+        assert LAUNCHES["frontier_expand_fused_wr"] == \
+            m.last_counts["push_levels"] > 0
+
+
+def _level_state(g):
+    cpu = TorchCSR.from_host(g, device="cpu")
+    warm = Matcher(warm_start="cheap").init(cpu)
+    bfs, root = level0_state(warm.cmatch)
+    dev = TorchCSR.from_host(g).with_csc()
+    return dev, bfs.cuda(), root.cuda(), warm.rmatch.cuda()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wr", [True, False], ids=["wr", "plain"])
+def test_cuda_level_from_a_device_pointer_equals_the_immediate(wr):
+    _card()
+    g, bfs, root, rmatch = _level_state(instance_sets("mini")["rand"])
+    rt = root if wr else None
+    for level in (2, 3):
+        lv = torch.full((), level, dtype=torch.int32, device="cuda")
+        on = torch.ones((), dtype=torch.int32, device="cuda")
+        for fn, cols, rows in ((frontier_expand_fused, g.ecol, g.cadj),
+                               (frontier_expand, g.ecol, g.cadj),
+                               (frontier_expand_pull, g.radj, g.erow)):
+            want = fn(cols, rows, bfs, rt, rmatch, level)
+            assert torch.equal(fn(cols, rows, bfs, rt, rmatch, lv), want)
+            assert torch.equal(fn(cols, rows, bfs, rt, rmatch, lv, on),
+                               want)
+        assert torch.equal(frontier_bits(bfs, rt, lv),
+                           frontier_bits(bfs, rt, level))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wr", [True, False], ids=["wr", "plain"])
+def test_cuda_gated_off_sweeps_leave_no_winner_or_proposal(wr):
+    """Gate 0: K1 and K3 leave their IINF fill, K2 writes IINF in every
+    slot, as the plain versions give; nothing is counted."""
+    _card()
+    g, bfs, root, rmatch = _level_state(instance_sets("mini")["rand"])
+    rt = root if wr else None
+    off = torch.zeros((), dtype=torch.int32, device="cuda")
+    reset_launches()
+    for fn, ref, cols, rows in (
+            (frontier_expand_fused, frontier_expand_fused_ref, g.ecol,
+             g.cadj),
+            (frontier_expand, frontier_expand_ref, g.ecol, g.cadj),
+            (frontier_expand_pull, frontier_expand_pull_ref, g.radj,
+             g.erow)):
+        assert int((fn(cols, rows, bfs, rt, rmatch, 2) < 2**30).sum()) > 0
+        got = fn(cols, rows, bfs, rt, rmatch, 2, off)
+        want = ref(cols, rows, bfs, rt, rmatch, 2, gate=off)
+        assert torch.equal(got, want) and bool((got == 2**30).all())
+    body = "wr" if wr else "plain"
+    assert [LAUNCHES[f"{k}_{body}"] for k in (
+        "frontier_expand_fused", "frontier_expand", "frontier_expand_pull",
+        "frontier_bits")] == [1, 1, 1, 1]
+
+
+@pytest.mark.gpu
+def test_cuda_warm_start_that_reads_the_host_raises_at_capture():
+    """A registered warm start is captured whole; one that reads a device
+    value on the host cannot be, and raises, naming the warm start."""
+    _card()
+    from repro_torch.matching import register_warm_start
+    from repro_torch.matching.device_loop import CaptureError
+    from repro_torch.matching.warmstart import WARM_STARTS, _VERSIONS
+
+    def peeks(ecol, cadj, cmatch, rmatch):
+        if int(cmatch[0]) == -1:                   # a host read
+            return cmatch, rmatch
+        return cmatch, rmatch
+
+    try:
+        register_warm_start("peeks", peeks)
+        g = TorchCSR.from_host(instance_sets("mini")["rand"])
+        with pytest.raises(CaptureError, match="peeks"):
+            Matcher(MatcherConfig(), "peeks").run(g)
+        # the card still works after the failed capture
+        st = Matcher(MatcherConfig(), "cheap").run(g)
+        assert bool(st.certified)
+    finally:
+        WARM_STARTS.pop("peeks", None)
+        _VERSIONS.pop("peeks", None)
+
+
+@pytest.mark.gpu
+def test_cuda_while_node_runs_its_step_until_the_flag_drops():
+    """A loop is one conditional WHILE node: the step runs exactly while
+    its flag is set, tested before each step; a loop whose flag never drops
+    stops at the runaway guard, and the next read raises."""
+    _card()
+    from repro_torch.matching.device_loop import Loop, Program
+
+    def counting(limit):
+        P = Program("cuda", loop_limit=limit)
+        P.constant("n", torch.zeros((), dtype=torch.int32))
+        P.scalars(("live",))
+        return P
+
+    P = counting(100)
+
+    def step(B):
+        B.n.add_(1)
+        B.live.copy_(B.n < 7)
+
+    loop = Loop("count", step, "live")
+    P.loop(loop)
+    assert int(P.buf.n) == 7 and P.read("live") == [0]
+    P.loop(loop)                              # relaunched: one more step
+    assert int(P.buf.n) == 8 and P.captures == 1
+    P.loop(Loop("count", step, "live", start=False))  # flag down: no step
+    assert int(P.buf.n) == 8
+    Q = counting(5)
+    Q.loop(Loop("forever", lambda B: B.n.add_(1), "live"))
+    assert int(Q.buf.n) == 5
+    with pytest.raises(RuntimeError, match="stopped"):
+        Q.read("live")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("builtin", ["cheap", "karp_sipser"])
+def test_cuda_registered_warm_start_may_call_a_builtin(builtin):
+    """A registered warm start that calls a built-in one is captured with
+    the built-in's rounds as WHILE nodes inside its graph: ``run`` and
+    ``init`` give the CPU's state, and a second run is a hit that captures
+    nothing."""
+    _card()
+    from repro_torch.matching import register_warm_start
+    from repro_torch.matching.cache import (compile_cache_clear,
+                                            compile_cache_entry,
+                                            compile_cache_info)
+    from repro_torch.matching.warmstart import (WARM_STARTS, _VERSIONS,
+                                                cheap_init, karp_sipser_init)
+    init = {"cheap": cheap_init, "karp_sipser": karp_sipser_init}[builtin]
+
+    def custom(ecol, cadj, cmatch, rmatch):
+        # pair the first edge by hand, on the device, then the built-in
+        cm, rm = cmatch.clone(), rmatch.clone()
+        cm.index_copy_(0, ecol[:1].long(), cadj[:1])
+        rm.index_copy_(0, cadj[:1].long(), ecol[:1])
+        return init(ecol, cadj, cm, rm)
+
+    name = f"custom_then_{builtin}"
+    try:
+        register_warm_start(name, custom)
+        compile_cache_clear()
+        for fam in ("rand", "comb"):
+            g = instance_sets("mini")[fam]
+            runs = []
+            for dev in ("cpu", "cuda"):
+                t = TorchCSR.from_host(g, device=dev)
+                m = Matcher(MatcherConfig(), name)
+                ini = m.init(t)
+                runs.append((_outcome(m.run(t)), ini.cmatch.cpu(),
+                             ini.rmatch.cpu()))
+            _same_outcome(runs[0][0], runs[1][0], (fam, "run"))
+            assert torch.equal(runs[0][1], runs[1][1]), (fam, "init")
+            assert torch.equal(runs[0][2], runs[1][2]), (fam, "init")
+        t = TorchCSR.from_host(instance_sets("mini")["comb"])
+        key = compile_cache_info()["keys"][-1]
+        prog = compile_cache_entry(key)
+        captured = prog.captures(t.device)
+        assert key[3] == "run" and captured > 0
+        Matcher(MatcherConfig(), name).run(t)
+        assert prog.captures(t.device) == captured
+    finally:
+        WARM_STARTS.pop(name, None)
+        _VERSIONS.pop(name, None)
+
+
+@pytest.mark.gpu
+def test_cuda_runaway_in_a_loop_with_no_read_after_it_raises():
+    """The ``"init"`` entry's warm-start rounds have no read after them:
+    the call reads the runaway guard before it returns, and raises."""
+    _card()
+    from repro_torch.matching.solve import MatcherProgram
+    from repro_torch.matching.warmstart import CHEAP
+    g = TorchCSR.from_host(instance_sets("mini")["rand"])
+    prog = MatcherProgram(g.nc, g.nr, g.nnz_pad, None, CHEAP)
+    prog.program(g.device).loop_limit = 1      # cheap needs more rounds
+    with pytest.raises(RuntimeError, match="stopped"):
+        prog(g)

@@ -3,10 +3,12 @@ package's, level by level.
 
 At every level of real BFS phases (the states the JAX solver reaches from a
 warm start) the unreached-row mask, the frontier, the compact column and
-row gathers, the streaming pull, the adaptive ``_expand_level`` and the
-direction-optimizing ``_expand_level_dirop`` (with ``dir_prev`` carried,
-its ``use_pull`` decision included) return the JAX functions' integers,
-tolerance 0.  The JAX side runs with ``JAX_PLATFORMS=cpu``, its Pallas
+row gathers and the streaming pull return the JAX functions' integers,
+tolerance 0; and the solver's own BFS level step (the step
+``Matcher.run`` loops over) on the adaptive and direction-optimizing
+paths returns, level by level, what the JAX ``_expand_level`` and
+``_expand_level_dirop`` return (``dir_prev`` carried, its ``use_pull``
+decision included).  The JAX side runs with ``JAX_PLATFORMS=cpu``, its Pallas
 pull kernel in interpret mode; the port runs on the CPU, where every
 index that leaves its range raises.
 """
@@ -23,7 +25,7 @@ from repro.graphs import instance_sets
 from repro.matching import DeviceCSR, Matcher as RefMatcher
 
 import repro_torch.matching.solve as ts
-from repro_torch.matching import MatcherConfig
+from repro_torch.matching import MatcherConfig, MatchState, TorchCSR
 
 
 def _t(x):
@@ -62,6 +64,27 @@ def _phase_walk(g, wr, ws="cheap"):
                                            jnp.int32(level))
         if not bool(ins):
             return
+
+
+def _solver_at_level0(g, cfg, cm, rm):
+    """The solver of ``cfg`` on a CPU program holding ``g`` (with its CSC
+    mirror) and the matching ``cm``/``rm``, its phase begun: its buffers
+    hold the state the first BFS level starts from."""
+    t = TorchCSR.from_host(g, device="cpu").with_csc()
+    prog = ts.MatcherProgram(t.nc, t.nr, t.nnz_pad, cfg, None)
+    P = prog.program("cpu")
+    zero = torch.zeros((), dtype=torch.int32)
+    prog.load(P, t, MatchState(cmatch=_t(cm), rmatch=_t(rm), phases=zero,
+                               fallbacks=zero, certified=zero.bool()))
+    P.once(prog.solver.phase_begin)
+    return prog.solver, P
+
+
+def _level_outputs(P):
+    """The solver's BFS state and this level's flags, as the JAX level
+    function returns them."""
+    B = P.buf
+    return B.bfs, B.root, B.pred, B.rmb, bool(B.ins), bool(B.aug)
 
 
 def _mirror(g):
@@ -123,42 +146,43 @@ def test_compact_and_pull_sweeps_equal_reference(family, wr):
                          ids=["auto", "dmax2", "cap4"])
 @pytest.mark.parametrize("family", ["rand", "grid", "free", "kron"])
 def test_adaptive_expand_level_equals_reference(family, geom):
-    """The adaptive ``_expand_level`` at every level of a phase, every
+    """The solver's adaptive level step at every level of a phase, every
     output, with the compact branch eligible on some levels."""
     g = instance_sets("mini")[family]
-    cfg = MatcherConfig(compact_cap=geom[0], compact_dmax=geom[1])
+    cfg = MatcherConfig(adaptive_frontier=True, compact_cap=geom[0],
+                        compact_dmax=geom[1])
     cap, dmax = cfg.resolve_cap(cfg.compact_cap, g.nc), cfg.resolve_dmax(
         cfg.compact_dmax)
-    d, t = _mirror(g)
+    d, _ = _mirror(g)
     cm, rm = _state(g)
     jst = js.level0_state(cm) + (jnp.full(g.nr + 1, g.nc, jnp.int32), rm)
-    tst = tuple(_t(x) for x in jst)
     step = _jit(js._expand_level, wr=True, wr_exact=False, use_pallas=False,
                 block_edges=128, adaptive=True, compact_cap=cap,
                 compact_dmax=dmax)
     deg = d.cxadj[1:] - d.cxadj[:-1]
     ts.COUNTERS.reset()
+    solver, P = _solver_at_level0(g, cfg, cm, rm)
+    jaug = False
     for level in range(2, 2 + g.nc):
+        assert P.read("level", "bfs_live") == [level, 1]
         # the branch decision, against the reference's rule (solve.py:309)
         bfs, root = jst[0], jst[1]
         isf = (bfs[:-1] == level) & (
             bfs[jnp.clip(root[:-1], 0, g.nc)] >= js.UNVISITED)
         want = (jnp.sum(isf.astype(jnp.int32)) <= cap) & (
             jnp.max(jnp.where(isf, deg, 0)) <= dmax)
-        got, _ = ts._compact_plan(t["cxadj"], tst[0], tst[1], level, wr=True,
-                                  cap=cap, dmax=dmax)
-        assert bool(got) == bool(want), f"eligible level {level}"
+        assert P.read("plan") == [int(want)], f"eligible level {level}"
         jout = step(d.ecol, d.cadj, *jst, jnp.int32(level), cxadj=d.cxadj)
-        tout = ts._expand_level(t["ecol"], t["cadj"], *tst, level, wr=True,
-                                wr_exact=False, cxadj=t["cxadj"],
-                                adaptive=True, compact_cap=cap,
-                                compact_dmax=dmax)
+        solver.level.step(P.buf)
+        jaug |= bool(jout[5])
         for name, a, b in zip(("bfs", "root", "pred", "rmatch", "ins",
-                               "aug"), tout, jout):
+                               "aug"), _level_outputs(P),
+                              jout[:5] + (jaug,)):
             _eq(a, b, f"{name} level {level}")
-        jst, tst = jout[:4], tout[:4]
+        jst = jout[:4]
         if not bool(jout[4]):
             break
+    assert P.read("bfs_live") == [0]
     assert ts.COUNTERS.push_levels + ts.COUNTERS.compact_levels == \
         level - 1
 
@@ -171,37 +195,39 @@ def test_adaptive_expand_level_equals_reference(family, geom):
 @pytest.mark.parametrize("family", ["rand", "grid", "kron", "free"])
 def test_dirop_expand_level_equals_reference(family, alpha, beta,
                                              use_pallas):
-    """``_expand_level_dirop`` stepped over whole phases of an APFB solve
-    from the cheap warm start, ``dir_prev`` carried: every output equals
-    the JAX function's at every level, the direction ``use_pull``
-    included."""
+    """The solver's direction-optimizing level step over a whole phase of
+    an APFB solve from the cheap warm start, ``dir_prev`` carried: every
+    output equals the JAX ``_expand_level_dirop``'s at every level, the
+    direction ``use_pull`` included."""
     g = instance_sets("mini")[family]
-    cfg = MatcherConfig()
+    cfg = MatcherConfig(dirop=True, use_pallas=use_pallas,
+                        dirop_alpha=alpha, dirop_beta=beta)
     pcap, pdmax = cfg.resolve_cap(0, g.nr), cfg.resolve_dmax(0)
-    d, t = _mirror(g)
+    d, _ = _mirror(g)
     cm, rm = _state(g)
     jst = js.level0_state(cm) + (jnp.full(g.nr + 1, g.nc, jnp.int32), rm)
-    tst = tuple(_t(x) for x in jst)
-    jprev, tprev, dirs = jnp.bool_(False), False, []
+    jprev, dirs, jaug = jnp.bool_(False), [], False
     step = _jit(js._expand_level_dirop, wr=True, wr_exact=False,
                 use_pallas=use_pallas, block_edges=128, axis=None,
                 pallas_fused=True, interpret=True, dirop_alpha=alpha,
                 dirop_beta=beta, pull_cap=pcap, pull_dmax=pdmax)
+    solver, P = _solver_at_level0(g, cfg, cm, rm)
     for level in range(2, 2 + g.nc):
+        assert P.read("level", "bfs_live") == [level, 1]
         jout = step(d.ecol, d.cadj, d.cxadj, d.rxadj, d.radj, d.erow, *jst,
                     jnp.int32(level), jprev)
-        tout = ts._expand_level_dirop(
-            t["ecol"], t["cadj"], t["cxadj"], t["rxadj"], t["radj"],
-            t["erow"], *tst, level, tprev, wr=True, wr_exact=False,
-            use_pallas=use_pallas, pallas_fused=True, dirop_alpha=alpha,
-            dirop_beta=beta, pull_cap=pcap, pull_dmax=pdmax)
+        solver.level.step(P.buf)
+        jaug |= bool(jout[5])
         for name, a, b in zip(("bfs", "root", "pred", "rmatch", "ins",
-                               "aug"), tout, jout):
+                               "aug"), _level_outputs(P),
+                              jout[:5] + (jaug,)):
             _eq(a, b, f"{name} level {level}")
-        assert tout[6] is bool(jout[6]), f"use_pull level {level}"
-        dirs.append(tout[6])
-        jst, tst, jprev, tprev = jout[:4], tout[:4], jout[6], tout[6]
+        use_pull = P.read("dir_prev")[0] == 1
+        assert use_pull is bool(jout[6]), f"use_pull level {level}"
+        dirs.append(use_pull)
+        jst, jprev = jout[:4], jout[6]
         if not bool(jout[4]):
             break
+    assert P.read("bfs_live") == [0]
     if alpha == 1e6 and use_pallas:
         assert any(dirs)                # the kernel pulls, no fit needed
