@@ -59,7 +59,31 @@ What it does, in order; any failure raises and the exit code is not 0:
    (device time by kernel, the fused sweep's and torch's scatter kernels'
    share, the device's busy share of the wall time), and times one in CUDA
    events (the card's span from the first launch to the last);
-6. holds the flash-attention kernel against its plain version on the card
+6. the serving path: ``repro_torch.serving.MatchingService`` on the card
+   over the ladder 16,384² .. 262,144² (edge factor 8, ``max_batch`` 16),
+   a 256-request trace (the four families of ``serve_matching.FAMILIES``
+   round-robin, size hints 2^14 / 2^16 / 2^18, made by the workers with
+   scipy's cardinality): ``warm_up()`` (every step of its entries
+   captured; their bytes, captures included, against the cache's budget;
+   nothing evicted, and the two loops after it capture and evict nothing), a
+   closed loop (saturation graphs/s), an open-loop Poisson replay at 0.7×
+   that rate (latency, occupancy, dispatches, host syncs per flush, no
+   compile miss), a burst through the plain push body, the legacy kernel
+   and the pull kernel (forced, both bodies) on the 2^16 bucket, all three
+   with the counts set to 0 just before and read just after (every
+   body's batched instantiation, a flush of more than one lane, must
+   launch; a flush of one lane launches the single-graph one), and the ``--chaos`` drill of
+   ``serve_matching``.
+   Every served request: a valid matching at scipy's cardinality,
+   certified, and the card's single-graph ``Matcher.run`` of the same
+   bucket-padded graph bit for bit; one batch of the 2^14 bucket equals the
+   CPU's ``run_many``.  Then each frontier kernel body with its lane
+   dimension on a 16-lane batch of the 2^18 bucket over the first BFS
+   phase (lanes started at staggered levels, lanes gated off, at most
+   ``LANE_CHECK_LEVELS`` levels): one launch against its plain version and
+   against 16 single-graph launches, bit for bit, each timed (CUDA events)
+   beside its bound;
+7. holds the flash-attention kernel against its plain version on the card
    (TF32 off): the shapes of ``tests/test_kernels.py`` in fp32 (the CUDA-core
    body, 2e-5) and bf16 (the tensor-core body, 2e-2) and granite-20b's
    layer shape (B=4, S=4096, H=48, KV=1, hd=128, bf16), both masks, each
@@ -70,10 +94,10 @@ What it does, in order; any failure raises and the exit code is not 0:
    ``scaled_dot_product_attention`` (the yardstick, never called by the
    port) at granite's shape; and the fp32 body at granite's shape against
    its plain version (2e-5), timed beside both in fp32;
-7. granite-20b at full width with two layers in fp32: the forward through
+8. granite-20b at full width with two layers in fp32: the forward through
    the kernel against the torch-op attention (1e-3), and teacher-forced
    ``decode_step`` over 64 tokens against the forward (2e-3);
-8. the LM main path: granite-20b FULL, bf16, 52 layers, seeded weights.
+9. the LM main path: granite-20b FULL, bf16, 52 layers, seeded weights.
    ``build_prefill_step`` on 4 prompts of 4096 tokens with the flash-kernel
    counts set to 0 just before and read just after (52 launches, all on the
    tensor-core body; finite logits); the same prefill through ``blockwise_attn`` (gap of the
@@ -81,7 +105,8 @@ What it does, in order; any failure raises and the exit code is not 0:
    layer's attention zeroed (a control that must exceed the gap's gate);
    greedy serving (batch 4, a 64-token prompt stepped, 16 tokens
    generated); the prefill and serving profiled;
-9. prints one ``{"kernels": [...]}`` line, then as its last line
+10. prints one ``{"kernels": [...]}`` line (the batched launch of each
+   body as its own entry, ``lanes`` 16), then as its last line
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.  It needs a CUDA card and the
@@ -164,10 +189,11 @@ def ptxas_report(log: str) -> dict:
         if m:
             k = re.search(r"\d+((?:flash_fwd|fused_sweep|proposals|"
                           r"pull_sweep|frontier_bits)\w*?)"
-                          r"(?:IL[a-z](\d+)E|E)",
+                          r"(?:I((?:L[a-z]\d+E)+)E|E)",
                           m.group(1))
+            args = re.findall(r"L[a-z](\d+)E", k.group(2) or "") if k else []
             name = m.group(1) if k is None else k.group(1) + (
-                f"<{k.group(2)}>" if k.group(2) else "")
+                f"<{','.join(args)}>" if args else "")
             out[name] = {}
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       ln)
@@ -854,6 +880,388 @@ def small_sets_bit_exact(cpu_results) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the serving path: MatchingService on the card, batched run_many (phase 6)
+# ---------------------------------------------------------------------------
+SERVE_LADDER = dict(max_vertices=1 << 18, min_vertices=1 << 14)
+SERVE_MAX_BATCH = 16
+SERVE_DELAY_MS = 2.0
+SERVE_REQUESTS = 256
+SERVE_HINTS = (1 << 14, 1 << 16, 1 << 18)
+SERVE_SEED = 0                     # request i: seed SERVE_SEED + i
+SERVE_RATE_FRACTION = 0.7          # the open loop's rate / saturation
+BURST_HINT = 1 << 16
+BURST_REQUESTS = 16                # per configuration
+# the batched bodies the default config (K1a) leaves out; the pull paths
+# forced (every level pulls, as PATH_RUNS forces it), so that K3 launches
+_FORCED_PULL = dict(dirop=True, use_pallas=True, dirop_alpha=1e6,
+                    dirop_beta=1e6)
+BURST_CONFIGS = {
+    "gpubfs": dict(kernel="gpubfs"),
+    "legacy": dict(use_pallas=True, pallas_fused=False),
+    "legacy+gpubfs": dict(use_pallas=True, pallas_fused=False,
+                          kernel="gpubfs"),
+    "dirop_pallas": _FORCED_PULL,
+    "dirop_pallas+gpubfs": dict(_FORCED_PULL, kernel="gpubfs"),
+}
+LANE_CHECK_LANES = 16
+LANE_CHECK_LEVELS = 40             # levels of the first phase checked
+
+
+def make_request(i: int) -> tuple:
+    """Worker process: request ``i`` of the serving trace, its family
+    (round-robin over ``serve_matching.FAMILIES``) at size hint
+    ``SERVE_HINTS[i % 3]``, seed ``SERVE_SEED + i``; and its cardinality by
+    scipy."""
+    use_src()
+    from scipy.sparse.csgraph import maximum_bipartite_matching
+    from repro_torch.launch.serve_matching import FAMILIES
+    names = list(FAMILIES)
+    family, hint = names[i % len(names)], SERVE_HINTS[i % len(SERVE_HINTS)]
+    g = FAMILIES[family](hint, SERVE_SEED + i)
+    m = maximum_bipartite_matching(g.to_scipy().tocsr(), perm_type="column")
+    return family, hint, g, int((m >= 0).sum())
+
+
+def serve_cpu_batch(graphs) -> list:
+    """Worker process: the bucket-padded ``graphs`` as one ``run_many`` on
+    the CPU with the service's config and warm start; per lane the
+    outcome."""
+    use_src()
+    torch.set_num_threads(2)
+    from repro_torch.matching import Matcher, MatcherConfig, TorchCSR
+    from repro_torch.serving import Bucketizer, ladder
+    bz = Bucketizer(ladder(**SERVE_LADDER), device="cpu")
+    out = Matcher(MatcherConfig(), "cheap").run_many(
+        TorchCSR.stack([bz.admit(g).graph for g in graphs]))
+    return [outcome(s) for s in out.unstack()]
+
+
+def make_trace(pool) -> list:
+    """The serving trace's graphs, made by the workers.  Started when the
+    serving phase starts, so that no worker competes with the earlier
+    phases' host-clock timings."""
+    return pool.map(make_request, range(SERVE_REQUESTS), chunksize=4)
+
+
+def served_rows(results, trace, singles) -> None:
+    """Every served request: a valid matching at scipy's cardinality,
+    certified, and the single-graph run's state bit for bit."""
+    from repro_torch.core import validate_matching
+    for i, res in enumerate(results):
+        family, hint, g, want = trace[i]
+        cm, rm = res.matching()
+        card = validate_matching(g, cm, rm)
+        what = f"served request {i} ({family}, hint {hint})"
+        if card != want or res.cardinality != want:
+            fail(f"{what}: cardinality {card} != scipy's {want}")
+        if not res.certified:
+            fail(f"{what}: not certified")
+        if not same_outcome(outcome(res.state), singles[i]):
+            fail(f"{what}: state differs from the card's Matcher.run of "
+                 f"the same bucket-padded graph")
+
+
+def run_loop(svc, graphs, rate=None) -> tuple:
+    """All of ``graphs`` through ``svc`` (closed loop: submit all, then
+    drain; open loop: Poisson arrivals at ``rate``), the counts set to 0
+    just before; returns (results, wall seconds, snapshot, host syncs)."""
+    from repro_torch.launch.serve_matching import replay
+    from repro_torch.matching.solve import COUNTERS
+    syncs0 = COUNTERS.host_syncs
+    t0 = time.perf_counter()
+    if rate is None:
+        futs = [svc.submit(g) for g in graphs]
+    else:
+        futs = [f for _, _, f in replay(svc, [("", g) for g in graphs],
+                                        rate, SERVE_SEED)]
+    results = [f.result(timeout=600) for f in futs]
+    svc.drain()
+    wall = time.perf_counter() - t0
+    return (results, wall, svc.metrics.snapshot(),
+            COUNTERS.host_syncs - syncs0)
+
+
+def serving_phase(pool) -> list:
+    """Phase 6 (module doc): returns the batched bodies' kernel entries."""
+    from repro_torch.kernels.frontier_expand import LAUNCHES, reset_launches
+    from repro_torch.launch.serve_matching import chaos_drill
+    from repro_torch.matching import (Matcher, MatcherConfig, TorchCSR,
+                                      compile_cache_clear,
+                                      compile_cache_info)
+    from repro_torch.matching.cache import compile_cache_entry, max_bytes
+    from repro_torch.matching.solve import COUNTERS
+    from repro_torch.serving import (Bucketizer, FaultInjector,
+                                     MatchingService, batch_ladder, ladder)
+
+    compile_cache_clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trace = make_trace(pool)
+    graphs = [g for _, _, g, _ in trace]
+    buckets = ladder(**SERVE_LADDER)
+    cfg, ws = MatcherConfig(), "cheap"
+    say("serving trace:", json.dumps(dict(
+        requests=len(trace), seeds=[SERVE_SEED, SERVE_SEED + len(trace) - 1],
+        hints=SERVE_HINTS, families=sorted({f for f, *_ in trace}),
+        buckets=[b.key for b in buckets], max_batch=SERVE_MAX_BATCH,
+        max_delay_ms=SERVE_DELAY_MS, edges=sum(g.nnz for g in graphs),
+        graphs_s=time.perf_counter() - t0)))
+
+    def service(**kw):
+        return MatchingService(
+            bucketizer=Bucketizer(buckets, validate=True), config=cfg,
+            warm_start=ws, max_batch=SERVE_MAX_BATCH,
+            max_delay_ms=SERVE_DELAY_MS, **kw)
+
+    def held():
+        """The cache's bytes and evictions, and the graphs its entries
+        captured so far."""
+        info = compile_cache_info()
+        return dict(cache_bytes=info["bytes"], evictions=info["evictions"],
+                    captures=sum(compile_cache_entry(k).captures(CARD)
+                                 for k in info["keys"]))
+
+    # 1. warm-up: every step of the grid's entries captured, their bytes
+    # measured after
+    svc = service()
+    ev0 = compile_cache_info()["evictions"]
+    report = svc.warm_up()
+    warmed = held()
+    warm = dict(cells=report.cells, compiled=report.compiled,
+                seconds=report.seconds, entry_bytes=report.entry_bytes,
+                budget_bytes=max_bytes(), **warmed,
+                batch_ladder=batch_ladder(SERVE_MAX_BATCH))
+    say("serving warm-up:", json.dumps(warm))
+    if warmed["evictions"] != ev0 or report.compiled != report.cells \
+            or not warmed["captures"]:
+        fail(f"warm-up evicted {warmed['evictions'] - ev0} entries, built "
+             f"{report.compiled} of {report.cells} or captured "
+             f"{warmed['captures']} graphs")
+
+    # 2.-4. the serving main path, the counts set to 0 just before
+    torch.cuda.synchronize()
+    reset_launches()
+    closed, closed_s, snap1, syncs1 = run_loop(svc, graphs)
+    svc.close()
+    rate = SERVE_RATE_FRACTION * len(graphs) / closed_s
+    svc = service()
+    opened, open_s, snap2, syncs2 = run_loop(svc, graphs, rate)
+    svc.close()
+    # the loops ran on the warmed entries alone: nothing captured, nothing
+    # evicted, the bytes as warm-up left them
+    looped = held()
+    if looped != warmed:
+        fail(f"the loops after warm-up changed the cache: {warmed} -> "
+             f"{looped}")
+    burst_graphs = [g for _, h, g, _ in trace if h == BURST_HINT]
+    burst_graphs = burst_graphs[:BURST_REQUESTS]
+    svc = service()
+    burst = {}
+    for name, kw in BURST_CONFIGS.items():
+        bcfg = dataclasses.replace(cfg, **kw)
+        futs = [svc.submit(g, config=bcfg) for g in burst_graphs]
+        burst[name] = (bcfg, [f.result(timeout=600) for f in futs])
+    svc.drain()
+    snap3 = svc.metrics.snapshot()
+    svc.close()
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    loop = lambda snap, wall, syncs: dict(              # noqa: E731
+        wall_s=wall, graphs_per_s=len(graphs) / wall,
+        latency_p50_ms=snap["latency_p50_ms"],
+        latency_p99_ms=snap["latency_p99_ms"],
+        queue_wait_p50_ms=snap["queue_wait_p50_ms"],
+        occupancy=snap["occupancy"], dispatches=snap["dispatches"],
+        requests=snap["submitted"], host_syncs=syncs,
+        host_syncs_per_flush=syncs / max(1, snap["dispatches"]),
+        compile_hits=snap["compile_hits"],
+        compile_misses=snap["compile_misses"],
+        pad_edge_waste=snap["pad_edge_waste"],
+        flushes=[snap["flushes_full"], snap["flushes_deadline"],
+                 snap["flushes_drain"]])
+    rows = dict(closed_loop=loop(snap1, closed_s, syncs1),
+                open_loop=dict(loop(snap2, open_s, syncs2),
+                               offered_rate=rate),
+                burst=dict(dispatches=snap3["dispatches"],
+                           requests=snap3["submitted"]),
+                cache_after_loops=looped, launches=launches)
+    say("serving main path:", json.dumps(rows))
+    if snap2["compile_misses"] or snap1["compile_misses"]:
+        fail(f"the warmed service missed the cache "
+             f"({snap1['compile_misses']} closed, "
+             f"{snap2['compile_misses']} open loop)")
+    for body in KERNELS:
+        if not launches[f"{body}_batched"]:
+            fail(f"{body}_batched was not launched by the serving path")
+
+    # every served request against scipy and the card's single-graph run
+    t1 = time.perf_counter()
+    bz = Bucketizer(buckets)
+    single = Matcher(cfg, ws)
+    singles = [outcome(single.run(bz.admit(g).graph)) for g in graphs]
+    served_rows(closed, trace, singles)
+    served_rows(opened, trace, singles)
+    for name, (bcfg, results) in burst.items():
+        m = Matcher(bcfg, ws)
+        want = [outcome(m.run(bz.admit(g, csc=bcfg.dirop or None).graph))
+                for g in burst_graphs]
+        idx = [i for i, (_, h, _, _) in enumerate(trace)
+               if h == BURST_HINT][:BURST_REQUESTS]
+        served_rows(results, [trace[i] for i in idx], want)
+    # one batch of the 2^14 bucket: the card's run_many against the CPU's
+    small = [g for _, h, g, _ in trace if h == SERVE_HINTS[0]]
+    small = small[:SERVE_MAX_BATCH]
+    cpu_pending = pool.apply_async(serve_cpu_batch, (small,))
+    card = single.run_many(TorchCSR.stack([bz.admit(g).graph
+                                           for g in small]))
+    for i, (a, b) in enumerate(zip([outcome(s) for s in card.unstack()],
+                                   cpu_pending.get())):
+        if not same_outcome(a, b):
+            fail(f"lane {i} of the 2^14 batch differs from the CPU's "
+                 f"run_many")
+    say(f"serving checks: {len(closed) + len(opened)} loop requests and "
+        f"{sum(len(r) for _, r in burst.values())} burst requests valid, at "
+        f"scipy's cardinality, certified and equal to the single-graph "
+        f"run; the {len(small)}-lane 2^14 batch equals the CPU's run_many "
+        f"({time.perf_counter() - t1:.1f} s)")
+
+    # 5. the chaos drill
+    injector = FaultInjector(seed=SERVE_SEED)
+    svc = service(faults=injector)
+    failures = chaos_drill(svc, injector, SERVE_HINTS[0], SERVE_SEED)
+    svc.close()
+    if failures:
+        fail(f"the chaos drill found {failures} violations")
+    compile_cache_clear()
+    torch.cuda.empty_cache()
+    phase("serving", t0)
+
+    t0 = time.perf_counter()
+    lane = [g for _, h, g, _ in trace if h == SERVE_HINTS[-1]]
+    entries = lane_checks(bz, lane[:LANE_CHECK_LANES], launches)
+    phase("batched kernel checks", t0)
+    return entries
+
+
+def lane_checks(bz, graphs, launches) -> list:
+    """Each kernel body with its lane dimension over the first BFS phase of
+    a batch of ``graphs`` (module doc): the lanes start at staggered
+    levels and leave as their BFS ends (gated off); one launch against the
+    plain version and the single-graph launch of each lane, bit for bit;
+    times and bounds.  Returns the batched entries of the kernels line."""
+    from repro_torch.kernels.frontier_expand import (
+        frontier_bits, frontier_bits_ref, frontier_expand,
+        frontier_expand_fused, frontier_expand_fused_ref,
+        frontier_expand_pull, frontier_expand_pull_ref, frontier_expand_ref)
+    from repro_torch.matching import Matcher, MatcherConfig, TorchCSR
+    from repro_torch.matching.solve import _apply_winner, level0_state
+
+    b = TorchCSR.stack([bz.admit(g, csc=True).graph for g in graphs])
+    nb, nr = b.batch_shape[0], b.nr
+    warm = [Matcher(MatcherConfig(), "cheap").init(ln) for ln in b.unstack()]
+    cm = torch.stack([w.cmatch for w in warm])
+    rm = torch.stack([w.rmatch for w in warm])
+    bfs, root = level0_state(cm)
+    pred = torch.full_like(rm, b.nc)
+    level = torch.full((nb,), 2, dtype=torch.int32, device=CARD)
+    delay = torch.arange(nb, device=CARD) % 3
+    alive = torch.ones(nb, dtype=torch.bool, device=CARD)
+    bodies = {
+        "frontier_expand_fused": (frontier_expand_fused,
+                                  frontier_expand_fused_ref, "push"),
+        "frontier_expand": (frontier_expand, frontier_expand_ref, "prop"),
+        "frontier_expand_pull": (frontier_expand_pull,
+                                 frontier_expand_pull_ref, "pull"),
+        "frontier_bits": (frontier_bits, frontier_bits_ref, "bits")}
+    states = []
+    for step in range(LANE_CHECK_LEVELS):
+        gate = (alive & (delay <= step)).to(torch.int32)
+        if not bool(gate.any()):
+            break
+        lv = level.clone()
+        st = (bfs.clone(), root.clone(), rm.clone(), lv, gate.clone())
+        for name, (kernel, plain, kind) in bodies.items():
+            for wr in (True, False):
+                args = lane_args(b, st, kind, wr)
+                got = kernel(*args)
+                if not torch.equal(got, plain(*args)):
+                    fail(f"{name} ({'WR' if wr else 'plain'}) with {nb} "
+                         f"lanes differs from its plain version at step "
+                         f"{step}")
+                for i in range(nb):
+                    one = kernel(*[a[i] if isinstance(a, torch.Tensor)
+                                   else a for a in args])
+                    if not torch.equal(got[i], one):
+                        fail(f"{name} lane {i} differs from its single "
+                             f"launch at step {step}")
+        states.append(st)
+        win = frontier_expand_fused(b.ecol, b.cadj, bfs, root, rm, lv, gate)
+        live = gate != 0
+        *_, ins, _ = _apply_winner(win, bfs, root, pred, rm, level,
+                                   wr=True, wr_exact=False, inplace=True)
+        level += live
+        alive &= ~live | ins
+    say(f"batched kernels: {len(states)} steps of {nb} lanes bit for bit "
+        f"against the plain version and the single launches")
+    entries = []
+    for name, (kernel, plain, kind) in bodies.items():
+        for wr in (True, False):
+            body = f"{name}_{'wr' if wr else 'plain'}"
+            per = [lane_args(b, st, kind, wr) for st in states]
+            n = len(per)
+            ms = cuda_ms(lambda: [kernel(*a) for a in per]) / n
+            singles_ms = cuda_ms(lambda: [
+                kernel(*[x[i] if isinstance(x, torch.Tensor) else x
+                         for x in a]) for a in per for i in range(nb)],
+                reps=5, warmup=1) / n
+            plain_ms = cuda_ms(lambda: [plain(*a) for a in per], reps=3,
+                               warmup=1) / n
+            bound = sum(lane_bound(kind, a, nr) for a in per) / n
+            entries.append(dict(
+                name=f"{body}_batched", route="cuda",
+                source="src/repro_torch/csrc/frontier_expand.cu",
+                replaces=KERNELS[body],
+                launches=launches[f"{body}_batched"],
+                max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by="bytes", library_ms=None, lanes=nb,
+                singles_ms=singles_ms, levels_checked=n,
+                timed_on=f"{nb} lanes of the {b.nc}^2 bucket"))
+            say("batched kernel:", json.dumps(entries[-1]))
+    return entries
+
+
+def lane_args(b, st, kind: str, wr: bool) -> tuple:
+    """A batched kernel's arguments for one checked step."""
+    bfs, root, rm, level, gate = st
+    rt = root if wr else None
+    if kind == "bits":
+        return (bfs, rt, level)
+    cols, rows = (b.radj, b.erow) if kind == "pull" else (b.ecol, b.cadj)
+    return (cols, rows, bfs, rt, rm, level, gate)
+
+
+def lane_bound(kind: str, args: tuple, nr: int) -> float:
+    """Least time for one batched launch: each lane that runs moves its
+    single-graph bytes, a gated-off lane only writes its output."""
+    nbytes = 0
+    for i in range(args[2 if kind != "bits" else 0].shape[0]):
+        one = [a[i] if isinstance(a, torch.Tensor) else a for a in args]
+        if kind == "bits":
+            one[-1] = int(one[-1])
+            nbytes += bits_bytes(*one)
+            continue
+        on, one = int(one[-1]), one[:-2] + [int(one[-2])]
+        if kind == "push":
+            nbytes += push_bytes(*one) if on else 4 * (nr + 1)
+        elif kind == "prop":
+            nbytes += (proposal_bytes(*one) if on
+                       else 4 * one[0].numel())
+        else:
+            nbytes += pull_bytes(*one) if on else 4 * (nr + 1)
+    return bound_ms(nbytes)
+
+
+# ---------------------------------------------------------------------------
 # the LM serving path: granite-20b, prefill + decode, flash attention (K4)
 # ---------------------------------------------------------------------------
 BF16_FLOPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
@@ -1296,7 +1704,7 @@ def lm_main_path() -> int:
 
 
 def lm_phases() -> dict:
-    """Phases 6-8: K4 against its plain version, the fp32 two-layer checks,
+    """Phases 7-9: K4 against its plain version, the fp32 two-layer checks,
     the granite-20b main path.  Returns the kernel's entry."""
     t0 = time.perf_counter()
     entry = flash_checks()
@@ -1365,7 +1773,7 @@ def main() -> int:
 
 
 def run_phases(pool, paths) -> list:
-    """The matching paths (phases 2-5); returns their kernels' entries."""
+    """The matching paths (phases 2-6); returns their kernels' entries."""
     from repro_torch.matching import compile_cache_clear
     t0 = time.perf_counter()
     pending_graphs, cpu_main, cpu_small = start_workers(pool, paths)
@@ -1412,7 +1820,7 @@ def run_phases(pool, paths) -> list:
             timed_on=row["graph"],
             levels_checked=sum(r["levels_checked"] for r in mine),
             **{k: v for k, v in row.items() if k.startswith("device_ms_")}))
-    return kernels
+    return kernels + serving_phase(pool)
 
 
 def phase(name: str, t0: float) -> None:

@@ -29,6 +29,21 @@
 // runs (struct Launch).  The gate and the level cost one cached load a
 // thread.
 //
+// Lanes.  Every body takes a batch of B graphs of one size bucket in one
+// launch (the reference vmaps its pallas_call over a stacked DeviceCSR):
+// blockIdx.y is the lane, and lane l's arrays start l strides into each
+// buffer, the strides being the rows of contiguous (B, n) tensors (edge
+// arrays nnz, column state nc+1, row state and winners nr+1, bitmaps
+// ceil((nc+1)/32)).  Lane l reads its own level (level_ptr[l]) and gate
+// (gate[l]); a lane whose gate is 0 does no work and writes what a gated-off
+// single launch writes.  The grid is the occupancy calculator's blocks split
+// among the lanes, grid-stride within each.  A launch is counted once when
+// any lane runs, whatever B is.  A single graph is the B = 1 case: the same
+// source, instantiated with LANES false so that the lane offsets compile
+// away (the launcher picks the instantiation).  The lanes read disjoint
+// slices and write disjoint slices, so each lane's result is bit for bit
+// that lane's single launch.
+//
 // ---- K1, fused_sweep -------------------------------------------------------
 // Contract (identical to the TPU kernel's): win is the (nr+1,) int32 vector
 // holding, for each row r, the lowest column c of a proposing edge (c, r),
@@ -208,10 +223,11 @@ __device__ __forceinline__ void red_min(int* p, int v, uint64_t pol) {
 
 // How a launch finds its level and whether it runs, so that a launch
 // captured in a CUDA graph can be replayed at every level.  level_ptr:
-// read the level from device memory (null: the immediate `level`).  gate:
-// an int32 flag in device memory; where it is 0 the launch does no work and
-// writes nothing (null: always on).  count: where the launch runs, block 0
-// adds one to it (null: not counted).
+// read lane l's level from level_ptr[l] in device memory (null: the
+// immediate `level`, every lane).  gate: int32 flags in device memory, one
+// a lane; where gate[l] is 0 lane l does no work and writes nothing (null:
+// always on).  count: where any lane runs, block (0, 0) adds one to it
+// (null: not counted).
 struct Launch {
   int level;
   const int* level_ptr;
@@ -219,18 +235,42 @@ struct Launch {
   unsigned long long* count;
 };
 
-// Whether the launch runs; counts it once if so.  Every thread of the grid
-// reads the same gate, so the whole grid returns or none of it does.
-__device__ __forceinline__ bool launch_on(const Launch& l) {
-  if (l.gate != nullptr && *l.gate == 0) return false;
-  if (l.count != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
-    atomicAdd(l.count, 1ull);
-  }
-  return true;
+// Every body has two instantiations: LANES for a batch (the lane is
+// blockIdx.y) and one graph, in which the lane offsets compile away.  With
+// them the single-graph WR fused sweep and the pull sweep kept six more
+// pointers in registers (40 instead of 32) and ran 3-5 % slower on the
+// main-path graphs; a 32-register bound made them spill.
+template <bool LANES>
+__device__ __forceinline__ unsigned lane_index() {
+  return LANES ? blockIdx.y : 0u;
 }
 
+// Whether this block's lane runs; the lane-0 block 0 counts the launch once
+// if any lane does.  Every thread of a lane reads the same gate, so the
+// whole lane returns or none of it does.
+template <bool LANES>
+__device__ __forceinline__ bool launch_on(const Launch& l) {
+  const unsigned lane = lane_index<LANES>();
+  const unsigned lanes = LANES ? gridDim.y : 1u;
+  if (l.count != nullptr && blockIdx.x == 0 && lane == 0 &&
+      threadIdx.x == 0) {
+    bool any = l.gate == nullptr;
+    for (unsigned i = 0; !any && i < lanes; ++i) any = l.gate[i] != 0;
+    if (any) atomicAdd(l.count, 1ull);
+  }
+  return l.gate == nullptr || l.gate[lane] != 0;
+}
+
+template <bool LANES>
 __device__ __forceinline__ int launch_level(const Launch& l) {
-  return l.level_ptr != nullptr ? *l.level_ptr : l.level;
+  return l.level_ptr != nullptr ? l.level_ptr[lane_index<LANES>()] : l.level;
+}
+
+// This block's lane's slice of a (B, n) buffer.
+template <bool LANES, typename T>
+__device__ __forceinline__ T* lane_of(T* p, int64_t n) {
+  if constexpr (!LANES) return p;
+  return p == nullptr ? p : p + (int64_t)blockIdx.y * n;
 }
 
 // What every slot of a sweep reads besides its own edge, and the policies.
@@ -343,15 +383,20 @@ __device__ __forceinline__ void sweep_slots(const int (&c)[N],
   }
 }
 
-template <bool WR>
+template <bool WR, bool LANES>
 __global__ void __launch_bounds__(kThreads)
     fused_sweep(const int* __restrict__ ecol, const int* __restrict__ cadj,
                 const int* __restrict__ bfs, const int* __restrict__ root,
                 const int* __restrict__ rmatch, Launch launch, int64_t nnz,
                 int nc, int nr, int* __restrict__ win) {
-  if (!launch_on(launch)) return;           // win keeps its IINF fill
-  const SweepState s{bfs, root, rmatch, win, launch_level(launch), nc, nr,
-                     evict_first_policy(), evict_last_policy()};
+  if (!launch_on<LANES>(launch)) return;    // win keeps its IINF fill
+  ecol = lane_of<LANES>(ecol, nnz);
+  cadj = lane_of<LANES>(cadj, nnz);
+  const SweepState s{lane_of<LANES>(bfs, nc + 1),
+                     lane_of<LANES>(root, nc + 1),
+                     lane_of<LANES>(rmatch, nr + 1),
+                     lane_of<LANES>(win, nr + 1), launch_level<LANES>(launch),
+                     nc, nr, evict_first_policy(), evict_last_policy()};
   // the launcher refuses a pointer that is not 4-byte aligned
   const Split sp = split_slots(ecol, nnz);
   const bool rows_vec = (((uintptr_t)(cadj + sp.head)) & 15) == 0;
@@ -375,24 +420,31 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool WR>
+template <bool WR, bool LANES>
 __global__ void __launch_bounds__(kThreads)
     proposals(const int* __restrict__ ecol, const int* __restrict__ cadj,
               const int* __restrict__ bfs, const int* __restrict__ root,
               const int* __restrict__ rmatch, Launch launch, int64_t nnz,
               int nc, int nr, int* __restrict__ prop) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  if (!launch_on(launch)) {
+  if (!launch_on<LANES>(launch)) {
     // gated off: no proposal, every slot IINF (prop is the wrapper's
     // torch.empty, so it must still be written)
+    prop = lane_of<LANES>(prop, nnz);
     for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < nnz;
          e += stride) {
       __stcs(prop + e, kIinf);
     }
     return;
   }
-  const SweepState s{bfs, root, rmatch, nullptr, launch_level(launch), nc,
-                     nr, evict_first_policy(), evict_last_policy()};
+  ecol = lane_of<LANES>(ecol, nnz);
+  cadj = lane_of<LANES>(cadj, nnz);
+  prop = lane_of<LANES>(prop, nnz);
+  const SweepState s{lane_of<LANES>(bfs, nc + 1),
+                     lane_of<LANES>(root, nc + 1),
+                     lane_of<LANES>(rmatch, nr + 1), nullptr,
+                     launch_level<LANES>(launch), nc, nr,
+                     evict_first_policy(), evict_last_policy()};
   // row nr is a row here: rows [0, nr] count
   const unsigned row_end = (unsigned)nr + 1u;
   const Split sp = split_slots(ecol, nnz);
@@ -435,15 +487,18 @@ __global__ void __launch_bounds__(kThreads)
 
 // K3's column pass: one bit per column c in [0, nc], a warp 128 columns
 // (four words) at a time.
-template <bool WR>
+template <bool WR, bool LANES>
 __global__ void __launch_bounds__(kThreads)
     frontier_bits(const int* __restrict__ bfs, const int* __restrict__ root,
                   Launch launch, int nc, int* __restrict__ bits) {
-  if (!launch_on(launch)) return;
-  const int level = launch_level(launch);
+  if (!launch_on<LANES>(launch)) return;
+  const int level = launch_level<LANES>(launch);
   const uint64_t keep = evict_last_policy();
   const int lane = threadIdx.x & 31;
   const int64_t nwords = ((int64_t)nc + 32) >> 5;
+  bfs = lane_of<LANES>(bfs, nc + 1);
+  root = lane_of<LANES>(root, nc + 1);
+  bits = lane_of<LANES>(bits, nwords);
   const int64_t chunks = (nwords + 3) >> 2;
   const int64_t warps = ((int64_t)gridDim.x * blockDim.x) >> 5;
   // k is the same for the whole warp, so every lane reaches each ballot
@@ -562,14 +617,20 @@ __device__ __forceinline__ void pull_slots(const int (&r)[N],
   }
 }
 
+template <bool LANES>
 __global__ void __launch_bounds__(kThreads)
     pull_sweep(const int* __restrict__ radj, const int* __restrict__ erow,
                const int* __restrict__ bits, const int* __restrict__ bfs,
                const int* __restrict__ rmatch, Launch launch, int64_t nnz,
                int nc, int nr, int* __restrict__ win) {
-  if (!launch_on(launch)) return;           // win keeps its IINF fill
-  const PullState s{bits, bfs, rmatch, win, nc, nr, evict_first_policy(),
-                    evict_last_policy()};
+  if (!launch_on<LANES>(launch)) return;    // win keeps its IINF fill
+  radj = lane_of<LANES>(radj, nnz);
+  erow = lane_of<LANES>(erow, nnz);
+  const PullState s{lane_of<LANES>(bits, ((int64_t)nc + 32) >> 5),
+                    lane_of<LANES>(bfs, nc + 1),
+                    lane_of<LANES>(rmatch, nr + 1),
+                    lane_of<LANES>(win, nr + 1), nc, nr,
+                    evict_first_policy(), evict_last_policy()};
   const Split sp = split_slots(erow, nnz);
   const bool cols_vec = (((uintptr_t)(radj + sp.head)) & 15) == 0;
   if (blockIdx.x == 0 && threadIdx.x < sp.head + (nnz - sp.end)) {
@@ -601,23 +662,37 @@ static int blocks_for(long long n, int cap) {
   return (int)(want < cap ? want : cap);
 }
 
+// A batched launch's grid: the card's blocks (`cap`) split among `lanes`
+// lanes, at least one a lane, `n` threads' work a lane; blockIdx.y is the
+// lane.  One lane is the single-graph grid.
+static dim3 lane_grid(long long n, int cap, int lanes) {
+  const int per_lane = cap / lanes > 0 ? cap / lanes : 1;
+  return dim3((unsigned)blocks_for(n, per_lane), (unsigned)lanes, 1);
+}
+
 // Each launcher runs on `stream` of the current device.  `root` may be null
 // (the plain body).  Returns cudaGetLastError() after the launches
 // (0 = success).  The argument order is the same for all three sweeps:
 // (column endpoints, row endpoints, bfs, root, rmatch, level, level_ptr,
-// gate, slots, nc, nr, output, [the pull's bitmap,] counts, stream).
-// level_ptr, gate and counts may be null (see Launch).  A launch captured
+// gate, slots, nc, nr, lanes, output, [the pull's bitmap,] counts, stream).
+// `lanes` graphs of one bucket go in one launch, each array a contiguous
+// (lanes, n) buffer (slots: the edge arrays' row length); level_ptr and
+// gate then hold one int32 a lane.  level_ptr, gate and counts may be null
+// (see Launch).  A launch captured
 // in a CUDA graph keeps its arguments, so a graph replayed level after
 // level passes level_ptr and gate, and the fill below stays outside the
 // gate: a gated-off K1 or K3 leaves win all IINF.  counts is an array of
-// eight launch counters, one per kernel body, in the order of Slot.
+// sixteen launch counters, one per kernel body and instantiation: the eight
+// single-graph ones in the order of Slot, then the eight batched (LANES)
+// ones in the same order.
 
-enum Slot { kProposals = 0, kFused = 2, kPull = 4, kBits = 6 };
+enum Slot { kProposals = 0, kFused = 2, kPull = 4, kBits = 6, kBatched = 8 };
 
 static unsigned long long* slot(unsigned long long* counts, Slot kernel,
-                                const int* root) {
+                                const int* root, int lanes) {
   return counts == nullptr ? nullptr
-                           : counts + kernel + (root != nullptr ? 0 : 1);
+                           : counts + kernel + (root != nullptr ? 0 : 1) +
+                                 (lanes > 1 ? kBatched : 0);
 }
 
 // The winner fill: cuMemsetD32Async, fetched from the driver once through
@@ -642,11 +717,11 @@ static MemsetD32 memset_d32() {
   return fn;
 }
 
-static cudaError_t fill_iinf(int* win, int nr, cudaStream_t s) {
+static cudaError_t fill_iinf(int* win, int nr, int lanes, cudaStream_t s) {
   const MemsetD32 fill = memset_d32();
   if (fill == nullptr) return cudaErrorSymbolNotFound;
-  if (fill((CUdeviceptr)win, (unsigned int)kIinf, (size_t)nr + 1,
-           (CUstream)s) != CUDA_SUCCESS) {
+  if (fill((CUdeviceptr)win, (unsigned int)kIinf,
+           ((size_t)nr + 1) * (size_t)lanes, (CUstream)s) != CUDA_SUCCESS) {
     return cudaErrorLaunchFailure;
   }
   return cudaSuccess;
@@ -682,27 +757,89 @@ static cudaError_t card_blocks(const void* kernel, int (&cached)[64],
   return cudaSuccess;
 }
 
-template <bool WR>
+template <bool WR, bool LANES>
 static cudaError_t fused_blocks(int* out) {
   static int cached[64] = {0};
-  return card_blocks((const void*)fused_sweep<WR>, cached, out);
+  return card_blocks((const void*)fused_sweep<WR, LANES>, cached, out);
 }
 
-template <bool WR>
+template <bool WR, bool LANES>
 static cudaError_t proposal_blocks(int* out) {
   static int cached[64] = {0};
-  return card_blocks((const void*)proposals<WR>, cached, out);
+  return card_blocks((const void*)proposals<WR, LANES>, cached, out);
 }
 
-template <bool WR>
+template <bool WR, bool LANES>
 static cudaError_t bits_blocks(int* out) {
   static int cached[64] = {0};
-  return card_blocks((const void*)frontier_bits<WR>, cached, out);
+  return card_blocks((const void*)frontier_bits<WR, LANES>, cached, out);
 }
 
+template <bool LANES>
 static cudaError_t pull_blocks(int* out) {
   static int cached[64] = {0};
-  return card_blocks((const void*)pull_sweep, cached, out, true);
+  return card_blocks((const void*)pull_sweep<LANES>, cached, out, true);
+}
+
+// Each launcher's body, one instantiation of its kernel: WR (root given)
+// and LANES (more than one lane).
+template <bool WR, bool LANES>
+static cudaError_t launch_fused(const int* ecol, const int* cadj,
+                                const int* bfs, const int* root,
+                                const int* rmatch, const Launch& l,
+                                long long nnz, int nc, int nr, int lanes,
+                                int* win, cudaStream_t s) {
+  int cap = 0;
+  const cudaError_t err = fused_blocks<WR, LANES>(&cap);
+  if (err != cudaSuccess) return err;
+  // one thread per four slots; block (0, l) also takes the <= 6 scalar slots
+  fused_sweep<WR, LANES><<<lane_grid((nnz + 3) / 4, cap, lanes), kThreads, 0,
+                           s>>>(ecol, cadj, bfs, root, rmatch, l,
+                                (int64_t)nnz, nc, nr, win);
+  return cudaGetLastError();
+}
+
+template <bool WR, bool LANES>
+static cudaError_t launch_proposals(const int* ecol, const int* cadj,
+                                    const int* bfs, const int* root,
+                                    const int* rmatch, const Launch& l,
+                                    long long nnz, int nc, int nr, int lanes,
+                                    int* prop, cudaStream_t s) {
+  int cap = 0;
+  const cudaError_t err = proposal_blocks<WR, LANES>(&cap);
+  if (err != cudaSuccess) return err;
+  proposals<WR, LANES><<<lane_grid((nnz + 3) / 4, cap, lanes), kThreads, 0,
+                         s>>>(ecol, cadj, bfs, root, rmatch, l, (int64_t)nnz,
+                              nc, nr, prop);
+  return cudaGetLastError();
+}
+
+template <bool WR, bool LANES>
+static cudaError_t launch_bits(const int* bfs, const int* root,
+                               const Launch& l, int nc, int lanes, int* bits,
+                               cudaStream_t s) {
+  int cap = 0;
+  const cudaError_t err = bits_blocks<WR, LANES>(&cap);
+  if (err != cudaSuccess) return err;
+  // one warp per 128 columns
+  const long long chunks = ((long long)nc + 128) / 128;
+  frontier_bits<WR, LANES><<<lane_grid(32 * chunks, cap, lanes), kThreads, 0,
+                             s>>>(bfs, root, l, nc, bits);
+  return cudaGetLastError();
+}
+
+template <bool LANES>
+static cudaError_t launch_pull(const int* radj, const int* erow,
+                               const int* bits, const int* bfs,
+                               const int* rmatch, const Launch& l,
+                               long long nnz, int nc, int nr, int lanes,
+                               int* win, cudaStream_t s) {
+  int cap = 0;
+  const cudaError_t err = pull_blocks<LANES>(&cap);
+  if (err != cudaSuccess) return err;
+  pull_sweep<LANES><<<lane_grid((nnz + 3) / 4, cap, lanes), kThreads, 0, s>>>(
+      radj, erow, bits, bfs, rmatch, l, (int64_t)nnz, nc, nr, win);
+  return cudaGetLastError();
 }
 
 // K1: win (nr+1,) per-row winners over the CSR edge list.  ecol and cadj
@@ -711,28 +848,23 @@ static cudaError_t pull_blocks(int* out) {
 extern "C" int frontier_expand_fused_launch(
     const int* ecol, const int* cadj, const int* bfs, const int* root,
     const int* rmatch, int level, const int* level_ptr, const int* gate,
-    long long nnz, int nc, int nr, int* win, unsigned long long* counts,
-    void* stream) {
+    long long nnz, int nc, int nr, int lanes, int* win,
+    unsigned long long* counts, void* stream) {
   if (((uintptr_t)ecol | (uintptr_t)cadj) & 3) {
     return (int)cudaErrorMisalignedAddress;
   }
+  if (lanes < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = fill_iinf(win, nr, s);
+  const cudaError_t err = fill_iinf(win, nr, lanes, s);
   if (err != cudaSuccess) return (int)err;
-  int cap = 0;
-  err = root != nullptr ? fused_blocks<true>(&cap) : fused_blocks<false>(&cap);
-  if (err != cudaSuccess) return (int)err;
-  const Launch l{level, level_ptr, gate, slot(counts, kFused, root)};
-  // one thread per four slots; block 0 also takes the <= 6 scalar slots
-  const int blocks = blocks_for((nnz + 3) / 4, cap);
-  if (root != nullptr) {
-    fused_sweep<true><<<blocks, kThreads, 0, s>>>(
-        ecol, cadj, bfs, root, rmatch, l, (int64_t)nnz, nc, nr, win);
-  } else {
-    fused_sweep<false><<<blocks, kThreads, 0, s>>>(
-        ecol, cadj, bfs, root, rmatch, l, (int64_t)nnz, nc, nr, win);
-  }
-  return (int)cudaGetLastError();
+  const Launch l{level, level_ptr, gate, slot(counts, kFused, root, lanes)};
+  const auto go = root != nullptr
+                      ? (lanes > 1 ? launch_fused<true, true>
+                                   : launch_fused<true, false>)
+                      : (lanes > 1 ? launch_fused<false, true>
+                                   : launch_fused<false, false>);
+  return (int)go(ecol, cadj, bfs, root, rmatch, l, nnz, nc, nr, lanes, win,
+                 s);
 }
 
 // K2: prop (nnz,) per-edge proposals; every slot is written (IINF
@@ -740,76 +872,61 @@ extern "C" int frontier_expand_fused_launch(
 extern "C" int frontier_expand_launch(
     const int* ecol, const int* cadj, const int* bfs, const int* root,
     const int* rmatch, int level, const int* level_ptr, const int* gate,
-    long long nnz, int nc, int nr, int* prop, unsigned long long* counts,
-    void* stream) {
+    long long nnz, int nc, int nr, int lanes, int* prop,
+    unsigned long long* counts, void* stream) {
   if (((uintptr_t)ecol | (uintptr_t)cadj | (uintptr_t)prop) & 3) {
     return (int)cudaErrorMisalignedAddress;
   }
-  cudaStream_t s = (cudaStream_t)stream;
-  int cap = 0;
-  const cudaError_t err = root != nullptr ? proposal_blocks<true>(&cap)
-                                          : proposal_blocks<false>(&cap);
-  if (err != cudaSuccess) return (int)err;
-  const Launch l{level, level_ptr, gate, slot(counts, kProposals, root)};
-  const int blocks = blocks_for((nnz + 3) / 4, cap);
-  if (root != nullptr) {
-    proposals<true><<<blocks, kThreads, 0, s>>>(
-        ecol, cadj, bfs, root, rmatch, l, (int64_t)nnz, nc, nr, prop);
-  } else {
-    proposals<false><<<blocks, kThreads, 0, s>>>(
-        ecol, cadj, bfs, root, rmatch, l, (int64_t)nnz, nc, nr, prop);
-  }
-  return (int)cudaGetLastError();
+  if (lanes < 1) return (int)cudaErrorInvalidValue;
+  const Launch l{level, level_ptr, gate, slot(counts, kProposals, root, lanes)};
+  const auto go = root != nullptr
+                      ? (lanes > 1 ? launch_proposals<true, true>
+                                   : launch_proposals<true, false>)
+                      : (lanes > 1 ? launch_proposals<false, true>
+                                   : launch_proposals<false, false>);
+  return (int)go(ecol, cadj, bfs, root, rmatch, l, nnz, nc, nr, lanes, prop,
+                 (cudaStream_t)stream);
 }
 
-// K3's column pass alone: bits (ceil((nc+1)/32),) int32 words (not written
-// where the gate is off).
+// K3's column pass alone: bits (lanes, ceil((nc+1)/32)) int32 words (a
+// lane's not written where its gate is off).
 extern "C" int frontier_bits_launch(const int* bfs, const int* root,
                                     int level, const int* level_ptr,
-                                    const int* gate, int nc, int* bits,
-                                    unsigned long long* counts,
+                                    const int* gate, int nc, int lanes,
+                                    int* bits, unsigned long long* counts,
                                     void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  int cap = 0;
-  const cudaError_t err = root != nullptr ? bits_blocks<true>(&cap)
-                                          : bits_blocks<false>(&cap);
-  if (err != cudaSuccess) return (int)err;
-  const Launch l{level, level_ptr, gate, slot(counts, kBits, root)};
-  // one warp per 128 columns
-  const long long chunks = ((long long)nc + 128) / 128;
-  const int blocks = blocks_for(32 * chunks, cap);
-  if (root != nullptr) {
-    frontier_bits<true><<<blocks, kThreads, 0, s>>>(bfs, root, l, nc, bits);
-  } else {
-    frontier_bits<false><<<blocks, kThreads, 0, s>>>(bfs, root, l, nc, bits);
-  }
-  return (int)cudaGetLastError();
+  if (lanes < 1) return (int)cudaErrorInvalidValue;
+  const Launch l{level, level_ptr, gate, slot(counts, kBits, root, lanes)};
+  const auto go = root != nullptr
+                      ? (lanes > 1 ? launch_bits<true, true>
+                                   : launch_bits<true, false>)
+                      : (lanes > 1 ? launch_bits<false, true>
+                                   : launch_bits<false, false>);
+  return (int)go(bfs, root, l, nc, lanes, bits, (cudaStream_t)stream);
 }
 
 // K3: win (nr+1,) per-row winners over the row-sorted CSC mirror, through
-// the column bitmap `bits` (the caller's scratch, ceil((nc+1)/32) words).
+// the column bitmap `bits` (the caller's scratch, ceil((nc+1)/32) words a
+// lane).
 // radj and erow may be views at any 4-byte offset, as K1's edges.  The
 // gate holds for both launches.
 extern "C" int frontier_expand_pull_launch(
     const int* radj, const int* erow, const int* bfs, const int* root,
     const int* rmatch, int level, const int* level_ptr, const int* gate,
-    long long nnz, int nc, int nr, int* win, int* bits,
+    long long nnz, int nc, int nr, int lanes, int* win, int* bits,
     unsigned long long* counts, void* stream) {
   if (((uintptr_t)radj | (uintptr_t)erow) & 3) {
     return (int)cudaErrorMisalignedAddress;
   }
+  if (lanes < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = fill_iinf(win, nr, s);
+  cudaError_t err = fill_iinf(win, nr, lanes, s);
   if (err != cudaSuccess) return (int)err;
   const int bits_err = frontier_bits_launch(bfs, root, level, level_ptr, gate,
-                                            nc, bits, counts, stream);
+                                            nc, lanes, bits, counts, stream);
   if (bits_err != 0) return bits_err;
-  int cap = 0;
-  err = pull_blocks(&cap);
-  if (err != cudaSuccess) return (int)err;
-  const Launch l{level, level_ptr, gate, slot(counts, kPull, root)};
-  const int blocks = blocks_for((nnz + 3) / 4, cap);
-  pull_sweep<<<blocks, kThreads, 0, s>>>(radj, erow, bits, bfs, rmatch, l,
-                                         (int64_t)nnz, nc, nr, win);
-  return (int)cudaGetLastError();
+  const Launch l{level, level_ptr, gate, slot(counts, kPull, root, lanes)};
+  const auto go = lanes > 1 ? launch_pull<true> : launch_pull<false>;
+  return (int)go(radj, erow, bits, bfs, rmatch, l, nnz, nc, nr, lanes, win,
+                 s);
 }

@@ -11,6 +11,9 @@ Leaf orders (the dataclass field order of the JAX package):
 ``DeviceCSR``: ``cxadj, cadj, ecol, nnz``, then, for a graph with the CSC
 mirror, ``rxadj, radj, erow, eperm``.
 ``MatchState``: ``cmatch, rmatch, phases, fallbacks, certified``.
+A stacked batch (``DeviceCSR.stack``, the states ``run_many`` returns)
+carries across the same way: every leaf with its leading lane dimension,
+``nnz`` of shape ``(B,)`` (a tuple of ints on this side).
 
 LM weights and KV caches are nested dicts in both packages, leaf for leaf
 (:func:`lm_params_from_reference`, :func:`lm_params_to_reference`).
@@ -37,24 +40,29 @@ def _to(x, dtype, dev) -> torch.Tensor:
 def csr_from_reference(leaves: Sequence[np.ndarray], nc: int, nr: int,
                        device=None) -> TorchCSR:
     """A :class:`TorchCSR` from the leaves of a JAX ``DeviceCSR`` (4
-    leaves, or 8 with the CSC mirror)."""
+    leaves, or 8 with the CSC mirror), single or stacked."""
     if len(leaves) not in (4, 8):
         raise ValueError(
             f"expected the 4 leaves cxadj, cadj, ecol, nnz (then rxadj, "
             f"radj, erow, eperm with the CSC mirror), got {len(leaves)}")
     cxadj, cadj, ecol, nnz = leaves[:4]
-    if np.ndim(nnz) != 0 or np.ndim(cadj) != 1:
-        raise ValueError("a batched DeviceCSR cannot be carried across yet")
+    if np.ndim(cadj) not in (1, 2) or np.shape(nnz) != np.shape(cadj)[:-1]:
+        raise ValueError(
+            f"cadj of shape {np.shape(cadj)} and nnz of shape "
+            f"{np.shape(nnz)}: expected one graph (1-D, a scalar) or a "
+            f"stack along one batch dimension ((B, n), (B,))")
+    nnz = int(nnz) if np.ndim(nnz) == 0 else tuple(int(x) for x in nnz)
     dev = resolve_device(device)
     mirror = dict(zip(_MIRROR, (_to(x, np.int32, dev) for x in leaves[4:])))
     return TorchCSR(cxadj=_to(cxadj, np.int32, dev),
                     cadj=_to(cadj, np.int32, dev),
                     ecol=_to(ecol, np.int32, dev),
-                    nnz=int(nnz), nc=int(nc), nr=int(nr), **mirror)
+                    nnz=nnz, nc=int(nc), nr=int(nr), **mirror)
 
 
 def csr_to_reference(graph: TorchCSR) -> List[np.ndarray]:
-    """The leaves of the equivalent JAX ``DeviceCSR``, as numpy arrays."""
+    """The leaves of the equivalent JAX ``DeviceCSR`` (single or stacked),
+    as numpy arrays."""
     leaves = [graph.cxadj.cpu().numpy(), graph.cadj.cpu().numpy(),
               graph.ecol.cpu().numpy(), np.asarray(graph.nnz, np.int32)]
     if graph.has_csc:
@@ -65,7 +73,7 @@ def csr_to_reference(graph: TorchCSR) -> List[np.ndarray]:
 def state_from_reference(leaves: Sequence[np.ndarray],
                          device=None) -> MatchState:
     """A :class:`MatchState` from the leaves of a JAX ``MatchState``
-    (sentinel slots included)."""
+    (sentinel slots included), single or batched."""
     if len(leaves) != 5:
         raise ValueError(f"expected the 5 MatchState leaves, got "
                          f"{len(leaves)}")

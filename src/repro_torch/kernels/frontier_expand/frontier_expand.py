@@ -35,12 +35,21 @@ device, which the kernel reads when it runs, and an optional ``gate``, a 0-d
 int32 tensor: where it is 0 the launch does nothing, and the sweep returns
 no winner (all IINF) or no proposal.  The plain versions take the same.
 
+Lanes.  Every wrapper also takes a batch of B graphs of one size bucket
+(``Matcher.run_many``): each array a contiguous ``(B, n)`` tensor, lane by
+lane, and ``level`` and ``gate`` then ``(B,)`` int32 tensors (or ``level``
+one Python int for every lane), one launch for the batch.  Lane ``l``'s
+output is what the single-graph call on lane ``l``'s arrays returns, bit
+for bit; a lane whose gate is 0 returns what a gated-off single call does.
+
 The kernels are built and loaded at their first launch
 (:mod:`repro_torch.kernels._build`), never at import.  :data:`LAUNCHES`
-counts the launches of each kernel body that ran (gate on): the kernels
-add to counters on the card, so launches replayed from a CUDA graph count
-too, and reading :data:`LAUNCHES` reads the counters (a host sync).  A pull
-counts one column pass (``frontier_bits_*``) beside its sweep.
+counts the launches of each kernel body that ran (gate on), the batched
+instantiation (more than one lane: ``*_batched``) apart from the
+single-graph one: the kernels add to counters on the card, so launches
+replayed from a CUDA graph count too, and reading :data:`LAUNCHES` reads
+the counters (a host sync).  A pull counts one column pass
+(``frontier_bits_*``) beside its sweep.
 """
 from __future__ import annotations
 
@@ -58,8 +67,10 @@ from .ref import (frontier_bits_ref, frontier_expand_fused_ref,
                   frontier_expand_pull_ref, frontier_expand_ref)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# (cols, rows, bfs, root, rmatch, level, level_ptr, gate, nnz, nc, nr, out)
-_SWEEP_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, ctypes.c_longlong, _I, _I, _P]
+# (cols, rows, bfs, root, rmatch, level, level_ptr, gate, nnz, nc, nr,
+#  lanes, out)
+_SWEEP_ARGS = [_P, _P, _P, _P, _P, _I, _P, _P, ctypes.c_longlong, _I, _I, _I,
+               _P]
 # kernel -> (C launcher, its argument types, plain version); every launcher
 # ends with (counts, stream), the pull takes its column bitmap before them
 _KERNELS = {
@@ -71,13 +82,15 @@ _KERNELS = {
     "frontier_expand_pull": ("frontier_expand_pull_launch",
                              _SWEEP_ARGS + [_P, _P, _P],
                              frontier_expand_pull_ref),
-    # (bfs, root, level, level_ptr, gate, nc, bits, counts, stream)
+    # (bfs, root, level, level_ptr, gate, nc, lanes, bits, counts, stream)
     "frontier_bits": ("frontier_bits_launch",
-                      [_P, _P, _I, _P, _P, _I, _P, _P, _P],
+                      [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P],
                       frontier_bits_ref),
 }
-# the kernel bodies, in the order of the source's launch counters (Slot)
-_BODIES = tuple(f"{s}_{b}" for s in _KERNELS for b in ("wr", "plain"))
+# the kernel bodies, in the order of the source's launch counters (Slot):
+# the single-graph instantiations, then the batched ones (more than a lane)
+_BODIES = tuple(f"{s}_{b}{lanes}" for lanes in ("", "_batched")
+                for s in _KERNELS for b in ("wr", "plain"))
 
 Level = Union[int, torch.Tensor]
 
@@ -87,7 +100,7 @@ _LOCAL = threading.local()          # .uncounted: launches of this thread
 
 
 def _counts(dev) -> torch.Tensor:
-    """The (8,) int64 launch counters of a card, made at its first launch.
+    """The (16,) int64 launch counters of a card, made at its first launch.
     Made outside any CUDA graph capture: a graph that made them would zero
     them at every replay."""
     counts = _COUNTS.get(dev)
@@ -156,44 +169,64 @@ def _launcher(kernel: str):
     return fn
 
 
-def _check_scalar(sweep, name, t, dev) -> None:
+def _check_scalar(sweep, name, t, dev, lanes=()) -> None:
+    """``t`` an int32 tensor on ``dev`` of shape ``lanes``: 0-d for one
+    graph, ``(B,)`` for a batch."""
     if (not isinstance(t, torch.Tensor) or t.dtype != torch.int32
-            or t.dim() != 0 or t.device != dev):
-        raise TypeError(f"{sweep}: {name} must be a 0-d int32 tensor on "
+            or tuple(t.shape) != tuple(lanes) or not t.is_contiguous()
+            or t.device != dev):
+        what = "a 0-d" if not lanes else f"a contiguous {tuple(lanes)}"
+        raise TypeError(f"{sweep}: {name} must be {what} int32 tensor on "
                         f"{dev}, got {t!r}")
 
 
+def _lanes(bfs) -> tuple:
+    """``()`` for one graph, ``(B,)`` for a batch of B."""
+    return tuple(bfs.shape[:-1])
+
+
 def _check_state(sweep, named, bfs, root, level, gate=None) -> None:
-    """Every tensor of ``named`` (and ``root`` unless None) a contiguous 1-D
-    int32 tensor on ``bfs``'s device; ``root`` shaped as ``bfs``; ``level``
-    an int32 Python int or a 0-d int32 tensor on that device, ``gate`` None
-    or such a tensor."""
+    """Every tensor of ``named`` (and ``root`` unless None) a contiguous
+    int32 tensor on ``bfs``'s device, 1-D for one graph or 2-D ``(B, n)``
+    for a batch, as ``bfs`` is, with ``bfs``'s lanes; ``root`` shaped as
+    ``bfs``; ``level`` an int32 Python int or an int32 tensor on that device
+    with one value a lane (0-d for one graph), ``gate`` None or such a
+    tensor."""
     if root is not None:
         named = dict(named, root=root)
     dev = bfs.device
+    dims = bfs.dim()
     for name, t in named.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{sweep}: {name} must be a tensor")
-        if t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous():
+        if (t.dtype != torch.int32 or t.dim() not in (1, 2)
+                or t.dim() != dims or not t.is_contiguous()):
             raise ValueError(
-                f"{sweep}: {name} must be a contiguous 1-D int32 tensor, got "
-                f"{t.dtype} of shape {tuple(t.shape)}")
+                f"{sweep}: {name} must be a contiguous int32 tensor, 1-D "
+                f"(one graph) or 2-D (a batch) as bfs {tuple(bfs.shape)} "
+                f"is, got {t.dtype} of shape {tuple(t.shape)}")
+        if t.shape[:-1] != bfs.shape[:-1]:
+            raise ValueError(f"{sweep}: {name} has {tuple(t.shape[:-1])} "
+                             f"lanes, bfs {tuple(bfs.shape[:-1])}")
         if t.device != dev:
             raise ValueError(f"{sweep}: {name} is on {t.device}, bfs on "
                              f"{dev}; all inputs must share one device")
     if root is not None and root.shape != bfs.shape:
         raise ValueError(f"{sweep}: root {tuple(root.shape)} and bfs "
                          f"{tuple(bfs.shape)} differ")
-    if bfs.shape[0] < 1:
+    if bfs.shape[-1] < 1:
         raise ValueError(f"{sweep}: bfs needs its sentinel slot")
+    if dims == 2 and bfs.shape[0] < 1:
+        raise ValueError(f"{sweep}: a batch needs at least one lane")
+    lanes = _lanes(bfs)
     if isinstance(level, torch.Tensor):
-        _check_scalar(sweep, "level", level, dev)
+        _check_scalar(sweep, "level", level, dev, lanes)
     elif (not isinstance(level, numbers.Integral) or isinstance(level, bool)
             or not -2**31 <= int(level) < 2**31):
-        raise TypeError(f"{sweep}: level must be an int32 Python int or a "
-                        f"0-d int32 tensor, got {level!r}")
+        raise TypeError(f"{sweep}: level must be an int32 Python int or an "
+                        f"int32 tensor (one value a lane), got {level!r}")
     if gate is not None:
-        _check_scalar(sweep, "gate", gate, dev)
+        _check_scalar(sweep, "gate", gate, dev, lanes)
 
 
 def _check(sweep, cols, rows, bfs, root, rmatch, level, gate) -> None:
@@ -203,7 +236,7 @@ def _check(sweep, cols, rows, bfs, root, rmatch, level, gate) -> None:
         raise ValueError(f"{sweep}: the column endpoints "
                          f"{tuple(cols.shape)} and row endpoints "
                          f"{tuple(rows.shape)} differ")
-    if rmatch.shape[0] < 1:
+    if rmatch.shape[-1] < 1:
         raise ValueError(f"{sweep}: rmatch needs its sentinel slot")
 
 
@@ -239,9 +272,10 @@ def _launch(kernel: str, dev, *args) -> None:
 
 
 def _bitmap(bfs) -> torch.Tensor:
-    """Scratch for the column bits: ``ceil((nc+1)/32)`` int32 words."""
-    return torch.empty((bfs.shape[0] + 31) // 32, dtype=torch.int32,
-                       device=bfs.device)
+    """Scratch for the column bits: ``ceil((nc+1)/32)`` int32 words a
+    lane."""
+    return torch.empty(_lanes(bfs) + ((bfs.shape[-1] + 31) // 32,),
+                       dtype=torch.int32, device=bfs.device)
 
 
 def _sweep(sweep, cols, rows, bfs, root, rmatch, level, gate
@@ -252,17 +286,22 @@ def _sweep(sweep, cols, rows, bfs, root, rmatch, level, gate
     if not _on_card(sweep, dev):
         return _KERNELS[sweep][2](cols, rows, bfs, root, rmatch, level,
                                   gate=gate)
-    nc = bfs.shape[0] - 1
-    nr = rmatch.shape[0] - 1
-    n_out = cols.shape[0] if sweep == "frontier_expand" else nr + 1
-    out = torch.empty(n_out, dtype=torch.int32, device=dev)
+    nc = bfs.shape[-1] - 1
+    nr = rmatch.shape[-1] - 1
+    lanes = _lanes(bfs)
+    n_out = cols.shape[-1] if sweep == "frontier_expand" else nr + 1
+    out = torch.empty(lanes + (n_out,), dtype=torch.int32, device=dev)
     scratch = [_bitmap(bfs)] if sweep == "frontier_expand_pull" else []
     _launch(sweep, dev, cols.data_ptr(), rows.data_ptr(),
             bfs.data_ptr(), root.data_ptr() if root is not None else None,
             rmatch.data_ptr(), *_level_args(level, gate),
-            int(cols.shape[0]), nc, nr, out.data_ptr(),
+            int(cols.shape[-1]), nc, nr, _count(lanes), out.data_ptr(),
             *[t.data_ptr() for t in scratch])
     return out
+
+
+def _count(lanes: tuple) -> int:
+    return lanes[0] if lanes else 1
 
 
 def frontier_expand_fused(ecol: torch.Tensor, cadj: torch.Tensor,
@@ -290,16 +329,17 @@ def frontier_expand(ecol: torch.Tensor, cadj: torch.Tensor,
 
 def frontier_bits(bfs: torch.Tensor, root: Optional[torch.Tensor],
                   level: Level) -> torch.Tensor:
-    """The pull's column pass alone: ``ceil((nc+1)/32)`` int32 words, bit
-    ``c & 31`` of word ``c >> 5`` set where column c passes the column half
-    of the predicate (``root=None``: the plain body)."""
+    """The pull's column pass alone: ``ceil((nc+1)/32)`` int32 words (a
+    lane), bit ``c & 31`` of word ``c >> 5`` set where column c passes the
+    column half of the predicate (``root=None``: the plain body)."""
     _check_state("frontier_bits", {"bfs": bfs}, bfs, root, level)
     if not _on_card("frontier_bits", bfs.device):
         return frontier_bits_ref(bfs, root, level)
     bits = _bitmap(bfs)
     _launch("frontier_bits", bfs.device, bfs.data_ptr(),
             root.data_ptr() if root is not None else None,
-            *_level_args(level, None), bfs.shape[0] - 1, bits.data_ptr())
+            *_level_args(level, None), bfs.shape[-1] - 1,
+            _count(_lanes(bfs)), bits.data_ptr())
     return bits
 
 

@@ -25,6 +25,11 @@ Like the kernel, they skip an edge slot whose column is outside [0, nc]
 or whose row is outside [0, nr], and a column whose root is outside
 [0, nc]: such a slot proposes nothing, so a malformed graph gives the
 same winners on either device.
+
+Lanes: each also takes a batch of B graphs, every array ``(B, n)`` and
+``level`` / ``gate`` ``(B,)`` tensors (``level`` may stay one int), as the
+batched kernels do; every gather and scatter runs along the last dimension,
+so lane ``l``'s result is the single-graph result on lane ``l``'s arrays.
 """
 from __future__ import annotations
 
@@ -34,19 +39,32 @@ UNVISITED = 1
 IINF = 2**30
 
 
+def _per_lane(v, like: torch.Tensor):
+    """``level`` or ``gate`` shaped to broadcast against ``like``'s lanes:
+    a ``(B,)`` tensor becomes ``(B, 1)``; an int or a 0-d tensor stays."""
+    if isinstance(v, torch.Tensor) and like.dim() == 2:
+        return v.reshape(-1, 1)
+    return v
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` lane by lane (an int64 index)."""
+    return torch.gather(x, -1, idx.long())
+
+
 def frontier_expand_ref(ecol, cadj, bfs, root, rmatch, level, gate=None):
-    nc, nr = bfs.shape[0] - 1, rmatch.shape[0] - 1
+    nc, nr = bfs.shape[-1] - 1, rmatch.shape[-1] - 1
     ok = (ecol >= 0) & (ecol <= nc) & (cadj >= 0) & (cadj <= nr)
     if gate is not None:
-        ok &= gate != 0
-    ecol_l = torch.where(ok, ecol, nc).long()
-    active = ok & (bfs.index_select(0, ecol_l) == level)
+        ok &= _per_lane(gate, ecol) != 0
+    ecol_l = torch.where(ok, ecol, nc)
+    active = ok & (_take(bfs, ecol_l) == _per_lane(level, ecol))
     if root is not None:
-        myroot = root.index_select(0, ecol_l)
+        myroot = _take(root, ecol_l)
         active &= (myroot >= 0) & (myroot <= nc)
-        active &= bfs.index_select(0, myroot.clamp(0, nc).long()) >= UNVISITED
-    cm = rmatch.index_select(0, torch.where(ok, cadj, nr).long())
-    col_unvis = bfs.index_select(0, cm.clamp(0, nc).long()) == UNVISITED
+        active &= _take(bfs, myroot.clamp(0, nc)) >= UNVISITED
+    cm = _take(rmatch, torch.where(ok, cadj, nr))
+    col_unvis = _take(bfs, cm.clamp(0, nc)) == UNVISITED
     target = active & (((cm >= 0) & col_unvis) | (cm == -1))
     return torch.where(target, ecol, IINF)
 
@@ -54,12 +72,13 @@ def frontier_expand_ref(ecol, cadj, bfs, root, rmatch, level, gate=None):
 def frontier_expand_fused_ref(ecol, cadj, bfs, root, rmatch, level,
                               gate=None):
     """Proposals + per-row min-merge: the fused kernel's plain version."""
-    nr = rmatch.shape[0] - 1
+    nr = rmatch.shape[-1] - 1
     prop = frontier_expand_ref(ecol, cadj, bfs, root, rmatch, level, gate)
     rows = torch.where(prop < IINF, cadj, nr).long()
-    win = torch.full((nr + 1,), IINF, dtype=torch.int32, device=prop.device)
-    win.scatter_reduce_(0, rows, prop, "amin", include_self=True)
-    win[nr:].fill_(IINF)
+    win = torch.full(prop.shape[:-1] + (nr + 1,), IINF, dtype=torch.int32,
+                     device=prop.device)
+    win.scatter_reduce_(-1, rows, prop, "amin", include_self=True)
+    win[..., nr:].fill_(IINF)
     return win
 
 
@@ -77,16 +96,19 @@ def frontier_bits_ref(bfs, root, level):
     """The column half of the predicate for every column c in [0, nc],
     packed: bit ``c & 31`` of word ``c >> 5`` is ``bfs[c] == level`` (and,
     WR, ``root[c]`` in [0, nc] with ``bfs[root[c]] >= UNVISITED``).
-    ``ceil((nc+1)/32)`` int32 words; the bits past column nc are 0."""
-    nc = bfs.shape[0] - 1
-    on = bfs == level
+    ``ceil((nc+1)/32)`` int32 words (a lane); the bits past column nc are
+    0."""
+    nc = bfs.shape[-1] - 1
+    lanes = tuple(bfs.shape[:-1])
+    on = bfs == _per_lane(level, bfs)
     if root is not None:
         on &= (root >= 0) & (root <= nc)
-        on &= bfs.index_select(0, root.clamp(0, nc).long()) >= UNVISITED
+        on &= _take(bfs, root.clamp(0, nc)) >= UNVISITED
     n_words = (nc + 32) // 32
-    flat = torch.zeros(n_words * 32, dtype=torch.int64, device=bfs.device)
-    flat[:nc + 1].copy_(on)
+    flat = torch.zeros(lanes + (n_words * 32,), dtype=torch.int64,
+                       device=bfs.device)
+    flat[..., :nc + 1].copy_(on)
     weights = torch.ones(32, dtype=torch.int64, device=bfs.device) << \
         torch.arange(32, device=bfs.device)
-    words = (flat.view(n_words, 32) * weights).sum(1)       # [0, 2^32)
+    words = (flat.view(lanes + (n_words, 32)) * weights).sum(-1)  # [0, 2^32)
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)

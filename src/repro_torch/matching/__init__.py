@@ -3,7 +3,9 @@
 * :class:`TorchCSR` — the bipartite graph as int32 tensors on one device;
 * :class:`MatcherConfig` — one of the paper's eight variants;
 * :class:`Matcher` — facade whose :meth:`Matcher.run` runs a registered warm
-  start (``"none" | "cheap" | "karp_sipser"``) and the APFB/APsB solver;
+  start (``"none" | "cheap" | "karp_sipser"``) and the APFB/APsB solver,
+  and :meth:`Matcher.run_many` / :func:`match_many` a stacked batch of one
+  size bucket;
 * :class:`MatchState` / :class:`MatchStats` — results that stay on device
   until the caller asks;
 * :data:`SOLVE_PATHS` — the registry of single-device solve paths (push,
@@ -18,7 +20,7 @@ from .config import MatcherConfig, VARIANTS
 from .device_csr import GraphValidationError, TorchCSR, validate_structure
 from .state import MatchState, MatchStats
 from .warmstart import WARM_STARTS, register_warm_start, warm_start_names
-from .api import Matcher, maximum_matching_device
+from .api import Matcher, match_many, maximum_matching_device
 from .cache import (compile_cache_clear, compile_cache_info,
                     compile_cache_key, get_compiled)
 from .paths import SOLVE_PATHS, SolvePath
@@ -27,7 +29,7 @@ __all__ = [
     "MatcherConfig", "VARIANTS",
     "TorchCSR", "GraphValidationError", "validate_structure",
     "MatchState", "MatchStats",
-    "Matcher", "maximum_matching_device",
+    "Matcher", "match_many", "maximum_matching_device",
     "WARM_STARTS", "register_warm_start", "warm_start_names",
     "SOLVE_PATHS", "SolvePath",
     "compile_cache_clear", "compile_cache_info", "compile_cache_key",

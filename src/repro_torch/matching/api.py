@@ -9,13 +9,19 @@ per (bucket shape, config, warm start, entry point): a
 steps are CUDA graphs captured at the first call (the cold call, as a jit
 compile) and replayed after, each loop one conditional WHILE node on the
 card; the host reads the device twice a phase.  On the CPU the same steps
-run uncaptured.  Every single-device config of the JAX package runs here;
-batched ``run_many`` comes in a later slice of the port.
+run uncaptured.  Every single-device config of the JAX package runs here.
+
+:meth:`Matcher.run_many` solves a stacked batch of one size bucket
+(``TorchCSR.stack``) as one ``"run_many"`` entry (:mod:`.batch`): each
+level of the whole batch is one launch of a frontier kernel with a lane
+dimension, and every lane gets the JAX package's ``run_many`` result for
+its graph, bit for bit.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+from . import batch
 from .cache import compile_cache_fit, compile_cache_key, get_compiled
 from .config import MatcherConfig
 from .device_csr import TorchCSR
@@ -55,6 +61,9 @@ class Matcher:
     def _check_state(graph: TorchCSR, state: MatchState) -> None:
         """A state sized for another graph, or on another device, would read
         out of range; refuse it."""
+        if state.batch_shape != graph.batch_shape:
+            raise ValueError(f"MatchState of batch {state.batch_shape} for a "
+                             f"graph of batch {graph.batch_shape}")
         if (state.cmatch.shape[-1] != graph.nc + 1
                 or state.rmatch.shape[-1] != graph.nr + 1):
             raise ValueError(
@@ -115,6 +124,9 @@ class Matcher:
         explicit ``state`` (e.g. resuming after graph updates) the warm
         start is skipped and the solver continues from it.
         """
+        if graph.batch_shape:
+            raise ValueError("run() takes a single graph; use run_many for "
+                             "a stacked TorchCSR")
         cold = state is None
         if not cold:
             self._check_state(graph, state)
@@ -125,9 +137,44 @@ class Matcher:
         self._last_counts = None
         return out
 
+    def run_many(self, graphs: TorchCSR,
+                 states: Optional[MatchState] = None) -> MatchState:
+        """Batched matching over a stacked same-bucket ``TorchCSR``: one
+        ``"run_many"`` entry solves the whole batch, each level one kernel
+        launch for every lane.  ``states`` (batched, as ``run_many``
+        returns them): resume every lane from its state, no warm start.
+        ``last_counts`` then counts lane-levels and lane-steps.
+        ``adaptive_frontier`` is refused (:class:`~.batch.BatchSolver`)."""
+        if len(graphs.batch_shape) != 1:
+            raise ValueError("run_many expects a TorchCSR stacked along one "
+                             "batch dimension (TorchCSR.stack)")
+        cold = states is None
+        if not cold:
+            self._check_state(graphs, states)
+        self._check_graph(graphs)
+        key = compile_cache_key(graphs.bucket_key, self.config,
+                                self._cache_tag(cold), "run_many")
+        ws = batch.stages(self.warm_start) if cold else None
+        prog = get_compiled(key, lambda: batch.BatchProgram(
+            graphs.nc, graphs.nr, graphs.nnz_pad, graphs.batch_shape[0],
+            self.config, ws))
+        before = COUNTERS.snapshot(graphs.device)
+        out = prog(graphs, states)
+        compile_cache_fit(keep=key)
+        self._counts = (before, COUNTERS.snapshot(graphs.device))
+        self._last_counts = None
+        return out
+
     def stats(self, state: MatchState) -> MatchStats:
         """Device-scalar stats labelled with this matcher's variant name."""
         return MatchStats.of(state, self.config.name)
+
+
+def match_many(graphs: TorchCSR, config: MatcherConfig = MatcherConfig(),
+               warm_start: str = "cheap",
+               states: Optional[MatchState] = None) -> MatchState:
+    """Functional alias: ``Matcher(config, warm_start).run_many(graphs)``."""
+    return Matcher(config, warm_start).run_many(graphs, states)
 
 
 def maximum_matching_device(graph: TorchCSR,

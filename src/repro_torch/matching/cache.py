@@ -9,6 +9,10 @@ graph's arrays, its CSC mirror where the config pulls, the matching and
 the solver's state, the loops' scalars) and, on a CUDA card, the CUDA
 graphs captured from its steps.  A call copies its graph and state into
 the buffers and replays, so every graph of the bucket shares the entry.
+A ``"run_many"`` entry (:class:`~repro_torch.matching.batch.BatchProgram`)
+is the same for a batch: its key's bucket shape leads with the batch size
+(``TorchCSR.bucket_key``), and its bytes are those of its ``(B, n)``
+buffers and captures.
 
 The table is guarded by a reentrant lock (a serving layer hits it from
 several threads).  Capacity is ``MAX_ENTRIES``, overridable with

@@ -9,17 +9,19 @@ size-bucket rule (:func:`bucket_nnz`) are those of the JAX package's
 So is the optional CSC mirror of :meth:`TorchCSR.with_csc`, which the
 direction-optimizing solver pulls over.
 
-Stacking into batches and sharding come in later slices.
+A batch of graphs of one size bucket (:meth:`TorchCSR.stack`, what
+``Matcher.run_many`` takes) carries one leading lane dimension on every
+array and a true edge count per lane.  Sharding comes in a later slice.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import DEVICE_LOCK, resolve_device
 
 if TYPE_CHECKING:  # a runtime import would be circular (core imports matching)
     from repro_torch.core.csr import BipartiteCSR
@@ -112,8 +114,9 @@ def bucket_nnz(nnz: int, lane: int = LANE) -> int:
 
 
 
-def _full(n: int, value: int, device) -> torch.Tensor:
-    return torch.full((n,), value, dtype=torch.int32, device=device)
+def _full(shape, value: int, device) -> torch.Tensor:
+    return torch.full(shape if isinstance(shape, tuple) else (shape,), value,
+                      dtype=torch.int32, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,7 +125,9 @@ class TorchCSR:
 
     ``cxadj`` (nc+1,), ``cadj``/``ecol`` (nnz_pad,) int32 tensors on the
     same device; ``nnz`` (the true edge count), ``nc`` and ``nr`` are
-    Python ints, so reading them costs no device sync.
+    Python ints, so reading them costs no device sync.  A stacked batch
+    (:meth:`stack`) has a leading lane dimension on every array and
+    ``nnz`` a tuple of Python ints, one a lane.
 
     Optional CSC mirror (all present or all ``None``, see :meth:`with_csc`):
     ``rxadj`` (nr+1,) row offsets into the row-sorted edge list,
@@ -134,7 +139,7 @@ class TorchCSR:
     cxadj: torch.Tensor
     cadj: torch.Tensor
     ecol: torch.Tensor
-    nnz: int
+    nnz: Union[int, Tuple[int, ...]]
     nc: int
     nr: int
     rxadj: Optional[torch.Tensor] = None
@@ -155,11 +160,21 @@ class TorchCSR:
         return self.rxadj is not None
 
     @property
+    def batch_shape(self) -> Tuple[int, ...]:
+        """``()`` for one graph, ``(B,)`` for a stacked batch."""
+        return tuple(self.cadj.shape[:-1])
+
+    @property
     def bucket_key(self) -> Tuple:
-        """The size bucket: (nc, nr, nnz_pad), and ``"csc"`` when the
-        mirror is attached (the JAX package's key, so both agree)."""
-        key = (self.nc, self.nr, self.nnz_pad)
+        """The size bucket: (*batch, nc, nr, nnz_pad), and ``"csc"`` when
+        the mirror is attached (the JAX package's key, so both agree)."""
+        key = self.batch_shape + (self.nc, self.nr, self.nnz_pad)
         return key + ("csc",) if self.has_csc else key
+
+    def _single(self, what: str) -> None:
+        if self.batch_shape:
+            raise ValueError(f"{what} takes a single graph; unstack() a "
+                             f"batched TorchCSR first")
 
     # -- host <-> device ------------------------------------------------------
     @classmethod
@@ -184,12 +199,14 @@ class TorchCSR:
             return torch.from_numpy(
                 np.ascontiguousarray(x, dtype=np.int32)).to(dev)
 
-        return cls(cxadj=put(g.cxadj), cadj=put(cadj), ecol=put(ecol),
-                   nnz=int(g.nnz), nc=int(g.nc), nr=int(g.nr))
+        with DEVICE_LOCK:         # never inside another thread's capture
+            return cls(cxadj=put(g.cxadj), cadj=put(cadj), ecol=put(ecol),
+                       nnz=int(g.nnz), nc=int(g.nc), nr=int(g.nr))
 
     def validate(self) -> "TorchCSR":
         """Check the structural invariants (one host copy); returns ``self``
         so it chains, raises :class:`GraphValidationError` otherwise."""
+        self._single("validate()")
         problems = validate_structure(self.cxadj.cpu().numpy(),
                                       self.cadj.cpu().numpy(),
                                       self.ecol.cpu().numpy(),
@@ -201,6 +218,7 @@ class TorchCSR:
     def to_host(self) -> "BipartiteCSR":
         """Copy back to the numpy container."""
         from repro_torch.core.csr import BipartiteCSR
+        self._single("to_host()")
         return BipartiteCSR(nc=self.nc, nr=self.nr, nnz=self.nnz,
                             cxadj=self.cxadj.cpu().numpy(),
                             cadj=self.cadj.cpu().numpy(),
@@ -219,14 +237,18 @@ class TorchCSR:
         """
         if self.has_csc:
             return self
-        order = torch.argsort(self.cadj, stable=True)
-        erow = self.cadj.index_select(0, order)
-        rxadj = torch.searchsorted(
-            erow, torch.arange(self.nr + 1, dtype=torch.int32,
-                               device=self.device), out_int32=True)
-        return dataclasses.replace(
-            self, rxadj=rxadj, radj=self.ecol.index_select(0, order),
-            erow=erow, eperm=order.to(torch.int32))
+        if self.batch_shape:
+            raise ValueError("with_csc() takes a single graph; build the "
+                             "mirror before stack()")
+        with DEVICE_LOCK:         # never inside another thread's capture
+            order = torch.argsort(self.cadj, stable=True)
+            erow = self.cadj.index_select(0, order)
+            rxadj = torch.searchsorted(
+                erow, torch.arange(self.nr + 1, dtype=torch.int32,
+                                   device=self.device), out_int32=True)
+            return dataclasses.replace(
+                self, rxadj=rxadj, radj=self.ecol.index_select(0, order),
+                erow=erow, eperm=order.to(torch.int32))
 
     def drop_csc(self) -> "TorchCSR":
         """Return the bare graph (the mirror removed)."""
@@ -240,19 +262,24 @@ class TorchCSR:
         if nnz_pad == cur:
             return self
         assert nnz_pad > cur, f"cannot shrink edge capacity {cur} -> {nnz_pad}"
-        extra = nnz_pad - cur
+        extra = self.batch_shape + (nnz_pad - cur,)
         dev = self.device
         g = dataclasses.replace(
-            self, cadj=torch.cat([self.cadj, _full(extra, self.nr, dev)]),
-            ecol=torch.cat([self.ecol, _full(extra, self.nc, dev)]))
+            self,
+            cadj=torch.cat([self.cadj, _full(extra, self.nr, dev)], dim=-1),
+            ecol=torch.cat([self.ecol, _full(extra, self.nc, dev)], dim=-1))
         if self.has_csc:
             # mirror sentinels live at the tail too; the new slots map to
             # the new CSR tail slots (identity), so eperm stays a permutation
-            tail = torch.arange(cur, nnz_pad, dtype=torch.int32, device=dev)
+            tail = torch.arange(cur, nnz_pad, dtype=torch.int32,
+                                device=dev).expand(extra)
             g = dataclasses.replace(
-                g, radj=torch.cat([self.radj, _full(extra, self.nc, dev)]),
-                erow=torch.cat([self.erow, _full(extra, self.nr, dev)]),
-                eperm=torch.cat([self.eperm, tail]))
+                g,
+                radj=torch.cat([self.radj, _full(extra, self.nc, dev)],
+                               dim=-1),
+                erow=torch.cat([self.erow, _full(extra, self.nr, dev)],
+                               dim=-1),
+                eperm=torch.cat([self.eperm, tail], dim=-1))
         return g
 
     def bucketed(self, lane: int = LANE) -> "TorchCSR":
@@ -269,6 +296,7 @@ class TorchCSR:
         """
         if (nc, nr) == (self.nc, self.nr):
             return self
+        self._single("pad_vertices()")
         assert nc >= self.nc and nr >= self.nr, \
             f"cannot shrink vertex counts {(self.nc, self.nr)} -> {(nc, nr)}"
         cxadj = self.cxadj
@@ -294,3 +322,49 @@ class TorchCSR:
         old = self.nr if field in ("cadj", "erow") else self.nc
         x = getattr(self, field)
         return torch.where(x == old, n, x).to(torch.int32)
+
+    # -- batching -------------------------------------------------------------
+    @staticmethod
+    def stack(graphs: Sequence["TorchCSR"]) -> "TorchCSR":
+        """Stack graphs of one vertex bucket into one batched graph (what
+        ``Matcher.run_many`` takes): every lane padded to the largest edge
+        capacity, as the JAX package's ``DeviceCSR.stack`` pads; the CSC
+        mirror on all of them or on none."""
+        if not graphs:
+            raise ValueError("empty graph batch")
+        g0 = graphs[0]
+        if len({g.has_csc for g in graphs}) != 1:
+            raise ValueError("cannot stack mirrored and bare graphs; "
+                             "with_csc() all or none")
+        for g in graphs:
+            g._single("stack()")
+            if (g.nc, g.nr) != (g0.nc, g0.nr):
+                raise ValueError(f"bucket mismatch: {(g.nc, g.nr)} vs "
+                                 f"{(g0.nc, g0.nr)}")
+            if g.device != g0.device:
+                raise ValueError(f"graphs on {g.device} and {g0.device}")
+        cap = max(g.nnz_pad for g in graphs)
+        graphs = [g.pad_to(cap) for g in graphs]
+        fields = ["cxadj", "cadj", "ecol"]
+        if g0.has_csc:
+            fields += ["rxadj", "radj", "erow", "eperm"]
+        return dataclasses.replace(
+            g0, nnz=tuple(int(g.nnz) for g in graphs),
+            **{f: torch.stack([getattr(g, f) for g in graphs])
+               for f in fields})
+
+    def lane(self, i: int) -> "TorchCSR":
+        """Lane ``i`` of a batch as a single graph (views, no copy)."""
+        if not self.batch_shape:
+            raise ValueError("not a batched TorchCSR")
+        fields = ("cxadj", "cadj", "ecol", "rxadj", "radj", "erow", "eperm")
+        return dataclasses.replace(
+            self, nnz=self.nnz[i],
+            **{f: getattr(self, f)[i] for f in fields
+               if getattr(self, f) is not None})
+
+    def unstack(self) -> Tuple["TorchCSR", ...]:
+        """Every lane of a batch as a single graph."""
+        if not self.batch_shape:
+            raise ValueError("not a batched TorchCSR")
+        return tuple(self.lane(i) for i in range(self.batch_shape[0]))

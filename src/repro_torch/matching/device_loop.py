@@ -29,9 +29,12 @@ loop's test before every step, as the WHILE node does.
 Capture.  Each step runs once on a side stream against scratch copies of
 the buffers (kernel launches uncounted) before its capture, so that lazy
 set-up (library loads, occupancy queries, the allocator) happens outside
-it; then it is captured in ``"global"`` error mode.  A step that reads the
-device on the host cannot be captured: the capture raises
-:class:`CaptureError`.  Nothing falls back to an uncaptured run on a card.
+it; then it is captured in ``"thread_local"`` error mode, holding
+:data:`repro_torch._device.DEVICE_LOCK`: another thread may allocate, copy
+or read results meanwhile (a serving caller), but not upload a graph.  A
+step that reads the device on the host cannot be captured: the capture
+raises :class:`CaptureError`.  Nothing falls back to an uncaptured run on a
+card.
 
 :data:`COUNTERS` counts the work: BFS levels (by sweep) and ``ALTERNATE``
 steps in device counters the steps add to; host syncs, the reads the host
@@ -50,6 +53,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import torch
 
+from repro_torch._device import DEVICE_LOCK
 from repro_torch.kernels._build import load_library
 from repro_torch.kernels.frontier_expand import uncounted
 
@@ -327,8 +331,9 @@ class Program:
         self.lock = threading.RLock()
 
     # -- buffers --------------------------------------------------------------
-    def alloc(self, name: str, n: int, dtype=torch.int32) -> torch.Tensor:
-        t = torch.empty(n, dtype=dtype, device=self.device)
+    def alloc(self, name: str, shape, dtype=torch.int32) -> torch.Tensor:
+        """An uninitialised buffer of ``shape`` (an int or a tuple)."""
+        t = torch.empty(shape, dtype=dtype, device=self.device)
         self.buf[name] = t
         self._nbytes = None
         return t
@@ -526,6 +531,7 @@ class Program:
             raise CaptureError(f"step {name!r} has no graph, and none can be "
                                f"captured inside another capture")
         outer = current_program()
+        DEVICE_LOCK.acquire()
         _CURRENT.program = self
         try:
             if name not in self._warm:
@@ -534,7 +540,8 @@ class Program:
             g = torch.cuda.CUDAGraph(keep_graph=keep)
             try:
                 with torch.cuda.device(self.device), torch.cuda.graph(
-                        g, pool=self._pool, capture_error_mode="global"):
+                        g, pool=self._pool,
+                        capture_error_mode="thread_local"):
                     # read after the capture's own empty_cache: what grows
                     # from here is this pool's
                     reserved = torch.cuda.memory_reserved(self.device)
@@ -545,6 +552,7 @@ class Program:
                     f"({type(err).__name__}: {err}); a step must run on the "
                     f"device alone, with no host read") from err
         finally:
+            DEVICE_LOCK.release()
             _CURRENT.program = outer
         self.pool_bytes += max(
             0, torch.cuda.memory_reserved(self.device) - reserved)

@@ -38,10 +38,13 @@ runs.  The host reads the device twice a phase: the BFS verdict ``aug``,
 and the cardinality guard.  :class:`MatcherProgram` is one compile-cache
 entry: warm start and solve for one size bucket.
 
-Indexing rules.  Every gather is ``index_select`` and every scatter
+Indexing rules.  Every gather is ``index_select`` (``gather`` along the
+last dimension for a batch: :func:`_take`) and every scatter
 ``scatter``/``scatter_reduce``, with int64 indices and int32 values; a
 scatter whose entries do not all take part goes through
-:func:`scatter_kept`, which sends those entries to no shared slot.
+:func:`scatter_kept`, which sends those entries to no shared slot.  The
+helpers shared with the batched solve (:mod:`.batch`) take ``(n,)``
+arrays or ``(B, n)`` lanes alike.
 Unlike JAX, which clamps or drops an out-of-range index, these raise on
 the CPU (and fault on the card), so the clamps of the reference are all
 kept and the CPU tests show that no index leaves its range.
@@ -87,6 +90,12 @@ def _arange(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.arange(n, dtype=I32, device=like.device)
 
 
+def _same(t: torch.Tensor, like: torch.Tensor) -> Optional[torch.Tensor]:
+    """``t`` as the ``out=`` of a result shaped as ``like``, where the
+    shapes agree (one graph); None (a new tensor) for a batch."""
+    return t if t.shape == like.shape else None
+
+
 # the identity of each int32 reduction: an entry that carries it changes no
 # slot
 _IDENTITY = {"amin": 2**31 - 1, "amax": -2**31, "sum": 0}
@@ -95,11 +104,12 @@ _IDENTITY = {"amin": 2**31 - 1, "amax": -2**31, "sum": 0}
 def scatter_kept(out: torch.Tensor, index: torch.Tensor, values, keep,
                  reduce: str | None = None,
                  inplace: bool = False) -> torch.Tensor:
-    """``out`` with ``values`` (a tensor like ``index``, a 0-d tensor or a
-    scalar) scattered into it at ``index`` for the entries where ``keep``
-    holds: reduced by ``reduce`` ("amin", "amax" or "sum",
+    """``out`` with ``values`` (a tensor that broadcasts to ``index``, a 0-d
+    tensor or a scalar) scattered into it at ``index`` for the entries where
+    ``keep`` holds: reduced by ``reduce`` ("amin", "amax" or "sum",
     ``include_self``), or written when ``reduce`` is None.  ``out`` itself
     is not changed, unless ``inplace`` (a reduction only) writes into it.
+    Along the last dimension: a batch ``(B, n)`` scatters lane by lane.
 
     The entries that do not take part share no slot.  The reference sends
     them all to one sentinel slot, which on the card is one address taking
@@ -110,25 +120,29 @@ def scatter_kept(out: torch.Tensor, index: torch.Tensor, values, keep,
     way the kept entries give what the sentinel form gives, with no host
     sync and no compaction.
     """
-    n1, m = out.shape[0], index.shape[0]
+    n1, m = out.shape[-1], index.shape[-1]
     spread = torch.arange(m, device=out.device)
     index = index.long()
-    if isinstance(values, torch.Tensor) and values.dim() == 0:
-        values = values.to(out.dtype).expand(m)
+    if isinstance(values, torch.Tensor):
+        values = values.to(out.dtype).expand(index.shape)
     if reduce is None:
         assert not inplace, "an in-place scatter_kept must reduce"
-        buf = torch.cat([out, out.new_empty(m)])
+        buf = torch.cat([out, out.new_empty(index.shape)], dim=-1)
         spread.add_(n1)
-        buf.scatter_(0, torch.where(keep, index, spread, out=spread), values)
-        return buf[:n1]
+        buf.scatter_(-1, torch.where(keep, index, spread, out=_same(spread,
+                                                                   index)),
+                     values)
+        return buf[..., :n1]
     if not isinstance(values, torch.Tensor):
         # a fill, not torch.tensor(values): a host-to-card copy waits for
         # the stream
-        values = torch.full((m,), values, dtype=out.dtype, device=out.device)
+        values = torch.full(index.shape, values, dtype=out.dtype,
+                            device=out.device)
     if m > n1:
         spread.remainder_(n1)
     scatter = out.scatter_reduce_ if inplace else out.scatter_reduce
-    return scatter(0, torch.where(keep, index, spread, out=spread),
+    return scatter(-1, torch.where(keep, index, spread,
+                                   out=_same(spread, index)),
                    torch.where(keep, values, _IDENTITY[reduce]), reduce,
                    include_self=True)
 
@@ -142,7 +156,8 @@ def scatter_min(n: int, index: torch.Tensor, values: torch.Tensor
     (:func:`scatter_kept`), so the sentinel slot stays the identity and
     never reads back as a winner.
     """
-    out = torch.full((n + 1,), IINF, dtype=I32, device=values.device)
+    out = torch.full((*index.shape[:-1], n + 1), IINF, dtype=I32,
+                     device=values.device)
     return scatter_kept(out, index, values, (index < n) & (values < IINF),
                         "amin")
 
@@ -152,15 +167,30 @@ def _seal(t: torch.Tensor, value) -> torch.Tensor:
     ``fill_`` that takes the number as its argument: item assignment
     (``t[n] = value``) copies the number from the host and so waits for the
     card."""
-    t[-1:].fill_(value)
+    t[..., -1:].fill_(value)
     return t
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` lane by lane: ``x`` ``(*lanes, n)``, ``idx``
+    ``(*lanes, *shape)`` of any integer type -> ``(*lanes, *shape)``."""
+    flat = idx.reshape(*x.shape[:-1], -1).long()
+    out = (x.index_select(0, flat) if x.dim() == 1
+           else torch.gather(x, -1, flat))
+    return out.reshape(idx.shape)
+
+
+def _col(v):
+    """A per-lane value, ``(*lanes,)``, as a column that broadcasts along
+    the last dimension; one graph's (a number or a 0-d tensor) as it is."""
+    return v[..., None] if isinstance(v, torch.Tensor) and v.dim() else v
 
 
 def level0_state(cmatch: torch.Tensor):
     """BFS state at the paper's start level for a given matching: ``bfs``
     (unmatched columns are L0 roots, matched UNVISITED, sentinel NEG) and
     ``root`` (own index if root, else ``nc``)."""
-    nc = cmatch.shape[0] - 1
+    nc = cmatch.shape[-1] - 1
     matched = cmatch >= 0
     bfs = _seal(torch.full_like(cmatch, L0).masked_fill_(matched, UNVISITED),
                 NEG)
@@ -194,7 +224,7 @@ def _winner_full(ecol, cadj, bfs, root, rmatch, level, *,
     (a 0-d int32 tensor) off: no winner.
     """
     if use_pallas and not pallas_fused:
-        nr = rmatch.shape[0] - 1
+        nr = rmatch.shape[-1] - 1
         prop = frontier_expand(ecol, cadj, bfs, root, rmatch, level, gate)
         return scatter_min(nr, cadj, prop)
     return frontier_expand_fused(ecol, cadj, bfs, root, rmatch, level, gate)
@@ -205,9 +235,10 @@ def _nonzero_fixed(mask: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
     sync: the ascending indices of ``mask``, padded with ``fill`` to
     ``cap`` (Trues past the first ``cap`` are dropped, as there).  Each
     True lands at its rank (a cumsum); the rest touch no slot."""
-    n = mask.shape[0]
-    rank = torch.cumsum(mask, 0, dtype=torch.int64) - 1
-    out = torch.full((cap,), fill, dtype=I32, device=mask.device)
+    n = mask.shape[-1]
+    rank = torch.cumsum(mask, -1, dtype=torch.int64) - 1
+    out = torch.full((*mask.shape[:-1], cap), fill, dtype=I32,
+                     device=mask.device)
     return scatter_kept(out, rank, _arange(n, mask), mask & (rank < cap))
 
 
@@ -216,24 +247,23 @@ def _unreached_rows(bfs, rmatch) -> torch.Tensor:
     the proposal predicate: unmatched-and-not-yet-endpoint rows, or rows
     whose matched column is still UNVISITED.  Winners are IINF everywhere
     else, which is what makes a pull restricted to these rows exact."""
-    nc = bfs.shape[0] - 1
-    rm = rmatch[:-1]
+    nc = bfs.shape[-1] - 1
+    rm = rmatch[..., :-1]
     return (rm == -1) | ((rm >= 0) & (
-        bfs.index_select(0, rm.clamp(0, nc).long()) == UNVISITED))
+        _take(bfs, rm.clamp(0, nc)) == UNVISITED))
 
 
 def _gather_adjacency(xadj, adj, ids, n: int, dmax: int):
     """The compact gathers' shared step: for the (cap,) vertex ids (``n``
     = padding) the (cap, dmax) adjacency slots via the offsets ``xadj``,
     and which of them are real edges."""
-    nnz_pad = adj.shape[0]
-    starts = xadj.index_select(0, ids.clamp(max=n).long())
-    ends = xadj.index_select(0, (ids + 1).clamp(max=n).long())  # fill: deg 0
+    nnz_pad = adj.shape[-1]
+    starts = _take(xadj, ids.clamp(max=n))
+    ends = _take(xadj, (ids + 1).clamp(max=n))                  # fill: deg 0
     offs = _arange(dmax, ids)
-    eidx = starts[:, None] + offs[None, :]                      # (cap, dmax)
-    valid = offs[None, :] < (ends - starts)[:, None]
-    nbr = adj.index_select(0, eidx.clamp(0, nnz_pad - 1).reshape(-1).long())
-    return nbr.reshape(eidx.shape), valid
+    eidx = starts[..., None] + offs                             # (cap, dmax)
+    valid = offs < (ends - starts)[..., None]
+    return _take(adj, eidx.clamp(0, nnz_pad - 1)), valid
 
 
 def _winner_pull_compact(rxadj, radj, bfs, root, rmatch, level,
@@ -245,19 +275,18 @@ def _winner_pull_compact(rxadj, radj, bfs, root, rmatch, level,
     of degree at most ``dmax``); then each row's min over its proposing
     columns is exactly the dense sweep's winner.
     """
-    nc = bfs.shape[0] - 1
-    nr = rmatch.shape[0] - 1
+    nc = bfs.shape[-1] - 1
+    nr = rmatch.shape[-1] - 1
     # the column side of the proposal predicate, for every column at once
-    colok = bfs == level                                         # (nc+1,)
+    colok = bfs == _col(level)                                   # (nc+1,)
     if root is not None:
-        colok &= bfs.index_select(0, root.clamp(0, nc).long()) >= UNVISITED
+        colok &= _take(bfs, root.clamp(0, nc)) >= UNVISITED
     rows = _nonzero_fixed(unreached, cap, nr)                    # (cap,)
     nbr, valid = _gather_adjacency(rxadj, radj, rows, nr, dmax)
     cols = torch.where(valid, nbr, nc)
     # colok[nc] is False (bfs NEG)
-    ok = valid & colok.index_select(0, cols.reshape(-1).long()).reshape(
-        cols.shape)
-    win_rows = torch.where(ok, cols, IINF).amin(dim=1)           # (cap,)
+    ok = valid & _take(colok, cols)
+    win_rows = torch.where(ok, cols, IINF).amin(dim=-1)          # (cap,)
     return scatter_min(nr, rows.clamp(max=nr), win_rows)
 
 
@@ -304,10 +333,10 @@ def _winner_compact(cxadj, cadj, bfs, rmatch, isf, *, cap: int,
 def _frontier(bfs, root, level, wr: bool) -> torch.Tensor:
     """The (nc,) frontier mask: columns at ``level`` (WR: whose root is
     not yet satisfied)."""
-    nc = bfs.shape[0] - 1
-    isf = bfs[:-1] == level
+    nc = bfs.shape[-1] - 1
+    isf = bfs[..., :-1] == _col(level)
     if wr:
-        isf &= bfs.index_select(0, root[:-1].clamp(0, nc).long()) >= UNVISITED
+        isf &= _take(bfs, root[..., :-1].clamp(0, nc)) >= UNVISITED
     return isf
 
 
@@ -331,17 +360,17 @@ def _apply_winner(winner, bfs, root, pred, rmatch, level, *, wr: bool,
     if not inplace:
         bfs, root, pred, rmatch = (bfs.clone(), root.clone(), pred.clone(),
                                    rmatch.clone())
-    nc = bfs.shape[0] - 1
-    nr = pred.shape[0] - 1
+    nc = bfs.shape[-1] - 1
+    nr = pred.shape[-1] - 1
     upd_r = winner < IINF                                 # (nr+1,) rows reached
 
     cm_r = rmatch                                         # row-wise matched col
     visit_r = upd_r & (cm_r >= 0)                         # Alg.2 l.8-12
     end_r = upd_r & (cm_r == -1)                          # Alg.2 l.14-17
 
-    scatter_kept(bfs, cm_r, level + 1, visit_r, "amax", inplace=True)
+    scatter_kept(bfs, cm_r, _col(level + 1), visit_r, "amax", inplace=True)
     if wr:
-        rootvals = root.index_select(0, winner.clamp(0, nc).long())
+        rootvals = _take(root, winner.clamp(0, nc))
         scatter_kept(root, cm_r, rootvals, visit_r, "amin", inplace=True)
         _seal(root, 0)
         # mark the root "satisfied": plain WR writes L0-2, the exact variant
@@ -357,7 +386,7 @@ def _apply_winner(winner, bfs, root, pred, rmatch, level, *, wr: bool,
     rmatch.masked_fill_(end_r, -2)               # cm_r's last use is above
     _seal(bfs, NEG)                                       # restore sentinel
 
-    return bfs, root, pred, rmatch, visit_r.any(), end_r.any()
+    return bfs, root, pred, rmatch, visit_r.any(-1), end_r.any(-1)
 
 
 def _compact_plan(cxadj, bfs, root, level, *, wr: bool, cap: int,
@@ -386,31 +415,44 @@ def _dirop_plan(cxadj, rxadj, bfs, root, rmatch, level, dir_prev, *,
     row must also fit its (cap, dmax) geometry.
     """
     isf = _frontier(bfs, root, level, wr)
-    cdeg = cxadj[1:] - cxadj[:-1]
-    fe = torch.where(isf, cdeg, 0).sum().to(torch.float32)
+    cdeg = cxadj[..., 1:] - cxadj[..., :-1]
+    fe = torch.where(isf, cdeg, 0).sum(-1).to(torch.float32)
     unreached = _unreached_rows(bfs, rmatch)
-    rdeg = rxadj[1:] - rxadj[:-1]
-    pe = torch.where(unreached, rdeg, 0).sum().to(torch.float32)
+    rdeg = rxadj[..., 1:] - rxadj[..., :-1]
+    pe = torch.where(unreached, rdeg, 0).sum(-1).to(torch.float32)
     pull = (fe * dirop_alpha > pe) | (dir_prev & (fe * dirop_beta > pe))
     if not use_pallas:
-        pull &= ((unreached.sum() <= pull_cap)
-                 & (torch.where(unreached, rdeg, 0).amax() <= pull_dmax))
+        pull &= ((unreached.sum(-1) <= pull_cap)
+                 & (torch.where(unreached, rdeg, 0).amax(-1) <= pull_dmax))
     return pull, unreached
 
 
 # ---------------------------------------------------------------------------
 # ALTERNATE (Alg. 3) + FIXMATCHING
 # ---------------------------------------------------------------------------
+def _start_mask(bfs, rmb, wr_exact: bool) -> torch.Tensor:
+    """The rows whose walkers start: the endpoints the BFS found; with
+    ``wr_exact`` only the winning endpoint of each satisfied tree."""
+    mask = rmb == -2
+    if wr_exact:
+        enc = bfs[..., :-1]                                    # (nc,)
+        wins = _seal(scatter_kept(
+            torch.zeros(rmb.shape, dtype=torch.bool, device=enc.device),
+            -(enc + 1), True, enc <= -1), False)
+        mask = mask & wins
+    return mask
+
+
 def _walkers(B: Buffers, start_mask: torch.Tensor) -> None:
     """Start the ``ALTERNATE`` walkers at the rows of ``start_mask``: ``cur``
     (the walker's row or -1), ``pmc`` (``pred[cur]``, hoisted), ``steps``
     0, ``alt_live`` whether any walker runs."""
-    nr = B.pred.shape[0] - 1
+    nr = B.pred.shape[-1] - 1
     cur = torch.where(start_mask, B.rows, -1)
     B.cur.copy_(cur)
-    B.pmc.copy_(B.pred.index_select(0, cur.clamp(0, nr).long()))
+    B.pmc.copy_(_take(B.pred, cur.clamp(0, nr)))
     B.steps.zero_()
-    B.alt_live.copy_((cur >= 0).any())
+    B.alt_live.copy_((cur >= 0).any(-1))
 
 
 def _alternate_step(B: Buffers, max_steps: int) -> None:
@@ -471,22 +513,20 @@ def _alternate(cmatch, rmatch, pred, start_mask, max_steps: int):
 
 def _fix_matching(cmatch, rmatch):
     """Paper's FIXMATCHING, both directions -> a valid matching."""
-    nc = cmatch.shape[0] - 1
-    nr = rmatch.shape[0] - 1
+    nc = cmatch.shape[-1] - 1
+    nr = rmatch.shape[-1] - 1
     rows = _arange(nr + 1, rmatch)
     cols = _arange(nc + 1, cmatch)
     rmatch = torch.where(rmatch == -2, -1, rmatch)
-    ok_r = (rmatch >= 0) & (
-        cmatch.index_select(0, rmatch.clamp(0, nc).long()) == rows)
+    ok_r = (rmatch >= 0) & (_take(cmatch, rmatch.clamp(0, nc)) == rows)
     rmatch = torch.where((rmatch >= 0) & ~ok_r, -1, rmatch)
-    ok_c = (cmatch >= 0) & (
-        rmatch.index_select(0, cmatch.clamp(0, nr).long()) == cols)
+    ok_c = (cmatch >= 0) & (_take(rmatch, cmatch.clamp(0, nr)) == cols)
     cmatch = torch.where((cmatch >= 0) & ~ok_c, -1, cmatch)
     return cmatch, rmatch
 
 
 def _cardinality(cmatch) -> torch.Tensor:
-    return (cmatch[:-1] >= 0).sum(dtype=I32)
+    return (cmatch[..., :-1] >= 0).sum(-1, dtype=I32)
 
 
 # ---------------------------------------------------------------------------
@@ -521,6 +561,8 @@ class Solver:
     host, from values it has read.
     """
 
+    lanes: tuple = ()           # one graph; a batch's solver has (B,)
+
     def __init__(self, cfg: MatcherConfig, nc: int, nr: int):
         self.cfg, self.nc, self.nr = cfg, nc, nr
         self.wr = cfg.kernel == "gpubfs_wr"
@@ -535,6 +577,7 @@ class Solver:
         # per branch, picked by the level's decision ``plan``
         self.branching = cfg.adaptive_frontier or (cfg.dirop
                                                    and not cfg.use_pallas)
+        self.degrade = cfg.degrade_maximal and cfg.max_phases > 0
         self.phase_begin = Once("phase_begin", self._phase_begin)
         body = self._level
         if self.branching:
@@ -554,15 +597,19 @@ class Solver:
         return self.cfg.adaptive_frontier or self.cfg.dirop
 
     def alloc(self, P: Program) -> None:
-        """The solver's own buffers (the graph, the matching, ``rows`` and
-        the scalars are the entry's)."""
+        """The loops' scalars and the solver's own buffers (the graph, the
+        matching and ``rows`` are the entry's)."""
+        P.scalars(SCALARS)
+        self._alloc_state(P)
+        P.buf["bfs_scalars"] = P.scalar_slice("level", "bfs_live")
+
+    def _alloc_state(self, P: Program) -> None:
         nc, nr = self.nc, self.nr
         for name in ("bfs", "root", "acm"):
-            P.alloc(name, nc + 1)
+            P.alloc(name, (*self.lanes, nc + 1))
         for name in ("pred", "rmb", "arm", "cur", "pmc"):
-            P.alloc(name, nr + 1)
+            P.alloc(name, (*self.lanes, nr + 1))
         P.constant("phase_start", torch.tensor(_PHASE_START, dtype=I32))
-        P.buf["bfs_scalars"] = P.scalar_slice("level", "bfs_live")
 
     # -- steps ----------------------------------------------------------------
     def _sweep_kw(self) -> dict:
@@ -665,20 +712,8 @@ class Solver:
         self._fold(B, winner)
         B.plan.copy_(self._plan(B))
 
-    def _start_mask(self, B: Buffers) -> torch.Tensor:
-        mask = B.rmb == -2
-        if self.cfg.wr_exact:
-            # only the winning endpoint of each satisfied tree starts a walker
-            enc = B.bfs[:-1]                                   # (nc,)
-            wins = _seal(scatter_kept(
-                torch.zeros(self.nr + 1, dtype=torch.bool,
-                            device=enc.device),
-                -(enc + 1), True, enc <= -1), False)
-            mask = mask & wins
-        return mask
-
     def _alt_begin(self, B: Buffers) -> None:
-        mask = self._start_mask(B)
+        mask = _start_mask(B.bfs, B.rmb, self.cfg.wr_exact)
         B.acm.copy_(B.cmatch)
         B.arm.copy_(torch.where(mask, -2, B.rmatch))
         _walkers(B, mask)
@@ -747,7 +782,7 @@ class Solver:
                 P.once(self.phase_done)
             phases += 1
         P.once(self.finish)
-        if self.cfg.degrade_maximal and self.cfg.max_phases > 0 and aug:
+        if self.degrade and aug:
             # one speculative greedy round restores maximality (local
             # import: warmstart.py imports solver internals from here)
             from .warmstart import CHEAP
@@ -757,6 +792,16 @@ class Solver:
 # ---------------------------------------------------------------------------
 # One compile-cache entry: warm start and solve for one size bucket
 # ---------------------------------------------------------------------------
+def _device_key(device) -> torch.device:
+    """``device`` as an entry keys its programs: a card with its index
+    (``"cuda"`` is the current card), so ``"cuda"`` and ``"cuda:0"`` name
+    one program."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class MatcherProgram:
     """The counterpart of one compiled program of the JAX package: the warm
     start ``stages`` (None: the state is given) and the solve of ``cfg``
@@ -771,18 +816,23 @@ class MatcherProgram:
     get their own answer.  Calls are serialized by the entry's lock.
     """
 
+    lanes: tuple = ()           # one graph; a batch's entry has (B,)
+
     def __init__(self, nc: int, nr: int, nnz_pad: int,
                  cfg: Optional[MatcherConfig], stages: Optional[Sequence]):
         self.nc, self.nr, self.nnz_pad = nc, nr, nnz_pad
         self.cfg = cfg
         self.stages = tuple(stages or ())
-        self.solver = Solver(cfg, nc, nr) if cfg is not None else None
+        self.solver = self._solver(cfg) if cfg is not None else None
         self._programs: dict = {}
+
+    def _solver(self, cfg: MatcherConfig) -> Solver:
+        return Solver(cfg, self.nc, self.nr)
 
     def program(self, device) -> Program:
         """The entry's :class:`Program` on ``device`` (built on first use;
         its graphs are captured at the first run of each step)."""
-        device = torch.device(device)
+        device = _device_key(device)
         P = self._programs.get(device)
         if P is None:
             P = self._programs[device] = self._build(device)
@@ -793,27 +843,30 @@ class MatcherProgram:
         # every loop ends within nc + nr + 4 iterations (levels, ALTERNATE
         # steps, warm-start rounds); the guard stops a runaway past that
         P = Program(device, loop_limit=nc + nr + 8)
-        P.alloc("ecol", m)
-        P.alloc("cadj", m)
+
+        def alloc(name, n, dtype=I32):
+            P.alloc(name, (*self.lanes, n), dtype)
+
+        alloc("ecol", m)
+        alloc("cadj", m)
         solver = self.solver
         if solver is not None and solver.needs_cxadj:
-            P.alloc("cxadj", nc + 1)
+            alloc("cxadj", nc + 1)
         if solver is not None and self.cfg.dirop:
-            P.alloc("rxadj", nr + 1)
-            P.alloc("radj", m)
-            P.alloc("erow", m)
-        degrade = (self.cfg is not None and self.cfg.degrade_maximal
-                   and self.cfg.max_phases > 0)
-        if degrade or self.stages:
+            alloc("rxadj", nr + 1)
+            alloc("radj", m)
+            alloc("erow", m)
+        if (solver is not None and solver.degrade) or self.stages:
             # the warm starts' edge gathers and scatters take int64 indices
-            P.alloc("ecol_l", m, torch.int64)
-            P.alloc("cadj_l", m, torch.int64)
-        P.alloc("cmatch", nc + 1)
-        P.alloc("rmatch", nr + 1)
+            alloc("ecol_l", m, torch.int64)
+            alloc("cadj_l", m, torch.int64)
+        alloc("cmatch", nc + 1)
+        alloc("rmatch", nr + 1)
         P.constant("rows", torch.arange(nr + 1, dtype=I32, device=device))
         P.constant("cols", torch.arange(nc + 1, dtype=I32, device=device))
-        P.scalars(SCALARS)
-        if solver is not None:
+        if solver is None:
+            P.scalars(SCALARS)          # the warm starts' ws_live
+        else:
             solver.alloc(P)
         return P
 
@@ -868,18 +921,18 @@ class MatcherProgram:
         static buffers and the card memory its captures reserved."""
         if device is None:
             return sum(P.total_bytes() for P in self._programs.values())
-        P = self._programs.get(torch.device(device))
+        P = self._programs.get(_device_key(device))
         return 0 if P is None else P.total_bytes()
 
     def static_bytes(self, device) -> int:
         """Bytes of the static buffers on ``device`` (the graphs' memory
         pool not included)."""
-        P = self._programs.get(torch.device(device))
+        P = self._programs.get(_device_key(device))
         return 0 if P is None else P.nbytes()
 
     def captures(self, device) -> int:
         """CUDA graphs captured on ``device`` so far."""
-        P = self._programs.get(torch.device(device))
+        P = self._programs.get(_device_key(device))
         return 0 if P is None else P.total_captures()
 
 

@@ -3,7 +3,9 @@
 The fields are those of the JAX package's ``MatchState``/``MatchStats``:
 ``cmatch`` (nc+1,) / ``rmatch`` (nr+1,) int32 with the trailing sentinel
 slot, and ``phases``/``fallbacks``/``certified`` as 0-d device tensors, so a
-run needs no host sync until the caller reads a value.
+run needs no host sync until the caller reads a value.  A batch (the result
+of ``Matcher.run_many``) has a leading lane dimension on every field:
+``(B, nc+1)``, ``(B, nr+1)`` and ``(B,)``.
 """
 from __future__ import annotations
 
@@ -42,18 +44,21 @@ class MatchState:
     certified: torch.Tensor
 
     @classmethod
-    def fresh(cls, nc: int, nr: int, device=None) -> "MatchState":
-        """All-unmatched state for an (nc, nr) graph."""
+    def fresh(cls, nc: int, nr: int, device=None,
+              batch_shape: Tuple[int, ...] = ()) -> "MatchState":
+        """All-unmatched state for an (nc, nr) graph, or for a batch of
+        ``batch_shape`` of them."""
         dev = resolve_device(device)
-        cm = torch.full((nc + 1,), -1, dtype=torch.int32, device=dev)
-        rm = torch.full((nr + 1,), -1, dtype=torch.int32, device=dev)
+        bs = tuple(batch_shape)
+        cm = torch.full(bs + (nc + 1,), -1, dtype=torch.int32, device=dev)
+        rm = torch.full(bs + (nr + 1,), -1, dtype=torch.int32, device=dev)
         # fills, not item assignment (a copy from the host, which waits)
-        cm[nc:].fill_(SENTINEL)
-        rm[nr:].fill_(SENTINEL)
+        cm[..., nc:].fill_(SENTINEL)
+        rm[..., nr:].fill_(SENTINEL)
         return cls(cmatch=cm, rmatch=rm,
-                   phases=_scalar(0, torch.int32, dev),
-                   fallbacks=_scalar(0, torch.int32, dev),
-                   certified=_scalar(False, torch.bool, dev))
+                   phases=torch.zeros(bs, dtype=torch.int32, device=dev),
+                   fallbacks=torch.zeros(bs, dtype=torch.int32, device=dev),
+                   certified=torch.zeros(bs, dtype=torch.bool, device=dev))
 
     @classmethod
     def from_host(cls, cmatch: np.ndarray, rmatch: np.ndarray,
@@ -71,14 +76,32 @@ class MatchState:
                    certified=_scalar(False, torch.bool, dev))
 
     @property
+    def batch_shape(self) -> Tuple[int, ...]:
+        return tuple(self.cmatch.shape[:-1])
+
+    @property
     def cardinality(self) -> torch.Tensor:
-        """Matched-pair count as a 0-d device tensor (no host sync)."""
-        return (self.cmatch[:-1] >= 0).sum(dtype=torch.int32)
+        """Matched-pair count as a device tensor, one a lane (no host
+        sync)."""
+        return (self.cmatch[..., :-1] >= 0).sum(dim=-1, dtype=torch.int32)
 
     def to_host(self) -> Tuple[np.ndarray, np.ndarray]:
         """(cmatch, rmatch) as true-size numpy arrays."""
-        return (self.cmatch[:-1].cpu().numpy(),
-                self.rmatch[:-1].cpu().numpy())
+        return (self.cmatch[..., :-1].cpu().numpy(),
+                self.rmatch[..., :-1].cpu().numpy())
+
+    def lane(self, i: int) -> "MatchState":
+        """Lane ``i`` of a batched state (views, no copy)."""
+        if not self.batch_shape:
+            raise ValueError("not a batched MatchState")
+        return MatchState(*(getattr(self, f.name)[i]
+                            for f in dataclasses.fields(self)))
+
+    def unstack(self) -> Tuple["MatchState", ...]:
+        """Every lane of a batched state."""
+        if not self.batch_shape:
+            raise ValueError("not a batched MatchState")
+        return tuple(self.lane(i) for i in range(self.batch_shape[0]))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,13 +121,18 @@ class MatchStats:
                    variant=variant)
 
     def as_dict(self) -> dict:
-        """Host-side stats dict."""
-        return {"phases": int(self.phases), "fallbacks": int(self.fallbacks),
-                "cardinality": int(self.cardinality),
-                "certified": bool(self.certified), "variant": self.variant}
+        """Host-side stats dict (numpy arrays for a batch)."""
+        out = {k: getattr(self, k).cpu().numpy()
+               for k in ("phases", "fallbacks", "cardinality", "certified")}
+        out = {k: (v.item() if v.ndim == 0 else
+                   v.astype(bool if k == "certified" else int))
+               for k, v in out.items()}
+        out["variant"] = self.variant
+        return out
 
 
 def empty_like_graph(graph) -> MatchState:
-    """Fresh all-unmatched state shaped for ``graph`` (a TorchCSR), on the
-    graph's device."""
-    return MatchState.fresh(graph.nc, graph.nr, graph.device)
+    """Fresh all-unmatched state shaped for ``graph`` (a TorchCSR, single
+    or batched), on the graph's device."""
+    return MatchState.fresh(graph.nc, graph.nr, graph.device,
+                            graph.batch_shape)

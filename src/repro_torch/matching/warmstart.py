@@ -28,14 +28,14 @@ from typing import Callable, Tuple
 import torch
 
 from .device_loop import Buffers, Loop, Once, Program, current_program
-from .solve import (I32, IINF, _fix_matching, _seal, scatter_kept,
-                    scatter_min)
+from .solve import (I32, IINF, _col, _fix_matching, _seal, _take,
+                    scatter_kept, scatter_min)
 
 InitFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor],
                   Tuple[torch.Tensor, torch.Tensor]]
 
 
-def _cheap_round(B: Buffers) -> None:
+def _cheap_round(B: Buffers, live=None) -> None:
     """One round of the parallel cheap matching.
 
     Speculative round-based greedy (propose -> resolve -> commit): every
@@ -43,13 +43,16 @@ def _cheap_round(B: Buffers) -> None:
     each proposed row accepts its lowest proposing column; accepted pairs
     commit.  ``ws_live`` stays set while a proposal survives.  The commit
     scatter writes distinct columns (a column proposes to one row, so it
-    wins at most one), so its order on duplicates cannot matter.
+    wins at most one), so its order on duplicates cannot matter.  A batch
+    (``(B, n)`` buffers) passes ``live``, its lanes still in the loop: the
+    others propose nothing, and so are left as they were.
     """
     cmatch, rmatch = B.cmatch, B.rmatch
-    nc, nr = cmatch.shape[0] - 1, rmatch.shape[0] - 1
-    col_free = cmatch.index_select(0, B.ecol_l) == -1
-    row_free = rmatch.index_select(0, B.cadj_l) == -1
-    cand = torch.where(col_free & row_free, B.cadj, IINF)
+    nc, nr = cmatch.shape[-1] - 1, rmatch.shape[-1] - 1
+    free = (_take(cmatch, B.ecol_l) == -1) & (_take(rmatch, B.cadj_l) == -1)
+    if live is not None:
+        free &= _col(live)
+    cand = torch.where(free, B.cadj, IINF)
     best_r = scatter_min(nc, B.ecol_l, cand)
     propose = best_r < IINF
     best_c = scatter_min(nr, torch.where(propose, best_r, nr),
@@ -59,25 +62,30 @@ def _cheap_round(B: Buffers) -> None:
     _seal(scatter_kept(cmatch, best_c, B.rows, won, "amax", inplace=True),
           -3)
     torch.where(won, best_c, rmatch, out=rmatch)
-    B.ws_live.copy_(won.any())
+    B.ws_live.copy_(won.any(-1))
 
 
-def _karp_sipser_round(B: Buffers) -> None:
-    """One round of Karp–Sipser peeling: every current degree-1 vertex is peeled speculatively, with min-scatter
-    conflict resolution.  ``ws_live`` stays set while a forced edge
-    exists."""
+def _karp_sipser_round(B: Buffers, live=None) -> None:
+    """One round of Karp–Sipser peeling: every current degree-1 vertex is
+    peeled speculatively, with min-scatter conflict resolution.
+    ``ws_live`` stays set while a forced edge exists; ``live`` as in
+    :func:`_cheap_round`."""
     cmatch, rmatch = B.cmatch, B.rmatch
-    nc, nr = cmatch.shape[0] - 1, rmatch.shape[0] - 1
+    nc, nr = cmatch.shape[-1] - 1, rmatch.shape[-1] - 1
+    lanes = cmatch.shape[:-1]
     ecol_l, cadj_l = B.ecol_l, B.cadj_l
-    alive = ((cmatch.index_select(0, ecol_l) == -1)
-             & (rmatch.index_select(0, cadj_l) == -1))
-    cdeg = scatter_kept(torch.zeros(nc + 1, dtype=I32, device=alive.device),
+    alive = (_take(cmatch, ecol_l) == -1) & (_take(rmatch, cadj_l) == -1)
+    if live is not None:
+        alive &= _col(live)
+    cdeg = scatter_kept(torch.zeros((*lanes, nc + 1), dtype=I32,
+                                    device=alive.device),
                         ecol_l, 1, alive, "sum")
-    rdeg = scatter_kept(torch.zeros(nr + 1, dtype=I32, device=alive.device),
+    rdeg = scatter_kept(torch.zeros((*lanes, nr + 1), dtype=I32,
+                                    device=alive.device),
                         cadj_l, 1, alive, "sum")
     # forced edges: endpoint with residual degree 1
-    forced = alive & ((cdeg.index_select(0, ecol_l) == 1)
-                             | (rdeg.index_select(0, cadj_l) == 1))
+    forced = alive & ((_take(cdeg, ecol_l) == 1)
+                      | (_take(rdeg, cadj_l) == 1))
 
     # speculative commit of all forced edges, min-scatter per column/row
     prop_r = scatter_min(nc, torch.where(forced, B.ecol, nc),
@@ -93,7 +101,7 @@ def _karp_sipser_round(B: Buffers) -> None:
     won_pair = won_r & (rmatch == prop_c)
     _seal(scatter_kept(cmatch, prop_c.clamp(0, nc), B.rows, won_pair, "amax",
                        inplace=True), -3)
-    B.ws_live.copy_(forced.any())
+    B.ws_live.copy_(forced.any(-1))
 
 
 def _fix(B: Buffers) -> None:

@@ -969,3 +969,187 @@ def test_cuda_runaway_in_a_loop_with_no_read_after_it_raises():
     prog.program(g.device).loop_limit = 1      # cheap needs more rounds
     with pytest.raises(RuntimeError, match="stopped"):
         prog(g)
+
+
+# ---------------------------------------------------------------------------
+# the lane dimension: one launch for a batch of graphs of one bucket
+# ---------------------------------------------------------------------------
+def _lane_batch(nb: int = 5, seed: int = 30):
+    """``nb`` graphs of one bucket (3000 x 2500, 13001 edge slots: an odd
+    row length, so the lanes' 16-byte heads and tails differ), each a few
+    levels into its first BFS phase from a cheap start (lanes at different
+    levels), stacked on the CPU; a gate vector with lanes off."""
+    from repro_torch.matching import TorchCSR as T
+    gs = [T.from_host(random_bipartite(3000, 2500, 3.0 + i % 2,
+                                       seed=seed + i, pad_to=13001),
+                      device="cpu").with_csc() for i in range(nb)]
+    lanes = []
+    for i, g in enumerate(gs):
+        st = Matcher(warm_start="cheap").init(g)
+        bfs, root = level0_state(st.cmatch)
+        pred = torch.full((g.nr + 1,), g.nc, dtype=torch.int32)
+        rm, level = st.rmatch, 2
+        for _ in range(i % 3):
+            win = frontier_expand_fused_ref(g.ecol, g.cadj, bfs, root, rm,
+                                            level)
+            bfs, root, pred, rm, _, _ = _apply_winner(
+                win, bfs, root, pred, rm, level, wr=True, wr_exact=False)
+            level += 1
+        lanes.append((bfs, root, rm, level))
+    batch = T.stack(gs)
+    bfs, root, rm = (torch.stack([x[k] for x in lanes]) for k in range(3))
+    level = torch.tensor([x[3] for x in lanes], dtype=torch.int32)
+    gate = torch.tensor([1, 0, 1, 1, 0][:nb], dtype=torch.int32)
+    return batch, bfs, root, rm, level, gate
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wr", [True, False], ids=["wr", "plain"])
+def test_cuda_batched_kernels_equal_single_launches_and_plain(wr):
+    """K1, K2, K3 and K3's column pass over a 5-lane batch with lanes at
+    different levels and two lanes gated off: one launch (counted once)
+    equals the batched plain version on the CPU and, lane by lane, the
+    single-graph launch with that lane's gate, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    b, bfs, root, rm, level, gate = _lane_batch()
+    rt = root if wr else None
+    body = "wr" if wr else "plain"
+    c = {k: v.cuda() for k, v in dict(
+        ecol=b.ecol, cadj=b.cadj, radj=b.radj, erow=b.erow, bfs=bfs,
+        root=root, rm=rm, level=level, gate=gate).items()}
+    crt = c["root"] if wr else None
+    sweeps = [("frontier_expand_fused", frontier_expand_fused,
+               frontier_expand_fused_ref, "ecol", "cadj"),
+              ("frontier_expand", frontier_expand, frontier_expand_ref,
+               "ecol", "cadj"),
+              ("frontier_expand_pull", frontier_expand_pull,
+               frontier_expand_pull_ref, "radj", "erow")]
+    for name, kernel, plain, cols, rows in sweeps:
+        reset_launches()
+        got = kernel(c[cols], c[rows], c["bfs"], crt, c["rm"], c["level"],
+                     c["gate"])
+        # one launch, counted once, as the batched instantiation
+        assert (LAUNCHES[f"{name}_{body}_batched"],
+                LAUNCHES[f"{name}_{body}"]) == (1, 0), name
+        want = plain(getattr(b, cols), getattr(b, rows), bfs, rt, rm, level,
+                     gate)
+        assert torch.equal(got.cpu(), want), name
+        for i in range(bfs.shape[0]):
+            one = kernel(c[cols][i].contiguous(), c[rows][i].contiguous(),
+                         c["bfs"][i].contiguous(),
+                         None if crt is None else crt[i].contiguous(),
+                         c["rm"][i].contiguous(), c["level"][i].clone(),
+                         c["gate"][i].clone())
+            assert torch.equal(got[i], one), (name, i)
+        off = torch.zeros_like(c["gate"])
+        reset_launches()
+        kernel(c[cols], c[rows], c["bfs"], crt, c["rm"], c["level"], off)
+        assert LAUNCHES[f"{name}_{body}_batched"] == 0, name
+    bits = frontier_bits(c["bfs"], crt, c["level"])
+    assert torch.equal(bits.cpu(), frontier_bits_ref(bfs, rt, level))
+    for i in range(bfs.shape[0]):
+        assert torch.equal(bits[i], frontier_bits(
+            c["bfs"][i].contiguous(),
+            None if crt is None else crt[i].contiguous(),
+            c["level"][i].clone()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["jnp", "legacy", "dirop", "dirop_pallas"])
+def test_cuda_run_many_equals_cpu(path):
+    """``run_many`` on the card (captured entry, batched kernels) equals the
+    CPU's ``run_many`` lane by lane, and each lane the card's ``run``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    cfg = SOLVE_PATHS[path].configure(MatcherConfig())
+    gs = [random_bipartite(3000, 2500, 3.0 + i % 2, seed=40 + i,
+                           pad_to=16384) for i in range(4)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        ts = [TorchCSR.from_host(g, device=dev) for g in gs]
+        if cfg.dirop:
+            ts = [t.with_csc() for t in ts]
+        out[dev] = Matcher(cfg, "cheap").run_many(TorchCSR.stack(ts))
+        if dev == "cuda":
+            singles = [Matcher(cfg, "cheap").run(t) for t in ts]
+    for f in ("cmatch", "rmatch", "phases", "fallbacks", "certified"):
+        assert torch.equal(getattr(out["cuda"], f).cpu(),
+                           getattr(out["cpu"], f)), f
+        for i, one in enumerate(singles):
+            assert torch.equal(getattr(out["cuda"], f)[i],
+                               getattr(one, f)), (f, i)
+
+
+@pytest.mark.gpu
+def test_cuda_flush_after_warm_up_captures_nothing():
+    """``warm_up()`` captures every step of its entries, the walk's among
+    them (its empty graphs never walk): real flushes afterwards, which
+    walk, add no capture to any entry and miss no cache entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from repro_torch.matching import compile_cache_clear, compile_cache_info
+    from repro_torch.matching.cache import compile_cache_entry
+    from repro_torch.serving import Bucketizer, MatchingService, SizeBucket
+    compile_cache_clear()
+    bucket = SizeBucket(4096, 4096, 32768)
+    gs = [random_bipartite(3000 + 17 * i, 2800, 4.0, seed=80 + i)
+          for i in range(6)]
+    with MatchingService(bucketizer=Bucketizer((bucket,), device="cuda"),
+                         config=MatcherConfig(), warm_start="cheap",
+                         max_batch=4, max_delay_ms=1.0) as svc:
+        svc.warm_up()
+        keys = compile_cache_info()["keys"]
+        before = {k: compile_cache_entry(k).captures("cuda") for k in keys}
+        results = [f.result(timeout=300)
+                   for f in [svc.submit(g) for g in gs]]
+        svc.drain()
+        misses = svc.metrics.snapshot()["compile_misses"]
+    after = {k: compile_cache_entry(k).captures("cuda") for k in keys}
+    assert all(before.values()) and after == before and misses == 0
+    assert all(bool(r.state.certified) for r in results)
+    assert any(int(r.state.phases) > 1 for r in results)   # a walk ran
+
+
+@pytest.mark.gpu
+def test_cuda_submits_from_four_threads_during_a_cold_capture():
+    """Four threads submit (each admission uploads on its own thread) while
+    the flush thread builds and captures cold ``run_many`` entries; every
+    request resolves with the CPU's state for its graph."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    import threading
+    from repro_torch.matching import compile_cache_clear
+    from repro_torch.serving import Bucketizer, MatchingService, SizeBucket
+    compile_cache_clear()
+    bucket = SizeBucket(4096, 4096, 32768)
+    gs = [random_bipartite(3000 + 17 * i, 2800, 4.0, seed=60 + i)
+          for i in range(16)]
+    futs, errors = [None] * len(gs), []
+    start = threading.Barrier(4)
+    with MatchingService(bucketizer=Bucketizer((bucket,), device="cuda"),
+                         config=MatcherConfig(), warm_start="cheap",
+                         max_batch=4, max_delay_ms=1.0) as svc:
+        def submit(t):
+            try:
+                start.wait()
+                for i in range(t, len(gs), 4):
+                    futs[i] = svc.submit(gs[i])
+            except Exception as e:        # pragma: no cover - failure path
+                errors.append(e)
+
+        threads = [threading.Thread(target=submit, args=(t,))
+                   for t in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert not errors, errors
+        results = [f.result(timeout=300) for f in futs]
+        svc.drain()
+    cpu = Bucketizer((bucket,), device="cpu")
+    for g, res in zip(gs, results):
+        want = Matcher(MatcherConfig(), "cheap").run(cpu.admit(g).graph)
+        for f in ("cmatch", "rmatch", "phases", "fallbacks", "certified"):
+            assert torch.equal(getattr(res.state, f).cpu(),
+                               getattr(want, f)), f

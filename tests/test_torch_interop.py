@@ -89,3 +89,56 @@ def test_csc_mirror_round_trip_and_dirop_solve(use_pallas):
     out = Matcher(MatcherConfig(**kw), "cheap").run(t)
     for a, b in zip(state_to_reference(out), _leaves(want)):
         np.testing.assert_array_equal(a, b)
+
+
+def _stacked(csc: bool):
+    sets = instance_sets("mini")
+    gs = [DeviceCSR.from_host(sets[f]).bucketed() for f in ("rand", "free")]
+    nc = max(g.nc for g in gs)
+    nr = max(g.nr for g in gs)
+    gs = [g.pad_vertices(nc, nr) for g in gs]
+    if csc:
+        gs = [g.with_csc() for g in gs]
+    return DeviceCSR.stack(gs)
+
+
+@pytest.mark.parametrize("csc", [False, True], ids=["bare", "csc"])
+def test_stacked_csr_round_trip(csc):
+    """A stacked JAX graph (``nnz`` of shape (B,)) crosses over lane for lane
+    and back, its mirror included."""
+    d = _stacked(csc)
+    t = csr_from_reference(_leaves(d), d.nc, d.nr, device="cpu")
+    assert t.batch_shape == d.batch_shape and t.bucket_key == d.bucket_key
+    assert t.nnz == tuple(int(x) for x in np.asarray(d.nnz))
+    for a, b in zip(csr_to_reference(t), _leaves(d)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    back = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(d),
+                                        csr_to_reference(t))
+    assert back.bucket_key == d.bucket_key
+    for lane, ref in zip(t.unstack(), d.unstack()):
+        assert lane.nnz == int(ref.nnz)
+    with pytest.raises(ValueError, match="stack along one batch"):
+        csr_from_reference(_leaves(d)[:3] + [np.int32(5)], d.nc, d.nr,
+                           device="cpu")
+
+
+def test_stacked_state_round_trip_and_batched_resume():
+    """A batched JAX state (a one-phase ``run_many``) resumes in the port's
+    ``run_many`` to JAX's batched resume bit for bit, and crosses back."""
+    d = _stacked(False)
+    part = RefMatcher(RefConfig(max_phases=1), "none").run_many(d)
+    want = RefMatcher(RefConfig()).run_many(d, part)
+    state = state_from_reference(_leaves(part), device="cpu")
+    assert state.batch_shape == (2,)
+    for a, b in zip(state_to_reference(state), _leaves(part)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+    graph = csr_from_reference(_leaves(d), d.nc, d.nr, device="cpu")
+    out = Matcher(MatcherConfig()).run_many(graph, state)
+    for a, b in zip(state_to_reference(out), _leaves(want)):
+        np.testing.assert_array_equal(a, b)
+    back = jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(want),
+                                        state_to_reference(out))
+    np.testing.assert_array_equal(np.asarray(back.cardinality),
+                                  np.asarray(want.cardinality))
