@@ -85,8 +85,10 @@ What it does, in order; any failure raises and the exit code is not 0:
    beside its bound;
 7. holds the flash-attention kernel against its plain version on the card
    (TF32 off): the shapes of ``tests/test_kernels.py`` in fp32 (the CUDA-core
-   body, 2e-5) and bf16 (the tensor-core body, 2e-2) and granite-20b's
-   layer shape (B=4, S=4096, H=48, KV=1, hd=128, bf16), both masks, each
+   body, 2e-5) and bf16 (the tensor-core body, 2e-2), granite-20b's
+   layer shape (B=4, S=4096, H=48, KV=1, hd=128, bf16) and dbrx-132b's
+   (B=4, S=2048, H=48, KV=8, hd=128, bf16, timed beside the plain version,
+   SDPA with ``enable_gqa`` and its bound), both masks, each
    launch counted on the body its dtype routes to; at granite's shape also
    in scaled norms (``FA_REL_TOL``: l2, max and the worst query row), each
    of which a control with one key tile dropped must exceed; times it
@@ -105,9 +107,45 @@ What it does, in order; any failure raises and the exit code is not 0:
    layer's attention zeroed (a control that must exceed the gap's gate);
    greedy serving (batch 4, a 64-token prompt stepped, 16 tokens
    generated); the prefill and serving profiled;
-10. prints one ``{"kernels": [...]}`` line (the batched launch of each
-   body as its own entry, ``lanes`` 16), then as its last line
-   ``{"ok": true, "device": {...}}``.
+10. the MoE routers on dbrx-132b's layer-0 router logits of one prefill
+   sequence (T=2048, E=16, k=4, m=6, C=640; the seeded full-width model):
+   ``route_topk``, ``route_matching`` and ``route_matching_exact``, each
+   feasible (loads <= C, unique (expert, slot), no expert twice in a
+   token) and timed; the exact router's gadget graph (20,480 x 22,528,
+   7,925,760 edges) solved by ``Matcher(MatcherConfig(), "cheap")``,
+   certified at scipy's cardinality, K1a against its plain version bit for
+   bit at every level of that solve (run again uncaptured), the fused
+   kernel K1a launched in the route (its count read), a drop rate no higher
+   than the other two; the
+   first 256 tokens (C=80) also on the CPU, ``assign`` and ``slot`` bit for
+   bit and the probabilities within 1e-6;
+11. dbrx-132b at full width, two layers, fp32: the forward through K4 (the
+   CUDA-core body, once a layer) against the torch-op attention (1e-3), and
+   teacher-forced decode against the forward (2e-3) under
+   ``capacity_factor = n_experts / top_k`` (no token can drop);
+12. dbrx-132b at full width, bf16, as many of its 40 layers as leave 12 GB
+   free (the cut printed): the prefill B=4 x 2048 through K4 (counts set to
+   0 just before, read just after; once a layer on the tensor-core body),
+   each layer's drop rate and load-balance loss, the same prefill through
+   the torch-op attention (free-running: gap and router assignments that
+   differ printed, since bf16 roundings flip router near-ties and the flips
+   compound; with every layer routed as the kernel's run routed it: the
+   logits within ``LOGIT_GAP_TOL`` and each layer's attention output within
+   ``LAYER_GAP_TOL``) and with layer 0's or the middle layer's attention
+   zeroed under that routing (controls that must exceed the per-layer gate,
+   layer 0's also the logits gate), greedy serving, and the router's share
+   of device
+   time (``torch.profiler``, a ``record_function`` range around each
+   route) in the prefill and in serve steps;
+13. llama4-maverick at full width, one layer (chunked attention, window
+   8192), and h2o-danube-1.8b FULL (sliding window 4096), bf16: a prefill
+   past the window, then greedy decode steps from 4 positions before the
+   window's end to 4 past it on a fresh ring cache (finite logits, the
+   ring holding exactly those positions);
+14. prints one ``{"kernels": [...]}`` line (the batched launch of each
+   body as its own entry, ``lanes`` 16; K1a's launches include the exact
+   route's, K4's dbrx's prefill's, and K4 carries its times at dbrx's
+   shape), then as its last line ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.  It needs a CUDA card and the
 repository's ``src/``; without either it exits non-zero and prints no result.
@@ -115,6 +153,7 @@ repository's ``src/``; without either it exits non-zero and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import multiprocessing
@@ -772,14 +811,15 @@ def kernel_checks(graphs) -> list:
     return rows
 
 
-def device_profile(fn, share_of: dict, split_ops=()) -> dict:
+def device_profile(fn, share_of: dict, split_ops=(), ranges=()) -> dict:
     """``fn()`` once under ``torch.profiler``: the wall time, the device's
     kernel time and busy share of the wall time (the profiler's own cost
     lands in the wall time, so the share is a floor), for each ``name:
     text`` of ``share_of`` the device time, launches and share of device
-    time of the kernels whose name holds ``text``, the top kernels, and
-    for each torch op named in ``split_ops`` its device time by input
-    shape."""
+    time of the kernels whose name holds ``text``, the top kernels, for
+    each torch op named in ``split_ops`` its device time by input shape,
+    and for each ``record_function`` range named in ``ranges`` the device
+    time of the kernels launched inside it and its share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -789,10 +829,12 @@ def device_profile(fn, share_of: dict, split_ops=()) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # kernel events only: a CPU op's device time repeats its kernels'
+    # kernel events only: a CPU op's device time repeats its kernels', and
+    # a range of ``ranges`` also shows as a device event spanning its own
     rows = []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA or \
+                evt.key in ranges:
             continue
         us = getattr(evt, "self_device_time_total",
                      getattr(evt, "self_cuda_time_total", 0))
@@ -811,6 +853,15 @@ def device_profile(fn, share_of: dict, split_ops=()) -> dict:
                                           else "not measured")
     out["top"] = [dict(kernel=k[:80], ms=us / 1e3, count=n)
                   for us, n, k in rows[:8]]
+    for name in ranges:
+        us = sum(getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0))
+                 for e in prof.key_averages() if e.key == name
+                 and e.device_type == torch.autograd.DeviceType.CPU)
+        seen = rows and us > 0
+        out[f"{name}_ms"] = us / 1e3 if seen else "not measured"
+        out[f"{name}_share_of_device"] = (us / 1e6 / device_s if seen
+                                          else "not measured")
     if split_ops:
         ops = [(getattr(e, "device_time_total",
                         getattr(e, "cuda_time_total", 0)), e.count, e.key,
@@ -1277,6 +1328,8 @@ FP32_BATCH, FP32_SEQ = 2, 64
 FA_SHAPES = [(2, 512, 4, 2, 64), (1, 1024, 8, 8, 128), (2, 256, 4, 1, 64),
              (1, 512, 6, 2, 128), (2, 256, 4, 4, 32)]
 FA_GRANITE = (PREFILL_BATCH, PREFILL_SEQ, 48, 1, 128)
+# dbrx-132b's layer shape at its prefill (B=4, S=2048; 48 heads, 8 K/V)
+FA_DBRX = (4, 2048, 48, 8, 128)
 # the kernel tolerances of tests/test_kernels.py (rtol = atol)
 FA_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # the body each dtype must launch (the port's routing table)
@@ -1478,6 +1531,7 @@ def flash_checks() -> dict:
     del q, k, v, qt, kt, vt, lib
     torch.cuda.empty_cache()
     fp32 = fp32_granite(gen)
+    dbrx = flash_at_dbrx(gen)
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces=K4_REPLACES, launches=0, max_abs_err=worst,
@@ -1488,7 +1542,50 @@ def flash_checks() -> dict:
                 library_ms=times[True]["library_ms"],
                 body="flash_fwd_tc<128>", tflops=times[True]["tflops"],
                 timed_on=f"B={B} S={S} H={H} KV={KV} hd={hd} bf16 causal",
-                fp32=fp32)
+                fp32=fp32, dbrx=dbrx)
+
+
+def flash_at_dbrx(gen) -> dict:
+    """K4 at dbrx-132b's prefill shape (FA_DBRX: 48 query heads on 8 K/V
+    heads, G = 6), bf16, both masks: against its plain version (2e-2, the
+    tensor-core body), then timed beside the plain version and
+    ``scaled_dot_product_attention`` with ``enable_gqa``, and its bound."""
+    from repro_torch.kernels.flash_attention import (LAUNCHES,
+                                                     flash_attention)
+
+    B, S, H, KV, hd = FA_DBRX
+    q, k, v = fa_inputs(FA_DBRX, torch.bfloat16, gen)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nbytes = fa_bytes(B, S, H, KV, hd, 2)
+    out = dict(body="flash_fwd_tc<128>", shape=FA_DBRX, dtype="bfloat16")
+    for causal in (True, False):
+        what = f"flash vs plain, {FA_DBRX} bfloat16 causal={causal}"
+        before = LAUNCHES["flash_attention_tc"]
+        got = flash_attention(q, k, v, causal=causal)
+        if LAUNCHES["flash_attention_tc"] != before + 1:
+            fail(f"{what}: not launched on flash_attention_tc")
+        err = close(what, got, fa_plain(q, k, v, causal),
+                    FA_TOL[torch.bfloat16])
+        del got
+        flops = fa_flops(B, S, H, hd, causal)
+        ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal),
+                     reps=10)
+        out["causal" if causal else "full"] = dict(
+            ms=ms, tflops=flops / ms / 1e9, max_abs_err=err,
+            plain_ms=cuda_ms(lambda: fa_plain(q, k, v, causal), reps=2,
+                             warmup=1),
+            library_ms=cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                            enable_gqa=True), reps=10),
+            bound_ms=max(flops / BF16_FLOPS_PER_S,
+                         nbytes / HBM_BYTES_PER_S) * 1e3,
+            bound_by=("operations" if flops / BF16_FLOPS_PER_S
+                      >= nbytes / HBM_BYTES_PER_S else "bytes"))
+        torch.cuda.empty_cache()
+    say("flash attention at dbrx's layer shape:", json.dumps(out))
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    return out
 
 
 def fp32_granite(gen) -> dict:
@@ -1703,6 +1800,622 @@ def lm_main_path() -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the MoE family: the routers, dbrx-132b, llama4-maverick, h2o-danube
+# ---------------------------------------------------------------------------
+MOE_ARCH = "dbrx-132b"
+MOE_SEED = 0
+ROUTER_CPU_TOKENS = 256            # the routers held card against CPU
+DBRX_BATCH, DBRX_SEQ = FA_DBRX[:2]
+DBRX_PROMPT, DBRX_GEN = 16, 16     # served: prompt stepped, tokens generated
+DBRX_FREE_BYTES = 12e9             # left free after the weights are drawn
+LLAMA4_ARCH = "llama4-maverick-400b-a17b"
+DANUBE_ARCH = "h2o-danube-1.8b"
+# (arch, layers or 0 for all, prefill length, first decode position, decode
+# steps): each prefill is a multiple of blockwise_attn's 1024-row blocks
+# (both packages require it above 2048 positions); each decode runs on a
+# fresh cache from 4 positions before the window's end to 4 past it, so the
+# ring wraps (the port, like the JAX package, has no cache-filling prefill,
+# and stepping the whole prompt would take minutes)
+WINDOW_RUNS = [(LLAMA4_ARCH, 1, 8192, 8188, 8),
+               (DANUBE_ARCH, 0, 5120, 4092, 8)]
+ROUTER_RANGE = "moe_router"        # the record_function around each route
+# Gate of dbrx's bf16 prefill by layer, both prefills routed alike: the
+# attention output's ||pallas - xla||_2 / ||xla||_2 in each layer.  Layer 0
+# sees only the two attentions' roundings (K4's scaled check reads ~0.005 in
+# this norm); each later layer also what the residual carries from the
+# layers before it.  A control with one layer's attention zeroed reads 1 in
+# that layer.  The script fails if a control does not exceed the gate.
+LAYER_GAP_TOL = 5e-2
+
+
+@contextlib.contextmanager
+def spying(module, name: str, seen: list, pick=None, label: str = ""):
+    """``module.name`` wrapped while the block runs: ``pick(arguments,
+    result)`` of each call appended to ``seen``, and the call inside a
+    ``record_function(label)`` range when ``label`` is given."""
+    real = getattr(module, name)
+
+    def spy(*args, **kw):
+        with (torch.profiler.record_function(label) if label
+              else contextlib.nullcontext()):
+            out = real(*args, **kw)
+        if pick is not None:
+            seen.append(pick(args, out))
+        return out
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def pinned_routing(module, routes: list):
+    """``module.route_matching`` replaced while the block runs by the
+    routes of an earlier run: its i-th call returns that run's i-th
+    ``(assign, slot)`` and the combine probabilities of these logits for
+    them."""
+    from repro_torch.moe.matching_router import _combine_probs
+    real, it = module.route_matching, iter(routes)
+
+    def replay(logits, k, capacity, **kw):
+        assign, slot = next(it)
+        probs = torch.softmax(logits.float(), dim=-1)
+        return assign, slot, _combine_probs(probs, assign, logits.shape[1])
+    module.route_matching = replay
+    try:
+        yield
+    finally:
+        module.route_matching = real
+
+
+@contextlib.contextmanager
+def attention_outputs(pick):
+    """While the block runs, ``pick(i, output)`` of the i-th attention call
+    of the model (the flash kernel's or the torch-op attention's output,
+    (B, S, H, hd), before the output projection), whichever of the two is
+    in place when the block starts (a control's faulty kernel too)."""
+    from repro_torch.models import attention as att
+    calls = []
+
+    def each(args, out):
+        calls.append(None)
+        return pick(len(calls) - 1, out)
+    with spying(att, "flash_attention", [], each), \
+            spying(att, "_plain_attn", [], each):
+        yield
+
+
+def rel_l2(got, want) -> float:
+    """||got - want||_2 / ||want||_2, in fp32."""
+    want = want.float()
+    return float(torch.linalg.vector_norm(got.float() - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def param_bytes(cfg) -> tuple:
+    """(embedding + head bytes, bytes a layer) of an attention + MoE
+    config: the layer's leaves in the model dtype, its norms and router in
+    fp32."""
+    D, F_, E, V = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.vocab
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    item = cfg.tdtype.itemsize
+    attn = D * hd * (H + 2 * KV) + H * hd * D
+    experts = (3 if cfg.act in ("swiglu", "geglu") else 2) * E * D * F_
+    shared = 3 * D * F_ if cfg.moe_shared_expert else 0
+    layer = (attn + experts + shared) * item + (2 * D + D * E) * 4
+    return 2 * V * D * item + D * 4, layer
+
+
+def check_routing(name, assign, slot, E, C) -> None:
+    """Fail unless the routing is feasible: loads <= C, (expert, slot)
+    unique, no expert twice in a token."""
+    live = assign >= 0
+    loads = torch.zeros(E + 1, dtype=torch.int64, device=assign.device)
+    loads.scatter_add_(0, torch.where(live, assign, E).long().reshape(-1),
+                       torch.ones(assign.numel(), dtype=torch.int64,
+                                  device=assign.device))
+    pairs = (assign.long() * C + slot)[live]
+    a = assign.sort(dim=1).values
+    dup = ((a[:, 1:] == a[:, :-1]) & (a[:, 1:] >= 0)).any()
+    if int(loads[:E].max()) > C or pairs.unique().numel() != pairs.numel() \
+            or bool(dup):
+        fail(f"{name}: infeasible routing (max load {int(loads[:E].max())}"
+             f" of {C}, {pairs.numel() - pairs.unique().numel()} slot "
+             f"collisions, duplicate expert in a token: {bool(dup)})")
+
+
+def router_logits(cfg, tokens) -> torch.Tensor:
+    """Layer 0's router logits of ``cfg``'s seeded model on ``tokens``
+    (one layer drawn: layer 0 is the same in the deeper model, whose
+    generator draws the embedding and then layer 0 first)."""
+    from repro_torch.models import build_model
+    from repro_torch.models import moe
+
+    model = build_model(dataclasses.replace(cfg, n_layers=1))
+    params = model.init(MOE_SEED)
+    with spying(moe, "route_matching", [], lambda a, o: a[0]) as seen:
+        model.forward(params, {"tokens": tokens}, last_only=True)
+    del params
+    torch.cuda.empty_cache()
+    return seen[0]
+
+
+def gadget_cardinality(cxadj, cadj, nc: int, nr: int) -> tuple:
+    """Worker process: the maximum cardinality of a CSR graph by scipy
+    (independent of the code under test), and its seconds."""
+    import numpy as np
+    import scipy.sparse
+    from scipy.sparse.csgraph import maximum_bipartite_matching
+    t0 = time.perf_counter()
+    a = scipy.sparse.csr_matrix((np.ones(len(cadj), np.int8), cadj, cxadj),
+                                shape=(nc, nr))
+    got = int((maximum_bipartite_matching(a, perm_type="column") >= 0).sum())
+    return got, time.perf_counter() - t0
+
+
+def route_levels_checked(g, captured, levels: int) -> int:
+    """The exact route's solve of its gadget graph ``g`` again, uncaptured
+    on the card: the steps of its compile-cache entry (the cheap warm
+    start, then ``MatcherConfig()``'s solve) run one by one from the host,
+    every K1a launch held against the kernel's plain version on the same
+    inputs, bit for bit.  Fails unless it ran the ``levels`` levels of the
+    captured run ``captured`` and ended in its matching.  Returns the
+    levels checked."""
+    from repro_torch.kernels.frontier_expand import frontier_expand_fused_ref
+    from repro_torch.matching import MatcherConfig, solve
+    from repro_torch.matching.warmstart import stages
+
+    real, checked = solve.frontier_expand_fused, []
+
+    def held(*args):
+        got = real(*args)
+        if not torch.equal(got, frontier_expand_fused_ref(*args)):
+            fail(f"K1a differs from its plain version at level "
+                 f"{int(args[5])} of the exact route's solve")
+        checked.append(None)
+        return got
+    prog = solve.MatcherProgram(g.nc, g.nr, g.nnz_pad, MatcherConfig(),
+                                stages("cheap"))
+    prog.program(g.device).capture = False
+    solve.frontier_expand_fused = held
+    try:
+        state = prog(g)
+    finally:
+        solve.frontier_expand_fused = real
+    if len(checked) != levels or not torch.equal(
+            state.cmatch, captured.cmatch) or not torch.equal(
+            state.rmatch, captured.rmatch):
+        fail(f"the exact route's solve run uncaptured: {len(checked)} "
+             f"levels (captured: {levels}), matching equal to the captured "
+             f"run's: {torch.equal(state.cmatch, captured.cmatch)}")
+    return len(checked)
+
+
+def router_phase(cfg, pool) -> tuple:
+    """The three routers on dbrx's layer-0 router logits of one prefill
+    sequence: feasible, the exact router certified and dropping no more
+    than the other two, timed; the first ROUTER_CPU_TOKENS tokens also on
+    the CPU, bit for bit; K1a against its plain version at every level of
+    the exact route's solve (:func:`route_levels_checked`).  scipy's cardinality of the gadget graph is
+    left to a worker of ``pool``.  Returns (K1a's launches in one exact
+    route, the levels it was checked at, the matcher's cardinality, the
+    worker's future)."""
+    from repro_torch.configs.shapes import ShapeCell, make_inputs
+    from repro_torch.kernels.frontier_expand import LAUNCHES, reset_launches
+    from repro_torch.matching import (Matcher, MatcherConfig,
+                                      compile_cache_clear)
+    from repro_torch.models.moe import capacity_for
+    from repro_torch.moe import (route_matching, route_matching_exact,
+                                 route_topk, router_stats)
+    from repro_torch.moe.matching_router import _gadget_graph, _top
+
+    tokens = make_inputs(cfg, ShapeCell("prefill", DBRX_SEQ, DBRX_BATCH,
+                                        "prefill"), seed=MOE_SEED)["tokens"]
+    logits = router_logits(cfg, tokens[:1])
+    T, E = logits.shape
+    k, m = cfg.top_k, min(E, cfg.top_k + 2)
+    C = capacity_for(cfg, T)
+    routers = {"topk": route_topk, "matching": route_matching,
+               "exact": route_matching_exact}
+    row = dict(tokens=T, experts=E, top_k=k, candidates=m, capacity=C)
+
+    g = _gadget_graph(_top(logits, m), k, E, C)
+    row["gadget"] = dict(nc=g.nc, nr=g.nr, nnz=g.nnz)
+    say("router gadget graph:", json.dumps(row["gadget"]))
+    scipy_check = pool.submit(gadget_cardinality, g.cxadj.cpu().numpy(),
+                              g.cadj.cpu().numpy(), g.nc, g.nr)
+    matcher = Matcher(MatcherConfig(), warm_start="cheap")
+    state = matcher.run(g)
+    got = int(state.cardinality)
+    row.update(cardinality=got, certified=bool(state.certified),
+               solver_counts=matcher.last_counts)
+    if not state.certified:
+        fail("exact router's matching: not certified")
+    levels = route_levels_checked(g, state, row["solver_counts"]["levels"])
+    row["k1a_levels_checked"] = levels
+    del g, state
+
+    reset_launches()
+    torch.cuda.synchronize()
+    out = {"exact": route_matching_exact(logits, k, C)}
+    torch.cuda.synchronize()
+    launches = LAUNCHES["frontier_expand_fused_wr"]
+    row["k1a_launches_one_exact_route"] = launches
+    if not launches:
+        fail("the exact router did not launch the fused frontier kernel")
+    out["topk"] = route_topk(logits, k, C)
+    out["matching"] = route_matching(logits, k, C)
+    drops = {}
+    for name, fn in routers.items():
+        check_routing(f"router {name}", out[name][0], out[name][1], E, C)
+        drops[name] = float(router_stats(out[name][0], k)["drop_rate"])
+        row[f"{name}_ms"] = cuda_ms(lambda: fn(logits, k, C),
+                                    reps=3 if name == "exact" else 10,
+                                    warmup=1)
+    row["drop_rate"] = drops
+    if drops["exact"] > min(drops["topk"], drops["matching"]) + 1e-9:
+        fail(f"the exact router drops more than another: {drops}")
+
+    # the first tokens on the CPU, the plain versions, bit for bit
+    Tc = ROUTER_CPU_TOKENS
+    Cc = capacity_for(cfg, Tc)
+    row["cpu_check"] = dict(tokens=Tc, capacity=Cc, gadget_nnz=Tc * m * (
+        k + 1 + Cc))
+    for name, fn in routers.items():
+        card = fn(logits[:Tc], k, Cc)
+        cpu = fn(logits[:Tc].cpu(), k, Cc)
+        same = all(torch.equal(x.cpu(), y) for x, y in zip(card[:2], cpu[:2]))
+        perr = float((card[2].cpu() - cpu[2]).abs().max())
+        row["cpu_check"][name] = dict(assign_slot_equal=same, p_max_abs=perr)
+        if not same or not perr <= 1e-6:
+            fail(f"router {name} at T={Tc}: card and CPU differ (assign "
+                 f"and slot equal: {same}, p max |d| {perr})")
+    say("routers:", json.dumps(row))
+    del logits, out
+    compile_cache_clear()
+    torch.cuda.empty_cache()
+    return launches, row["k1a_levels_checked"], got, scipy_check
+
+
+def moe_fp32_checks(cfg) -> None:
+    """dbrx-132b at full width, two layers, fp32 on the card: the forward
+    with K4 (on the CUDA-core body, once a layer) against the torch-op
+    attention (1e-3), and teacher-forced decode against the forward (2e-3,
+    the JAX package's test_decode_matches_forward tolerance) with
+    ``capacity_factor = n_experts / top_k``.  Only with that override can
+    no token drop: otherwise the capacity depends on the token count,
+    which differs between the forward (B*S tokens) and a decode step (B
+    tokens), so decode does not equal the forward for an MoE in either
+    package."""
+    from repro_torch.kernels.flash_attention import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    pallas = build_model(cfg)
+    xla = build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    params = pallas.init(MOE_SEED)
+    gen = torch.Generator(device=CARD).manual_seed(MOE_SEED + 1)
+    toks = torch.randint(0, cfg.vocab, (FP32_BATCH, FP32_SEQ), generator=gen,
+                         device=CARD)
+    reset_launches()
+    full, _ = pallas.forward(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    say(f"{cfg.name} fp32 2-layer forward, flash launches:",
+        json.dumps(LAUNCHES))
+    if LAUNCHES["flash_attention_simt"] != cfg.n_layers or \
+            LAUNCHES["flash_attention"] != cfg.n_layers:
+        fail(f"fp32 forward launched the flash kernel {dict(LAUNCHES)}, not "
+             f"{cfg.n_layers} times on the CUDA-core body")
+    ref, _ = xla.forward(params, {"tokens": toks})
+    close(f"{cfg.name} fp32 2-layer forward, pallas vs xla", full, ref, 1e-3)
+    nodrop = build_model(dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k))
+    full, _ = nodrop.forward(params, {"tokens": toks})
+    cache = nodrop.init_cache(FP32_BATCH, FP32_SEQ)
+    outs = []
+    for t in range(FP32_SEQ):
+        lg, cache = nodrop.decode_step(params, cache, toks[:, t:t + 1], t)
+        outs.append(lg[:, 0])
+    close(f"{cfg.name} fp32 2-layer teacher-forced decode ({FP32_SEQ} "
+          f"steps, capacity_factor {nodrop.cfg.capacity_factor}) vs forward",
+          torch.stack(outs, 1), full, 2e-3)
+    del params, cache, full, ref, outs
+    torch.cuda.empty_cache()
+
+
+def moe_main_path(cfg) -> int:
+    """dbrx-132b at full width, bf16, as many layers as leave
+    DBRX_FREE_BYTES free, seeded weights: the serving prefill through K4
+    (counts set to 0 just before, read just after), each layer's drop rate
+    and load-balance loss, the same prefill through the torch-op attention
+    (free-running: its gap and the router assignments that differ printed;
+    routed as the kernel's run: the logits within LOGIT_GAP_TOL and each
+    layer's attention output within LAYER_GAP_TOL) and with layer 0's or
+    the middle layer's attention zeroed under that routing (controls that
+    must exceed the per-layer gate, layer 0's also the logits gate), greedy
+    serving, and the router's share of device time in the prefill and in
+    serve steps.  Returns K4's launches in the prefill."""
+    from repro_torch.configs.shapes import ShapeCell, make_inputs
+    from repro_torch.kernels.flash_attention import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.models import moe
+    from repro_torch.train import build_prefill_step
+
+    emb, layer = param_bytes(cfg)
+    # left free after the weights: DBRX_FREE_BYTES, and at least what
+    # drawing the last layer holds beside the stack (that layer, and its
+    # largest leaf's fp32 draw and bf16 copy)
+    margin = max(DBRX_FREE_BYTES,
+                 layer + 6 * cfg.n_experts * cfg.d_model * cfg.d_ff)
+    free = torch.cuda.mem_get_info()[0]
+    depth = min(cfg.n_layers, int((free - margin - emb) // layer))
+    if depth < 1:
+        fail(f"{cfg.name}: {free / 1e9:.1f} GB free holds no layer")
+    cfg = dataclasses.replace(cfg, n_layers=depth)
+    model = build_model(cfg)
+    params, init_s, _ = timed(lambda: model.init(MOE_SEED))
+    say(f"{cfg.name}: {depth} of 40 layers (reduced: n_layers 40 -> "
+        f"{depth}; {layer / 1e9:.2f} GB a layer, {emb / 1e9:.2f} GB "
+        f"embeddings, {free / 1e9:.1f} GB free before, "
+        f"{margin / 1e9:.2f} GB kept free), "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+        f"{torch.cuda.mem_get_info()[0] / 1e9:.1f} GB free, initialised in "
+        f"{init_s:.1f} s")
+    batch = make_inputs(cfg, ShapeCell("prefill", DBRX_SEQ, DBRX_BATCH,
+                                       "prefill"), seed=MOE_SEED)
+    prefill = build_prefill_step(model)
+    prefill(params, {"tokens": batch["tokens"][:1, :128]})   # warm-up
+    aux, routed = [], []
+    reset_launches()
+    with spying(moe, "moe_ffn", aux, lambda a, o: o[1]), \
+            spying(moe, "route_matching", routed, lambda a, o: o[:2]):
+        logits, wall, peak = timed(lambda: prefill(params, batch))
+    launches, by_body = LAUNCHES["flash_attention"], dict(LAUNCHES)
+    tokens = DBRX_BATCH * DBRX_SEQ
+    layers = [dict(drop_rate=float(a["drop_rate"]),
+                   lb_loss=float(a["lb_loss"])) for a in aux]
+    say("moe main path:", json.dumps(dict(
+        run="prefill", arch=cfg.name, n_layers=depth, attn_impl="pallas",
+        batch=DBRX_BATCH, seq=DBRX_SEQ, wall_s=wall,
+        prefill_tokens_per_s=tokens / wall, peak_memory_bytes=peak,
+        flash_launches=by_body, layers=layers)))
+    if launches != depth or by_body["flash_attention_tc"] != depth:
+        fail(f"prefill launched the flash kernel {by_body}, not {depth} "
+             f"times on the tensor-core body")
+    if len(layers) != depth or len(routed) != depth:
+        fail(f"{len(layers)} MoE layers and {len(routed)} routes ran, not "
+             f"{depth}")
+    if logits.shape != (DBRX_BATCH, 1, cfg.vocab) or \
+            not torch.isfinite(logits.float()).all():
+        fail(f"prefill logits {tuple(logits.shape)} not finite or not of "
+             f"shape ({DBRX_BATCH}, 1, {cfg.vocab})")
+
+    # The gates.  In bf16 the two attentions round differently (a few
+    # ulps), which moves the router's fp32 logits by ~1 % at layer 0, whose
+    # MoE input the attention alone sets, and flips near-ties; a flipped
+    # token changes the matching router's cascade for others, and the flips
+    # compound layer by layer (on an H100 at 10 layers: 458 of 32,768
+    # assignments at layer 0, 9,140 at layer 9; logits 0.274 apart).  So
+    # the free-running xla prefill's gap and flips are printed, and the
+    # gates hold the attentions under one routing: the xla prefill with
+    # every layer routed as the kernel's run routed it (pinned_routing).
+    # Two gates: the last-position logits (LOGIT_GAP_TOL, as granite's) and
+    # each layer's attention output (LAYER_GAP_TOL), which sees a fault in
+    # any layer, where the logits see only layer 0's (below).
+    xla = build_prefill_step(build_model(
+        dataclasses.replace(cfg, attn_impl="xla")))
+    routed_x = []
+    with spying(moe, "route_matching", routed_x, lambda a, o: o[0]):
+        free, wall_x, peak_x = timed(lambda: xla(params, batch))
+    flips = [int((a != b).sum()) for (a, _), b in zip(routed, routed_x)]
+    flipped = [int((a != b).any(1).sum())
+               for (a, _), b in zip(routed, routed_x)]
+    del routed_x
+    free_gap = float((logits[:, 0].float() - free[:, 0].float()).abs().max()
+                     / free[:, 0].float().abs().max())
+    del free, logits
+    want_attn = []
+    with pinned_routing(moe, routed), \
+            attention_outputs(lambda i, o: want_attn.append(o)):
+        ref = xla(params, batch)
+    want = ref[:, 0].float()
+    del ref
+    if len(want_attn) != depth:
+        fail(f"the xla prefill made {len(want_attn)} attention calls, not "
+             f"{depth}")
+
+    def pinned_prefill(fault=None):
+        """(last-position logits, per-layer attention gaps) of the kernel's
+        prefill routed as its first run, ``fault`` in place of the kernel
+        when given."""
+        gaps = []
+
+        def run():
+            with attention_outputs(lambda i, o: gaps.append(
+                    rel_l2(o, want_attn[i]))):
+                return prefill(params, batch)
+        with pinned_routing(moe, routed):
+            out = with_attention(fault, run) if fault else run()
+        got = out[:, 0].float()
+        return got, float((got - want).abs().max() / want.abs().max()), gaps
+
+    got, gap, gaps = pinned_prefill()
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    say("moe main path:", json.dumps(dict(
+        run="prefill", attn_impl="xla (_plain_attn)", wall_s=wall_x,
+        prefill_tokens_per_s=tokens / wall_x, peak_memory_bytes=peak_x,
+        free_running=dict(
+            pallas_vs_xla_rel_gap=free_gap,
+            router_assignments_differing_by_layer=flips,
+            tokens_routed_differently_by_layer=flipped,
+            assignments_per_layer=tokens * cfg.top_k),
+        pinned_routing=dict(pallas_vs_xla_rel_gap=gap,
+                            tolerance=LOGIT_GAP_TOL,
+                            argmax_agree=f"{agree}/{DBRX_BATCH}",
+                            attention_rel_l2_by_layer=gaps,
+                            layer_tolerance=LAYER_GAP_TOL))))
+    if not gap <= LOGIT_GAP_TOL:
+        fail(f"prefill logits, pallas vs xla (one routing): max |d| / max "
+             f"|ref| = {gap} > {LOGIT_GAP_TOL}")
+    if len(gaps) != depth or not max(gaps) <= LAYER_GAP_TOL:
+        fail(f"attention outputs, pallas vs xla (one routing), by layer: "
+             f"{gaps}, not {depth} within {LAYER_GAP_TOL}")
+    # Controls, under the same routing: one layer's attention zero, layer
+    # 0's and the middle layer's; each must fail the per-layer gate.  The
+    # logits gate must see layer 0's.  From layer 1 on, a layer's attention
+    # output (~1-10) is small beside the MoE outputs the residual carries
+    # (~1e3-1e4: dense_init draws the expert weights with fan_in = E, std
+    # 1/4), so the logits gate does not see the middle layer's zeroed (its
+    # reading is printed).
+    for skipped in (0, depth // 2):
+        t0 = time.perf_counter()
+        ctrl, ctrl_gap, ctrl_gaps = pinned_prefill(skip_attention(skipped))
+        say("moe main path:", json.dumps(dict(
+            run="prefill, control, one routing",
+            fault=f"attention of layer {skipped} zero",
+            logits_gated=skipped == 0, wall_s=time.perf_counter() - t0,
+            control_vs_xla_rel_gap=ctrl_gap, tolerance=LOGIT_GAP_TOL,
+            argmax_agree=f"{int((ctrl.argmax(-1) == want.argmax(-1)).sum())}"
+                         f"/{DBRX_BATCH}",
+            attention_rel_l2_by_layer=ctrl_gaps,
+            layer_tolerance=LAYER_GAP_TOL)))
+        if skipped == 0 and not ctrl_gap > LOGIT_GAP_TOL:
+            fail(f"the control prefill reads {ctrl_gap}, within the gate "
+                 f"{LOGIT_GAP_TOL}: the gate would not see that fault")
+        if not max(ctrl_gaps) > LAYER_GAP_TOL:
+            fail(f"the control prefill's attention gaps {ctrl_gaps} are "
+                 f"within {LAYER_GAP_TOL}: the per-layer gate would not see "
+                 f"that fault")
+    del routed, want_attn, want, got
+
+    prompt = make_inputs(cfg, ShapeCell("serve", DBRX_PROMPT, DBRX_BATCH,
+                                        "prefill"), seed=MOE_SEED)["tokens"]
+    (out, t), wall_s, peak_s = timed(
+        lambda: generate(model, params, prompt, DBRX_GEN))
+    say("moe main path:", json.dumps(dict(
+        run="serve (prompt stepped, greedy decode)", batch=DBRX_BATCH,
+        prompt=DBRX_PROMPT, generated=DBRX_GEN, wall_s=wall_s,
+        prompt_ms_per_step=t["prompt_s"] / t["prompt_steps"] * 1e3,
+        decode_ms_per_step=t["gen_s"] / t["gen_steps"] * 1e3,
+        peak_memory_bytes=peak_s, first_tokens=out[:, :4].tolist())))
+    if out.shape != (DBRX_BATCH, DBRX_GEN) or int(out.min()) < 0 or \
+            int(out.max()) >= cfg.vocab:
+        fail(f"serving gave tokens of shape {tuple(out.shape)} outside "
+             f"[0, {cfg.vocab})")
+
+    # where the time goes, the router's share of device time included
+    with spying(moe, "route_matching", [], label=ROUTER_RANGE):
+        say("profile:", json.dumps(dict(
+            run=f"{cfg.name} prefill, pallas", **device_profile(
+                lambda: prefill(params, batch), {"flash": "flash_fwd"},
+                ranges=(ROUTER_RANGE,)))))
+        say("profile:", json.dumps(dict(
+            run=f"{cfg.name} serve, 1 prompt + 1 decode step",
+            **device_profile(lambda: generate(model, params, prompt[:, :1],
+                                              2), {},
+                             ranges=(ROUTER_RANGE,)))))
+    del params, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def window_run(arch, n_layers, seq, first, steps) -> None:
+    """A sliding-window or chunked config at full width, bf16, seeded
+    weights (``n_layers`` of them, 0 for all): a B=1 prefill of ``seq``
+    tokens, then ``steps`` greedy decode steps from position ``first`` on a
+    fresh ring cache, across the window's end.  Gate: finite logits, the
+    ring's positions as the wrap leaves them."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeCell, make_inputs
+    from repro_torch.models import build_model
+    from repro_torch.models import moe
+    from repro_torch.train import build_prefill_step
+
+    cfg = get_config(arch)
+    reduced = {}
+    if n_layers and n_layers != cfg.n_layers:
+        reduced = {"n_layers": [cfg.n_layers, n_layers]}
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg)
+    params, init_s, _ = timed(lambda: model.init(MOE_SEED))
+    tokens = make_inputs(cfg, ShapeCell("prefill", seq, 1, "prefill"),
+                         seed=MOE_SEED)["tokens"]
+    prefill = build_prefill_step(model)
+    prefill(params, {"tokens": tokens[:, :128]})            # warm-up
+    aux = []
+    with spying(moe, "moe_ffn", aux, lambda a, o: o[1]["drop_rate"]):
+        logits, wall, peak = timed(lambda: prefill(params,
+                                                   {"tokens": tokens}))
+    if not torch.isfinite(logits.float()).all():
+        fail(f"{cfg.name}: prefill logits not finite")
+    cache = model.init_cache(1, first + steps)
+    ring = cache["k"].shape[2]
+    tok = logits[:, -1:].argmax(-1)
+
+    def decode():
+        nonlocal cache, tok
+        for pos in range(first, first + steps):
+            lg, cache = model.decode_step(params, cache, tok, pos)
+            if not torch.isfinite(lg.float()).all():
+                fail(f"{cfg.name}: decode logits at position {pos} not "
+                     f"finite")
+            tok = lg[:, -1:].argmax(-1)
+    _, wall_d, peak_d = timed(decode)
+    idx = cache["idx"]
+    held = sorted(int(i) for i in idx[idx >= 0].tolist())
+    if held != list(range(first, first + steps)):
+        fail(f"{cfg.name}: the ring holds positions {held}")
+    say("window run:", json.dumps(dict(
+        arch=cfg.name, attn=cfg.attn, window=cfg.window, ring=ring,
+        reduced=reduced, init_s=init_s, prefill_seq=seq,
+        prefill_wall_s=wall, prefill_tokens_per_s=seq / wall,
+        prefill_peak_memory_bytes=peak,
+        drop_rate=[float(d) for d in aux],
+        decode_positions=[first, first + steps - 1],
+        ring_slots=[first % ring, (first + steps - 1) % ring],
+        decode_ms_per_step=wall_d / steps * 1e3,
+        decode_peak_memory_bytes=peak_d)))
+    del params, cache, logits
+    torch.cuda.empty_cache()
+
+
+def moe_phases() -> tuple:
+    """Phases 10-14: the routers, dbrx-132b in fp32 and at full width in
+    bf16, llama4-maverick and h2o-danube past their windows.  Returns
+    (K1a's launches in one exact route, the levels K1a was checked at on
+    its gadget graph, K4's launches in dbrx's prefill)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH, attn_impl="pallas")
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        t0 = time.perf_counter()
+        k1a, k1a_levels, got, scipy_check = router_phase(cfg, pool)
+        phase("routers", t0)
+        t0 = time.perf_counter()
+        moe_fp32_checks(cfg)
+        phase("moe fp32 two-layer checks", t0)
+        t0 = time.perf_counter()
+        k4 = moe_main_path(cfg)
+        phase("moe main path", t0)
+        for run in WINDOW_RUNS:
+            t0 = time.perf_counter()
+            window_run(*run)
+            phase(f"{run[0]} past its window", t0)
+        want, scipy_s = scipy_check.result()
+    finally:
+        pool.shutdown(cancel_futures=True)
+    say("router gadget graph:", json.dumps(dict(
+        cardinality=got, scipy_cardinality=want, scipy_s=scipy_s)))
+    if got != want:
+        fail(f"exact router's matching: cardinality {got}, scipy {want}")
+    return k1a, k1a_levels, k4
+
+
 def lm_phases() -> dict:
     """Phases 7-9: K4 against its plain version, the fp32 two-layer checks,
     the granite-20b main path.  Returns the kernel's entry."""
@@ -1764,6 +2477,16 @@ def main() -> int:
         pool.join()
     torch.cuda.empty_cache()
     kernels.append(lm_phases())
+    k1a, k1a_levels, k4 = moe_phases()
+    for entry in kernels:
+        if entry["name"] == "frontier_expand_fused_wr":
+            entry["launches"] += k1a
+            entry["launches_exact_router"] = k1a
+            entry["levels_checked"] += k1a_levels
+            entry["levels_checked_exact_router"] = k1a_levels
+        if entry["name"] == "flash_attention":
+            entry["launches"] += k4
+            entry["launches_dbrx_prefill"] = k4
 
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

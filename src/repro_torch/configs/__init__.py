@@ -1,7 +1,8 @@
 """Architecture registry of the port: the JAX package's ten names, of
-which the dense full-attention family is ported (FULL and SMOKE configs
-copied field for field).  ``get_config`` for any other architecture raises
-and names the ROADMAP item that will port it."""
+which the dense family (full attention and sliding window) and the MoE
+family are ported (FULL and SMOKE configs copied field for field).
+``get_config`` for any other architecture raises and names the ROADMAP
+item that will port it."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,15 +23,13 @@ _ARCHS = {
     "paligemma-3b": "paligemma_3b",
     "mamba2-2.7b": "mamba2_2_7b",
 }
-# the architectures whose family the port runs (dense, full attention)
-PORTED = ("nemotron-4-340b", "deepseek-coder-33b", "granite-20b")
-# what each of the others waits for (ROADMAP.md, Queue 1, item 13)
+# the architectures whose family the port runs
+PORTED = ("h2o-danube-1.8b", "nemotron-4-340b", "deepseek-coder-33b",
+          "granite-20b", "llama4-maverick-400b-a17b", "dbrx-132b")
+# what each of the others waits for (all ROADMAP.md, Queue 1, item 7)
 _WAITS = {
     "seamless-m4t-medium": "the encoder-decoder family",
-    "h2o-danube-1.8b": "the sliding-window configs",
     "zamba2-7b": "the hybrid SSM family",
-    "llama4-maverick-400b-a17b": "the MoE family",
-    "dbrx-132b": "the MoE family",
     "paligemma-3b": "the vision-prefix family",
     "mamba2-2.7b": "the SSM family",
 }
@@ -50,7 +49,7 @@ def get_config(name: str, smoke: bool = False, **overrides) -> ModelConfig:
     if key not in PORTED:
         raise NotImplementedError(
             f"{key} is not ported yet: it waits for {_WAITS[key]} "
-            f"(ROADMAP.md, Queue 1, item 13)")
+            f"(ROADMAP.md, Queue 1, item 7)")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[key]}")
     cfg = getattr(mod, "SMOKE" if smoke else "FULL")
     if overrides:

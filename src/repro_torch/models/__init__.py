@@ -1,4 +1,4 @@
-"""The LM substrate of the port: the dense decoder-only family."""
+"""The LM substrate of the port: the dense and MoE decoder-only families."""
 from .common import ModelConfig
 from .transformer import Model, build_model
 

@@ -129,7 +129,7 @@ def attention(params, x, pos, cfg: ModelConfig, *, mask_kind: str,
     if kv_x is not None:
         raise NotImplementedError(
             "cross-attention (kv_x) belongs to the enc-dec family, which is "
-            "not ported yet (ROADMAP.md, Queue 1, item 13)")
+            "not ported yet (ROADMAP.md, Queue 1, item 7)")
     B, S, D = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, params["wk"])

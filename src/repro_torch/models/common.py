@@ -63,8 +63,9 @@ class ModelConfig:
     fsdp: bool = False
     remat: bool = True
     attn_impl: str = "xla"         # xla | pallas (flash kernel)
-    # beyond-baseline knobs of the JAX package; not ported yet (a config
-    # that sets either is refused by ``build_model``)
+    # beyond-baseline knobs of the JAX package: opt_moe_dispatch is ported
+    # (models/moe.py); a config that sets either of the other two is
+    # refused by ``build_model``
     opt_attn_layout: bool = False
     opt_moe_dispatch: bool = False
     opt_kv_quant: bool = False
@@ -136,7 +137,7 @@ def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
     std = 1.0 / math.sqrt(max(1, fan_in))
     x = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)       # in place: one fp32 draw alive
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float

@@ -11,10 +11,13 @@ a ``Model`` with:
   init_cache(batch, max_len)     -> cache
   decode_step(params, cache, tokens, pos) -> (logits, cache)
 
-``batch`` is a dict ``{"tokens": (B, S) int}``.  Not ported yet: the MoE,
-SSM and hybrid families, the encoder-decoder and the vision prefix
-(ROADMAP.md, Queue 1, item 13), and the ``opt_attn_layout`` and
-``opt_kv_quant`` knobs; ``build_model`` refuses a config that needs any.
+``batch`` is a dict ``{"tokens": (B, S) int}``.  Blocks are ``attn``
+(dense FFN) or, for the MoE family, ``moe`` (:mod:`.moe`); ``forward``'s
+``aux["lb_loss"]`` is the load-balance loss summed over the layers.  Not
+ported yet: the SSM and hybrid families, the encoder-decoder and the
+vision prefix, and the ``opt_attn_layout`` and ``opt_kv_quant`` knobs
+(ROADMAP.md, Queue 1, item 7); ``build_model`` refuses a config that needs
+any.
 """
 from __future__ import annotations
 
@@ -27,31 +30,42 @@ from repro_torch._device import resolve_device
 
 from . import attention as att
 from . import mlp as mlp_mod
+from . import moe as moe_mod
 from .common import ModelConfig, dense_init, rms_norm, tree_leaves, tree_map
 
-_ROADMAP = "ROADMAP.md, Queue 1, item 13"
+_ROADMAP = "ROADMAP.md, Queue 1, item 7"
 
 
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
-def init_block(gen: torch.Generator, cfg: ModelConfig):
+def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str):
     dev = gen.device
+    ffn = moe_mod.init_moe if kind == "moe" else mlp_mod.init_mlp
     return {"ln1": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                device=dev),
             "ln2": torch.zeros((cfg.d_model,), dtype=torch.float32,
                                device=dev),
             "attn": att.init_attn(gen, cfg),
-            "ffn": mlp_mod.init_mlp(gen, cfg)}
+            "ffn": ffn(gen, cfg)}
 
 
-def block_fwd(params, x, pos, cfg: ModelConfig, mask_kind: str,
+def ffn_fwd(params, h, cfg: ModelConfig, kind: str):
+    """The block's feed-forward: (output, aux); aux is empty for a dense
+    block."""
+    if kind == "moe":
+        return moe_mod.moe_ffn(params, h, cfg)
+    return mlp_mod.mlp(params, h, cfg), {}
+
+
+def block_fwd(params, x, pos, cfg: ModelConfig, kind: str, mask_kind: str,
               prefix_len: int = 0):
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     x = x + att.attention(params["attn"], h, pos, cfg, mask_kind=mask_kind,
                           prefix_len=prefix_len)
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
-    return x + mlp_mod.mlp(params["ffn"], h, cfg)
+    y, aux = ffn_fwd(params["ffn"], h, cfg, kind)
+    return x + y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -115,7 +129,7 @@ class Model:
     def __post_init__(self):
         cfg = self.cfg
         missing = []
-        if cfg.family in ("moe", "ssm", "hybrid"):
+        if cfg.family in ("ssm", "hybrid"):
             missing.append(f"the {cfg.family} family")
         if cfg.enc_layers:
             missing.append("the encoder-decoder")
@@ -135,7 +149,8 @@ class Model:
              ) -> Dict[str, Any]:
         """Parameters drawn from ``rng`` (a seed, or a generator whose
         device is then used).  The stacked (L, ...) tensors are filled one
-        layer at a time, so no whole-stack fp32 transient exists."""
+        layer at a time: beside the stack, one layer and one leaf's fp32
+        draw are alive at a time."""
         if isinstance(rng, torch.Generator):
             gen = rng
         else:
@@ -143,15 +158,20 @@ class Model:
             gen.manual_seed(int(rng))
         cfg = self.cfg
         params = {"embed": init_embed(gen, cfg)}
-        first = init_block(gen, cfg)
-        layers = tree_map(lambda t: t.new_empty((cfg.n_layers,) + t.shape),
-                          first)
+        layers = None
         for i in range(cfg.n_layers):
-            block = first if i == 0 else init_block(gen, cfg)
+            block = init_block(gen, cfg, self._block_kind())
+            if layers is None:
+                layers = tree_map(
+                    lambda t: t.new_empty((cfg.n_layers,) + t.shape), block)
             for dst, src in zip(tree_leaves(layers), tree_leaves(block)):
                 dst[i].copy_(src)
+            del block
         params["layers"] = layers
         return params
+
+    def _block_kind(self) -> str:
+        return "moe" if self.cfg.family == "moe" else "attn"
 
     def _mask_kind(self) -> str:
         return {"full": "causal", "swa": "swa", "chunked": "chunked"}[
@@ -165,11 +185,15 @@ class Model:
         B, S = tokens.shape
         x = embed_tokens(params["embed"], tokens, cfg)
         pos = torch.arange(S, dtype=torch.int32, device=x.device)
-        mask_kind = self._mask_kind()
+        mask_kind, kind = self._mask_kind(), self._block_kind()
         layers = params["layers"]
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        lbs = []
         for i in range(cfg.n_layers):
-            x = block_fwd(_layer(layers, i), x, pos, cfg, mask_kind)
-        lb = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = block_fwd(_layer(layers, i), x, pos, cfg, kind,
+                               mask_kind)
+            lbs.append(aux.get("lb_loss", zero))
+        lb = torch.stack(lbs).sum()
         if last_only:
             # serving prefill needs only the next-token logits
             return lm_head(params["embed"], x[:, -1:], cfg), {"lb_loss": lb}
@@ -202,7 +226,8 @@ class Model:
             x = x + att.decode_attention(lp["attn"], h, k_i, v_i, cidx, pos,
                                          cfg)
             h = rms_norm(x, lp["ln2"], cfg.norm_eps)
-            x = x + mlp_mod.mlp(lp["ffn"], h, cfg)
+            y, _ = ffn_fwd(lp["ffn"], h, cfg, self._block_kind())
+            x = x + y
         logits = lm_head(params["embed"], x, cfg)
         return logits, dict(cache, pos=pos + 1)
 

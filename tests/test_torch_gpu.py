@@ -687,6 +687,115 @@ def test_cuda_model_pallas_equals_xla_and_cpu():
     torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_at_dbrx_shape(dtype):
+    """dbrx-132b's attention shape (48 query heads on 8 K/V heads, G = 6,
+    hd 128) at B=2, S=512, both masks, against the plain version on the
+    CPU; the body its dtype routes to launches once a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    body = ("flash_attention_simt" if dtype == torch.float32
+            else "flash_attention_tc")
+    q, k, v = _qkv(2, 512, 48, 8, 128, dtype, seed=48)
+    fa.reset_launches()
+    for causal in (True, False):
+        got = fa.flash_attention(q.cuda(), k.cuda(), v.cuda(), causal=causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_ref(q, k, v, causal=causal)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=tol, atol=tol)
+    assert fa.LAUNCHES[body] == fa.LAUNCHES["flash_attention"] == 2
+
+
+@pytest.mark.gpu
+def test_cuda_routers_equal_cpu():
+    """The three MoE routers on the card against the CPU at dbrx's router
+    shape cut to T=256 (E=16, k=4, m=6, C=80): ``assign`` and ``slot`` bit
+    for bit, probabilities within 1e-6; the exact router's gadget graph
+    (130,560 edges) is solved through the fused frontier kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.moe import (route_matching, route_matching_exact,
+                                 route_topk)
+    T, E, k, C = 256, 16, 4, 80
+    gen = torch.Generator().manual_seed(11)
+    logits = torch.randn(T, E, generator=gen) + torch.linspace(1.5, 0, E)
+    logits[::9, 5] = logits[::9, 2]                 # exact ties
+    for route in (route_topk, route_matching, route_matching_exact):
+        reset_launches()
+        got = route(logits.cuda(), k, C)
+        torch.cuda.synchronize()
+        want = route(logits, k, C)
+        for name, a, b in zip(("assign", "slot"), got, want):
+            assert torch.equal(a.cpu(), b), (route.__name__, name)
+        torch.testing.assert_close(got[2].cpu(), want[2], rtol=0, atol=1e-6)
+        fused = LAUNCHES["frontier_expand_fused_wr"]
+        assert (fused > 0) == (route is route_matching_exact), \
+            (route.__name__, fused)
+
+
+@pytest.mark.gpu
+def test_cuda_unpadded_gadget_graph_equals_padded_and_cpu():
+    """The exact router does not bucket its gadget graph.  At T=63, m=3
+    (E=6, k=2, C=19) it has 4,158 edges, no multiple of the fused kernel's
+    four slots a thread, so the kernel's scalar tail runs.  Solved on the
+    card unpadded and padded to its ``bucket_nnz``, it gives one matching,
+    the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.matching.device_csr import bucket_nnz
+    from repro_torch.moe.matching_router import _gadget_graph, _top
+    T, E, k, m = 63, 6, 2, 3
+    C = int(0.9 * 64 * k / E)
+    gen = torch.Generator().manual_seed(7)
+    cand = _top(torch.randn(T, E, generator=gen) + torch.linspace(2, 0, E),
+                m)
+    got = []
+    for device in ("cpu", "cuda"):
+        g = _gadget_graph(cand.to(device), k, E, C)
+        assert g.nnz == g.nnz_pad == 4158 and bucket_nnz(g.nnz) > g.nnz
+        for graph in (g, g.pad_to(bucket_nnz(g.nnz))):
+            reset_launches()
+            state = Matcher(MatcherConfig(), warm_start="cheap").run(graph)
+            assert bool(state.certified), (device, graph.nnz_pad)
+            assert (LAUNCHES["frontier_expand_fused_wr"] > 0) == \
+                (device == "cuda"), (device, dict(LAUNCHES))
+            got.append((state.cmatch.cpu(), state.rmatch.cpu()))
+    for cmatch, rmatch in got[1:]:
+        assert torch.equal(cmatch, got[0][0])
+        assert torch.equal(rmatch, got[0][1])
+
+
+@pytest.mark.gpu
+def test_cuda_moe_model_pallas_equals_xla_and_cpu():
+    """A SMOKE dbrx model (fp32) on the card: ``attn_impl="pallas"``
+    launches the kernel once per layer and agrees with "xla" and with the
+    CPU; the MoE layers route on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pallas = build_model(get_config("dbrx-132b", smoke=True,
+                                    attn_impl="pallas"))
+    xla = build_model(get_config("dbrx-132b", smoke=True))
+    params = pallas.init(0, device="cpu")
+    on_card = tree_map(lambda t: t.cuda(), params)
+    toks = torch.randint(0, 512, (2, 96), generator=torch.Generator()
+                         .manual_seed(1))
+    fa.reset_launches()
+    got, aux = pallas.forward(on_card, {"tokens": toks.cuda()})
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] == pallas.cfg.n_layers
+    ref, _ = xla.forward(on_card, {"tokens": toks.cuda()})
+    cpu, cpu_aux = pallas.forward(params, {"tokens": toks})
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux["lb_loss"].cpu(), cpu_aux["lb_loss"],
+                               rtol=1e-5, atol=1e-5)
+
+
 # ---- the captured solve: one cache entry per bucket, graphs replayed -----
 def _card():
     if not torch.cuda.is_available():

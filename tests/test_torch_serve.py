@@ -24,7 +24,8 @@ from repro_torch.launch import serve
 from repro_torch.models import build_model
 from repro_torch.train import build_prefill_step, build_serve_step
 
-ARCHS = ["granite-20b", "deepseek-coder-33b", "nemotron-4-340b"]
+ARCHS = ["granite-20b", "deepseek-coder-33b", "nemotron-4-340b",
+         "h2o-danube-1.8b", "dbrx-132b", "llama4-maverick-400b-a17b"]
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
@@ -88,3 +89,13 @@ def test_run_on_cpu_is_seeded(capsys):
     assert a.shape == (2, 3) and (a >= 0).all() and (a < 512).all()
     np.testing.assert_array_equal(a, b)
     assert "[serve] nemotron-4-340b: batch=2 steps=6" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b"])
+def test_run_moe_on_cpu(arch, capsys):
+    """The serve CLI's ``run`` for the MoE family: every layer routes its
+    tokens with the matching router."""
+    out = serve.run(arch, smoke=True, batch=2, prompt_len=5, gen=4, seed=1,
+                    device="cpu")
+    assert out.shape == (2, 4) and (out >= 0).all() and (out < 512).all()
+    assert f"[serve] {arch}: batch=2 steps=8" in capsys.readouterr().out
