@@ -142,10 +142,44 @@ What it does, in order; any failure raises and the exit code is not 0:
    past the window, then greedy decode steps from 4 positions before the
    window's end to 4 past it on a fresh ring cache (finite logits, the
    ring holding exactly those positions);
-14. prints one ``{"kernels": [...]}`` line (the batched launch of each
+14. mamba2-2.7b FULL (64 mamba blocks), bf16: the prefill B=4 x 4096 (16
+   SSD chunks; tokens/s, peak memory), greedy serving (batch 4, a 64-token
+   prompt stepped, 16 generated); two layers in fp32 at full width,
+   teacher-forced decode over 512 tokens (two chunks) against the
+   forward's logits at every position (2e-3);
+15. zamba2-7b FULL (81 mamba blocks, the shared attention block after every
+   14th), bf16: the prefill B=1 x 8192 (the shared block through
+   ``blockwise_attn`` under its 4096 window, once an invocation), 8 greedy
+   decode steps at positions 4092-4099 on a fresh cache (its rings hold
+   exactly those); four layers with the shared block after every second
+   in fp32, decode against the forward (2e-3), each invocation with a KV
+   slice of its own;
+16. seamless-m4t-medium FULL (12 encoder + 12 decoder layers), bf16: K4 at
+   its layer shape (B=4, S=1024, H=KV=16, hd 64, both masks) against its
+   plain version and timed beside it, SDPA and its bound; the prefill B=4
+   x 1024 tokens over frames (4, 1024, 1024) through K4, counts set to 0
+   just before and read just after (12 full launches and 12 causal, all
+   on the tensor-core body), each launch of one prefill against its plain
+   version (2e-2), the cross-attention never on K4; the same prefill
+   through the torch-op attention (the logits within ``LOGIT_GAP_TOL``,
+   each of the 36 attention outputs within ``LAYER_GAP_TOL``) and with the
+   self-attention of encoder layer 0 or of the middle decoder layer zeroed
+   (controls that must exceed the per-layer gate, the encoder's the logits
+   gate too);
+   greedy
+   serving over ``prefill_encoder``'s cache; two encoder and two decoder
+   layers in fp32: K4 against the torch-op attention (1e-3) and decode
+   against the forward (2e-3);
+17. paligemma-3b FULL (18 layers, hd 256, one K/V head), bf16: the prefill
+   B=2 x (256 patches + 3840 tokens) through ``blockwise_attn`` under the
+   prefix mask, 8 greedy decode steps after it; two layers in fp32 at
+   S=4096: ``blockwise_attn`` against ``_plain_attn`` under the prefix
+   mask, the logits within 1e-3;
+18. prints one ``{"kernels": [...]}`` line (the batched launch of each
    body as its own entry, ``lanes`` 16; K1a's launches include the exact
-   route's, K4's dbrx's prefill's, and K4 carries its times at dbrx's
-   shape), then as its last line ``{"ok": true, "device": {...}}``.
+   route's, K4's dbrx's and seamless's prefills', and K4 carries its times
+   at dbrx's and seamless's shapes), then as its last line ``{"ok": true,
+   "device": {...}}``.
 
 It imports neither JAX nor the JAX package.  It needs a CUDA card and the
 repository's ``src/``; without either it exits non-zero and prints no result.
@@ -1531,7 +1565,7 @@ def flash_checks() -> dict:
     del q, k, v, qt, kt, vt, lib
     torch.cuda.empty_cache()
     fp32 = fp32_granite(gen)
-    dbrx = flash_at_dbrx(gen)
+    dbrx = flash_at(FA_DBRX, gen, "dbrx")
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces=K4_REPLACES, launches=0, max_abs_err=worst,
@@ -1545,22 +1579,22 @@ def flash_checks() -> dict:
                 fp32=fp32, dbrx=dbrx)
 
 
-def flash_at_dbrx(gen) -> dict:
-    """K4 at dbrx-132b's prefill shape (FA_DBRX: 48 query heads on 8 K/V
-    heads, G = 6), bf16, both masks: against its plain version (2e-2, the
-    tensor-core body), then timed beside the plain version and
-    ``scaled_dot_product_attention`` with ``enable_gqa``, and its bound."""
+def flash_at(shape, gen, name: str) -> dict:
+    """K4 at a model's prefill shape (B, S, H, KV, hd), bf16, both masks:
+    against its plain version (2e-2, the tensor-core body), then timed
+    beside the plain version and ``scaled_dot_product_attention`` (with
+    ``enable_gqa``), and its bound."""
     from repro_torch.kernels.flash_attention import (LAUNCHES,
                                                      flash_attention)
 
-    B, S, H, KV, hd = FA_DBRX
-    q, k, v = fa_inputs(FA_DBRX, torch.bfloat16, gen)
+    B, S, H, KV, hd = shape
+    q, k, v = fa_inputs(shape, torch.bfloat16, gen)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     nbytes = fa_bytes(B, S, H, KV, hd, 2)
-    out = dict(body="flash_fwd_tc<128>", shape=FA_DBRX, dtype="bfloat16")
+    out = dict(body=f"flash_fwd_tc<{hd}>", shape=shape, dtype="bfloat16")
     for causal in (True, False):
-        what = f"flash vs plain, {FA_DBRX} bfloat16 causal={causal}"
+        what = f"flash vs plain, {shape} bfloat16 causal={causal}"
         before = LAUNCHES["flash_attention_tc"]
         got = flash_attention(q, k, v, causal=causal)
         if LAUNCHES["flash_attention_tc"] != before + 1:
@@ -1582,7 +1616,7 @@ def flash_at_dbrx(gen) -> dict:
             bound_by=("operations" if flops / BF16_FLOPS_PER_S
                       >= nbytes / HBM_BYTES_PER_S else "bytes"))
         torch.cuda.empty_cache()
-    say("flash attention at dbrx's layer shape:", json.dumps(out))
+    say(f"flash attention at {name}'s layer shape:", json.dumps(out))
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
     return out
@@ -1704,6 +1738,45 @@ def timed(fn):
     return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
 
+def greedy_steps(model, params, logits, first: int, steps: int) -> tuple:
+    """``steps`` greedy decode steps from position ``first`` on a fresh
+    cache (B = the prefill's batch), the first token the prefill's argmax:
+    (the cache, wall seconds, peak bytes).  Fails on non-finite logits."""
+    cache = model.init_cache(logits.shape[0], first + steps)
+    tok = logits[:, -1:].argmax(-1)
+
+    def decode():
+        nonlocal cache, tok
+        for pos in range(first, first + steps):
+            lg, cache = model.decode_step(params, cache, tok, pos)
+            if not torch.isfinite(lg.float()).all():
+                fail(f"{model.cfg.name}: decode logits at position {pos} "
+                     f"not finite")
+            tok = lg[:, -1:].argmax(-1)
+    _, wall, peak = timed(decode)
+    return cache, wall, peak
+
+
+def served(model, params, inputs: dict, gen: int) -> dict:
+    """Greedy serving of ``inputs``' prompt (seamless: over its frames):
+    the launch path's ``generate``, timed; fails on tokens outside the
+    vocab."""
+    from repro_torch.launch.serve import generate
+    prompt = inputs["tokens"]
+    (out, t), wall, peak = timed(lambda: generate(
+        model, params, prompt, gen, enc_frames=inputs.get("enc_frames")))
+    if out.shape != (prompt.shape[0], gen) or int(out.min()) < 0 or \
+            int(out.max()) >= model.cfg.vocab:
+        fail(f"{model.cfg.name}: serving gave tokens of shape "
+             f"{tuple(out.shape)} outside [0, {model.cfg.vocab})")
+    return dict(run="serve (prefill by stepping, greedy decode)",
+                batch=prompt.shape[0], prompt=prompt.shape[1],
+                generated=gen, wall_s=wall, encoder_s=t["encoder_s"],
+                prompt_ms_per_step=t["prompt_s"] / t["prompt_steps"] * 1e3,
+                decode_ms_per_step=t["gen_s"] / t["gen_steps"] * 1e3,
+                peak_memory_bytes=peak, first_tokens=out[:, :4].tolist())
+
+
 def lm_main_path() -> int:
     """granite-20b FULL, bf16, 52 layers, seeded weights: the serving
     prefill through the flash kernel (counts set to 0 just before, read
@@ -1774,20 +1847,11 @@ def lm_main_path() -> int:
              f"{LOGIT_GAP_TOL}: the gate would not see that fault")
     del logits, ref, control
 
-    prompt = make_inputs(cfg, ShapeCell("serve", SERVE_PROMPT, SERVE_BATCH,
-                                        "prefill"), seed=LM_SEED)["tokens"]
-    (out, t), wall_s, peak_s = timed(
-        lambda: generate(model, params, prompt, SERVE_GEN))
-    say("lm main path:", json.dumps(dict(
-        run="serve (prefill by stepping, greedy decode)", batch=SERVE_BATCH,
-        prompt=SERVE_PROMPT, generated=SERVE_GEN, wall_s=wall_s,
-        prompt_ms_per_step=t["prompt_s"] / t["prompt_steps"] * 1e3,
-        decode_ms_per_step=t["gen_s"] / t["gen_steps"] * 1e3,
-        peak_memory_bytes=peak_s, first_tokens=out[:, :4].tolist())))
-    if out.shape != (SERVE_BATCH, SERVE_GEN) or int(out.min()) < 0 or \
-            int(out.max()) >= cfg.vocab:
-        fail(f"serving gave tokens of shape {tuple(out.shape)} outside "
-             f"[0, {cfg.vocab})")
+    inputs = make_inputs(cfg, ShapeCell("serve", SERVE_PROMPT, SERVE_BATCH,
+                                        "prefill"), seed=LM_SEED)
+    prompt = inputs["tokens"]
+    say("lm main path:", json.dumps(served(model, params, inputs,
+                                           SERVE_GEN)))
 
     # where the time goes: the prefill and eight serve steps, profiled
     say("profile:", json.dumps(dict(run="prefill, pallas", **device_profile(
@@ -2291,20 +2355,11 @@ def moe_main_path(cfg) -> int:
                  f"that fault")
     del routed, want_attn, want, got
 
-    prompt = make_inputs(cfg, ShapeCell("serve", DBRX_PROMPT, DBRX_BATCH,
-                                        "prefill"), seed=MOE_SEED)["tokens"]
-    (out, t), wall_s, peak_s = timed(
-        lambda: generate(model, params, prompt, DBRX_GEN))
-    say("moe main path:", json.dumps(dict(
-        run="serve (prompt stepped, greedy decode)", batch=DBRX_BATCH,
-        prompt=DBRX_PROMPT, generated=DBRX_GEN, wall_s=wall_s,
-        prompt_ms_per_step=t["prompt_s"] / t["prompt_steps"] * 1e3,
-        decode_ms_per_step=t["gen_s"] / t["gen_steps"] * 1e3,
-        peak_memory_bytes=peak_s, first_tokens=out[:, :4].tolist())))
-    if out.shape != (DBRX_BATCH, DBRX_GEN) or int(out.min()) < 0 or \
-            int(out.max()) >= cfg.vocab:
-        fail(f"serving gave tokens of shape {tuple(out.shape)} outside "
-             f"[0, {cfg.vocab})")
+    inputs = make_inputs(cfg, ShapeCell("serve", DBRX_PROMPT, DBRX_BATCH,
+                                        "prefill"), seed=MOE_SEED)
+    prompt = inputs["tokens"]
+    say("moe main path:", json.dumps(served(model, params, inputs,
+                                            DBRX_GEN)))
 
     # where the time goes, the router's share of device time included
     with spying(moe, "route_matching", [], label=ROUTER_RANGE):
@@ -2351,19 +2406,8 @@ def window_run(arch, n_layers, seq, first, steps) -> None:
                                                    {"tokens": tokens}))
     if not torch.isfinite(logits.float()).all():
         fail(f"{cfg.name}: prefill logits not finite")
-    cache = model.init_cache(1, first + steps)
+    cache, wall_d, peak_d = greedy_steps(model, params, logits, first, steps)
     ring = cache["k"].shape[2]
-    tok = logits[:, -1:].argmax(-1)
-
-    def decode():
-        nonlocal cache, tok
-        for pos in range(first, first + steps):
-            lg, cache = model.decode_step(params, cache, tok, pos)
-            if not torch.isfinite(lg.float()).all():
-                fail(f"{cfg.name}: decode logits at position {pos} not "
-                     f"finite")
-            tok = lg[:, -1:].argmax(-1)
-    _, wall_d, peak_d = timed(decode)
     idx = cache["idx"]
     held = sorted(int(i) for i in idx[idx >= 0].tolist())
     if held != list(range(first, first + steps)):
@@ -2414,6 +2458,448 @@ def moe_phases() -> tuple:
     if got != want:
         fail(f"exact router's matching: cardinality {got}, scipy {want}")
     return k1a, k1a_levels, k4
+
+
+# ---------------------------------------------------------------------------
+# the SSM, hybrid, enc-dec and vision-prefix families
+# ---------------------------------------------------------------------------
+FAMILY_SEED = 0
+MAMBA_ARCH, ZAMBA_ARCH = "mamba2-2.7b", "zamba2-7b"
+SEAMLESS_ARCH, PALI_ARCH = "seamless-m4t-medium", "paligemma-3b"
+# mamba2: the prefill (B, S: 16 chunks of 256, so the loop over chunks
+# carries the state 15 times) and greedy serving (batch, prompt stepped,
+# tokens generated)
+MAMBA_PREFILL = (4, 4096)
+MAMBA_SERVE = (4, 64, 16)
+# zamba2: a prefill past the shared block's 4096 window (blockwise_attn
+# under the swa mask), then decode steps from 4 positions before the
+# window's end on a fresh cache, so the shared block's rings wrap
+ZAMBA_PREFILL = (1, 8192)
+ZAMBA_DECODE = (4092, 8)
+# the fp32 gates at full width: teacher-forced decode against the forward
+# over (batch, sequence), two SSD chunks, in models cut to these overrides
+STATE_CHECK = (2, 512)
+STATE_CHECK_CUTS = {MAMBA_ARCH: dict(n_layers=2),
+                    ZAMBA_ARCH: dict(n_layers=4, shared_every=2)}
+# seamless: the prefill (B, S tokens; frames (B, max(1024, S // 4), D)),
+# its self-attention's shape (K4: the encoder's full mask, the decoder's
+# causal one), serving (batch, prompt stepped, tokens generated), and the
+# fp32 gates' cut: two encoder and two decoder layers
+SEAMLESS_PREFILL = (4, 1024)
+FA_SEAMLESS = (4, 1024, 16, 16, 64)
+SEAMLESS_SERVE = (4, 16, 16)
+SEAMLESS_CHECK_CUTS = dict(n_layers=2, enc_layers=2)
+# paligemma: the prefill (B, S = 256 patches + 3840 tokens; the prefix
+# mask through blockwise_attn), decode steps after it on a fresh cache,
+# and the fp32 gate (B, S) of blockwise_attn against _plain_attn
+PALI_PREFILL = (2, 4096)
+PALI_DECODE_STEPS = 8
+PALI_CHECK = (1, 4096)
+PALI_CHECK_CUTS = dict(n_layers=2)
+
+
+def full_model(arch, **overrides):
+    """(config, model, params) of ``arch`` at full width, the weights drawn
+    on the card from FAMILY_SEED."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch, **overrides)
+    model = build_model(cfg)
+    params, init_s, _ = timed(lambda: model.init(FAMILY_SEED))
+    say(f"{cfg.name}: {cfg.n_layers} layers"
+        + (f" + {cfg.enc_layers} encoder layers" if cfg.enc_layers else "")
+        + f", d_model {cfg.d_model}, {cfg.dtype}"
+        + (f" (overrides: {json.dumps(overrides)})" if overrides else "")
+        + f", {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card, "
+        f"initialised in {init_s:.1f} s")
+    return cfg, model, params
+
+
+def family_inputs(cfg, batch: int, seq: int) -> dict:
+    """``make_inputs`` of a prefill of ``seq`` positions, drawn on the card
+    from FAMILY_SEED."""
+    from repro_torch.configs.shapes import ShapeCell, make_inputs
+    return make_inputs(cfg, ShapeCell("prefill", seq, batch, "prefill"),
+                       seed=FAMILY_SEED)
+
+
+def last_logits(cfg, logits, batch: int, what: str) -> torch.Tensor:
+    """Fail unless the prefill's logits are finite, of shape (batch, 1,
+    padded vocab), with -1e30 past the vocab; returns the vocab's
+    columns."""
+    from repro_torch.models.transformer import vocab_padded
+    Vp = vocab_padded(cfg)
+    if logits.shape != (batch, 1, Vp) or \
+            not torch.isfinite(logits.float()).all():
+        fail(f"{what}: prefill logits {tuple(logits.shape)} not finite or "
+             f"not of shape ({batch}, 1, {Vp})")
+    if Vp != cfg.vocab and not bool((logits[..., cfg.vocab:] == -1e30).all()):
+        fail(f"{what}: the padded vocab's columns are not -1e30")
+    return logits[..., :cfg.vocab]
+
+
+def logit_gap(got, want) -> float:
+    """max |got - want| / max |want| of (B, 1, vocab) logits, in fp32."""
+    got, want = got[:, 0].float(), want[:, 0].float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def decode_against_forward(model, params, batch, what: str) -> dict:
+    """Teacher-forced ``decode_step`` over the batch's tokens against
+    ``forward``'s logits at every position (2e-3, the JAX package's
+    test_decode_matches_forward tolerance); an enc-dec model decodes over
+    ``prefill_encoder``'s cache of the same frames.  Returns the cache."""
+    toks = batch["tokens"]
+    B, S = toks.shape
+    full, _ = model.forward(params, batch)
+    frames = batch.get("enc_frames")
+    cache = model.init_cache(B, S,
+                             enc_len=0 if frames is None else frames.shape[1])
+    if frames is not None:
+        cache = model.prefill_encoder(params, cache, batch)
+    outs = []
+    for t in range(S):
+        lg, cache = model.decode_step(params, cache, toks[:, t:t + 1], t)
+        outs.append(lg[:, 0])
+    close(f"{what}: teacher-forced decode ({S} steps) vs forward",
+          torch.stack(outs, 1), full, 2e-3)
+    del full, outs
+    return cache
+
+
+def mamba_phase() -> None:
+    """mamba2-2.7b FULL (64 mamba blocks), bf16: the prefill B=4 x 4096
+    (16 SSD chunks), greedy serving; then two layers in fp32 at full
+    width, decode stepped over two chunks against the forward's logits at
+    every position."""
+    from repro_torch.models.ssm import CHUNK
+    from repro_torch.train import build_prefill_step
+
+    cfg, model, params = full_model(MAMBA_ARCH)
+    B, S = MAMBA_PREFILL
+    batch = family_inputs(cfg, B, S)
+    prefill = build_prefill_step(model)
+    prefill(params, {"tokens": batch["tokens"][:1, :CHUNK]})   # warm-up
+    logits, wall, peak = timed(lambda: prefill(params, batch))
+    last_logits(cfg, logits, B, cfg.name)
+    say("family:", json.dumps(dict(
+        arch=cfg.name, run="prefill", batch=B, seq=S, chunks=S // CHUNK,
+        reduced={}, wall_s=wall, prefill_tokens_per_s=B * S / wall,
+        peak_memory_bytes=peak)))
+    bs, prompt, gen = MAMBA_SERVE
+    say("family:", json.dumps(dict(arch=cfg.name, **served(
+        model, params, family_inputs(cfg, bs, prompt), gen))))
+    say("profile:", json.dumps(dict(
+        arch=cfg.name, run="prefill",
+        **device_profile(lambda: prefill(params, batch), {}))))
+    del params, batch, logits
+    torch.cuda.empty_cache()
+
+    cfg, model, params = full_model(MAMBA_ARCH, dtype="float32",
+                                    **STATE_CHECK_CUTS[MAMBA_ARCH])
+    B, S = STATE_CHECK
+    decode_against_forward(model, params, family_inputs(cfg, B, S),
+                           f"{cfg.name} fp32 two layers")
+    del params
+    torch.cuda.empty_cache()
+
+
+def zamba_phase() -> None:
+    """zamba2-7b FULL (81 mamba blocks, the shared block after every 14th:
+    5 invocations), bf16: the prefill B=1 x 8192 (the shared block through
+    blockwise_attn under its 4096 window), greedy decode steps across the
+    window's end on a fresh cache; then four layers in fp32 at full width
+    with the shared block after every second (two invocations, each with
+    its own KV slice), decode against the forward."""
+    from repro_torch.models import attention as att
+    from repro_torch.models.ssm import CHUNK
+    from repro_torch.train import build_prefill_step
+
+    cfg, model, params = full_model(ZAMBA_ARCH)
+    B, S = ZAMBA_PREFILL
+    batch = family_inputs(cfg, B, S)
+    prefill = build_prefill_step(model)
+    prefill(params, {"tokens": batch["tokens"][:, :CHUNK]})    # warm-up
+    n_inv = cfg.n_layers // cfg.shared_every
+    masks = []
+    with spying(att, "blockwise_attn", masks, lambda a, o: a[5]):
+        logits, wall, peak = timed(lambda: prefill(params, batch))
+    if masks != ["swa"] * n_inv:
+        fail(f"{cfg.name}: the prefill ran blockwise_attn under {masks}, "
+             f"not {n_inv} times under swa")
+    lg = last_logits(cfg, logits, B, cfg.name)
+    first, steps = ZAMBA_DECODE
+    cache, wall_d, peak_d = greedy_steps(model, params, lg, first, steps)
+    kv = cache["shared_kv"]
+    idx = kv["idx"]
+    held = sorted(int(i) for i in idx[idx >= 0].tolist())
+    ring = kv["k"].shape[2]
+    if held != list(range(first, first + steps)) or \
+            kv["k"].shape[0] != n_inv or ring != cfg.window:
+        fail(f"{cfg.name}: the shared block's rings {tuple(kv['k'].shape)} "
+             f"hold positions {held}")
+    say("family:", json.dumps(dict(
+        arch=cfg.name, run="prefill, then decode past the window",
+        reduced={}, window=cfg.window, shared_invocations=n_inv,
+        blockwise_masks=masks, prefill_seq=S, prefill_wall_s=wall,
+        prefill_tokens_per_s=B * S / wall, prefill_peak_memory_bytes=peak,
+        decode_positions=[first, first + steps - 1],
+        ring_slots=[first % ring, (first + steps - 1) % ring],
+        decode_ms_per_step=wall_d / steps * 1e3,
+        decode_peak_memory_bytes=peak_d)))
+    say("profile:", json.dumps(dict(
+        arch=cfg.name, run="prefill",
+        **device_profile(lambda: prefill(params, batch), {}))))
+    del params, batch, logits, cache, kv
+    torch.cuda.empty_cache()
+
+    cfg, model, params = full_model(ZAMBA_ARCH, dtype="float32",
+                                    **STATE_CHECK_CUTS[ZAMBA_ARCH])
+    B, S = STATE_CHECK
+    cache = decode_against_forward(model, params, family_inputs(cfg, B, S),
+                                   f"{cfg.name} fp32 four layers")
+    k = cache["shared_kv"]["k"]
+    if k.shape[0] != 2 or torch.equal(k[0], k[1]):
+        fail(f"{cfg.name} fp32: the two invocations do not keep KV slices "
+             f"of their own")
+    del params, cache, k
+    torch.cuda.empty_cache()
+
+
+def seamless_phase(gen) -> tuple:
+    """seamless-m4t-medium FULL (12 encoder + 12 decoder layers, hd 64),
+    bf16: K4 at its layer shape timed; the prefill B=4 x 1024 with frames
+    (4, 1024, 1024) through K4 (counts set to 0 just before, read just
+    after: 12 full launches on the tensor-core body, 12 causal), each of
+    one prefill's launches against its plain version, the same prefill
+    through the torch-op attention (the logits and each attention output
+    gated) and with encoder layer 0's or the middle decoder layer's
+    self-attention zeroed (controls), greedy serving over the encoder's
+    cache; two encoder and two decoder layers in fp32: K4 against the
+    torch-op attention (1e-3), decode against the forward.  Returns (K4's
+    launches in the prefill, K4's times at the shape)."""
+    from repro_torch.kernels.flash_attention import LAUNCHES, reset_launches
+    from repro_torch.models import attention as att
+    from repro_torch.models import build_model
+    from repro_torch.train import build_prefill_step
+
+    times = flash_at(FA_SEAMLESS, gen, "seamless")
+    cfg, model, params = full_model(SEAMLESS_ARCH, attn_impl="pallas")
+    B, S = SEAMLESS_PREFILL
+    batch = family_inputs(cfg, B, S)
+    if tuple(batch["enc_frames"].shape) != (B, max(cfg.frontend_len, S // 4),
+                                            cfg.d_model):
+        fail(f"{cfg.name}: frames of shape {tuple(batch['enc_frames'].shape)}")
+    prefill = build_prefill_step(model)
+    prefill(params, {k: t[:1, :128] for k, t in batch.items()})  # warm-up
+    reset_launches()
+    logits, wall, peak = timed(lambda: prefill(params, batch))
+    launches, by_body = LAUNCHES["flash_attention"], dict(LAUNCHES)
+    n_k4 = cfg.enc_layers + cfg.n_layers
+    if launches != n_k4 or by_body["flash_attention_tc"] != n_k4:
+        fail(f"{cfg.name}: the prefill launched the flash kernel {by_body}, "
+             f"not {n_k4} times on the tensor-core body")
+    got = last_logits(cfg, logits, B, cfg.name)
+
+    # each launch of one more prefill against its plain version
+    seen, real = [], att.flash_attention
+
+    def keep(q, k, v, *, causal=True):
+        out = real(q, k, v, causal=causal)
+        seen.append((q, k, v, causal, out))
+        return out
+    att.flash_attention = keep
+    try:
+        prefill(params, batch)
+    finally:
+        att.flash_attention = real
+    masks = [c for _, _, _, c, _ in seen]
+    if masks != [False] * cfg.enc_layers + [True] * cfg.n_layers:
+        fail(f"{cfg.name}: K4's masks in the prefill {masks}")
+    worst = max(close(f"{cfg.name} prefill, K4 launch {i} "
+                      f"({'causal' if c else 'full'}) vs plain",
+                      o, fa_plain(q, k, v, c), FA_TOL[torch.bfloat16])
+                for i, (q, k, v, c, o) in enumerate(seen))
+    del seen
+    say("family:", json.dumps(dict(
+        arch=cfg.name, run="prefill", attn_impl="pallas", reduced={},
+        batch=B, seq=S, enc_frames=list(batch["enc_frames"].shape),
+        wall_s=wall, prefill_tokens_per_s=B * S / wall,
+        peak_memory_bytes=peak, flash_launches=by_body,
+        k4_launches_max_abs_err=worst)))
+
+    # The gates, pallas against xla: the last-position logits
+    # (LOGIT_GAP_TOL) and each attention output by ||d||_2 / ||ref||_2
+    # (LAYER_GAP_TOL), the model's 36 calls in order (12 encoder layers,
+    # then each decoder layer's self- and cross-attention).  Controls, K4's
+    # output zeroed in one call: encoder layer 0's and the middle decoder
+    # layer's; each must fail the per-layer gate, the encoder's the logits
+    # gate too.  The decoder's residual is carried by the cross-attention
+    # over the frames, and a self-attention output at the last position is
+    # a mean over ~1,000 values, so the logits gate does not see one
+    # decoder layer's self-attention zeroed (on an H100: layer 0 0.0059,
+    # one bf16 ulp as the fault-free run; layer 6 0.0122); the encoder's
+    # first layer feeds every cross-attention (zeroed: 0.61 in fp32 on the
+    # CPU).
+    xla = build_prefill_step(build_model(
+        dataclasses.replace(cfg, attn_impl="xla")))
+    want_attn = []
+    with attention_outputs(lambda i, o: want_attn.append(o)):
+        ref, wall_x, _ = timed(lambda: xla(params, batch))
+    want = last_logits(cfg, ref, B, f"{cfg.name} (xla)")
+    n_attn = cfg.enc_layers + 2 * cfg.n_layers
+    if len(want_attn) != n_attn:
+        fail(f"{cfg.name}: the xla prefill made {len(want_attn)} attention "
+             f"calls, not {n_attn}")
+
+    def gated(fault=None) -> tuple:
+        """(logits gap, attention gaps by call) of the kernel's prefill,
+        ``fault`` in place of the kernel when given."""
+        gaps = []
+
+        def run():
+            with attention_outputs(lambda i, o: gaps.append(
+                    rel_l2(o, want_attn[i]))):
+                return prefill(params, batch)
+        out = with_attention(fault, run) if fault else run()
+        return logit_gap(out[..., :cfg.vocab], want), gaps
+    gap, gaps = gated()
+    say("family:", json.dumps(dict(
+        arch=cfg.name, run="prefill, xla (torch-op attention)",
+        wall_s=wall_x, prefill_tokens_per_s=B * S / wall_x,
+        pallas_vs_xla_rel_gap=gap, tolerance=LOGIT_GAP_TOL,
+        attention_rel_l2_by_call=gaps, layer_tolerance=LAYER_GAP_TOL)))
+    if not gap <= LOGIT_GAP_TOL:
+        fail(f"{cfg.name}: prefill logits, pallas vs xla: {gap} > "
+             f"{LOGIT_GAP_TOL}")
+    if len(gaps) != n_attn or not max(gaps) <= LAYER_GAP_TOL:
+        fail(f"{cfg.name}: attention outputs, pallas vs xla: {gaps}, not "
+             f"{n_attn} within {LAYER_GAP_TOL}")
+    middle = cfg.n_layers // 2
+    for call, what in ((0, "encoder layer 0"),
+                       (cfg.enc_layers + middle, f"decoder layer {middle}")):
+        ctrl_gap, ctrl_gaps = gated(skip_attention(call))
+        say("family:", json.dumps(dict(
+            arch=cfg.name, run="prefill, control",
+            fault=f"self-attention of {what} zero",
+            logits_gated=call == 0, control_vs_xla_rel_gap=ctrl_gap,
+            tolerance=LOGIT_GAP_TOL, attention_rel_l2_by_call=ctrl_gaps,
+            layer_tolerance=LAYER_GAP_TOL)))
+        if call == 0 and not ctrl_gap > LOGIT_GAP_TOL:
+            fail(f"{cfg.name}: the control prefill reads {ctrl_gap}, within "
+                 f"the gate {LOGIT_GAP_TOL}: the gate would not see that "
+                 f"fault")
+        if not max(ctrl_gaps) > LAYER_GAP_TOL:
+            fail(f"{cfg.name}: the control's attention gaps {ctrl_gaps} are "
+                 f"within {LAYER_GAP_TOL}: the per-layer gate would not see "
+                 f"that fault")
+    del ref, want_attn
+    bs, prompt, gen_n = SEAMLESS_SERVE
+    say("family:", json.dumps(dict(arch=cfg.name, **served(
+        model, params, family_inputs(cfg, bs, prompt), gen_n))))
+    say("profile:", json.dumps(dict(
+        arch=cfg.name, run="prefill, pallas", **device_profile(
+            lambda: prefill(params, batch), {"flash": "flash_fwd"}))))
+    del params, batch
+    torch.cuda.empty_cache()
+
+    cfg, model, params = full_model(SEAMLESS_ARCH, dtype="float32",
+                                    attn_impl="pallas", **SEAMLESS_CHECK_CUTS)
+    xla = build_model(dataclasses.replace(cfg, attn_impl="xla"))
+    batch = family_inputs(cfg, FP32_BATCH, FP32_SEQ)
+    reset_launches()
+    full, _ = model.forward(params, batch)
+    torch.cuda.synchronize()
+    if LAUNCHES["flash_attention_simt"] != cfg.enc_layers + cfg.n_layers:
+        fail(f"{cfg.name} fp32: the flash kernel launched {dict(LAUNCHES)}")
+    ref, _ = xla.forward(params, batch)
+    close(f"{cfg.name} fp32 2 + 2 layers, pallas vs xla", full, ref, 1e-3)
+    del full, ref
+    decode_against_forward(model, params, batch,
+                           f"{cfg.name} fp32 2 + 2 layers")
+    del params, batch
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def paligemma_phase() -> None:
+    """paligemma-3b FULL (18 layers, hd 256, one K/V head), bf16: the
+    prefill B=2 x (256 patches + 3840 tokens) under the prefix mask through
+    blockwise_attn, greedy decode steps after it; then two layers in fp32
+    at full width, the forward through blockwise_attn against the same
+    forward through _plain_attn under the prefix mask (1e-3)."""
+    from repro_torch.models import attention as att
+    from repro_torch.train import build_prefill_step
+
+    cfg, model, params = full_model(PALI_ARCH)
+    B, S = PALI_PREFILL
+    batch = family_inputs(cfg, B, S)
+    prefill = build_prefill_step(model)
+    prefill(params, {"tokens": batch["tokens"][:1, :128],
+                     "frontend": batch["frontend"][:1]})         # warm-up
+    masks = []
+    with spying(att, "blockwise_attn", masks, lambda a, o: a[5]):
+        logits, wall, peak = timed(lambda: prefill(params, batch))
+    if masks != ["prefix"] * cfg.n_layers:
+        fail(f"{cfg.name}: the prefill ran blockwise_attn under {masks}")
+    lg = last_logits(cfg, logits, B, cfg.name)
+    steps = PALI_DECODE_STEPS
+    _, wall_d, peak_d = greedy_steps(model, params, lg, S, steps)
+    say("family:", json.dumps(dict(
+        arch=cfg.name, run="prefill, then decode", reduced={},
+        batch=B, seq=S, patches=cfg.frontend_len, blockwise_masks=masks[:1],
+        prefill_wall_s=wall, prefill_tokens_per_s=B * S / wall,
+        prefill_peak_memory_bytes=peak, decode_positions=[S, S + steps - 1],
+        decode_ms_per_step=wall_d / steps * 1e3,
+        decode_peak_memory_bytes=peak_d)))
+    say("profile:", json.dumps(dict(
+        arch=cfg.name, run="prefill",
+        **device_profile(lambda: prefill(params, batch), {}))))
+    del params, batch, logits
+    torch.cuda.empty_cache()
+
+    cfg, model, params = full_model(PALI_ARCH, dtype="float32",
+                                    **PALI_CHECK_CUTS)
+    batch = family_inputs(cfg, *PALI_CHECK)
+    masks = []
+    with spying(att, "blockwise_attn", masks, lambda a, o: a[5]):
+        got, _ = model.forward(params, batch)
+    if masks != ["prefix"] * cfg.n_layers:
+        fail(f"{cfg.name} fp32: blockwise_attn ran under {masks}")
+
+    def plain(q, k, v, qpos, kpos, mask_kind, window, prefix_len, **_):
+        return att._plain_attn(q, k, v, qpos, kpos, mask_kind, window,
+                               prefix_len)
+    real, att.blockwise_attn = att.blockwise_attn, plain
+    try:
+        want, _ = model.forward(params, batch)
+    finally:
+        att.blockwise_attn = real
+    close(f"{cfg.name} fp32 two layers, S={PALI_CHECK[1]}, blockwise_attn "
+          f"vs _plain_attn (prefix mask)", got[..., :cfg.vocab],
+          want[..., :cfg.vocab], 1e-3)
+    del params, batch, got, want
+    torch.cuda.empty_cache()
+
+
+def family_phases() -> tuple:
+    """Phases 14-17: mamba2, zamba2, seamless, paligemma.  Returns (K4's
+    launches in seamless's prefill, K4's times at seamless's shape)."""
+    t0 = time.perf_counter()
+    mamba_phase()
+    phase(MAMBA_ARCH, t0)
+    t0 = time.perf_counter()
+    zamba_phase()
+    phase(ZAMBA_ARCH, t0)
+    t0 = time.perf_counter()
+    k4, times = seamless_phase(
+        torch.Generator(device=CARD).manual_seed(FAMILY_SEED))
+    phase(SEAMLESS_ARCH, t0)
+    t0 = time.perf_counter()
+    paligemma_phase()
+    phase(PALI_ARCH, t0)
+    return k4, times
 
 
 def lm_phases() -> dict:
@@ -2478,6 +2964,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     kernels.append(lm_phases())
     k1a, k1a_levels, k4 = moe_phases()
+    k4_seamless, seamless_times = family_phases()
     for entry in kernels:
         if entry["name"] == "frontier_expand_fused_wr":
             entry["launches"] += k1a
@@ -2485,8 +2972,10 @@ def main() -> int:
             entry["levels_checked"] += k1a_levels
             entry["levels_checked_exact_router"] = k1a_levels
         if entry["name"] == "flash_attention":
-            entry["launches"] += k4
+            entry["launches"] += k4 + k4_seamless
             entry["launches_dbrx_prefill"] = k4
+            entry["launches_seamless_prefill"] = k4_seamless
+            entry["seamless"] = seamless_times
 
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -1,8 +1,5 @@
-"""Architecture registry of the port: the JAX package's ten names, of
-which the dense family (full attention and sliding window) and the MoE
-family are ported (FULL and SMOKE configs copied field for field).
-``get_config`` for any other architecture raises and names the ROADMAP
-item that will port it."""
+"""Architecture registry of the port: the JAX package's ten names, every
+one ported (FULL and SMOKE configs copied field for field)."""
 from __future__ import annotations
 
 import dataclasses
@@ -23,16 +20,8 @@ _ARCHS = {
     "paligemma-3b": "paligemma_3b",
     "mamba2-2.7b": "mamba2_2_7b",
 }
-# the architectures whose family the port runs
-PORTED = ("h2o-danube-1.8b", "nemotron-4-340b", "deepseek-coder-33b",
-          "granite-20b", "llama4-maverick-400b-a17b", "dbrx-132b")
-# what each of the others waits for (all ROADMAP.md, Queue 1, item 7)
-_WAITS = {
-    "seamless-m4t-medium": "the encoder-decoder family",
-    "zamba2-7b": "the hybrid SSM family",
-    "paligemma-3b": "the vision-prefix family",
-    "mamba2-2.7b": "the SSM family",
-}
+# the architectures whose family the port runs: all of them
+PORTED = tuple(_ARCHS)
 
 ARCH_NAMES: List[str] = list(_ARCHS)
 
@@ -45,12 +34,7 @@ def _key(name: str) -> str:
 
 
 def get_config(name: str, smoke: bool = False, **overrides) -> ModelConfig:
-    key = _key(name)
-    if key not in PORTED:
-        raise NotImplementedError(
-            f"{key} is not ported yet: it waits for {_WAITS[key]} "
-            f"(ROADMAP.md, Queue 1, item 7)")
-    mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[key]}")
+    mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[_key(name)]}")
     cfg = getattr(mod, "SMOKE" if smoke else "FULL")
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)

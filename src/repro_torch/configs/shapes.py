@@ -50,27 +50,44 @@ def applicable(cfg: ModelConfig, shape: ShapeCell) -> Tuple[bool, str]:
 
 def input_specs(cfg: ModelConfig, shape: ShapeCell
                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """(shape, dtype) of every model input of this cell: the token batch
-    (plus labels for train) for train/prefill, one token for decode.  The
-    frontend and encoder inputs of the unported families are left out."""
+    """(shape, dtype) of every model input of this cell.  Train/prefill:
+    the token batch (plus labels for train), the stub frontend's patch
+    embeddings for the vision prefix (which take ``frontend_len`` of the
+    ``seq`` positions) and the encoder's frame embeddings for enc-dec,
+    both in the model dtype; decode: one token."""
     B, S = shape.batch, shape.seq
+    emb = cfg.tdtype
     if shape.kind in ("train", "prefill"):
-        specs = {"tokens": ((B, S), torch.int64)}
+        specs = {}
+        s_text = S
+        if cfg.frontend == "vision":
+            s_text = S - cfg.frontend_len
+            specs["frontend"] = ((B, cfg.frontend_len, cfg.d_model), emb)
+        specs["tokens"] = ((B, s_text), torch.int64)
+        if cfg.enc_layers:
+            specs["enc_frames"] = (
+                (B, max(cfg.frontend_len, S // 4), cfg.d_model), emb)
         if shape.kind == "train":
-            specs["labels"] = ((B, S), torch.int64)
+            specs["labels"] = ((B, s_text), torch.int64)
         return specs
     return {"tokens": ((B, 1), torch.int64)}
 
 
 def make_inputs(cfg: ModelConfig, shape: ShapeCell, seed: int = 0,
                 device=None) -> Dict[str, torch.Tensor]:
-    """Concrete random inputs matching ``input_specs``, drawn from a
-    generator seeded with ``seed`` on the target device."""
+    """Concrete random inputs matching ``input_specs``, drawn in its order
+    from a generator seeded with ``seed`` on the target device: tokens
+    uniform over the vocab, embeddings standard normal (drawn in float32,
+    cast to the model dtype)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     out = {}
     for name, (shp, dtype) in input_specs(cfg, shape).items():
-        out[name] = torch.randint(0, cfg.vocab, shp, generator=gen,
-                                  dtype=dtype, device=dev)
+        if dtype.is_floating_point:
+            out[name] = torch.randn(shp, generator=gen, dtype=torch.float32,
+                                    device=dev).to(dtype)
+        else:
+            out[name] = torch.randint(0, cfg.vocab, shp, generator=gen,
+                                      dtype=dtype, device=dev)
     return out

@@ -15,8 +15,12 @@ A stacked batch (``DeviceCSR.stack``, the states ``run_many`` returns)
 carries across the same way: every leaf with its leading lane dimension,
 ``nnz`` of shape ``(B,)`` (a tuple of ints on this side).
 
-LM weights and KV caches are nested dicts in both packages, leaf for leaf
-(:func:`lm_params_from_reference`, :func:`lm_params_to_reference`).
+LM weights and decode caches are nested dicts in both packages, leaf for
+leaf (:func:`lm_params_from_reference`, :func:`lm_params_to_reference`):
+the mamba blocks' ``mix``, the hybrid's ``shared`` block, the encoder's
+``enc`` stack, the decoder's ``xattn``/``lnx``, the vision ``vproj``; the
+KV cache, the SSM ``h``/``conv`` caches, the hybrid's nested
+``shared_kv`` and the cross-attention ``xk``/``xv``.
 """
 from __future__ import annotations
 

@@ -15,7 +15,7 @@ warmup, per-family, and service-level metrics.
 
 ``--smoke`` shrinks the trace and asserts cardinality parity against a
 direct ``Matcher.run`` for every request (the oversize, sharded route waits
-for ROADMAP.md, Queue 1, item 9).  ``--device`` picks where the service
+for ROADMAP.md, Queue 1, item 10).  ``--device`` picks where the service
 runs (default: the CUDA card).  ``--chaos`` arms a seeded
 :class:`repro_torch.serving.FaultInjector` and, after the replay, runs a fault
 drill: poisons one tagged request among innocents (asserting bisection

@@ -1,4 +1,5 @@
-"""The LM substrate of the port: the dense and MoE decoder-only families."""
+"""The LM substrate of the port: the dense, MoE, SSM, hybrid, enc-dec and
+vision-prefix families."""
 from .common import ModelConfig
 from .transformer import Model, build_model
 

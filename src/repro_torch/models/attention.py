@@ -5,12 +5,14 @@ decode, and a memory-safe blockwise (flash-style) path (the JAX package's
 Shapes: x (B, S, D); q (B, S, H, hd); k/v (B, S, KV, hd); GQA groups
 H//KV.  ``attention`` dispatches as the JAX function does: the flash
 kernel (``attn_impl="pallas"``, self-attention, causal or full mask) ->
-``blockwise_attn`` above 2048 positions -> ``_plain_attn``.
+``blockwise_attn`` above 2048 positions -> ``_plain_attn``.  With
+``kv_x`` it is cross-attention (the enc-dec family): K and V from
+``kv_x``, no rope, the full mask over ``kv_pos``, never the flash kernel.
 
-Not ported yet: cross-attention (``kv_x``, the enc-dec family), the H-flat
-layout ``hflat_blockwise_attn`` (``opt_attn_layout``, a sharding layout)
-and the int8 KV cache (``opt_kv_quant``); ``build_model`` refuses configs
-that set either knob.
+Not ported yet: the H-flat layout ``hflat_blockwise_attn``
+(``opt_attn_layout``, a sharding layout) and the int8 KV cache
+(``opt_kv_quant``), ROADMAP.md, Queue 1, item 8; ``build_model`` refuses
+configs that set either knob.
 
 The KV cache is updated in place (``update_cache`` writes this token's
 slot into the tensors it is given), where the JAX function returns new
@@ -125,23 +127,27 @@ def attention(params, x, pos, cfg: ModelConfig, *, mask_kind: str,
               kv_x: Optional[torch.Tensor] = None,
               kv_pos: Optional[torch.Tensor] = None,
               prefix_len: int = 0):
-    """Full-sequence self-attention (training / prefill)."""
-    if kv_x is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_x) belongs to the enc-dec family, which is "
-            "not ported yet (ROADMAP.md, Queue 1, item 7)")
+    """Full-sequence attention (training / prefill); ``kv_x`` switches to
+    cross-attention (keys and values from the encoder output)."""
     B, S, D = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
-    q, k = rope(q, k, pos, cfg.rope_theta)
-    if cfg.attn_impl == "pallas" and mask_kind in ("causal", "bidir"):
+    src = x if kv_x is None else kv_x
+    k = torch.einsum("bsd,dhk->bshk", src, params["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, params["wv"])
+    if kv_x is None:
+        q, k = rope(q, k, pos, cfg.rope_theta)
+        kpos = pos
+    else:
+        kpos = kv_pos
+        mask_kind = "bidir"
+    if cfg.attn_impl == "pallas" and kv_x is None and \
+            mask_kind in ("causal", "bidir"):
         out = flash_attention(q, k, v, causal=(mask_kind == "causal"))
     elif S > 2048 or k.shape[1] > 2048:
-        out = blockwise_attn(q, k, v, pos, pos, mask_kind, cfg.window,
+        out = blockwise_attn(q, k, v, pos, kpos, mask_kind, cfg.window,
                              prefix_len)
     else:
-        out = _plain_attn(q, k, v, pos, pos, mask_kind, cfg.window,
+        out = _plain_attn(q, k, v, pos, kpos, mask_kind, cfg.window,
                           prefix_len)
     return torch.einsum("bshk,hkd->bsd", out, params["wo"])
 

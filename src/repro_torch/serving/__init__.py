@@ -12,7 +12,7 @@ and everything observable (:mod:`metrics`)::
     submit() ─► Bucketizer ─► MicroBatcher ─► stack + run_many ─► Future
                    │ oversize                    (1 dispatch/flush)
                    └─► OversizeGraphError (the sharded lane: ROADMAP.md,
-                       Queue 1, item 9)
+                       Queue 1, item 10)
 
 ``python -m repro_torch.launch.serve_matching`` replays a synthetic
 open-loop traffic trace against this service.

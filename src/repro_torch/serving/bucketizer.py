@@ -11,7 +11,7 @@ sentinels, and accounts the padding waste per admission.  A graph that fits
 no bucket is rejected with the typed :class:`OversizeGraphError`, so the
 caller can tell admission failure from solver failure.  The edge-sharded
 lane for oversize graphs (``oversize="shard"``) waits for the sharding
-slice of the port (ROADMAP.md, Queue 1, item 9) and is refused.
+slice of the port (ROADMAP.md, Queue 1, item 10) and is refused.
 """
 from __future__ import annotations
 
@@ -26,7 +26,7 @@ from repro_torch.matching.device_csr import (LANE, GraphValidationError,
                                              TorchCSR, bucket_nnz,
                                              validate_structure)
 
-SHARDING_ITEM = "ROADMAP.md, Queue 1, item 9"
+SHARDING_ITEM = "ROADMAP.md, Queue 1, item 10"
 
 
 class OversizeGraphError(ValueError):

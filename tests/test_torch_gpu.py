@@ -711,6 +711,99 @@ def test_cuda_flash_attention_at_dbrx_shape(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_at_seamless_shape(dtype):
+    """seamless-m4t-medium's self-attention shape (B=4, S=1024, 16 heads,
+    MHA, hd 64): the encoder's full mask and the decoder's causal one,
+    against the plain version on the CPU; the body its dtype routes to
+    launches once a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    body = ("flash_attention_simt" if dtype == torch.float32
+            else "flash_attention_tc")
+    q, k, v = _qkv(4, 1024, 16, 16, 64, dtype, seed=64)
+    fa.reset_launches()
+    for causal in (False, True):
+        got = fa.flash_attention(q.cuda(), k.cuda(), v.cuda(), causal=causal)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_ref(q, k, v, causal=causal)
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   rtol=tol, atol=tol)
+    assert fa.LAUNCHES[body] == fa.LAUNCHES["flash_attention"] == 2
+
+
+@pytest.mark.gpu
+def test_cuda_encoder_decoder_pallas_equals_xla_and_cpu():
+    """A SMOKE seamless model (fp32) on the card: ``attn_impl="pallas"``
+    launches the kernel once a layer of the encoder (full) and of the
+    decoder (causal), never for the cross-attention, and agrees with "xla"
+    and with the CPU; decode over the encoder's cache agrees with the
+    forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    arch = "seamless-m4t-medium"
+    pallas = build_model(get_config(arch, smoke=True, attn_impl="pallas"))
+    xla = build_model(get_config(arch, smoke=True))
+    params = pallas.init(0, device="cpu")
+    on_card = tree_map(lambda t: t.cuda(), params)
+    gen = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, 512, (2, 96), generator=gen),
+             "enc_frames": torch.randn(2, 40, 64, generator=gen)}
+    card = {k: t.cuda() for k, t in batch.items()}
+    fa.reset_launches()
+    got, _ = pallas.forward(on_card, card)
+    torch.cuda.synchronize()
+    cfg = pallas.cfg
+    assert fa.LAUNCHES["flash_attention"] == cfg.n_layers + cfg.enc_layers
+    ref, _ = xla.forward(on_card, card)
+    cpu, _ = pallas.forward(params, batch)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.cpu(), cpu, rtol=1e-4, atol=1e-4)
+    cache = pallas.prefill_encoder(on_card, pallas.init_cache(
+        2, 96, enc_len=40, device="cuda"), card)
+    outs = []
+    for t in range(96):
+        lg, cache = pallas.decode_step(on_card, cache,
+                                       card["tokens"][:, t:t + 1], t)
+        outs.append(lg[:, 0])
+    torch.testing.assert_close(torch.stack(outs, 1), got, rtol=2e-3,
+                               atol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b",
+                                  "paligemma-3b"])
+def test_cuda_state_and_prefix_families_equal_cpu(arch):
+    """SMOKE mamba2, zamba2 (past its window) and paligemma (fp32) on the
+    card against the CPU: the forward over two SSD chunks (paligemma over
+    its patches and tokens), then teacher-forced decode of its tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(get_config(arch, smoke=True))
+    params = model.init(0, device="cpu")
+    on_card = tree_map(lambda t: t.cuda(), params)
+    gen = torch.Generator().manual_seed(2)
+    cfg = model.cfg
+    batch = {"tokens": torch.randint(0, 512, (2, 512), generator=gen)}
+    if cfg.frontend == "vision":
+        batch["frontend"] = torch.randn(2, cfg.frontend_len, cfg.d_model,
+                                        generator=gen)
+    got, _ = model.forward(on_card, {k: t.cuda() for k, t in batch.items()})
+    want, _ = model.forward(params, batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    caches = [model.init_cache(2, 40, device=d) for d in ("cpu", "cuda")]
+    for t in range(40):
+        tok = batch["tokens"][:, t:t + 1]
+        a, caches[0] = model.decode_step(params, caches[0], tok, t)
+        b, caches[1] = model.decode_step(on_card, caches[1], tok.cuda(), t)
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 def test_cuda_routers_equal_cpu():
     """The three MoE routers on the card against the CPU at dbrx's router
     shape cut to T=256 (E=16, k=4, m=6, C=80): ``assign`` and ``slot`` bit

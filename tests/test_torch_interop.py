@@ -1,15 +1,21 @@
 """Carrying state across: a graph and a matching state made by the JAX
 package, handed over as numpy leaves, resume in the port and give the JAX
-resume's result bit for bit; and the port's state goes back the same way."""
+resume's result bit for bit; and the port's state goes back the same way.
+LM weights and caches of the SSM, hybrid, enc-dec and vision-prefix
+families cross over and back leaf for leaf."""
 import jax
 import numpy as np
 import pytest
 
+from repro.configs import get_config as jax_get_config
 from repro.graphs import instance_sets
+from repro.models import build_model as jax_build_model
 from repro.matching import DeviceCSR, Matcher as RefMatcher
 from repro.matching import MatcherConfig as RefConfig
 
 from repro_torch.interop import (csr_from_reference, csr_to_reference,
+                                 lm_params_from_reference,
+                                 lm_params_to_reference,
                                  state_from_reference, state_to_reference)
 from repro_torch.matching import Matcher, MatcherConfig, TorchCSR
 
@@ -142,3 +148,32 @@ def test_stacked_state_round_trip_and_batched_resume():
                                         state_to_reference(out))
     np.testing.assert_array_equal(np.asarray(back.cardinality),
                                   np.asarray(want.cardinality))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b",
+                                  "seamless-m4t-medium", "paligemma-3b"])
+def test_lm_trees_of_the_families_round_trip(arch, dtype):
+    """The JAX ``Model.init`` tree (``mix``, ``shared``, ``enc``, ``xattn``
+    and ``lnx``, ``vproj``) and ``init_cache`` tree (``h``, ``conv``, the
+    nested ``shared_kv``, ``xk``/``xv``) cross over and back leaf for leaf:
+    the same paths, shapes, dtypes and bits."""
+    jm = jax_build_model(jax_get_config(arch, smoke=True, dtype=dtype))
+    params, _ = jm.init(jax.random.PRNGKey(4))
+    cache, _ = jm.init_cache(2, 40, enc_len=16)
+    want_keys = {"mamba2-2.7b": {"mix"}, "zamba2-7b": {"mix", "shared"},
+                 "seamless-m4t-medium": {"enc", "xattn", "lnx"},
+                 "paligemma-3b": {"vproj"}}[arch]
+    keys = {str(k.key) for path, _ in
+            jax.tree_util.tree_leaves_with_path(params) for k in path}
+    assert want_keys <= keys
+    for tree in (params, cache):
+        tree = jax.tree.map(np.asarray, tree)
+        back = lm_params_to_reference(
+            lm_params_from_reference(tree, device="cpu"))
+        assert jax.tree.structure(back) == jax.tree.structure(tree)
+        for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(tree),
+                                jax.tree.leaves(back)):
+            a, b = np.atleast_1d(a), np.atleast_1d(b)
+            assert a.shape == b.shape and a.dtype == b.dtype, path
+            np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8))

@@ -26,6 +26,11 @@ from repro_torch.train import build_prefill_step, build_serve_step
 
 ARCHS = ["granite-20b", "deepseek-coder-33b", "nemotron-4-340b",
          "h2o-danube-1.8b", "dbrx-132b", "llama4-maverick-400b-a17b"]
+# the SSM, hybrid, enc-dec and vision-prefix families: their prefill batch
+# carries patch embeddings or encoder frames, and seamless's serve loop
+# runs its encoder first
+FAMILIES = ["mamba2-2.7b", "zamba2-7b", "seamless-m4t-medium",
+            "paligemma-3b"]
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
@@ -99,3 +104,67 @@ def test_run_moe_on_cpu(arch, capsys):
                     device="cpu")
     assert out.shape == (2, 4) and (out >= 0).all() and (out < 512).all()
     assert f"[serve] {arch}: batch=2 steps=8" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_prefill_step_carries_the_family_inputs(arch, impl):
+    """The prefill step on the JAX package's own ``make_inputs`` batch
+    (tokens, and paligemma's patch embeddings or seamless's frames)."""
+    jcfg = jax_get_config(arch, smoke=True, attn_impl=impl)
+    jm = jax_build_model(jcfg)
+    jp, _ = jm.init(jax.random.PRNGKey(1))
+    tm = build_model(get_config(arch, smoke=True, attn_impl=impl))
+    tp = lm_params_from_reference(jax.tree.map(np.asarray, jp), device="cpu")
+    batch = jax_make_inputs(jcfg, JaxShapeCell("p", 48, 3, "prefill"),
+                            seed=2)
+    assert ("frontend" in batch) == (arch == "paligemma-3b")
+    assert ("enc_frames" in batch) == (arch == "seamless-m4t-medium")
+    want = jax.jit(jax_build_prefill_step(jm))(jp, batch)
+    got = build_prefill_step(tm)(
+        tp, {k: torch.from_numpy(np.array(v)) for k, v in batch.items()})
+    assert got.shape == (3, 1, tm.cfg.vocab)
+    tol = 1e-4 if tm.cfg.family in ("ssm", "hybrid") else 1e-5
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_serve_loop_of_the_families_matches_reference(arch, capsys):
+    """The JAX ``run``'s greedy tokens, token for token: mamba2 and zamba2
+    step their state caches (zamba2 past its window of 32), seamless runs
+    ``prefill_encoder`` over the JAX frames first, paligemma steps the text
+    part of its prompt (its ``prompt_len`` counts the 8 patch positions,
+    which the loop does not step)."""
+    B, P, G, seed = 2, 28, 8, 3
+    want = jax_run(arch, smoke=True, batch=B, prompt_len=P, gen=G, seed=seed)
+    jcfg = jax_get_config(arch, smoke=True)
+    jp, _ = jax_build_model(jcfg).init(jax.random.PRNGKey(seed))
+    inputs = jax_make_inputs(jcfg, JaxShapeCell("serve", P, B, "prefill"),
+                             seed=seed)
+    tm = build_model(get_config(arch, smoke=True))
+    tp = lm_params_from_reference(jax.tree.map(np.asarray, jp), device="cpu")
+    frames = inputs.get("enc_frames")
+    got, times = serve.generate(
+        tm, tp, torch.from_numpy(np.array(inputs["tokens"])).long(), G,
+        enc_frames=None if frames is None else torch.from_numpy(
+            np.array(frames)))
+    assert got.shape == (B, G)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert times["prompt_steps"] == inputs["tokens"].shape[1]
+    if arch == "seamless-m4t-medium":
+        with pytest.raises(ValueError, match="needs its enc_frames"):
+            serve.generate(tm, tp, torch.zeros(B, 3, dtype=torch.long), 2)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_run_of_the_families_on_cpu_is_seeded(arch, capsys):
+    a = serve.run(arch, smoke=True, batch=2, prompt_len=12, gen=3, seed=7,
+                  device="cpu")
+    b = serve.run(arch, smoke=True, batch=2, prompt_len=12, gen=3, seed=7,
+                  device="cpu")
+    assert a.shape == (2, 3) and (a >= 0).all() and (a < 512).all()
+    np.testing.assert_array_equal(a, b)
+    steps = 12 - (8 if arch == "paligemma-3b" else 0) + 2
+    assert f"[serve] {arch}: batch=2 steps={steps}" in \
+        capsys.readouterr().out

@@ -8,7 +8,7 @@ the same admitted graph, bit for bit), deadline flushes, the warm-up
 zero-miss contract on every kernel path, typed errors and refusals, and the
 metrics snapshot's keys.  The oversize graph is rejected; the sharded route
 (``oversize="shard"``, ``mesh=``) is refused, pointing at ROADMAP.md Queue 1
-item 9.  Every service here runs on the CPU (``device="cpu"``).
+item 10.  Every service here runs on the CPU (``device="cpu"``).
 """
 import dataclasses
 import functools
@@ -148,9 +148,9 @@ def test_bucketizer_picks_smallest_fitting_bucket():
 
 
 def test_sharded_route_is_refused_with_a_pointer():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
         Bucketizer((BUCKET,), oversize="shard", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
         MatchingService(bucketizer=bucketizer(), mesh=object())
 
 
