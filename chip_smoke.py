@@ -175,7 +175,39 @@ What it does, in order; any failure raises and the exit code is not 0:
    prefix mask, 8 greedy decode steps after it; two layers in fp32 at
    S=4096: ``blockwise_attn`` against ``_plain_attn`` under the prefix
    mask, the logits within 1e-3;
-18. prints one ``{"kernels": [...]}`` line (the batched launch of each
+18. training (no kernel of the port is on this path: the flash kernel has
+   no backward, and the train step refuses it under autograd):
+   mamba2-2.7b FULL (64 blocks, bf16, remat) for 4 steps of B=2 x 2048
+   ``synthetic_batch`` tokens under the optimizer ``launch/train.py``
+   picks (fp32 masters), each step's loss, wall, tokens/s and peak memory
+   printed, one more step profiled; the crash and restart at full width
+   cut to 4 layers (2 steps, ``save_checkpoint``, every tree dropped,
+   ``restore_checkpoint`` into fresh state, 2 steps) against the 4 steps
+   straight through, the last loss bit for bit under
+   ``torch.use_deterministic_algorithms``; dbrx-132b at full width, one
+   layer, the factored state, 2 steps through ``route_matching`` under
+   autograd; then the gate: one fp32 step of mamba2 (two layers) and of
+   dbrx (one layer) at full width on the card against the same step on
+   the CPU (taken just before, its seconds and the process's peak
+   resident set after it printed), every parameter and optimizer leaf
+   after it
+   (``TRAIN_GATE_RTOL``, Adam's near-zero-gradient entries counted and
+   bounded by ``TRAIN_GATE_SHARE``), each with a control whose gradients
+   are scaled by 0 (``clip_norm = 0``) that must fail it; every run's
+   losses finite, and the loss of its first batch, taken again after the
+   run, below that first step's loss (each step trains on a fresh batch,
+   whose spread at ln(vocab) hides a few steps' progress; the last loss
+   against the first is printed beside it);
+19. the two knobs: granite-20b FULL served as in phase 9 with the bf16
+   cache and with the int8 one (``opt_kv_quant``: the cache's bytes, the
+   decode ms a step of both, the logits gap over the decode steps of a
+   lockstep run of both caches on the same tokens); two fp32 granite
+   layers at full width, the int8 codes and bf16 scales of 8 decode steps
+   on the card against the CPU (codes may differ by one, never more;
+   scales by one bf16 ulp); two fp32 dbrx layers at full width, the
+   prefill at S=4096 with ``opt_attn_layout`` (``hflat_blockwise_attn``
+   once a layer) against without it (``blockwise_attn``), within 1e-3;
+20. prints one ``{"kernels": [...]}`` line (the batched launch of each
    body as its own entry, ``lanes`` 16; K1a's launches include the exact
    route's, K4's dbrx's and seamless's prefills', and K4 carries its times
    at dbrx's and seamless's shapes), then as its last line ``{"ok": true,
@@ -193,6 +225,7 @@ import json
 import multiprocessing
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -200,6 +233,10 @@ import warnings
 
 import torch
 
+# cuBLAS's fixed workspace, which torch.use_deterministic_algorithms needs
+# for the crash-and-restart run (phase 18); 32 MiB, torch's own size on
+# Hopper
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 
@@ -2883,6 +2920,559 @@ def paligemma_phase() -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# training and the two knobs (phases 18-19)
+# ---------------------------------------------------------------------------
+TRAIN_SEED = 0
+# mamba2-2.7b FULL: synthetic_batch rows x positions, steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+# the crash and restart at full width, cut in depth so the checkpoint is
+# ~4 GB (params bf16 + fp32 m, v and masters); steps before and after it
+RESTART_CUTS = dict(n_layers=4)
+RESTART_STEPS = (2, 2)
+RESTART_RTOL = 1e-6       # only if an op of the path is nondeterministic
+# dbrx-132b at full width, one of its 40 layers, the factored state
+DBRX_TRAIN_CUTS = dict(n_layers=1)
+DBRX_TRAIN_STEPS = 2
+# The gate, card against CPU: one step of the model cut to these overrides
+# (fp32) from the same weights and batch (rows, positions).  Every leaf
+# after the step: fp32 within TRAIN_GATE_RTOL * (|cpu| + max |leaf|), bf16
+# within one bf16 ulp plus that floor; the parameters (and masters) may
+# have up to TRAIN_GATE_SHARE of their entries outside it, where Adam's
+# m / (sqrt(v) + eps) amplifies the two devices' summation orders on
+# near-zero gradients; the moments none.  (Such an entry is also held to
+# 2 lr, but that is the most two first Adam steps can differ by, so it
+# is no limit of its own.)
+TRAIN_GATE = {MAMBA_ARCH: (dict(n_layers=2, dtype="float32"), (1, 512)),
+              MOE_ARCH: (dict(n_layers=1, dtype="float32"), (1, 32))}
+TRAIN_GATE_RTOL = 1e-4
+TRAIN_GATE_SHARE = 1e-3
+# opt_kv_quant: granite-20b FULL served as phase 9 serves it (batch,
+# prompt stepped, tokens generated), and a lockstep run of both caches
+# over the same tokens (prompt, decode steps) for the logits gap; the
+# codes card against CPU over (batch, steps) of two fp32 layers
+KVQ_GAP_RUN = (8, 8)
+KVQ_CHECK = (2, 8)
+# opt_attn_layout: two fp32 dbrx layers, the prefill (batch, positions)
+LAYOUT_CHECK = (1, 4096)
+
+
+def train_opt_config(arch: str):
+    """The optimizer the launcher picks for the FULL config of ``arch``
+    (``launch/train.py``: the factored state above 60e9 parameters), with a
+    warm-up of one step, whatever cut of it runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import opt_config_for
+    return dataclasses.replace(opt_config_for(get_config(arch), 1),
+                               warmup=1)
+
+
+def train_batch(cfg, batch: int, seq: int, step: int, device=None) -> dict:
+    """``synthetic_batch`` of ``step`` as tensors on ``device`` (the
+    card)."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    nb = synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch, seed=TRAIN_SEED),
+                         step)
+    return {k: torch.from_numpy(v).to(device or CARD)
+            for k, v in nb.items()}
+
+
+def train_run(model, params, opt_cfg, batch: int, seq: int, steps,
+              what: str) -> tuple:
+    """Steps ``steps`` (a range of data steps, the launcher's batches) of
+    the train step (params and state updated in place) from ``params``:
+    each step's loss, wall, tokens/s and peak memory printed.  Returns
+    (params, state, losses)."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    state = adamw_init(params, opt_cfg)
+    step_fn = build_train_step(model, opt_cfg)
+    losses = []
+    for s in steps:
+        b = train_batch(model.cfg, batch, seq, s)
+        (params, state, met), wall, peak = timed(
+            lambda: step_fn(params, state, b))
+        loss = float(met["loss"])
+        losses.append(loss)
+        say("train:", json.dumps(dict(
+            run=what, step=s + 1, loss=loss,
+            grad_norm=float(met["grad_norm"]), lr=float(met["lr"]),
+            step_s=wall, tokens_per_s=batch * seq / wall,
+            peak_memory_bytes=peak)))
+        if not torch.isfinite(met["loss"]):
+            fail(f"{what}: loss at step {s + 1} is {loss}")
+    return params, state, losses
+
+
+def falls(model, params, losses, batch: int, seq: int, first: int,
+          what: str) -> dict:
+    """The learning check of a run: the loss of its first step's batch,
+    taken again with the trained params, must be below that step's loss.
+    (Each step's loss is on a fresh batch, and at ln(vocab) after a few
+    steps the batch-to-batch spread is larger than the progress: mamba2
+    FULL read 10.842, 10.857, 10.853, 10.840 on an H100.)  The last loss
+    against the first is printed beside it."""
+    from repro_torch.train import cross_entropy
+    b = train_batch(model.cfg, batch, seq, first)
+    with torch.no_grad():
+        logits, aux = model.forward(params, b)
+        again = cross_entropy(logits, b["labels"])
+        if model.cfg.family == "moe":
+            again = again + 0.01 * aux["lb_loss"] / max(1, model.cfg.n_layers)
+    again = float(again)
+    del logits
+    out = dict(run=what, first_loss=losses[0], last_loss=losses[-1],
+               last_below_first=losses[-1] < losses[0],
+               first_batch_after=again)
+    say("train, learning check:", json.dumps(out))
+    if not again < losses[0]:
+        fail(f"{what}: the first batch's loss after the run, {again}, is "
+             f"not below its loss at the first step, {losses[0]}")
+    return out
+
+
+def flat_items(tree, prefix: str = ""):
+    """(key path joined by "/", leaf) in sorted key order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from flat_items(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def leaf_gate(card: dict, cpu: dict, lr: float, first_fault: bool = False
+              ) -> dict:
+    """The train gate's reading of the card's tree against the CPU's (each
+    CPU leaf copied to the card in turn, compared there): entries outside
+    the tolerance in the parameters and masters, their share of the
+    parameter and master entries, the largest move among them, and the
+    moments' entries outside it (which fail the gate).  ``first_fault``
+    (a control's reading) stops at the first leaf that fails the gate on
+    its own: a moment leaf with an entry outside the tolerance, or a
+    parameter leaf with more than its share outside it or an entry moved
+    more than 2 lr; ``leaves_read`` says how far it got."""
+    ours = dict(flat_items(card))
+    off = total = moment_off = read = 0
+    worst_param = worst_rel = 0.0
+    for key, want in flat_items(cpu):
+        read += 1
+        leaf = ours.pop(key)
+        got, want = leaf.float(), want.to(CARD).float()
+        diff = (got - want).abs()
+        floor = TRAIN_GATE_RTOL * float(want.abs().max())
+        if leaf.dtype == torch.bfloat16:
+            lim = 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) + floor
+        else:
+            lim = TRAIN_GATE_RTOL * want.abs() + floor
+        bad = diff > lim
+        n = int(bad.sum())
+        is_param = key.split("/")[0] == "params" or \
+            key.startswith("opt/master")
+        total += want.numel() if is_param else 0
+        worst_rel = max(worst_rel, float((diff / (lim + 1e-30)).max()))
+        if not n:
+            continue
+        if is_param:
+            off += n
+            moved = float(diff[bad].max())
+            worst_param = max(worst_param, moved)
+            fails = n > TRAIN_GATE_SHARE * want.numel() or moved > 2 * lr
+        else:
+            moment_off += n
+            fails = True
+        if first_fault and fails:
+            break
+    if ours and not first_fault:
+        raise KeyError(f"leaves on the card only: {sorted(ours)}")
+    share = off / max(1, total)
+    return dict(param_entries_off=off, param_entries=total, share=share,
+                largest_move_off=worst_param, moment_entries_off=moment_off,
+                worst_over_tolerance=worst_rel, leaves_read=read,
+                passes=(moment_off == 0 and share <= TRAIN_GATE_SHARE
+                        and worst_param <= 2 * lr))
+
+
+def gate_model(arch: str):
+    """(config, model, optimizer, batch, positions) of ``arch``'s gate."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cuts, (B, S) = TRAIN_GATE[arch]
+    cfg = get_config(arch, **cuts)
+    return cfg, build_model(cfg), train_opt_config(arch), B, S
+
+
+def host_peak_bytes() -> int:
+    """The process's peak resident set so far (``ru_maxrss``)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def gate_cpu_step(arch: str) -> tuple:
+    """The CPU half of ``arch``'s gate: the weights drawn on the card
+    (the card's step draws the same ones) copied to the host, and one
+    train step there.  Returns (the tree after the step, its loss,
+    seconds, the process's peak resident set after it in bytes)."""
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+
+    cfg, model, opt, B, S = gate_model(arch)
+    params = tree_map(lambda t: t.to("cpu"), model.init(TRAIN_SEED))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p, s, met = build_train_step(model, opt)(
+        params, adamw_init(params, opt), train_batch(cfg, B, S, 0,
+                                                     device="cpu"))
+    return ({"params": p, "opt": s}, float(met["loss"]),
+            time.perf_counter() - t0, host_peak_bytes())
+
+
+def gate_step(arch: str, cpu, control: bool = False) -> dict:
+    """One train step of ``arch`` cut to TRAIN_GATE's overrides on the card,
+    held against ``cpu`` (``gate_cpu_step``'s result for it: the same
+    step on the CPU from the same weights and batch); the card's run with
+    ``clip_norm = 0`` (every gradient scaled by 0) when ``control``."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+
+    cfg, model, opt, B, S = gate_model(arch)
+    cpu_tree, cpu_loss, cpu_s, cpu_rss = cpu
+    card_opt = dataclasses.replace(opt, clip_norm=0.0) if control else opt
+    params = model.init(TRAIN_SEED)
+    (p, s, met), wall, peak = timed(lambda: build_train_step(
+        model, card_opt)(params, adamw_init(params, card_opt),
+                                      train_batch(cfg, B, S, 0)))
+    del params
+    reading = leaf_gate({"params": p, "opt": s}, cpu_tree, opt.lr,
+                        first_fault=control)
+    card_loss = float(met["loss"])
+    reading.update(arch=cfg.name, cuts=TRAIN_GATE[arch][0], batch=B, seq=S,
+                   optimizer=dataclasses.asdict(card_opt),
+                   card_loss=card_loss, card_step_s=wall,
+                   card_peak_memory_bytes=peak)
+    if not control:
+        reading.update(cpu_loss=cpu_loss, cpu_step_s=cpu_s,
+                       host_peak_rss_bytes=cpu_rss,
+                       loss_rel_gap=abs(card_loss - cpu_loss) / abs(cpu_loss))
+    del p, s
+    torch.cuda.empty_cache()
+    return reading
+
+
+def train_gates() -> dict:
+    """The gate on mamba2's and dbrx's cuts, each with its control, against
+    the CPU's step."""
+    out = {}
+    for arch in TRAIN_GATE:
+        cpu = gate_cpu_step(arch)
+        reading = gate_step(arch, cpu)
+        say("train gate:", json.dumps(reading))
+        if not reading["passes"] or \
+                not reading["loss_rel_gap"] <= TRAIN_GATE_RTOL:
+            fail(f"{arch}: one train step on the card differs from the "
+                 f"CPU's: {reading}")
+        ctrl = gate_step(arch, cpu, control=True)
+        say("train gate, control (clip_norm 0):", json.dumps(ctrl))
+        if ctrl["passes"]:
+            fail(f"{arch}: the control step (gradients scaled by 0) passes "
+                 f"the gate: {ctrl}")
+        del cpu
+        out[arch] = dict(gate=reading, control=ctrl)
+    return out
+
+
+def restart_run() -> dict:
+    """mamba2 at full width cut to RESTART_CUTS, under
+    ``torch.use_deterministic_algorithms``: the steps straight through,
+    then the same steps with a checkpoint saved after the first part,
+    every tree dropped, fresh state restored from it, and the rest run.
+    The last losses must be equal bit for bit; were an op of the path
+    without a deterministic CUDA implementation (the mode's warning names
+    it), they would be held within RESTART_RTOL instead."""
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+
+    cfg = get_config(MAMBA_ARCH, **RESTART_CUTS)
+    model = build_model(cfg)
+    opt = train_opt_config(MAMBA_ARCH)
+    first, second = RESTART_STEPS
+    ckpt = os.path.join(HERE, "build", "chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            gp, _, gold = train_run(model, model.init(TRAIN_SEED), opt,
+                                    TRAIN_BATCH, TRAIN_SEQ,
+                                    range(first + second),
+                                    "restart: straight")
+            learned = falls(model, gp, gold, TRAIN_BATCH, TRAIN_SEQ, 0,
+                            "restart, straight run")
+            del gp
+            torch.cuda.empty_cache()
+            p, s, before = train_run(model, model.init(TRAIN_SEED), opt,
+                                     TRAIN_BATCH, TRAIN_SEQ, range(first),
+                                     "restart: before the crash")
+            _, save_s, _ = timed(lambda: save_checkpoint(
+                ckpt, first, {"params": p, "opt": s}))
+            nbytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _, fs in os.walk(ckpt) for f in fs)
+            del p, s
+            torch.cuda.empty_cache()
+            fresh = model.init(TRAIN_SEED + 1)     # not the weights saved
+            (state, step), restore_s, _ = timed(lambda: restore_checkpoint(
+                ckpt, {"params": fresh, "opt": adamw_init(fresh, opt)}))
+            del fresh
+            p, s = state["params"], state["opt"]
+            del state
+            if step != first or int(s["step"]) != first:
+                fail(f"restart: restored step {step} / {int(s['step'])}, "
+                     f"not {first}")
+            step_fn = build_train_step(model, opt)
+            after = []
+            for k in range(first, first + second):
+                p, s, met = step_fn(p, s, train_batch(cfg, TRAIN_BATCH,
+                                                      TRAIN_SEQ, k))
+                after.append(float(met["loss"]))
+            del p, s
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    nondet = sorted({str(w.message).split(" does not have")[0]
+                     for w in caught
+                     if "deterministic implementation" in str(w.message)})
+    out = dict(arch=cfg.name, cuts=RESTART_CUTS, steps=RESTART_STEPS,
+               straight=gold, resumed=before + after,
+               checkpoint_bytes=nbytes, save_s=save_s, restore_s=restore_s,
+               nondeterministic_ops=nondet,
+               bit_exact=gold[-1] == after[-1])
+    say("train restart:", json.dumps(out))
+    if nondet:
+        gap = abs(gold[-1] - after[-1]) / abs(gold[-1])
+        if not gap <= RESTART_RTOL:
+            fail(f"restart: the resumed run ends {gap} from the straight "
+                 f"run (ops without a deterministic implementation: "
+                 f"{nondet})")
+    elif gold[-1] != after[-1] or gold[:first] != before:
+        fail(f"restart: the resumed run ends on {after[-1]!r}, the straight "
+             f"run on {gold[-1]!r}")
+    out["learning"] = learned
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase() -> dict:
+    """Phase 18: training on the card.  mamba2-2.7b FULL (64 blocks, bf16,
+    remat) for TRAIN_STEPS steps of B x S synthetic tokens under the
+    launcher's optimizer (fp32 masters), one more step profiled; the crash
+    and restart; dbrx-132b at full width, one layer, the factored state,
+    through route_matching under autograd; the card-against-CPU gates with
+    their controls."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import build_train_step
+    from repro_torch.train import steps as steps_mod
+
+    out = {}
+    cfg, model, params = full_model(MAMBA_ARCH)
+    opt = train_opt_config(MAMBA_ARCH)
+    say("train:", json.dumps(dict(arch=cfg.name, remat=cfg.remat,
+                                  optimizer=dataclasses.asdict(opt),
+                                  params=cfg.params_count())))
+    params, state, losses = train_run(model, params, opt, TRAIN_BATCH,
+                                      TRAIN_SEQ, range(TRAIN_STEPS),
+                                      f"{cfg.name} FULL")
+    learned = falls(model, params, losses, TRAIN_BATCH, TRAIN_SEQ, 0,
+                    f"{cfg.name} FULL")
+    step_fn = build_train_step(model, opt)
+    b = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS)
+    with spying(steps_mod, "adamw_update", [], label="adamw_update"):
+        say("profile:", json.dumps(dict(
+            arch=cfg.name, run=f"train step {TRAIN_STEPS + 1}",
+            **device_profile(lambda: step_fn(params, state, b), {},
+                             ranges=("adamw_update",)))))
+    out["mamba2"] = dict(losses=losses, learning=learned)
+    del params, state, b
+    torch.cuda.empty_cache()
+
+    out["restart"] = restart_run()
+
+    cfg = get_config(MOE_ARCH, **DBRX_TRAIN_CUTS)
+    model = build_model(cfg)
+    opt = train_opt_config(MOE_ARCH)
+    if not opt.factored:
+        fail(f"{cfg.name}: the launcher's optimizer is not factored")
+    params, init_s, _ = timed(lambda: model.init(TRAIN_SEED))
+    say("train:", json.dumps(dict(
+        arch=cfg.name, cuts=DBRX_TRAIN_CUTS, router=cfg.router,
+        remat=cfg.remat, optimizer=dataclasses.asdict(opt),
+        gb_on_card=torch.cuda.memory_allocated() / 1e9, init_s=init_s)))
+    params, _, losses = train_run(model, params, opt, TRAIN_BATCH, TRAIN_SEQ,
+                                  range(DBRX_TRAIN_STEPS),
+                                  f"{cfg.name} 1 layer, factored")
+    out["dbrx"] = dict(losses=losses, learning=falls(
+        model, params, losses, TRAIN_BATCH, TRAIN_SEQ, 0,
+        f"{cfg.name} 1 layer"))
+    del params
+    torch.cuda.empty_cache()
+
+    out["gates"] = train_gates()
+    return out
+
+
+def kv_cache_bytes(cache) -> int:
+    return sum(cache[k].numel() * cache[k].element_size()
+               for k in ("k", "v", "k_scale", "v_scale") if k in cache)
+
+
+def kvq_codes_check() -> dict:
+    """Two fp32 granite layers at full width with the int8 cache: the same
+    decode steps on the card and on the CPU, from the same weights and
+    tokens; the codes may differ by one (the devices' matmuls round
+    differently), never by more, and the bf16 scales by one bf16 ulp."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(LM_ARCH, n_layers=2, dtype="float32", opt_kv_quant=True)
+    model = build_model(cfg)
+    params = model.init(LM_SEED)
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    B, steps = KVQ_CHECK
+    gen = torch.Generator(device=CARD).manual_seed(LM_SEED + 2)
+    toks = torch.randint(0, cfg.vocab, (B, steps), generator=gen,
+                         device=CARD)
+    card = model.init_cache(B, steps)
+    cpu = model.init_cache(B, steps, device="cpu")
+    for t in range(steps):
+        lg, card = model.decode_step(params, card, toks[:, t:t + 1], t)
+        lc, cpu = model.decode_step(cpu_params, cpu,
+                                    toks[:, t:t + 1].cpu(), t)
+    out = dict(arch=cfg.name, layers=2, batch=B, steps=steps,
+               logits_max_abs_diff=float((lg.cpu() - lc).abs().max()))
+    for name in ("k", "v"):
+        d = (card[name].cpu().int() - cpu[name].int()).abs()
+        out[f"{name}_codes"] = int(d.numel())
+        out[f"{name}_codes_off_by_1"] = int((d == 1).sum())
+        out[f"{name}_codes_off_by_more"] = int((d > 1).sum())
+    for name in ("k_scale", "v_scale"):
+        a, b = card[name].cpu().float(), cpu[name].float()
+        off = (a - b).abs() > 2.0 ** -7 * torch.maximum(a.abs(), b.abs())
+        out[f"{name}_differ"] = int((a != b).sum())
+        out[f"{name}_off_by_more_than_an_ulp"] = int(off.sum())
+    say("kv quant, card vs CPU:", json.dumps(out))
+    if out["k_codes_off_by_more"] or out["v_codes_off_by_more"] or \
+            out["k_scale_off_by_more_than_an_ulp"] or \
+            out["v_scale_off_by_more_than_an_ulp"]:
+        fail(f"int8 cache, card vs CPU: {out}")
+    del params, cpu_params, card, cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def kvq_serving() -> dict:
+    """granite-20b FULL served with the bf16 cache and with the int8 one
+    (phase 9's greedy serving), then both caches stepped in lockstep over
+    the same tokens (the bf16 run's greedy ones): the logits gap at each
+    decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeCell, make_inputs
+    from repro_torch.models import build_model
+
+    cfg = get_config(LM_ARCH)
+    plain, quant = build_model(cfg), build_model(
+        dataclasses.replace(cfg, opt_kv_quant=True))
+    params, init_s, _ = timed(lambda: plain.init(LM_SEED))
+    inputs = make_inputs(cfg, ShapeCell("serve", SERVE_PROMPT, SERVE_BATCH,
+                                        "prefill"), seed=LM_SEED)
+    max_len = SERVE_PROMPT + SERVE_GEN
+    out = {"arch": cfg.name, "batch": SERVE_BATCH, "max_len": max_len,
+           "cache_bytes_bf16": kv_cache_bytes(
+               plain.init_cache(SERVE_BATCH, max_len)),
+           "cache_bytes_int8": kv_cache_bytes(
+               quant.init_cache(SERVE_BATCH, max_len))}
+    torch.cuda.empty_cache()
+    out["bf16"] = served(plain, params, inputs, SERVE_GEN)
+    out["int8"] = served(quant, params, inputs, SERVE_GEN)
+    prompt, gen = KVQ_GAP_RUN
+    cp = plain.init_cache(SERVE_BATCH, prompt + gen)
+    cq = quant.init_cache(SERVE_BATCH, prompt + gen)
+    toks = inputs["tokens"][:, :prompt]
+    gaps, agree = [], 0
+    tok = toks[:, :1]
+    for t in range(prompt + gen):
+        if t < prompt:
+            tok = toks[:, t:t + 1]
+        lp, cp = plain.decode_step(params, cp, tok, t)
+        lq, cq = quant.decode_step(params, cq, tok, t)
+        if not torch.isfinite(lq.float()).all():
+            fail(f"int8 cache: logits at position {t} not finite")
+        if t >= prompt - 1:
+            gaps.append(logit_gap(lq, lp))
+            agree += int((lq.argmax(-1) == lp.argmax(-1)).sum())
+        tok = lp[:, -1:].argmax(-1)
+    out.update(logits_gap_decode_max=max(gaps),
+               logits_gap_decode_mean=sum(gaps) / len(gaps),
+               argmax_agree=f"{agree}/{SERVE_BATCH * len(gaps)}")
+    say("kv quant:", json.dumps(out))
+    if not out["cache_bytes_int8"] < 0.52 * out["cache_bytes_bf16"]:
+        fail(f"int8 cache of {out['cache_bytes_int8']} bytes against "
+             f"{out['cache_bytes_bf16']} in bf16")
+    del params, cp, cq
+    torch.cuda.empty_cache()
+    return out
+
+
+def layout_check() -> dict:
+    """Two fp32 dbrx layers at full width, the prefill at S=4096 with
+    ``opt_attn_layout`` (hflat_blockwise_attn, once a layer) against
+    without it (blockwise_attn), within 1e-3."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as att
+    from repro_torch.models import build_model
+    from repro_torch.train import build_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(MOE_ARCH, n_layers=2, dtype="float32")
+    off, on = build_model(cfg), build_model(
+        dataclasses.replace(cfg, opt_attn_layout=True))
+    params = off.init(MOE_SEED)
+    B, S = LAYOUT_CHECK
+    gen = torch.Generator(device=CARD).manual_seed(MOE_SEED + 3)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                                     device=CARD)}
+    want, wall_off, _ = timed(lambda: build_prefill_step(off)(params, batch))
+    one = lambda args, out: 1                  # noqa: E731
+    with spying(att, "hflat_blockwise_attn", [], one) as calls, \
+            spying(att, "blockwise_attn", [], one) as plain_calls:
+        got, wall_on, peak = timed(
+            lambda: build_prefill_step(on)(params, batch))
+    err = close(f"{cfg.name} fp32 2 layers, prefill S={S}, opt_attn_layout "
+                f"on vs off", got, want, 1e-3)
+    out = dict(arch=cfg.name, layers=2, batch=B, seq=S, max_abs_err=err,
+               hflat_calls=len(calls), blockwise_calls=len(plain_calls),
+               on_s=wall_on, off_s=wall_off, on_peak_memory_bytes=peak)
+    say("attn layout:", json.dumps(out))
+    if len(calls) != cfg.n_layers or plain_calls:
+        fail(f"opt_attn_layout prefill called hflat_blockwise_attn "
+             f"{len(calls)} times and blockwise_attn {len(plain_calls)}")
+    del params, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def knob_phase() -> dict:
+    """Phase 19: the int8 KV cache (granite-20b FULL served both ways, the
+    codes card against CPU) and the H-flat attention layout."""
+    return dict(kv_quant=kvq_serving(), kv_quant_codes=kvq_codes_check(),
+                attn_layout=layout_check())
+
+
 def family_phases() -> tuple:
     """Phases 14-17: mamba2, zamba2, seamless, paligemma.  Returns (K4's
     launches in seamless's prefill, K4's times at seamless's shape)."""
@@ -2965,6 +3555,12 @@ def main() -> int:
     kernels.append(lm_phases())
     k1a, k1a_levels, k4 = moe_phases()
     k4_seamless, seamless_times = family_phases()
+    t0 = time.perf_counter()
+    train_phase()
+    phase("training", t0)
+    t0 = time.perf_counter()
+    knob_phase()
+    phase("opt_kv_quant and opt_attn_layout", t0)
     for entry in kernels:
         if entry["name"] == "frontier_expand_fused_wr":
             entry["launches"] += k1a

@@ -1,0 +1,4 @@
+"""Step-atomic checkpoints in the JAX package's layout."""
+from .checkpoint import latest_step, restore_checkpoint, save_checkpoint
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step"]

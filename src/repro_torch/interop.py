@@ -19,8 +19,10 @@ LM weights and decode caches are nested dicts in both packages, leaf for
 leaf (:func:`lm_params_from_reference`, :func:`lm_params_to_reference`):
 the mamba blocks' ``mix``, the hybrid's ``shared`` block, the encoder's
 ``enc`` stack, the decoder's ``xattn``/``lnx``, the vision ``vproj``; the
-KV cache, the SSM ``h``/``conv`` caches, the hybrid's nested
-``shared_kv`` and the cross-attention ``xk``/``xv``.
+KV cache (int8 with its bf16 scales under ``opt_kv_quant``), the SSM
+``h``/``conv`` caches, the hybrid's nested ``shared_kv`` and the
+cross-attention ``xk``/``xv``.  The AdamW state carries across the same
+way (:func:`opt_state_from_reference`, :func:`opt_state_to_reference`).
 """
 from __future__ import annotations
 
@@ -138,3 +140,24 @@ def lm_params_to_reference(params):
     if isinstance(params, dict):
         return {k: lm_params_to_reference(v) for k, v in params.items()}
     return _leaf_to_numpy(params)
+
+
+def opt_state_from_reference(tree, device=None):
+    """The port's AdamW state from the JAX package's ``adamw_init`` /
+    ``adamw_update`` state converted with ``jax.tree.map(np.asarray,
+    ...)``: the same keys (``m``, ``v``, ``master`` or the factored
+    ``m``, ``vr``, ``vc``), dtypes kept, ``step`` a 0-d int32 tensor."""
+    out = lm_params_from_reference(
+        {k: v for k, v in tree.items() if k != "step"}, device=device)
+    out["step"] = torch.tensor(int(np.asarray(tree["step"])),
+                               dtype=torch.int32, device=resolve_device(device))
+    return out
+
+
+def opt_state_to_reference(state):
+    """The JAX package's AdamW state tree of numpy arrays (``step`` an
+    int32 scalar) from the port's."""
+    out = lm_params_to_reference({k: v for k, v in state.items()
+                                  if k != "step"})
+    out["step"] = np.asarray(int(state["step"]), np.int32)
+    return out

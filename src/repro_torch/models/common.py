@@ -63,9 +63,9 @@ class ModelConfig:
     fsdp: bool = False
     remat: bool = True
     attn_impl: str = "xla"         # xla | pallas (flash kernel)
-    # beyond-baseline knobs of the JAX package: opt_moe_dispatch is ported
-    # (models/moe.py); a config that sets either of the other two is
-    # refused by ``build_model``
+    # beyond-baseline knobs of the JAX package: the H-flat attention
+    # layout (attention.py), the local MoE dispatch (moe.py) and the int8
+    # KV cache (attention.py; not for the hybrid, see Model.init_cache)
     opt_attn_layout: bool = False
     opt_moe_dispatch: bool = False
     opt_kv_quant: bool = False

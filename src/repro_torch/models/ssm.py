@@ -110,12 +110,16 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     seg = torch.cumsum(dA, dim=2)                              # within chunk
 
     # ---- intra-chunk (quadratic, causal-masked) ---------------------------
-    # above the diagonal the exponent is positive: the mask selects after
-    # the exp (a product with a 0/1 mask would make inf * 0 = NaN there)
-    decay = torch.exp(seg[:, :, :, None, :] - seg[:, :, None, :, :])
+    # above the diagonal the exponent is positive and overflows at full
+    # width: the mask sets it to -inf before the exp, which gives the JAX
+    # function's values (0 there, the same exp below) and a finite
+    # gradient, where its mask after the exp gives 0 * inf = NaN in the
+    # backward (ROADMAP.md, Queue 3)
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    decay = torch.where(causal[None, None, :, :, None], decay,
-                        decay.new_zeros(()))                   # (B,nc,Q,Q,H)
+    decay = torch.exp(torch.where(
+        causal[None, None, :, :, None],
+        seg[:, :, :, None, :] - seg[:, :, None, :, :],
+        seg.new_tensor(float("-inf"))))                        # (B,nc,Q,Q,H)
     cb = torch.einsum("bcqn,bctn->bcqt", Ch, Bh)               # (B,nc,Q,Q)
     att = cb[..., None] * decay * dth[:, :, None, :, :]
     del decay

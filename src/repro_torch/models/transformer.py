@@ -18,9 +18,16 @@ encoder-decoder, ``{"enc_frames": (B, Se, D)}``.  Blocks are ``attn``
 (dense FFN), ``moe`` (:mod:`.moe`) or ``mamba`` (:mod:`.ssm`); the hybrid
 runs one shared ``attn`` block under the sliding window after every
 ``shared_every``-th mamba block.  ``forward``'s ``aux["lb_loss"]`` is the
-load-balance loss summed over the layers.  Not ported yet: the
-``opt_attn_layout`` and ``opt_kv_quant`` knobs (ROADMAP.md, Queue 1,
-item 8); ``build_model`` refuses a config that sets either.
+load-balance loss summed over the layers.
+
+``cfg.remat`` runs each layer's body (the block, and the hybrid's shared
+block after it) under ``torch.utils.checkpoint`` when autograd records
+it (grad mode on, and the stack's input or a weight needing a gradient),
+as the JAX package wraps the body in ``jax.checkpoint``: only the
+layer inputs are kept for the backward.  ``opt_attn_layout`` routes
+self-attention through ``hflat_blockwise_attn``; ``opt_kv_quant`` makes
+the KV cache int8 with bf16 scales (a no-op for the SSM, which has no KV
+cache; refused for the hybrid, see ``init_cache``).
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ import dataclasses
 from typing import Any, Dict, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 
@@ -36,8 +44,6 @@ from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
 from .common import ModelConfig, dense_init, rms_norm, tree_leaves, tree_map
-
-_ROADMAP = "ROADMAP.md, Queue 1, item 8"
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +144,15 @@ def _layer(stacked, i: int):
     return tree_map(lambda t: t[i], stacked)
 
 
+def _unstack(stacked, n: int) -> list:
+    """The ``n`` layers of a stacked tree as views, from one ``unbind``
+    per leaf: its backward stacks the layers' gradients once, where
+    indexing each layer would add a zero-filled gradient of the whole
+    stack per layer (L^2 traffic in training)."""
+    parts = tree_map(lambda t: t.unbind(0), stacked)
+    return [tree_map(lambda u: u[i], parts) for i in range(n)]
+
+
 def _stack_init(gen: torch.Generator, cfg: ModelConfig, n: int, kind: str,
                 cross: bool = False):
     """``n`` blocks stacked on a leading axis, filled one layer at a time:
@@ -159,18 +174,6 @@ def _stack_init(gen: torch.Generator, cfg: ModelConfig, n: int, kind: str,
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-
-    def __post_init__(self):
-        cfg = self.cfg
-        missing = []
-        if cfg.opt_attn_layout:
-            missing.append("opt_attn_layout (hflat_blockwise_attn)")
-        if cfg.opt_kv_quant:
-            missing.append("opt_kv_quant (the int8 KV cache)")
-        if missing:
-            raise NotImplementedError(
-                f"{cfg.name}: {', '.join(missing)} not ported yet "
-                f"({_ROADMAP})")
 
     # ---------------- init -------------------------------------------------
     def init(self, rng: Union[int, torch.Generator] = 0, device=None
@@ -216,14 +219,31 @@ class Model:
         cfg = self.cfg
         n = tree_leaves(layer_params)[0].shape[0]
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        lbs = []
-        for i in range(n):
-            x, aux = block_fwd(_layer(layer_params, i), x, pos, cfg, kind,
-                               mask_kind, enc_out=enc_out, enc_pos=enc_pos,
+
+        def body(lp, x, with_shared: bool):
+            x, aux = block_fwd(lp, x, pos, cfg, kind, mask_kind,
+                               enc_out=enc_out, enc_pos=enc_pos,
                                prefix_len=prefix_len)
-            lbs.append(aux.get("lb_loss", zero))
-            if shared is not None and self._shared_after(i):
+            if with_shared:
                 x, _ = block_fwd(shared, x, pos, cfg, "attn", "swa")
+            return x, aux.get("lb_loss", zero)
+
+        # only where autograd records the layer: a forward under grad mode
+        # over weights and inputs that need no gradient (serving) saves
+        # nothing for a backward, and the checkpoint would cost it
+        # nothing but its overhead
+        remat = cfg.remat and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, enc_out, *tree_leaves(layer_params),
+                      *(tree_leaves(shared) if shared is not None else ())))
+        lbs = []
+        for i, lp in enumerate(_unstack(layer_params, n)):
+            args = (lp, x, shared is not None and self._shared_after(i))
+            if remat:
+                x, lb = checkpoint(body, *args, use_reentrant=False)
+            else:
+                x, lb = body(*args)
+            lbs.append(lb)
         return x, torch.stack(lbs).sum()
 
     def _shared_after(self, i: int) -> bool:
@@ -278,11 +298,19 @@ class Model:
         """The decode cache; ``pos`` is a Python int (the next position).
         SSM and hybrid: the state and convolution caches, the hybrid also
         one KV slice per shared-block invocation (``shared_kv``, one ring
-        of ``min(max_len, window)`` positions); the others the KV cache.
+        of ``min(max_len, window)`` positions); the others the KV cache
+        (int8 with ``k_scale``/``v_scale`` under ``opt_kv_quant``).
         Enc-dec also ``xk``/``xv`` (L, B, enc_len, KV, hd), which
         ``prefill_encoder`` fills."""
         cfg = self.cfg
         dev = resolve_device(device)
+        if cfg.opt_kv_quant and cfg.family == "hybrid":
+            raise TypeError(
+                f"{cfg.name}: opt_kv_quant has no int8 cache for the "
+                f"hybrid's shared attention block: the JAX package's "
+                f"_shared_decode writes float K/V into its int8 shared_kv "
+                f"and raises TypeError on the first decode step, so there "
+                f"is no reference to hold one to (ROADMAP.md, Queue 3)")
         cache: Dict[str, Any] = {"pos": 0}
         if cfg.family in ("ssm", "hybrid"):
             cache.update(ssm_mod.init_ssm_cache(cfg, cfg.n_layers,
@@ -325,13 +353,17 @@ class Model:
         x = embed_tokens(params["embed"], tokens, cfg)
         layers = params["layers"]
         kind = self._block_kind()
+        quant = "k_scale" in cache
         for i in range(cfg.n_layers):
             lp = _layer(layers, i)
             if kind != "mamba":
                 cross = ((cache["xk"][i], cache["xv"][i]) if cfg.enc_layers
-                         else ())
+                         else (None, None))
+                scales = ((cache["k_scale"][i], cache["v_scale"][i])
+                          if quant else (None, None))
                 x = self._block_decode(lp, x, cache["k"][i], cache["v"][i],
-                                       cache["idx"], pos, kind, *cross)
+                                       cache["idx"], pos, kind, *cross,
+                                       *scales)
                 continue
             h = rms_norm(x, lp["ln1"], cfg.norm_eps)
             y, h_new, conv = ssm_mod.mamba_decode_step(
@@ -349,15 +381,18 @@ class Model:
         return logits, dict(cache, pos=pos + 1)
 
     def _block_decode(self, lp, x, cache_k, cache_v, cache_idx, pos: int,
-                      kind: str, xk=None, xv=None):
+                      kind: str, xk=None, xv=None, k_scale=None,
+                      v_scale=None):
         """One attention block in decode: this token's K/V written into
-        the cache slice in place, attention over it, the cross-attention
-        over the encoder's ``xk``/``xv`` when given, the feed-forward."""
+        the cache slice in place (with its scales, for an int8 cache),
+        attention over it, the cross-attention over the encoder's
+        ``xk``/``xv`` when given, the feed-forward."""
         cfg = self.cfg
         h = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        k, v, idx = att.update_cache(lp["attn"], h, cache_k, cache_v,
-                                     cache_idx, pos, cfg)
-        x = x + att.decode_attention(lp["attn"], h, k, v, idx, pos, cfg)
+        att.update_cache(lp["attn"], h, cache_k, cache_v, cache_idx, pos,
+                         cfg, k_scale, v_scale)
+        x = x + att.decode_attention(lp["attn"], h, cache_k, cache_v,
+                                     cache_idx, pos, cfg, k_scale, v_scale)
         if xk is not None:
             h = rms_norm(x, lp["lnx"], cfg.norm_eps)
             x = x + self._cross_decode(lp["xattn"], h, xk, xv)

@@ -57,7 +57,7 @@ Fault tolerance (the "failure model & degradation ladder" section of
 
 Oversize graphs are rejected (:class:`OversizeGraphError`); the edge-sharded
 lane and ``mesh=`` wait for the sharding slice (ROADMAP.md, Queue 1, item
-9) and are refused.
+10) and are refused.
 """
 from __future__ import annotations
 

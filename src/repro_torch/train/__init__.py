@@ -1,3 +1,5 @@
-from .steps import build_prefill_step, build_serve_step
+from .steps import (build_prefill_step, build_serve_step, build_train_step,
+                    cross_entropy)
 
-__all__ = ["build_prefill_step", "build_serve_step"]
+__all__ = ["build_prefill_step", "build_serve_step", "build_train_step",
+           "cross_entropy"]

@@ -56,6 +56,26 @@ def test_no_source_imports_jax_or_reference():
     assert os.path.exists(files[0]), "chip_smoke.py is missing"
 
 
+def test_port_needs_no_msgpack():
+    """The checkpoint manifest has the port's own codec: no source imports
+    ``msgpack`` (the card host has none), and importing every module
+    loads none."""
+    pat = re.compile(r"^\s*(?:import|from)\s+msgpack(?:[.\s,]|$)",
+                     re.MULTILINE)
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(d, n) for d, _, names in os.walk(PKG) for n in names
+        if n.endswith(".py")]
+    assert not [f for f in files if pat.search(open(f).read())]
+    code = ("import importlib, sys\n"
+            f"for m in {_port_modules()!r}:\n"
+            "    importlib.import_module(m)\n"
+            "sys.exit(1 if 'msgpack' in sys.modules else 0)\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    r = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_default_device_is_the_card():
     from repro_torch.graphs import random_bipartite
     from repro_torch.matching import MatchState, TorchCSR

@@ -1355,3 +1355,214 @@ def test_cuda_submits_from_four_threads_during_a_cold_capture():
         for f in ("cmatch", "rmatch", "phases", "fallbacks", "certified"):
             assert torch.equal(getattr(res.state, f).cpu(),
                                getattr(want, f)), f
+
+
+# ---------------------------------------------------------------------------
+# training and the two knobs on the card (no kernel of the port: these hold
+# the torch-op paths on the card against the same code on the CPU)
+# ---------------------------------------------------------------------------
+def _train_data(cfg, step, device, batch=2, seq=64):
+    from repro_torch.data import DataConfig, synthetic_batch
+    nb = synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch), step)
+    return {k: torch.from_numpy(v).to(device) for k, v in nb.items()}
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,factored", [("granite-20b", False),
+                                           ("mamba2-2.7b", False),
+                                           ("dbrx-132b", True)])
+def test_cuda_train_step_equals_cpu(arch, factored):
+    """One fp32 SMOKE train step on the card against the CPU's: the loss
+    within 1e-5, every leaf within ``1e-4 * (|cpu| + max |leaf|)`` (bf16:
+    one ulp plus that floor), Adam's near-zero-gradient entries of the
+    parameters at most 1e-3 of them and never more than 2 lr off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.train import build_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg)
+    opt = OptConfig(warmup=1, factored=factored)
+    params = model.init(0, device="cpu")
+    card = tree_map(lambda t: t.cuda(), params)
+    step = build_train_step(model, opt)
+    pc, sc, mc = step(card, adamw_init(card, opt),
+                      _train_data(cfg, 0, "cuda"))
+    pp, sp, mp = step(params, adamw_init(params, opt),
+                      _train_data(cfg, 0, "cpu"))
+    assert abs(float(mc["loss"]) - float(mp["loss"])) <= \
+        1e-5 * abs(float(mp["loss"]))
+    got = dict(_leaves({"params": pc, "opt": sc}))
+    off = total = 0
+    for key, want in _leaves({"params": pp, "opt": sp}):
+        g, w = got[key].float().cpu(), want.float()
+        diff = (g - w).abs()
+        floor = 1e-4 * float(w.abs().max())
+        lim = (2.0 ** -7 * torch.maximum(g.abs(), w.abs())
+               if want.dtype == torch.bfloat16 else 1e-4 * w.abs()) + floor
+        bad = diff > lim
+        total += w.numel()
+        if bad.any():
+            assert key.startswith("/params") or "/master/" in key, key
+            assert float(diff.max()) <= 2 * opt.lr + 1e-6, key
+            off += int(bad.sum())
+    assert off <= 1e-3 * total, (off, total)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite-20b", "dbrx-132b", "zamba2-7b"])
+def test_cuda_remat_gradients_bit_exact(arch):
+    """On the card, under torch.use_deterministic_algorithms: the
+    gradients with each layer under torch.utils.checkpoint equal those
+    without, bit for bit (the recomputed forward, the router's too, is
+    the same)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.train import cross_entropy
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        grads = {}
+        for remat in (False, True):
+            cfg = get_config(arch, smoke=True, remat=remat)
+            model = build_model(cfg)
+            params = model.init(3, device="cuda")
+            leaves = [p.requires_grad_(True) for _, p in _leaves(params)]
+            b = _train_data(cfg, 1, "cuda")
+            logits, aux = model.forward(params, b)
+            loss = cross_entropy(logits, b["labels"]) + 0.01 * aux["lb_loss"]
+            grads[remat] = torch.autograd.grad(loss, leaves)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(grads[False], grads[True]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_cuda_train_restart_bit_exact(tmp_path):
+    """mamba2 SMOKE on the card: 4 steps straight against 2 steps, a
+    checkpoint, fresh state restored from it and 2 more; the last loss
+    bit for bit under torch.use_deterministic_algorithms."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.train import build_train_step
+    cfg = get_config("mamba2-2.7b", smoke=True, dtype="bfloat16",
+                     remat=True)
+    model = build_model(cfg)
+    opt = OptConfig(warmup=1)
+    step = build_train_step(model, opt)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        p = model.init(0, device="cuda")
+        s = adamw_init(p, opt)
+        for k in range(4):
+            p, s, m = step(p, s, _train_data(cfg, k, "cuda"))
+        gold = float(m["loss"])
+        p = model.init(0, device="cuda")
+        s = adamw_init(p, opt)
+        for k in range(2):
+            p, s, _ = step(p, s, _train_data(cfg, k, "cuda"))
+        save_checkpoint(str(tmp_path), 2, {"params": p, "opt": s})
+        fresh = model.init(1, device="cuda")
+        state, at = restore_checkpoint(
+            str(tmp_path), {"params": fresh, "opt": adamw_init(fresh, opt)},
+            device="cuda")
+        assert at == 2 and int(state["opt"]["step"]) == 2
+        p, s = state["params"], state["opt"]
+        for k in range(2, 4):
+            p, s, m = step(p, s, _train_data(cfg, k, "cuda"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert float(m["loss"]) == gold
+
+
+@pytest.mark.gpu
+def test_cuda_int8_cache_equals_cpu():
+    """granite SMOKE (fp32) with the int8 cache, 8 decode steps on the
+    card and on the CPU: codes at most one apart, scales at most one bf16
+    ulp, the logits within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = build_model(get_config("granite-20b", smoke=True,
+                                   opt_kv_quant=True))
+    params = model.init(0, device="cpu")
+    card_params = tree_map(lambda t: t.cuda(), params)
+    toks = torch.randint(0, model.cfg.vocab, (2, 8),
+                         generator=torch.Generator().manual_seed(1))
+    cc = model.init_cache(2, 8, device="cuda")
+    cp = model.init_cache(2, 8, device="cpu")
+    for t in range(8):
+        lc, cc = model.decode_step(card_params, cc, toks[:, t:t + 1].cuda(),
+                                   t)
+        lp, cp = model.decode_step(params, cp, toks[:, t:t + 1], t)
+        torch.testing.assert_close(lc.cpu(), lp, rtol=1e-4, atol=1e-4)
+    for name in ("k", "v"):
+        assert cc[name].dtype == torch.int8
+        assert int((cc[name].cpu().int() - cp[name].int()).abs().max()) <= 1
+    for name in ("k_scale", "v_scale"):
+        a, b = cc[name].cpu().float(), cp[name].float()
+        assert bool(((a - b).abs() <= 2.0 ** -7 * torch.maximum(
+            a.abs(), b.abs())).all())
+
+
+@pytest.mark.gpu
+def test_cuda_hflat_blockwise_attn_equals_blockwise():
+    """The H-flat layout on the card against blockwise_attn and against
+    the CPU, fp32 (TF32 off), GQA and the causal mask, 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.models.attention import (blockwise_attn,
+                                              hflat_blockwise_attn)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(2)
+    q = torch.randn(2, 256, 8, 32, generator=gen)
+    k = torch.randn(2, 256, 2, 32, generator=gen)
+    v = torch.randn(2, 256, 2, 32, generator=gen)
+    pos = torch.arange(256, dtype=torch.int32)
+    args = ("causal", 0, 0)
+    kw = dict(q_block=64, kv_block=64)
+    card = hflat_blockwise_attn(q.cuda(), k.cuda(), v.cuda(), pos.cuda(),
+                                pos.cuda(), *args, **kw)
+    torch.testing.assert_close(card, blockwise_attn(
+        q.cuda(), k.cuda(), v.cuda(), pos.cuda(), pos.cuda(), *args, **kw),
+        rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(card.cpu(), hflat_blockwise_attn(
+        q, k, v, pos, pos, *args, **kw), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_checkpoint_round_trip_and_flash_refused_in_training(tmp_path):
+    """A tree of bf16, fp32 and int32 leaves on the card restores on the
+    card bit for bit; the flash kernel is refused under autograd."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.train import build_train_step
+    tree = {"a": torch.randn(3, 5, device="cuda").to(torch.bfloat16),
+            "b": {"c": torch.randn(7, device="cuda"),
+                  "d": torch.tensor(4, dtype=torch.int32, device="cuda")}}
+    save_checkpoint(str(tmp_path), 1, tree)
+    out, step = restore_checkpoint(str(tmp_path), tree, device="cuda")
+    assert step == 1
+    for (_, x), (_, y) in zip(_leaves(tree), _leaves(out)):
+        assert y.is_cuda and x.dtype == y.dtype and torch.equal(x, y)
+    model = build_model(get_config("granite-20b", smoke=True,
+                                   attn_impl="pallas"))
+    params = model.init(0, device="cuda")
+    with pytest.raises(NotImplementedError, match="Queue 1, item 12"):
+        build_train_step(model, OptConfig())(
+            params, adamw_init(params, OptConfig()),
+            _train_data(model.cfg, 0, "cuda"))
