@@ -11,10 +11,11 @@ What it does, in order; any failure raises and the exit code is not 0:
    CUDA kernel of the port from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, ``sm_90a``, all started together), printing the build times and
    each kernel's registers and spills (the tensor-core flash body must not
-   spill); then worker processes make the main-path graphs and
-   their cardinalities by scipy, solve each main-path graph on the CPU
-   (for step 2) and solve the small corpus on the CPU through every solve
-   path (for step 4);
+   spill); then worker processes make the main-path graphs (each graph's
+   cardinality by scipy is started in a worker as it arrives, and read in
+   step 4) and the graphs of step 5b with their scipy cardinalities, solve
+   each main-path graph on the CPU (checked after step 6) and solve the
+   small corpus on the CPU through every solve path (for step 4);
 2. drives the matching main path, ``TorchCSR.from_host`` (then ``with_csc``
    for the direction-optimizing paths) -> warm start -> APFB/APsB solve, on
    three full-size graphs made by the port's own generators, through every
@@ -32,9 +33,10 @@ What it does, in order; any failure raises and the exit code is not 0:
    run and read just after; the warm run is the one the launch checks read.
    Each result is checked five ways: a valid matching, a cardinality equal
    to scipy's ``maximum_bipartite_matching`` (independent of the code under
-   test), ``certified`` True, the CPU's state bit for bit (a worker's run of
-   the main-path config on the same graph; every path gives the same
-   state), and the run's own kernel launched or compact branch taken.  The
+   test; in step 4), ``certified`` True, the CPU's state bit for bit (a
+   worker's run of the main-path config on the same graph; every path
+   gives the same state; after step 6), and the run's own kernel launched
+   or compact branch taken.  The
    entry's bytes are read: its static buffers, and the memory the card
    holds for it (buffers and the graphs' pool);
 3. holds each frontier kernel against its plain PyTorch version on the
@@ -46,19 +48,44 @@ What it does, in order; any failure raises and the exit code is not 0:
    pass (``frontier_bits``) on kron (WR) and the random graph (plain), the
    pull kernel also against the fused one, and each sweep with its level
    read from a device scalar and an open gate (as the captured solve
-   launches it) against the immediate; times each kernel (both ways) and
-   plain version with CUDA events, each level alone too, prints the pull's
-   and
+   launches it) against the immediate; times each kernel (both ways, 20
+   repetitions) and plain version (once over the phase: it takes
+   milliseconds a level) with CUDA events, each level alone too, prints
+   the pull's and
    the fused sweep's times level by level side by side, and splits each
    kernel's device time (the pull's into column pass, sweep and fill)
    with ``torch.profiler``;
 4. solves ``instance_sets("small")`` (all nine families) through every
-   solve path on the card and requires the CPU's ``cmatch``, ``rmatch``,
-   ``phases``, ``fallbacks`` and ``certified``;
+   solve path on the card, the sharded one included (a mesh of the one
+   card), and requires the CPU's ``cmatch``, ``rmatch``, ``phases``,
+   ``fallbacks`` and ``certified``; reads scipy's cardinalities of the
+   main-path graphs and holds step 2's results to them;
 5. profiles one more solve of each main-path graph with ``torch.profiler``
    (device time by kernel, the fused sweep's and torch's scatter kernels'
    share, the device's busy share of the wall time), and times one in CUDA
    events (the card's span from the first launch to the last);
+5b. the edge-sharded matcher: ``ShardedMatcher`` over a mesh of four
+   shards on the one card (``make_mesh((4,), ("data",), devices=["cuda"] *
+   4)``), each run as in step 2 (``TorchCSR.from_host``, ``with_csc``,
+   ``shard``, ``run``; cold, then warm, then under the sync debug mode):
+   kron-21 under ``MatcherConfig()`` with ``cheap`` through the fused,
+   legacy and ``dirop_pallas`` paths, random-4M under ``kernel="gpubfs"``
+   with ``karp_sipser``; each held to step 2's state of the same graph
+   and path bit for bit (cold and warm), valid, certified, at scipy's
+   cardinality, with step 2's host syncs and levels, one merge a level,
+   and each of its kernels launched once a shard a level (the counts set
+   to 0 just before, read just after); prints the warm wall beside step
+   2's, the merges, the bytes a ring all-reduce of them would move, and
+   the entry's bytes.  Then K1a, K2a and K3a on each shard's slice of
+   kron's edge buffers over the first BFS phase, level by level, against
+   their plain versions bit for bit, the merged rows against the whole
+   edge list's winners, each timed a shard launch beside its bound; a
+   graph of the 2^16 serving bucket sharded 1, 2 and 3 ways against its
+   single-device run; and the service's oversize lane:
+   ``MatchingService(mesh=...)`` over step 6's ladder takes
+   ``random_bipartite(1<<19, 1<<19, 8.0)`` (past the ladder's top) to
+   ``route="sharded"``, certified, at scipy's cardinality, bit for bit the
+   card's single-device ``Matcher.run`` of the bucketed graph;
 6. the serving path: ``repro_torch.serving.MatchingService`` on the card
    over the ladder 16,384² .. 262,144² (edge factor 8, ``max_batch`` 16),
    a 256-request trace (the four families of ``serve_matching.FAMILIES``
@@ -208,10 +235,12 @@ What it does, in order; any failure raises and the exit code is not 0:
    prefill at S=4096 with ``opt_attn_layout`` (``hflat_blockwise_attn``
    once a layer) against without it (``blockwise_attn``), within 1e-3;
 20. prints one ``{"kernels": [...]}`` line (the batched launch of each
-   body as its own entry, ``lanes`` 16; K1a's launches include the exact
-   route's, K4's dbrx's and seamless's prefills', and K4 carries its times
-   at dbrx's and seamless's shapes), then as its last line ``{"ok": true,
-   "device": {...}}``.
+   body as its own entry, ``lanes`` 16; every body's launches include step
+   5b's, also on their own as ``launches_sharded``, and K1a, K2a and K3a
+   carry their shard-slice checks and times; K1a's launches include the
+   exact route's, K4's dbrx's and seamless's prefills', and K4 carries its
+   times at dbrx's and seamless's shapes), then as its last line
+   ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.  It needs a CUDA card and the
 repository's ``src/``; without either it exits non-zero and prints no result.
@@ -249,6 +278,10 @@ MAIN_PATH = [
      "cheap", "exact-WR encoding"),
 ]
 KRON, RANDOM, GRID = range(3)
+# threads of the CPU main-path solves: the random graph's is the longest
+# job of the workers (244-416 s on two threads), and sets when the last
+# check can run
+CPU_THREADS = {KRON: 2, RANDOM: 4, GRID: 2}
 _APSB_EXACT = dict(algo="apsb", wr_exact=True)
 # the other solve paths: (main-path graph, solve path, config on top of the
 # path's overrides, warm start, what the run must show: a launch counter or
@@ -335,27 +368,39 @@ def use_src() -> None:
         sys.path.insert(0, os.path.join(HERE, "src"))
 
 
-def make_graph(entry):
-    """Worker process: one main-path graph from the port's generators, and
-    its maximum cardinality by scipy (independent of the code under test).
-    """
+def generate(entry):
+    """Worker process: one graph from the port's generators, and the
+    seconds it took."""
     use_src()
-    from scipy.sparse.csgraph import maximum_bipartite_matching
     from repro_torch import graphs
     name, args, kw = entry[:3]
     t0 = time.perf_counter()
     g = getattr(graphs, name)(*args, **kw)
-    t1 = time.perf_counter()
+    return g, time.perf_counter() - t0
+
+
+def scipy_cardinality(g) -> tuple:
+    """Worker process: the maximum cardinality of ``g`` by scipy
+    (independent of the code under test), and the seconds it took."""
+    from scipy.sparse.csgraph import maximum_bipartite_matching
+    t0 = time.perf_counter()
     m = maximum_bipartite_matching(g.to_scipy().tocsr(), perm_type="column")
-    return g, int((m >= 0).sum()), t1 - t0, time.perf_counter() - t1
+    return int((m >= 0).sum()), time.perf_counter() - t0
 
 
-def main_path_cpu(entry) -> tuple:
+def make_graph(entry):
+    """Worker process: one graph and its scipy cardinality together."""
+    g, gen_s = generate(entry)
+    want, scipy_s = scipy_cardinality(g)
+    return g, want, gen_s, scipy_s
+
+
+def main_path_cpu(entry, threads: int) -> tuple:
     """Worker process: one main-path graph solved on the CPU with its
-    main-path config and warm start.  Returns the outcome and the seconds
-    it took."""
+    main-path config and warm start, on ``threads`` threads.  Returns the
+    outcome and the seconds it took."""
     use_src()
-    torch.set_num_threads(2)
+    torch.set_num_threads(threads)
     from repro_torch import graphs
     from repro_torch.matching import Matcher, MatcherConfig, TorchCSR
     name, args, kw = entry[:3]
@@ -393,21 +438,44 @@ def outcome(state) -> tuple:
 
 
 def start_workers(pool, paths) -> tuple:
-    """Start the graph workers, the CPU main-path workers and the CPU
-    small-set workers together."""
-    graphs = [pool.apply_async(make_graph, (e,)) for e in MAIN_PATH]
-    cpu = [pool.apply_async(main_path_cpu, (e,)) for e in MAIN_PATH]
+    """Start the graph workers, the sharded phase's graph workers, the CPU
+    main-path workers and the CPU small-set workers together."""
+    graphs = [pool.apply_async(generate, (e,)) for e in MAIN_PATH]
+    extra = [pool.apply_async(make_graph, (e,)) for e in SHARDED_GRAPHS]
+    cpu = [pool.apply_async(main_path_cpu, (e, CPU_THREADS[i]))
+           for i, e in enumerate(MAIN_PATH)]
     small = {p: pool.apply_async(small_sets_cpu, (p,)) for p in paths}
-    return graphs, cpu, small
+    return graphs, extra, cpu, small
 
 
-def collect_graphs(pending) -> list:
-    out = [r.get() for r in pending]
-    for entry, (g, want, gen_s, scipy_s) in zip(MAIN_PATH, out):
+def collect_graphs(pool, pending) -> tuple:
+    """The main-path graphs as they arrive, each graph's scipy cardinality
+    started in a worker at once (read later, by :func:`check_scipy`):
+    (graphs, pending cardinalities)."""
+    graphs, wants = [], []
+    for entry, r in zip(MAIN_PATH, pending):
+        g, gen_s = r.get()
+        graphs.append(g)
+        wants.append(pool.apply_async(scipy_cardinality, (g,)))
         say(f"graph {label(entry)}: {g.nc} x {g.nr}, {g.nnz} edges, "
-            f"generated in {gen_s:.1f} s; scipy cardinality {want} in "
+            f"generated in {gen_s:.1f} s")
+    return graphs, wants
+
+
+def check_scipy(rows, wants) -> list:
+    """Phase 2's cardinalities against scipy's, which workers computed
+    meanwhile; returns scipy's cardinality of each main-path graph."""
+    got = [w.get() for w in wants]
+    for entry, (want, scipy_s) in zip(MAIN_PATH, got):
+        say(f"scipy cardinality of {label(entry)}: {want} in "
             f"{scipy_s:.1f} s")
-    return out
+    for row in rows:
+        want = got[[label(e) for e in MAIN_PATH].index(row["graph"])][0]
+        if row["cardinality"] != want:
+            fail(f"{row['graph']} via {row['path']}: cardinality "
+                 f"{row['cardinality']} != scipy's {want}")
+    say(f"main path: all {len(rows)} runs at scipy's cardinality")
+    return [w for w, _ in got]
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -501,12 +569,21 @@ def warm_up() -> None:
     torch.cuda.synchronize()
 
 
-def counted_run(g, cfg, ws: str) -> tuple:
-    """``TorchCSR.from_host`` (and ``with_csc``) then ``Matcher.run``, every
-    launch and solver count set to 0 just before and read just after;
-    returns (state, graph, row): the wall, the upload alone, the counts."""
+def matcher_for(cfg, ws: str, mesh=None):
+    """``Matcher(cfg, ws)``, or over ``mesh`` the ``ShardedMatcher``."""
+    from repro_torch.matching import Matcher, ShardedMatcher
+    if mesh is None:
+        return Matcher(cfg, ws)
+    return ShardedMatcher(mesh, "data", cfg, ws)
+
+
+def counted_run(g, cfg, ws: str, mesh=None) -> tuple:
+    """``TorchCSR.from_host`` (and ``with_csc``; over ``mesh`` then
+    ``shard``) then the matcher's ``run``, every launch and solver count
+    set to 0 just before and read just after; returns (state, graph,
+    row): the wall, the upload alone, the counts."""
     from repro_torch.kernels.frontier_expand import LAUNCHES, reset_launches
-    from repro_torch.matching import Matcher, TorchCSR
+    from repro_torch.matching import TorchCSR
     from repro_torch.matching.solve import COUNTERS
 
     torch.cuda.synchronize()
@@ -522,11 +599,14 @@ def counted_run(g, cfg, ws: str) -> tuple:
         graph = graph.with_csc()
         torch.cuda.synchronize()
         csc_s = time.perf_counter() - t1
-    state = Matcher(cfg, ws).run(graph)
+    if mesh is not None:
+        graph = graph.shard(mesh, "data")
+    matcher = matcher_for(cfg, ws, mesh)
+    state = matcher.run(graph)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return state, graph, dict(wall_s=wall, upload_s=upload, with_csc_s=csc_s,
-                              launches=dict(LAUNCHES), **COUNTERS.as_dict())
+                              launches=dict(LAUNCHES), **matcher.last_counts)
 
 
 def sync_debug_count(matcher, graph) -> tuple:
@@ -550,21 +630,22 @@ def sync_debug_count(matcher, graph) -> tuple:
 WARM_RUNS = 3
 
 
-def solve_once(g, cfg, ws: str) -> tuple:
+def solve_once(g, cfg, ws: str, mesh=None) -> tuple:
     """One configuration cold (its cache entry built, graphs captured) and
     ``WARM_RUNS`` times warm (hits: no new entry, no new capture), each
     through the user's entry points with every count set to 0 just before
     it; then one run under the sync debug mode.  Returns (last warm state,
     cold state, row): the last warm run's counts, the best warm wall and
-    all of them, the cold wall, and the entry's bytes."""
-    from repro_torch.matching import Matcher, compile_cache_info
+    all of them, the cold wall, and the entry's bytes.  ``mesh``: through
+    ``ShardedMatcher`` over it."""
+    from repro_torch.matching import compile_cache_info
     from repro_torch.matching.cache import compile_cache_entry
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
     misses = compile_cache_info()["misses"]
-    cold, graph, cold_row = counted_run(g, cfg, ws)
+    cold, graph, cold_row = counted_run(g, cfg, ws, mesh)
     key = compile_cache_info()["keys"][-1]
     prog = compile_cache_entry(key)
     if compile_cache_info()["misses"] != misses + 1 or prog is None:
@@ -581,14 +662,15 @@ def solve_once(g, cfg, ws: str) -> tuple:
     # upload from pageable host memory varies from run to run)
     walls = []
     for _ in range(WARM_RUNS):
-        warm, graph, row = counted_run(g, cfg, ws)
+        warm, graph, row = counted_run(g, cfg, ws, mesh)
         walls.append(row["wall_s"])
     if compile_cache_info()["misses"] != misses + 1:
         fail(f"the warm run of {cfg.name} missed the cache")
     if prog.captures(dev) != captures:
         fail(f"the warm run of {cfg.name} captured "
              f"{prog.captures(dev) - captures} more graphs")
-    debug_waits, debug_syncs = sync_debug_count(Matcher(cfg, ws), graph)
+    debug_waits, debug_syncs = sync_debug_count(matcher_for(cfg, ws, mesh),
+                                                graph)
     row.update(
         cold_wall_s=cold_row["wall_s"], cold_upload_s=cold_row["upload_s"],
         warm_wall_s=min(walls), warm_walls_s=walls,
@@ -611,11 +693,12 @@ def same_outcome(a, b) -> bool:
 
 def main_path(graphs) -> tuple:
     """Phase 2: every run of ``MAIN_PATH`` and ``PATH_RUNS``, cold and warm,
-    each checked against scipy, the warm state against the cold one, for
-    no wait beyond its host syncs and for its own kernel or branch.
-    ``graphs`` holds (graph, scipy cardinality) pairs.  The cache is
-    cleared after each graph's runs.  Returns the rows and, per run, its
-    main-path graph and warm outcome (for :func:`check_cpu`)."""
+    each checked for a valid matching, the warm state against the cold
+    one, for no wait beyond its host syncs and for its own kernel or
+    branch (the cardinality against scipy's later, :func:`check_scipy`).
+    The cache is cleared after each graph's runs.  Returns the rows and,
+    per run, its main-path graph and warm outcome (for :func:`check_cpu`
+    and the sharded phase)."""
     from repro_torch.core import validate_matching
     from repro_torch.matching import (SOLVE_PATHS, MatcherConfig,
                                       compile_cache_clear)
@@ -630,7 +713,7 @@ def main_path(graphs) -> tuple:
     runs.sort(key=lambda r: r[0])                     # graph by graph
     results, outcomes = [], []
     for i, (gi, path, cfg_kw, ws, must, zero) in enumerate(runs):
-        (g, want), expr = graphs[gi], label(MAIN_PATH[gi])
+        g, expr = graphs[gi], label(MAIN_PATH[gi])
         cfg = SOLVE_PATHS[path].configure(MatcherConfig(**cfg_kw))
         state, cold, row = solve_once(g, cfg, ws)
         got = outcome(state)
@@ -642,12 +725,9 @@ def main_path(graphs) -> tuple:
                    overrides={k: v for k, v in dataclasses.asdict(cfg).items()
                               if v != getattr(MatcherConfig(), k)},
                    warm_start=ws, nc=g.nc, nr=g.nr, nnz=g.nnz,
-                   cardinality=card, scipy_cardinality=want,
-                   cold_equal_warm=same_cold, **row)
+                   cardinality=card, cold_equal_warm=same_cold, **row)
         say("main path:", json.dumps(row))
         what = f"{expr} via {path}"
-        if card != want:
-            fail(f"{what}: cardinality {card} != scipy's {want}")
         if not row["certified"]:
             fail(f"{what}: result not certified maximum")
         if not same_cold:
@@ -818,7 +898,7 @@ def kernel_checks(graphs) -> list:
                     frontier_expand_pull_ref),
            "bits": ("frontier_bits", frontier_bits, frontier_bits_ref)}
     rows = []
-    for gi, (entry, (g, _)) in enumerate(zip(MAIN_PATH, graphs)):
+    for gi, (entry, g) in enumerate(zip(MAIN_PATH, graphs)):
         expr, cfg_kw, ws = label(entry), entry[3], entry[4]
         graph = TorchCSR.from_host(g)
         if gi in (KRON, RANDOM):
@@ -840,7 +920,10 @@ def kernel_checks(graphs) -> list:
                 k_ms = cuda_ms(lambda: [kernel(*a) for a in states]) / n
                 dev_states = [device_args(kind, a) for a in states]
                 kd_ms = cuda_ms(lambda: [kernel(*a) for a in dev_states]) / n
-                p_ms = cuda_ms(lambda: [plain(*a) for a in states]) / n
+                # the plain versions once over the phase: milliseconds a
+                # level, where the kernels take tenths of one
+                p_ms = cuda_ms(lambda: [plain(*a) for a in states],
+                               reps=1, warmup=0) / n
                 row = dict(graph=expr, kernel=f"{name}_{'wr' if wr else 'plain'}",
                            levels_checked=n, max_abs_err=0, kernel_ms=k_ms,
                            kernel_ms_device_level=kd_ms, plain_ms=p_ms,
@@ -999,6 +1082,253 @@ def small_sets_bit_exact(cpu_results) -> None:
         say(f"small sets via {path}: card == CPU on {len(cuda)} families, "
             f"phases {[v[2] for v in cuda.values()]}, all certified "
             f"{all(v[4] for v in cuda.values())}, card {cuda_s:.2f} s")
+
+
+# ---------------------------------------------------------------------------
+# the edge-sharded matcher: ShardedMatcher on one card (phase 5b)
+# ---------------------------------------------------------------------------
+SHARDS = 4
+# (main-path graph, solve path, config on top of the path's overrides,
+# warm start): each sharded SHARDS ways on the card
+SHARDED_RUNS = [
+    (KRON, "jnp", dict(), "cheap"),
+    (KRON, "legacy", dict(), "cheap"),
+    (KRON, "dirop_pallas", dict(), "cheap"),
+    (RANDOM, "jnp", dict(kernel="gpubfs"), "karp_sipser"),
+]
+# the phase's other graphs, made with their scipy cardinality by phase 1's
+# workers: one of the 2^16 serving bucket (sharded 1, 2 and 3 ways) and
+# the service's oversize request, past the ladder's top of 262,144^2
+SHARDED_GRAPHS = [
+    ("random_bipartite", (60000, 60000, 8.0), dict(seed=5)),
+    ("random_bipartite", (1 << 19, 1 << 19, 8.0), dict(seed=6)),
+]
+BUCKET_SHARDS = (1, 2, 3)
+
+
+def sharded_bodies(path: str, cfg) -> dict:
+    """The kernel bodies a sharded run of ``path`` launches, each with the
+    solver count whose levels it sweeps (once a shard a level)."""
+    body = "wr" if cfg.kernel == "gpubfs_wr" else "plain"
+    push = "frontier_expand" if path == "legacy" else "frontier_expand_fused"
+    out = {f"{push}_{body}": "push_levels"}
+    if path == "dirop_pallas":
+        out[f"frontier_expand_pull_{body}"] = "pull_levels"
+        out[f"frontier_bits_{body}"] = "pull_levels"
+    return out
+
+
+def sharded_checks(what, row, got, cold, single, single_row, want, g,
+                   path, cfg, shards) -> None:
+    """A sharded run against the single-device run of the same graph and
+    path: the state bit for bit (warm and cold), valid, certified, at
+    scipy's cardinality, the same host syncs and levels, one merge a
+    level, no wait beyond its host syncs, and its kernels launched once a
+    shard a level."""
+    from repro_torch.core import validate_matching
+    if not (same_outcome(got, single) and same_outcome(outcome(cold),
+                                                       single)):
+        fail(f"{what}: the state differs from the single-device run's")
+    card = validate_matching(g, got[0][:g.nc], got[1][:g.nr])
+    if card != want or not row["certified"]:
+        fail(f"{what}: cardinality {card} (scipy's {want}), certified "
+             f"{row['certified']}")
+    for k in ("host_syncs", "cold_host_syncs", "levels", "push_levels",
+              "pull_levels"):
+        if row[k] != single_row[k]:
+            fail(f"{what}: {k} {row[k]} != the single-device run's "
+                 f"{single_row[k]}")
+    if row["merges"] != row["levels"]:
+        fail(f"{what}: {row['merges']} merges for {row['levels']} levels")
+    if row["sync_debug_waits"] != row["sync_debug_host_syncs"]:
+        fail(f"{what}: the sync debug mode saw {row['sync_debug_waits']} "
+             f"waits for {row['sync_debug_host_syncs']} host syncs")
+    for body, levels in sharded_bodies(path, cfg).items():
+        if not row[levels] or row["launches"][body] != shards * row[levels]:
+            fail(f"{what}: {body} launched {row['launches'][body]} times "
+                 f"for {shards} shards x {row[levels]} levels")
+
+
+def shard_slice_checks(g, mesh) -> dict:
+    """K1a, K2a and K3a on each shard's slice of kron's edge buffers over
+    the first BFS phase from the cheap warm start, level by level, against
+    their plain versions on the same slices, bit for bit; K1a and K3a
+    writing into rows of one winner buffer, whose min is the whole edge
+    list's winners; each timed a shard launch (CUDA events) beside its
+    bound, and the merge."""
+    from repro_torch.kernels.frontier_expand import (
+        frontier_expand, frontier_expand_fused, frontier_expand_fused_ref,
+        frontier_expand_pull, frontier_expand_pull_ref, frontier_expand_ref)
+    from repro_torch.matching import Matcher, MatcherConfig, TorchCSR
+    from repro_torch.matching.solve import _apply_winner, level0_state
+
+    graph = TorchCSR.from_host(g).with_csc().shard(mesh, "data")
+    d, nr = graph.shards, graph.nr
+    warm = Matcher(MatcherConfig(), "cheap").init(graph)
+    bfs, root = level0_state(warm.cmatch)
+    pred = torch.full((nr + 1,), graph.nc, dtype=torch.int32,
+                      device=bfs.device)
+    rmatch, level = warm.rmatch, 2
+    push = list(zip(graph.shard_slices("ecol"), graph.shard_slices("cadj")))
+    pull = list(zip(graph.shard_slices("radj"), graph.shard_slices("erow")))
+    win = torch.empty((2 * d, nr + 1), dtype=torch.int32, device=bfs.device)
+    merged = torch.empty(nr + 1, dtype=torch.int32, device=bfs.device)
+    kinds = {"fused": (frontier_expand_fused, frontier_expand_fused_ref,
+                       push, push_bytes),
+             "proposals": (frontier_expand, frontier_expand_ref, push,
+                           proposal_bytes),
+             "pull": (frontier_expand_pull, frontier_expand_pull_ref, pull,
+                      pull_bytes)}
+    states, bounds = [], {k: [] for k in kinds}
+    while True:
+        state = (bfs, root, rmatch, level)
+        for kind, (kernel, plain, edges, nbytes) in kinds.items():
+            for i, (cols, rows) in enumerate(edges):
+                out = {} if kind == "proposals" else dict(
+                    out=win[i + (d if kind == "pull" else 0)])
+                got = kernel(cols, rows, *state, **out)
+                if not torch.equal(got, plain(cols, rows, *state)):
+                    fail(f"{kind} kernel on shard {i} differs from its "
+                         f"plain version at level {level}")
+                bounds[kind].append(bound_ms(nbytes(cols, rows, *state)))
+        torch.amin(win[:d], dim=0, out=merged)
+        if not (torch.equal(merged, frontier_expand_fused(
+                graph.ecol, graph.cadj, *state))
+                and torch.equal(win[d:].amin(0), merged)):
+            fail(f"the shards' merged winners differ from the whole edge "
+                 f"list's at level {level}")
+        states.append(state)
+        bfs, root, pred, rmatch, ins, _ = _apply_winner(
+            merged, bfs, root, pred, rmatch, level, wr=True, wr_exact=False)
+        level += 1
+        if not bool(ins):
+            break
+    out = dict(levels_checked=len(states), shards=d,
+               per_shard=graph.nnz_pad // d, max_abs_err=0)
+    n = len(states) * d
+    for kind, (kernel, _, edges, _) in kinds.items():
+        launch = lambda: [kernel(c, r, *s)                  # noqa: E731
+                          for s in states for c, r in edges]
+        # events over a loop of Python calls also time the wrapper, as
+        # phase 3's do; the profiler's device time does not
+        prof = device_profile(launch, SPLITS[kind])
+        out[kind] = dict(
+            ms=cuda_ms(launch, reps=5) / n, bound_ms=sum(bounds[kind]) / n,
+            **{f"device_ms_{part}": (prof[f"{part}_ms"] / n if isinstance(
+                prof[f"{part}_ms"], float) else prof[f"{part}_ms"])
+               for part in SPLITS[kind]})
+    out["merge"] = dict(
+        ms=cuda_ms(lambda: torch.amin(win[:d], dim=0, out=merged)),
+        bound_ms=bound_ms(4 * (d + 1) * (nr + 1)))
+    return out
+
+
+def sharded_phase(graphs, wants, extra, phase2) -> dict:
+    """Phase 5b (module doc).  ``graphs``/``wants``: the main-path graphs
+    and scipy's cardinalities; ``extra``: the pending (graph, scipy
+    cardinality, ...) of ``SHARDED_GRAPHS``; ``phase2``: (graph index,
+    path) -> (row, warm outcome) of phase 2.  Returns per kernel body the
+    launches of its sharded runs (the counts set to 0 just before each
+    and read just after) and the shard-slice levels checked."""
+    from repro_torch.core import validate_matching
+    from repro_torch.kernels.frontier_expand import LAUNCHES, reset_launches
+    from repro_torch.matching import (SOLVE_PATHS, Matcher, MatcherConfig,
+                                      TorchCSR, compile_cache_clear,
+                                      make_mesh)
+    from repro_torch.serving import Bucketizer, MatchingService, ladder
+
+    mesh = make_mesh((SHARDS,), ("data",), devices=[CARD] * SHARDS)
+    launches = {body: 0 for body in KERNELS}
+
+    def counted(row):
+        for body in KERNELS:
+            launches[body] += row["launches"][body]
+
+    for gi, path, kw, ws in SHARDED_RUNS:
+        g, expr = graphs[gi], label(MAIN_PATH[gi])
+        cfg = SOLVE_PATHS[path].configure(MatcherConfig(**kw))
+        state, cold, row = solve_once(g, cfg, ws, mesh)
+        single_row, single = phase2[(gi, path)]
+        row = dict(graph=expr, path=path, config=cfg.name, warm_start=ws,
+                   shards=SHARDS, single_warm_wall_s=single_row["warm_wall_s"],
+                   warm_over_single=row["warm_wall_s"]
+                   / single_row["warm_wall_s"], **row)
+        say("sharded:", json.dumps(row))
+        sharded_checks(f"{expr} via {path}, {SHARDS} shards", row,
+                       outcome(state), cold, single, single_row, wants[gi],
+                       g, path, cfg, SHARDS)
+        counted(row)
+        del state, cold
+        compile_cache_clear()
+        torch.cuda.empty_cache()
+
+    # the shards' kernels against their plain versions on kron's slices
+    slices = shard_slice_checks(graphs[KRON], mesh)
+    say("sharded kernel slices:", json.dumps(dict(
+        graph=label(MAIN_PATH[KRON]), **slices)))
+    compile_cache_clear()
+    torch.cuda.empty_cache()
+
+    # the 2^16 serving bucket, sharded 1, 2 and 3 ways
+    (g16, want16, *_), (big, big_want, *_) = [r.get() for r in extra]
+    cfg, ws = MatcherConfig(), "cheap"
+    bz = Bucketizer(ladder(**SERVE_LADDER))
+    padded = bz.admit(g16).graph.to_host()
+    single, _, single_row = solve_once(padded, cfg, ws)
+    single = outcome(single)
+    expr = f"{label(SHARDED_GRAPHS[0])} in the 2^16 bucket"
+    for d in BUCKET_SHARDS:
+        m = make_mesh((d,), ("data",), devices=[CARD] * d)
+        state, cold, row = solve_once(padded, cfg, ws, m)
+        row = dict(graph=expr, path="jnp", shards=d,
+                   single_warm_wall_s=single_row["warm_wall_s"], **row)
+        say("sharded:", json.dumps(row))
+        sharded_checks(f"{expr}, {d} shards", row, outcome(state), cold,
+                       single, single_row, want16, padded, "jnp", cfg, d)
+        counted(row)
+    compile_cache_clear()
+    torch.cuda.empty_cache()
+
+    # the service's oversize lane
+    svc = MatchingService(
+        bucketizer=Bucketizer(ladder(**SERVE_LADDER), oversize="shard",
+                              validate=True),
+        config=cfg, warm_start=ws, mesh=mesh)
+    torch.cuda.synchronize()
+    reset_launches()
+    res = svc.submit(big).result(timeout=600)
+    torch.cuda.synchronize()
+    served = dict(LAUNCHES)
+    snap = svc.metrics.snapshot()
+    svc.close()
+    want = Matcher(cfg, ws).run(TorchCSR.from_host(big).bucketed())
+    cm, rm = res.matching()
+    card = validate_matching(big, cm, rm)
+    row = dict(graph=label(SHARDED_GRAPHS[1]), nnz=big.nnz,
+               route=res.route, bucket=res.bucket, certified=res.certified,
+               cardinality=card, scipy_cardinality=big_want,
+               latency_s=res.latency_s, sharded=snap["sharded"],
+               launches=served)
+    say("sharded oversize request:", json.dumps(row))
+    if res.route != "sharded" or res.bucket is not None:
+        fail(f"the oversize request took route {res.route!r}")
+    if not res.certified or card != big_want or res.cardinality != big_want:
+        fail(f"the oversize request: cardinality {card} (scipy's "
+             f"{big_want}), certified {res.certified}")
+    if not same_outcome(outcome(res.state), outcome(want)):
+        fail("the oversize request's state differs from the card's "
+             "single-device Matcher.run of the bucketed graph")
+    if snap["sharded"] != 1 or not served["frontier_expand_fused_wr"] or \
+            served["frontier_expand_fused_wr"] % SHARDS:
+        fail(f"the sharded lane: sharded {snap['sharded']}, K1a launched "
+             f"{served['frontier_expand_fused_wr']} times")
+    for body in KERNELS:
+        launches[body] += served[body]
+    compile_cache_clear()
+    torch.cuda.empty_cache()
+    return dict(launches=launches,
+                levels_checked=slices["levels_checked"] * SHARDS,
+                slices=slices)
 
 
 # ---------------------------------------------------------------------------
@@ -3508,6 +3838,7 @@ def lm_phases() -> dict:
 
 
 def main() -> int:
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on a card",
               file=sys.stderr)
@@ -3573,6 +3904,7 @@ def main() -> int:
             entry["launches_seamless_prefill"] = k4_seamless
             entry["seamless"] = seamless_times
 
+    say(f"total: {time.perf_counter() - started:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3581,12 +3913,14 @@ def main() -> int:
 
 
 def run_phases(pool, paths) -> list:
-    """The matching paths (phases 2-6); returns their kernels' entries."""
+    """The matching paths (phases 1-6); returns their kernels' entries.
+    The CPU's main-path solves, the longest of the workers' jobs, are
+    checked last, after the serving phase."""
     from repro_torch.matching import compile_cache_clear
     t0 = time.perf_counter()
-    pending_graphs, cpu_main, cpu_small = start_workers(pool, paths)
-    graphs = [(g, want) for g, want, *_ in collect_graphs(pending_graphs)]
-    phase("graphs and scipy cardinalities", t0)
+    pending_graphs, extra, cpu_main, cpu_small = start_workers(pool, paths)
+    graphs, wants = collect_graphs(pool, pending_graphs)
+    phase("graphs", t0)
 
     t0 = time.perf_counter()
     warm_up()
@@ -3598,37 +3932,60 @@ def run_phases(pool, paths) -> list:
     t0 = time.perf_counter()
     small_sets_bit_exact(cpu_small)
     compile_cache_clear()
-    check_cpu(outcomes, cpu_main)
-    del outcomes
-    phase("small sets and the main path against the CPU", t0)
+    wants = check_scipy(runs, wants)
+    phase("small sets against the CPU, the main path against scipy", t0)
     t0 = time.perf_counter()
-    for entry, (g, _) in zip(MAIN_PATH, graphs):
+    for entry, g in zip(MAIN_PATH, graphs):
         profile_main_path(entry, g)
         compile_cache_clear()
         torch.cuda.empty_cache()
     phase("profile", t0)
+    t0 = time.perf_counter()
+    sharded = sharded_phase(
+        graphs, wants, extra,
+        {(gi, path): (row, got)
+         for row, (gi, path, got) in zip(runs, outcomes)})
+    phase("sharded matcher", t0)
 
     # one line for the kernels, each timed on the main-path graph of its
     # body: kron for WR, the random graph for plain
     timed_on = {"wr": label(MAIN_PATH[KRON]), "plain": label(MAIN_PATH[RANDOM])}
+    slices = sharded["slices"]
     kernels = []
     for name, replaces in KERNELS.items():
         mine = [r for r in checks if r["kernel"] == name]
         row = next(r for r in mine
                    if r["graph"] == timed_on[name.rsplit("_", 1)[1]])
-        kernels.append(dict(
+        entry = dict(
             name=name, route="cuda",
             source="src/repro_torch/csrc/frontier_expand.cu",
             replaces=replaces,
-            launches=sum(r["launches"][name] for r in runs),
+            launches=(sum(r["launches"][name] for r in runs)
+                      + sharded["launches"][name]),
+            launches_sharded=sharded["launches"][name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=row["kernel_ms"], plain_ms=row["plain_ms"],
             ms_device_level=row["kernel_ms_device_level"],
             bound_ms=row["bound_ms"], bound_by="bytes", library_ms=None,
             timed_on=row["graph"],
             levels_checked=sum(r["levels_checked"] for r in mine),
-            **{k: v for k, v in row.items() if k.startswith("device_ms_")}))
-    return kernels + serving_phase(pool)
+            **{k: v for k, v in row.items() if k.startswith("device_ms_")})
+        kind = {"frontier_expand_fused_wr": "fused",
+                "frontier_expand_wr": "proposals",
+                "frontier_expand_pull_wr": "pull"}.get(name)
+        if kind:
+            # held on kron's shard slices too, and timed a shard launch
+            entry.update(
+                levels_checked_sharded=sharded["levels_checked"],
+                ms_shard_launch=slices[kind]["ms"],
+                device_ms_shard_sweep=slices[kind]["device_ms_sweep"],
+                bound_ms_shard_launch=slices[kind]["bound_ms"])
+        kernels.append(entry)
+    kernels += serving_phase(pool)
+    t0 = time.perf_counter()
+    check_cpu(outcomes, cpu_main)
+    phase("the main path against the CPU", t0)
+    return kernels
 
 
 def phase(name: str, t0: float) -> None:

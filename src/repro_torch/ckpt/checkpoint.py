@@ -20,8 +20,8 @@ manifest; they are read back by viewing the bytes as int16 and then as
 files and its own.  The manifest codec is :mod:`._msgpack`.
 
 Elastic restore onto another mesh (the JAX function's ``mesh`` and
-``sharding_tree``) waits for the sharding slice (ROADMAP.md, Queue 1,
-item 10).
+``sharding_tree``) waits for training over a mesh (ROADMAP.md, Queue 1,
+item 13).
 """
 from __future__ import annotations
 

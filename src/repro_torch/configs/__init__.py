@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.models.common import ModelConfig
 
@@ -39,3 +39,7 @@ def get_config(name: str, smoke: bool = False, **overrides) -> ModelConfig:
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     return cfg
+
+
+def all_configs(smoke: bool = False) -> Dict[str, ModelConfig]:
+    return {n: get_config(n, smoke) for n in ARCH_NAMES}

@@ -7,10 +7,10 @@ from .csr import (BipartiteCSR, is_maximal, validate_matching,
                   UNMATCHED, ENDPOINT)
 from .matcher import MatcherConfig, VARIANTS, maximum_matching
 from repro_torch.matching import (TorchCSR, Matcher, MatchState,
-                                  MatchStats)
+                                  MatchStats, match_many)
 
 __all__ = [
     "BipartiteCSR", "is_maximal", "validate_matching", "UNMATCHED",
     "ENDPOINT", "MatcherConfig", "VARIANTS", "maximum_matching",
-    "TorchCSR", "Matcher", "MatchState", "MatchStats",
+    "TorchCSR", "Matcher", "MatchState", "MatchStats", "match_many",
 ]

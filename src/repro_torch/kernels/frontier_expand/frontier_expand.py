@@ -278,19 +278,29 @@ def _bitmap(bfs) -> torch.Tensor:
                        dtype=torch.int32, device=bfs.device)
 
 
-def _sweep(sweep, cols, rows, bfs, root, rmatch, level, gate
+def _sweep(sweep, cols, rows, bfs, root, rmatch, level, gate, out=None
            ) -> torch.Tensor:
-    """Check, then the plain version on the CPU or the kernel on the card."""
+    """Check, then the plain version on the CPU or the kernel on the card;
+    the result in ``out`` where given (a contiguous int32 tensor of the
+    result's shape on the same device), else in a new tensor."""
     _check(sweep, cols, rows, bfs, root, rmatch, level, gate)
     dev = bfs.device
-    if not _on_card(sweep, dev):
-        return _KERNELS[sweep][2](cols, rows, bfs, root, rmatch, level,
-                                  gate=gate)
     nc = bfs.shape[-1] - 1
     nr = rmatch.shape[-1] - 1
     lanes = _lanes(bfs)
     n_out = cols.shape[-1] if sweep == "frontier_expand" else nr + 1
-    out = torch.empty(lanes + (n_out,), dtype=torch.int32, device=dev)
+    if out is not None and (
+            not isinstance(out, torch.Tensor) or out.dtype != torch.int32
+            or tuple(out.shape) != lanes + (n_out,) or out.device != dev
+            or not out.is_contiguous()):
+        raise ValueError(f"{sweep}: out must be a contiguous int32 tensor "
+                         f"of shape {lanes + (n_out,)} on {dev}")
+    if not _on_card(sweep, dev):
+        got = _KERNELS[sweep][2](cols, rows, bfs, root, rmatch, level,
+                                 gate=gate)
+        return got if out is None else out.copy_(got)
+    if out is None:
+        out = torch.empty(lanes + (n_out,), dtype=torch.int32, device=dev)
     scratch = [_bitmap(bfs)] if sweep == "frontier_expand_pull" else []
     _launch(sweep, dev, cols.data_ptr(), rows.data_ptr(),
             bfs.data_ptr(), root.data_ptr() if root is not None else None,
@@ -307,13 +317,15 @@ def _count(lanes: tuple) -> int:
 def frontier_expand_fused(ecol: torch.Tensor, cadj: torch.Tensor,
                           bfs: torch.Tensor, root: Optional[torch.Tensor],
                           rmatch: torch.Tensor, level: Level,
-                          gate: Optional[torch.Tensor] = None
+                          gate: Optional[torch.Tensor] = None,
+                          out: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Per-row winners of one BFS level; ``root=None`` is the plain
     (non-WR) body.  No host sync, whether ``level`` is an int or a device
-    scalar.  Gate off: all IINF."""
+    scalar.  Gate off: all IINF.  ``out``: the ``(nr+1,)`` vector to fill
+    (an edge shard's row of the sharded solve's winners)."""
     return _sweep("frontier_expand_fused", ecol, cadj, bfs, root, rmatch,
-                  level, gate)
+                  level, gate, out)
 
 
 def frontier_expand(ecol: torch.Tensor, cadj: torch.Tensor,
@@ -346,11 +358,12 @@ def frontier_bits(bfs: torch.Tensor, root: Optional[torch.Tensor],
 def frontier_expand_pull(radj: torch.Tensor, erow: torch.Tensor,
                          bfs: torch.Tensor, root: Optional[torch.Tensor],
                          rmatch: torch.Tensor, level: Level,
-                         gate: Optional[torch.Tensor] = None
+                         gate: Optional[torch.Tensor] = None,
+                         out: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Per-row winners of one BFS level over the CSC mirror's row-sorted
     edges (``TorchCSR.with_csc``): the same vector as
     :func:`frontier_expand_fused`, since min is the merge.  Gate off: all
-    IINF."""
+    IINF.  ``out`` as :func:`frontier_expand_fused`'s."""
     return _sweep("frontier_expand_pull", radj, erow, bfs, root, rmatch,
-                  level, gate)
+                  level, gate, out)

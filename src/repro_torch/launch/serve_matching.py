@@ -14,9 +14,13 @@ warmup, per-family, and service-level metrics.
     python -m repro_torch.launch.serve_matching --smoke --chaos  # + drill
 
 ``--smoke`` shrinks the trace and asserts cardinality parity against a
-direct ``Matcher.run`` for every request (the oversize, sharded route waits
-for ROADMAP.md, Queue 1, item 10).  ``--device`` picks where the service
-runs (default: the CUDA card).  ``--chaos`` arms a seeded
+direct ``Matcher.run`` for every request and, where the service has a
+mesh, sends one graph larger than every bucket down the sharded lane.
+``--device`` picks where the service runs (default: the CUDA card).  The
+mesh: ``--shards D`` puts D shards on that device; by default, as in the
+JAX package, a mesh over every card when there is more than one (which
+waits for ROADMAP.md, Queue 1, item 13: the launcher says so and serves
+without the lane), none on one card.  ``--chaos`` arms a seeded
 :class:`repro_torch.serving.FaultInjector` and, after the replay, runs a fault
 drill: poisons one tagged request among innocents (asserting bisection
 isolates exactly it), then kills the flush thread mid-batch (asserting the
@@ -35,7 +39,8 @@ import numpy as np
 from repro_torch.core.csr import BipartiteCSR
 from repro_torch.graphs import (grid_graph, kron_graph, random_bipartite,
                                 scaled_free)
-from repro_torch.matching import Matcher, MatcherConfig, TorchCSR
+from repro_torch.matching import Matcher, MatcherConfig, TorchCSR, make_mesh
+from repro_torch.matching.sharded import every_device
 from repro_torch.serving import (Bucketizer, FaultInjector,
                                  FlushThreadDiedError, MatchingService,
                                  PoisonedGraphFault, SizeBucket, ladder,
@@ -118,6 +123,23 @@ def chaos_drill(service: MatchingService, injector: FaultInjector,
     return failures
 
 
+def build_mesh(shards: int, device):
+    """The oversize lane's mesh: ``shards`` shards on ``device``; with
+    ``shards`` 0 a mesh over every card when there are several (refused
+    until ROADMAP.md, Queue 1, item 13: said, and no lane), else none."""
+    if shards:
+        return make_mesh((shards,), ("data",),
+                         every_device(device)[:1] * shards)
+    devices = every_device(device)
+    if len(devices) < 2:
+        return None
+    try:
+        return make_mesh((len(devices),), ("data",), devices)
+    except NotImplementedError as e:
+        print(f"[serve_matching] no sharded lane: {e}")
+        return None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="replay synthetic open-loop traffic at the service")
@@ -139,6 +161,10 @@ def main(argv=None) -> int:
                     help="FaultInjector seed (deterministic fault schedule)")
     ap.add_argument("--device", default=None,
                     help="where the service runs (default: the CUDA card)")
+    ap.add_argument("--shards", type=int, default=0,
+                    help="edge shards of the oversize lane's mesh, all on "
+                         "the service's device (default: a mesh over every "
+                         "card when there is more than one)")
     args = ap.parse_args(argv)
 
     if args.smoke:
@@ -148,12 +174,15 @@ def main(argv=None) -> int:
     else:
         buckets = ladder(max_vertices=max(256, args.size * 2))
 
+    mesh = build_mesh(args.shards, args.device)
     injector = FaultInjector(seed=args.chaos_seed) if args.chaos else None
     service = MatchingService(
-        bucketizer=Bucketizer(buckets, validate=True, device=args.device),
+        bucketizer=Bucketizer(buckets,
+                              oversize="shard" if mesh else "reject",
+                              validate=True, device=args.device),
         config=MatcherConfig(algo="apfb", kernel="gpubfs_wr", schedule="ct"),
         warm_start="cheap", max_batch=args.max_batch,
-        max_delay_ms=args.delay_ms, faults=injector)
+        max_delay_ms=args.delay_ms, mesh=mesh, faults=injector)
     report = service.warm_up()
     print(f"[serve_matching] {report}")
 
@@ -177,6 +206,18 @@ def main(argv=None) -> int:
         print(f"[serve_matching] {fam:>7}: {len(lats):3d} req, "
               f"p50 {percentile(lats, 50) * 1e3:.1f} ms, "
               f"max {max(lats) * 1e3:.1f} ms")
+
+    if args.smoke and mesh is not None:
+        # oversize admission: bigger than every declared bucket -> sharded
+        big = random_bipartite(512, 512, 4.0, seed=args.seed + 999)
+        res = service.submit(big).result(timeout=300)
+        direct = Matcher(service.config, service.warm_start).run(
+            TorchCSR.from_host(big, device=service.device).bucketed())
+        ok = (res.route == "sharded"
+              and res.cardinality == int(direct.cardinality))
+        print(f"[serve_matching] oversize route={res.route} "
+              f"|M|={res.cardinality} ({'ok' if ok else 'FAIL'})")
+        failures += 0 if ok else 1
 
     if args.chaos:
         failures += chaos_drill(service, injector, args.size, args.seed)

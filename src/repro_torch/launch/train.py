@@ -10,8 +10,8 @@ from the newest manifest; the data pipeline is a pure function of (seed,
 step), so no data state is saved.  ``--simulate-failure K`` saves at step
 K and ends the process at once with exit code 17, so a restart must
 continue bit for bit.  It runs on the card unless ``--device`` names
-another device.  ``--mesh`` other than ``1`` waits for the sharding slice
-(ROADMAP.md, Queue 1, item 10) and is refused.
+another device.  ``--mesh`` other than ``1`` waits for training over a
+mesh of cards (ROADMAP.md, Queue 1, item 13) and is refused.
 
 Each logged step prints ``loss`` to four places, as the JAX launcher does,
 and the float in full after ``exact``.
@@ -49,9 +49,9 @@ def run(arch: str, steps: int, smoke: bool, batch: int, seq: int,
     returns (params, opt_state, [(step, loss), ...] as logged)."""
     if mesh != "1":
         raise NotImplementedError(
-            f"--mesh {mesh}: training over a device mesh waits for the "
-            f"sharding slice (ROADMAP.md, Queue 1, item 10); this launcher "
-            f"trains on one device (--mesh 1)")
+            f"--mesh {mesh}: training over a device mesh waits for "
+            f"ROADMAP.md, Queue 1, item 13; this launcher trains on one "
+            f"device (--mesh 1)")
     dev = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
     model = build_model(cfg)

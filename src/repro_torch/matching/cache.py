@@ -14,6 +14,10 @@ is the same for a batch: its key's bucket shape leads with the batch size
 (``TorchCSR.bucket_key``), and its bytes are those of its ``(B, n)``
 buffers and captures.
 
+``ShardedMatcher``'s entries add the mesh and axis to the entry point
+(:func:`mesh_cache_key`), so another mesh size or axis name builds
+another program.
+
 The table is guarded by a reentrant lock (a serving layer hits it from
 several threads).  Capacity is ``MAX_ENTRIES``, overridable with
 :func:`set_max_entries`, and a byte budget, since an entry keeps its
@@ -129,6 +133,15 @@ def compile_cache_key(bucket_key: Tuple, cfg, warm_start, entry: str
     when the caller passes the state.
     """
     return (bucket_key, cfg, warm_start, entry)
+
+
+def mesh_cache_key(mesh, axis: str) -> Tuple:
+    """Hashable mesh identity for the compile cache: the mesh's axes and
+    sizes, its devices (by name, so a rebuilt but identical mesh still
+    hits) and the axis sharded over.  ``ShardedMatcher``'s entry is
+    ``("sharded_run",) + mesh_cache_key(mesh, axis)``."""
+    return (tuple(mesh.shape.items()), tuple(str(d) for d in mesh.devices),
+            axis)
 
 
 def get_compiled(key: Hashable, build: Callable[[], object]) -> object:

@@ -11,7 +11,10 @@ direction-optimizing solver pulls over.
 
 A batch of graphs of one size bucket (:meth:`TorchCSR.stack`, what
 ``Matcher.run_many`` takes) carries one leading lane dimension on every
-array and a true edge count per lane.  Sharding comes in a later slice.
+array and a true edge count per lane.  An edge-sharded graph
+(:meth:`TorchCSR.shard`, what ``ShardedMatcher.run`` takes) keeps one edge
+list, padded so that it cuts into ``D`` equal power-of-two shards, and
+records the mesh and axis it was cut for.
 """
 from __future__ import annotations
 
@@ -113,6 +116,11 @@ def bucket_nnz(nnz: int, lane: int = LANE) -> int:
     return cap
 
 
+def per_shard_nnz(nnz_pad: int, ndev: int, lane: int = LANE) -> int:
+    """Per-shard edge capacity when sharding ``nnz_pad`` edges over ``ndev``
+    shards: each shard is itself a canonical bucket."""
+    return bucket_nnz(-(-nnz_pad // ndev), lane)
+
 
 def _full(shape, value: int, device) -> torch.Tensor:
     return torch.full(shape if isinstance(shape, tuple) else (shape,), value,
@@ -134,6 +142,9 @@ class TorchCSR:
     ``radj``/``erow`` (nnz_pad,) column/row endpoints in row-sorted order,
     ``eperm`` (nnz_pad,) the CSR position of each row-sorted edge.  The
     sentinels are those of the CSR side (``radj = nc``, ``erow = nr``).
+
+    ``mesh``/``axis``: set by :meth:`shard` (the mesh and axis the edge
+    list is cut for), else None.
     """
 
     cxadj: torch.Tensor
@@ -146,6 +157,8 @@ class TorchCSR:
     radj: Optional[torch.Tensor] = None
     erow: Optional[torch.Tensor] = None
     eperm: Optional[torch.Tensor] = None
+    mesh: Optional[object] = None
+    axis: Optional[str] = None
 
     @property
     def nnz_pad(self) -> int:
@@ -322,6 +335,50 @@ class TorchCSR:
         old = self.nr if field in ("cadj", "erow") else self.nc
         x = getattr(self, field)
         return torch.where(x == old, n, x).to(torch.int32)
+
+    # -- edge sharding --------------------------------------------------------
+    def shard(self, mesh, axis: str = "data") -> "TorchCSR":
+        """Edge-partition the graph over one axis of ``mesh`` (for
+        ``ShardedMatcher``).
+
+        The edge capacity is padded to ``D * per_shard_nnz(nnz_pad, D)``
+        with inert sentinel edges, so each of the ``D = mesh.shape[axis]``
+        contiguous slices of ``ecol``/``cadj`` (and of ``radj``/``erow``/
+        ``eperm`` when mirrored: a range of rows each) is itself a
+        power-of-two bucket (:meth:`shard_slices`).  The O(n) arrays stay
+        whole.  The graph moves to the mesh's device and records the mesh
+        and axis; on a graph already sharded so, this is a no-op.
+        """
+        self._single("shard()")
+        ndev = int(mesh.shape[axis])
+        cap = ndev * per_shard_nnz(self.nnz_pad, ndev)
+        if self.mesh == mesh and self.axis == axis and self.nnz_pad == cap:
+            return self
+        g = self.to(mesh.device).pad_to(cap)
+        return dataclasses.replace(g, mesh=mesh, axis=axis)
+
+    @property
+    def shards(self) -> int:
+        """How many edge shards the graph is cut into (1 if not sharded)."""
+        return 1 if self.mesh is None else int(self.mesh.shape[self.axis])
+
+    def shard_slices(self, name: str) -> Tuple[torch.Tensor, ...]:
+        """The ``shards`` contiguous views of the edge array ``name``
+        (``ecol``, ``cadj``, ``radj``, ``erow`` or ``eperm``)."""
+        t = getattr(self, name)
+        return tuple(t.chunk(self.shards, dim=-1))
+
+    def to(self, device) -> "TorchCSR":
+        """The graph on ``device`` (``self`` if it is there already)."""
+        device = torch.device(device)
+        if self.device == device or (device.index is None
+                                     and self.device.type == device.type):
+            return self
+        fields = ("cxadj", "cadj", "ecol", "rxadj", "radj", "erow", "eperm")
+        with DEVICE_LOCK:         # never inside another thread's capture
+            return dataclasses.replace(
+                self, **{f: getattr(self, f).to(device) for f in fields
+                         if getattr(self, f) is not None})
 
     # -- batching -------------------------------------------------------------
     @staticmethod

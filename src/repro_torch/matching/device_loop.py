@@ -61,13 +61,14 @@ class SolveCounters:
     """The solver's work: BFS levels, split by the sweep each ran
     (``push_levels`` the dense edge sweep, ``pull_levels`` a pull over the
     CSC mirror, ``compact_levels`` the adaptive column gather), and
-    ``ALTERNATE`` steps, counted on the device by the steps themselves (so
-    replayed graphs count); ``host_syncs``, each read of device values the
-    host waits for, counted on the host.  Reading a device count is a
-    host sync of its own."""
+    ``ALTERNATE`` steps, and ``merges``, the per-level merges of an
+    edge-sharded solve's shard winners, counted on the device by the steps
+    themselves (so replayed graphs count); ``host_syncs``, each read of
+    device values the host waits for, counted on the host.  Reading a
+    device count is a host sync of its own."""
 
     DEVICE = ("levels", "push_levels", "pull_levels", "compact_levels",
-              "alternate_steps")
+              "alternate_steps", "merges")
 
     def __init__(self):
         self.host_syncs = 0
@@ -75,7 +76,7 @@ class SolveCounters:
         self._lock = threading.Lock()
 
     def tensor(self, device) -> torch.Tensor:
-        """The (5,) int64 device counts of ``device`` (made on first use,
+        """The (6,) int64 device counts of ``device`` (made on first use,
         never inside a capture)."""
         device = torch.device(device)
         t = self._tensors.get(device)
@@ -126,7 +127,7 @@ class SolveCounters:
 
 COUNTERS = SolveCounters()
 # slots of the device counts
-LEVELS, PUSH, PULL, COMPACT, ALT = range(5)
+LEVELS, PUSH, PULL, COMPACT, ALT, MERGES = range(6)
 
 
 class CaptureError(RuntimeError):

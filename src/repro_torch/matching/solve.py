@@ -15,7 +15,14 @@ both return the same matching bit for bit:
     ops) on levels whose frontier fits the geometry;
   - ``dirop``: per level, a Beamer-style estimate picks push or pull; the
     pull is a compact row gather over the CSC mirror (torch ops, when the
-    unreached rows fit) or, with ``use_pallas``, the pull kernel.
+    unreached rows fit) or, with ``use_pallas``, the pull kernel;
+  - edge-sharded (``ShardedMatcher``, ``Solver(..., shards=D)``): the
+    path's sweep once per shard over that shard's slice of the edge list,
+    into a winner vector of its own, then :func:`_merge_shards`, the min
+    of the D vectors, where the reference's one ``lax.pmin`` a level
+    stands.  ``dirop`` pulls there by the streamed pull over each shard's
+    slice of the CSC mirror, never by the compact one, as the reference
+    does under a mesh axis.
 
   On a CUDA graph every kernel sweep is a hand-written kernel; on a CPU
   graph it is the kernel's plain PyTorch version (:mod:`repro_torch.
@@ -70,8 +77,8 @@ from repro_torch.kernels.frontier_expand import (frontier_expand,
 
 from .config import MatcherConfig
 from .device_csr import LANE
-from .device_loop import (ALT, COMPACT, COUNTERS, LEVELS, PULL, PUSH,
-                          Branch, Buffers, Loop, Once, Program,
+from .device_loop import (ALT, COMPACT, COUNTERS, LEVELS, MERGES, PULL,
+                          PUSH, Branch, Buffers, Loop, Once, Program,
                           SolveCounters)
 from .state import SENTINEL, MatchState
 
@@ -147,19 +154,23 @@ def scatter_kept(out: torch.Tensor, index: torch.Tensor, values, keep,
                    include_self=True)
 
 
-def scatter_min(n: int, index: torch.Tensor, values: torch.Tensor
-                ) -> torch.Tensor:
+def scatter_min(n: int, index: torch.Tensor, values: torch.Tensor,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Deterministic "first writer wins": per-slot min over proposals.
 
     ``index`` may use slot ``n`` as the discard sentinel and ``values`` IINF
     for "no proposal"; neither kind of entry touches a slot
     (:func:`scatter_kept`), so the sentinel slot stays the identity and
-    never reads back as a winner.
+    never reads back as a winner.  ``out``: the ``(n+1,)`` vector to fill,
+    in place.
     """
+    keep = (index < n) & (values < IINF)
+    if out is not None:
+        return scatter_kept(out.fill_(IINF), index, values, keep, "amin",
+                            inplace=True)
     out = torch.full((*index.shape[:-1], n + 1), IINF, dtype=I32,
                      device=values.device)
-    return scatter_kept(out, index, values, (index < n) & (values < IINF),
-                        "amin")
+    return scatter_kept(out, index, values, keep, "amin")
 
 
 def _seal(t: torch.Tensor, value) -> torch.Tensor:
@@ -211,9 +222,16 @@ def default_block_edges(nnz_pad: int, schedule: str) -> int:
 # BFS level expansion — the paper's Algorithms 2 (GPUBFS) and 4 (GPUBFS-WR)
 # ``level`` is a Python int or a 0-d int32 device tensor throughout.
 # ---------------------------------------------------------------------------
+def _out(out: Optional[torch.Tensor]) -> dict:
+    """A sweep's ``out=`` where there is one: an unsharded solve calls the
+    sweeps with their arguments alone, as a caller wrapping them sees."""
+    return {} if out is None else {"out": out}
+
+
 def _winner_full(ecol, cadj, bfs, root, rmatch, level, *,
                  use_pallas: bool = False, pallas_fused: bool = True,
-                 gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 gate: Optional[torch.Tensor] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Dense O(nnz) push sweep -> per-row winner vector (nr+1,).
 
     The legacy path (``use_pallas`` and not ``pallas_fused``) is the
@@ -221,13 +239,14 @@ def _winner_full(ecol, cadj, bfs, root, rmatch, level, *,
     reference merges it outside its kernel; every other config is the fused
     kernel (the reference's jnp and fused branches give the same winners).
     A kernel on a CUDA graph, its plain version on a CPU graph.  ``gate``
-    (a 0-d int32 tensor) off: no winner.
+    (a 0-d int32 tensor) off: no winner.  ``out``: the vector to fill.
     """
     if use_pallas and not pallas_fused:
         nr = rmatch.shape[-1] - 1
         prop = frontier_expand(ecol, cadj, bfs, root, rmatch, level, gate)
-        return scatter_min(nr, cadj, prop)
-    return frontier_expand_fused(ecol, cadj, bfs, root, rmatch, level, gate)
+        return scatter_min(nr, cadj, prop, out)
+    return frontier_expand_fused(ecol, cadj, bfs, root, rmatch, level, gate,
+                                 **_out(out))
 
 
 def _nonzero_fixed(mask: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
@@ -292,8 +311,10 @@ def _winner_pull_compact(rxadj, radj, bfs, root, rmatch, level,
 
 def _winner_pull_stream(radj, erow, bfs, root, rmatch, level, *,
                         use_pallas: bool,
-                        gate: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Streaming pull sweep over the whole CSC edge list.
+                        gate: Optional[torch.Tensor] = None,
+                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Streaming pull sweep over the CSC edge list (or a shard's slice of
+    it).
 
     With ``use_pallas`` it is the pull kernel.  Otherwise it is the dense
     sweep on the permuted arrays, the fused kernel over ``radj``/``erow``,
@@ -302,8 +323,19 @@ def _winner_pull_stream(radj, erow, bfs, root, rmatch, level, *,
     """
     if use_pallas:
         return frontier_expand_pull(radj, erow, bfs, root, rmatch, level,
-                                    gate)
-    return frontier_expand_fused(radj, erow, bfs, root, rmatch, level, gate)
+                                    gate, **_out(out))
+    return frontier_expand_fused(radj, erow, bfs, root, rmatch, level, gate,
+                                 **_out(out))
+
+
+def _merge_shards(shard_win: torch.Tensor, winner: torch.Tensor
+                  ) -> torch.Tensor:
+    """The per-level merge of an edge-sharded sweep: the elementwise min of
+    the shards' winner vectors (the rows of ``shard_win``), in place into
+    ``winner``.  It stands where the reference's one ``lax.pmin`` over the
+    mesh axis stands; min does not depend on order or partition, so the
+    merged winners are the single-device sweep's."""
+    return torch.amin(shard_win, dim=0, out=winner)
 
 
 def _winner_compact(cxadj, cadj, bfs, rmatch, isf, *, cap: int,
@@ -559,12 +591,27 @@ class Solver:
     first augmenting level; ``tail_levels`` runs at most that many levels
     past it.  ``cfg.max_phases`` and ``cfg.degrade_maximal`` act on the
     host, from values it has read.
+
+    ``shards``: the edge-sharded solve of ``ShardedMatcher`` over a mesh
+    axis of that many shards (None: one device, no mesh).  Each level then
+    sweeps each shard's contiguous slice of the edge buffers into a row of
+    its own and merges the rows (:func:`_merge_shards`), all inside the
+    level step, so it is captured and looped as the single-device level
+    is and makes the same host syncs.
     """
 
     lanes: tuple = ()           # one graph; a batch's solver has (B,)
 
-    def __init__(self, cfg: MatcherConfig, nc: int, nr: int):
+    def __init__(self, cfg: MatcherConfig, nc: int, nr: int,
+                 shards: Optional[int] = None):
+        if shards is not None and cfg.adaptive_frontier:
+            raise ValueError(
+                "adaptive_frontier is single-device only; the sharded "
+                "solve keeps the dense per-shard sweep and one merge per "
+                "level (MatcherConfig(dirop=True) is the direction "
+                "heuristic that composes with sharding)")
         self.cfg, self.nc, self.nr = cfg, nc, nr
+        self.shards = shards
         self.wr = cfg.kernel == "gpubfs_wr"
         # compact/pull geometry: the one auto rule lives on MatcherConfig
         self.compact_cap = cfg.resolve_cap(cfg.compact_cap, nc)
@@ -574,9 +621,10 @@ class Solver:
         self.max_steps = 2 * (min(nc, nr) + 2)
         self.limit = cfg.max_phases if cfg.max_phases > 0 else nc + 2
         # the lax.cond of these two picks between torch-op sweeps: one step
-        # per branch, picked by the level's decision ``plan``
-        self.branching = cfg.adaptive_frontier or (cfg.dirop
-                                                   and not cfg.use_pallas)
+        # per branch, picked by the level's decision ``plan``; a sharded
+        # dirop pulls by the streamed sweep, gated as dirop_pallas is
+        self.branching = shards is None and (
+            cfg.adaptive_frontier or (cfg.dirop and not cfg.use_pallas))
         self.degrade = cfg.degrade_maximal and cfg.max_phases > 0
         self.phase_begin = Once("phase_begin", self._phase_begin)
         body = self._level
@@ -602,6 +650,12 @@ class Solver:
         P.scalars(SCALARS)
         self._alloc_state(P)
         P.buf["bfs_scalars"] = P.scalar_slice("level", "bfs_live")
+        if self.shards is not None:
+            # a row per shard's sweep (dirop: the push rows, then the pull
+            # rows) and the merged winners
+            rows = self.shards * (2 if self.cfg.dirop else 1)
+            P.alloc("shard_win", (rows, self.nr + 1))
+            P.alloc("winner", self.nr + 1)
 
     def _alloc_state(self, P: Program) -> None:
         nc, nr = self.nc, self.nr
@@ -617,11 +671,14 @@ class Solver:
                     pallas_fused=self.cfg.pallas_fused)
 
     def _plan(self, B: Buffers) -> torch.Tensor:
-        """This level's branch decision (a 0-d device bool)."""
+        """This level's branch decision (a 0-d device bool).  Sharded, the
+        pull is the streamed one, so no unreached row need fit the compact
+        geometry (``use_pallas`` drops that test)."""
         if self.cfg.dirop:
             return _dirop_plan(
                 B.cxadj, B.rxadj, B.bfs, B.root, B.rmb, B.level,
-                B.dir_prev != 0, wr=self.wr, use_pallas=self.cfg.use_pallas,
+                B.dir_prev != 0, wr=self.wr,
+                use_pallas=self.cfg.use_pallas or self.shards is not None,
                 dirop_alpha=self.cfg.dirop_alpha,
                 dirop_beta=self.cfg.dirop_beta, pull_cap=self.pull_cap,
                 pull_dmax=self.pull_dmax)[0]
@@ -663,26 +720,53 @@ class Solver:
 
     def _level(self, B: Buffers) -> None:
         """One BFS level: the push sweep, or with ``dirop`` + ``use_pallas``
-        both kernels, each gated by the level's direction (decided on the
-        device), so that only one of them sweeps."""
+        (or sharded ``dirop``) both sweeps, each gated by the level's
+        direction (decided on the device), so that only one of them sweeps;
+        sharded, each sweep once a shard, then the merge."""
         rt = B.root if self.wr else None
-        if self.cfg.dirop:
-            pull = self._plan(B)
+        pull = self._plan(B) if self.cfg.dirop else None
+        if self.shards is not None:
+            winner = self._shard_sweeps(B, rt, pull)
+            B.counts[MERGES].add_(1)
+        elif pull is not None:
             winner = torch.minimum(
                 _winner_full(B.ecol, B.cadj, B.bfs, rt, B.rmb, B.level,
                              gate=(~pull).to(I32), **self._sweep_kw()),
                 _winner_pull_stream(B.radj, B.erow, B.bfs, rt, B.rmb,
                                     B.level, use_pallas=True,
                                     gate=pull.to(I32)))
+        else:
+            winner = _winner_full(B.ecol, B.cadj, B.bfs, rt, B.rmb, B.level,
+                                  **self._sweep_kw())
+        if pull is not None:
             B.dir_prev.copy_(pull)
             B.counts[LEVELS].add_(1)
             B.counts[PUSH].add_(~pull)
             B.counts[PULL].add_(pull)
         else:
-            winner = _winner_full(B.ecol, B.cadj, B.bfs, rt, B.rmb, B.level,
-                                  **self._sweep_kw())
             B.counts[LEVELS:PUSH + 1].add_(1)
         self._fold(B, winner)
+
+    def _shard_sweeps(self, B: Buffers, rt, pull) -> torch.Tensor:
+        """The level's winners of a sharded solve: shard ``d``'s sweep over
+        its slice of the edge buffers into row ``d`` of ``shard_win`` (with
+        ``dirop``, gated off on a pull level, and its streamed pull over
+        its slice of the mirror into row ``D + d``, gated off on a push
+        level), then the rows merged into ``winner``."""
+        D, win = self.shards, B.shard_win
+        push_gate = None if pull is None else (~pull).to(I32)
+        for d, (ecol, cadj) in enumerate(zip(B.ecol.chunk(D),
+                                             B.cadj.chunk(D))):
+            _winner_full(ecol, cadj, B.bfs, rt, B.rmb, B.level,
+                         gate=push_gate, out=win[d], **self._sweep_kw())
+        if pull is not None:
+            pull_gate = pull.to(I32)
+            for d, (radj, erow) in enumerate(zip(B.radj.chunk(D),
+                                                 B.erow.chunk(D))):
+                _winner_pull_stream(radj, erow, B.bfs, rt, B.rmb, B.level,
+                                    use_pallas=self.cfg.use_pallas,
+                                    gate=pull_gate, out=win[D + d])
+        return _merge_shards(win, B.winner)
 
     def _branch_level(self, B: Buffers, take: bool) -> None:
         """One BFS level of a branching path: the push sweep, or (``take``)
@@ -814,20 +898,26 @@ class MatcherProgram:
     graphs.  A call copies its graph and state into the buffers and runs
     the steps (replays them on a card), so two graphs of one bucket each
     get their own answer.  Calls are serialized by the entry's lock.
+
+    ``shards``: the solve is edge-sharded over that many shards (the
+    ``"sharded_run"`` entry of ``ShardedMatcher``); the warm start and the
+    ``degrade_maximal`` round still run over the whole edge list.
     """
 
     lanes: tuple = ()           # one graph; a batch's entry has (B,)
 
     def __init__(self, nc: int, nr: int, nnz_pad: int,
-                 cfg: Optional[MatcherConfig], stages: Optional[Sequence]):
+                 cfg: Optional[MatcherConfig], stages: Optional[Sequence],
+                 shards: Optional[int] = None):
         self.nc, self.nr, self.nnz_pad = nc, nr, nnz_pad
         self.cfg = cfg
         self.stages = tuple(stages or ())
+        self.shards = shards
         self.solver = self._solver(cfg) if cfg is not None else None
         self._programs: dict = {}
 
     def _solver(self, cfg: MatcherConfig) -> Solver:
-        return Solver(cfg, self.nc, self.nr)
+        return Solver(cfg, self.nc, self.nr, self.shards)
 
     def program(self, device) -> Program:
         """The entry's :class:`Program` on ``device`` (built on first use;

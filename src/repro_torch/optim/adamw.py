@@ -8,7 +8,7 @@ Adafactor-style row/column second moment and a bf16 first moment) ``m``,
 ``vr``, ``vc`` and ``step``.  ``step`` is a 0-d int32 tensor.
 
 The JAX module's ZeRO-1 sharding specs are not ported: they partition the
-state over a mesh (ROADMAP.md, Queue 1, item 10).
+state over a mesh (ROADMAP.md, Queue 1, item 13).
 
 ``adamw_update`` updates the params and the state in place and returns
 them, as a PyTorch optimizer does (the JAX function returns new trees: at

@@ -11,8 +11,9 @@ and everything observable (:mod:`metrics`)::
 
     submit() ─► Bucketizer ─► MicroBatcher ─► stack + run_many ─► Future
                    │ oversize                    (1 dispatch/flush)
-                   └─► OversizeGraphError (the sharded lane: ROADMAP.md,
-                       Queue 1, item 10)
+                   ├─► OversizeGraphError (oversize="reject", the default)
+                   └─► the sharded lane (oversize="shard", mesh=...):
+                       one ShardedMatcher.run per request
 
 ``python -m repro_torch.launch.serve_matching`` replays a synthetic
 open-loop traffic trace against this service.

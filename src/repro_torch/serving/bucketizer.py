@@ -9,9 +9,10 @@ places each incoming graph in the smallest declared bucket that fits,
 padding vertices (:meth:`TorchCSR.pad_vertices`) and edges with inert
 sentinels, and accounts the padding waste per admission.  A graph that fits
 no bucket is rejected with the typed :class:`OversizeGraphError`, so the
-caller can tell admission failure from solver failure.  The edge-sharded
-lane for oversize graphs (``oversize="shard"``) waits for the sharding
-slice of the port (ROADMAP.md, Queue 1, item 10) and is refused.
+caller can tell admission failure from solver failure, unless
+``oversize="shard"``: then it is admitted whole (its edge capacity bucketed,
+no vertex padding) with ``route="sharded"`` and ``bucket=None``, for the
+service's edge-sharded lane (``MatchingService(mesh=...)``).
 """
 from __future__ import annotations
 
@@ -26,8 +27,6 @@ from repro_torch.matching.device_csr import (LANE, GraphValidationError,
                                              TorchCSR, bucket_nnz,
                                              validate_structure)
 
-SHARDING_ITEM = "ROADMAP.md, Queue 1, item 10"
-
 
 class OversizeGraphError(ValueError):
     """Typed admission rejection: the graph fits no declared bucket."""
@@ -38,8 +37,9 @@ class OversizeGraphError(ValueError):
         super().__init__(
             f"graph ({nc}x{nr}, {nnz} edges) fits no declared bucket; "
             f"largest is ({largest.nc}x{largest.nr}, {largest.nnz_pad} edge "
-            f"slots) — enlarge the ladder (the sharded lane waits for "
-            f"{SHARDING_ITEM})")
+            f"slots) — enlarge the ladder, or serve oversize graphs on the "
+            f"sharded lane (Bucketizer(oversize='shard') and "
+            f"MatchingService(mesh=...))")
 
 
 @dataclasses.dataclass(frozen=True, order=True)
@@ -82,7 +82,7 @@ class Admission:
 
     graph: TorchCSR
     bucket: Optional[SizeBucket]
-    route: str                        # "bucket" (the only route here)
+    route: str                        # "bucket" | "sharded"
     nc: int                           # true sizes of the submitted graph
     nr: int
     nnz: int
@@ -113,9 +113,10 @@ def _pad_host_vertices(g: BipartiteCSR, nc: int, nr: int,
 class Bucketizer:
     """Maps raw graphs onto the declared bucket grid.
 
-    ``buckets`` default to :func:`ladder`.  ``oversize="reject"`` (the only
-    policy served yet) raises :class:`OversizeGraphError` for a graph that
-    fits no bucket.  ``build_csc`` attaches the CSC mirror
+    ``buckets`` default to :func:`ladder`.  A graph that fits no bucket
+    raises :class:`OversizeGraphError` under ``oversize="reject"``, and
+    under ``oversize="shard"`` is admitted whole for the sharded lane
+    (``route="sharded"``, ``bucket=None``).  ``build_csc`` attaches the CSC mirror
     (:meth:`TorchCSR.with_csc`) to every admitted graph, which the
     direction-optimizing configs need; the service asks for it per
     admission when the request's config needs it.  ``validate`` checks the
@@ -129,10 +130,6 @@ class Bucketizer:
                  oversize: str = "reject", build_csc: bool = False,
                  validate: bool = False, device=None):
         assert oversize in ("reject", "shard"), oversize
-        if oversize == "shard":
-            raise NotImplementedError(
-                f"oversize='shard' needs the sharded matcher, which the port "
-                f"does not have yet ({SHARDING_ITEM}); use oversize='reject'")
         bs = tuple(sorted(buckets if buckets is not None else ladder(),
                           key=lambda b: b.cost))
         assert bs, "need at least one declared bucket"
@@ -188,7 +185,15 @@ class Bucketizer:
                 graph.validate()
         b = self.bucket_for(nc, nr, nnz)
         if b is None:
-            raise OversizeGraphError(nc, nr, nnz, self.buckets[-1])
+            if self.oversize == "reject":
+                raise OversizeGraphError(nc, nr, nnz, self.buckets[-1])
+            dev = (graph if isinstance(graph, TorchCSR)
+                   else TorchCSR.from_host(graph, device=self.device)
+                   ).bucketed()
+            if csc:
+                dev = dev.with_csc()
+            return Admission(graph=dev, bucket=None, route="sharded",
+                             nc=nc, nr=nr, nnz=nnz)
         if isinstance(graph, BipartiteCSR):
             dev = TorchCSR.from_host(
                 _pad_host_vertices(graph, b.nc, b.nr, b.nnz_pad),

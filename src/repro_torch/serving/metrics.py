@@ -34,7 +34,7 @@ class ServiceMetrics:
         self.completed = 0
         self.failed = 0
         self.rejected = 0           # typed admission rejections
-        self.sharded = 0            # oversize requests routed to a sharded matcher (none yet)
+        self.sharded = 0            # oversize requests served by ShardedMatcher
         # fault-tolerance lifecycle (see docs/architecture.md, the
         # degradation ladder): with `pending` these make the flush mix sum
         # to submissions —

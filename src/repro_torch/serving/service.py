@@ -55,9 +55,12 @@ Fault tolerance (the "failure model & degradation ladder" section of
   keeps serving.  :class:`~repro_torch.serving.faults.FaultInjector` drives
   every one of these paths deterministically in tests.
 
-Oversize graphs are rejected (:class:`OversizeGraphError`); the edge-sharded
-lane and ``mesh=`` wait for the sharding slice (ROADMAP.md, Queue 1, item
-10) and are refused.
+Oversize graphs are rejected (:class:`OversizeGraphError`), unless the
+service has a ``mesh``: then the bucketizer admits them whole
+(``oversize="shard"``), they wait in a queue of their own, and the flush
+thread serves each with one :class:`~repro_torch.matching.ShardedMatcher`
+run over the mesh (``route="sharded"``, ``bucket=None``), taking the
+oldest of the batched flushes and the sharded requests first.
 """
 from __future__ import annotations
 
@@ -75,11 +78,11 @@ import torch
 from repro_torch.core.csr import BipartiteCSR
 from repro_torch.matching import (GraphValidationError, Matcher,
                                   MatcherConfig, MatchState, MatchStats,
-                                  TorchCSR)
+                                  ShardedMatcher, TorchCSR)
 from repro_torch.matching.cache import compile_cache_thread_info
 
-from .bucketizer import (SHARDING_ITEM, Admission, Bucketizer,
-                         OversizeGraphError, SizeBucket)
+from .bucketizer import (Admission, Bucketizer, OversizeGraphError,
+                         SizeBucket)
 from .faults import FaultInjector, FlushThreadDeath
 from .metrics import ServiceMetrics
 from .scheduler import Flush, MicroBatcher, batch_bucket
@@ -122,8 +125,8 @@ class MatchResult:
 
     state: MatchState                 # bucket-shaped (padded) matching state
     stats: MatchStats
-    bucket: Optional[SizeBucket]
-    route: str                        # "bucket" (the only route here)
+    bucket: Optional[SizeBucket]      # None on the sharded route
+    route: str                        # "bucket" | "sharded"
     nc: int                           # true submitted sizes
     nr: int
     batch_size: int                   # real requests in the flush served with
@@ -176,16 +179,17 @@ class MatchingService:
     a JSON reproducer per quarantined request; ``faults`` installs a
     :class:`~repro_torch.serving.faults.FaultInjector`; ``supervise`` (default
     on) arms the flush-thread watchdog.  ``device``: where a bucketizer the
-    service builds itself uploads (None: the CUDA card); a bucketizer
-    passed in brings its own.  ``mesh`` (the sharded lane) is refused until
-    the port shards.
+    service builds itself uploads (None: the mesh's device where there is
+    a mesh, else the CUDA card); a bucketizer passed in brings its own.
+    ``mesh`` / ``shard_axis``: the sharded lane for oversize graphs (the
+    service's own bucketizer then admits them, ``oversize="shard"``).
     """
 
     def __init__(self, bucketizer: Optional[Bucketizer] = None,
                  config: MatcherConfig = MatcherConfig(),
                  warm_start: str = "cheap",
                  max_batch: int = 8, max_delay_ms: float = 2.0,
-                 mesh=None,
+                 mesh=None, shard_axis: str = "data",
                  adaptive: bool = True,
                  metrics: Optional[ServiceMetrics] = None,
                  max_queue: Optional[int] = None,
@@ -197,12 +201,14 @@ class MatchingService:
                  supervise: bool = True,
                  supervisor_interval_s: float = 0.05,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"MatchingService(mesh=...) needs the sharded matcher, which "
-                f"the port does not have yet ({SHARDING_ITEM})")
         if bucketizer is None:
-            bucketizer = Bucketizer(validate=True, device=device)
+            if device is None and mesh is not None:
+                device = mesh.device
+            bucketizer = Bucketizer(
+                oversize="shard" if mesh is not None else "reject",
+                validate=True, device=device)
+        assert bucketizer.oversize != "shard" or mesh is not None, \
+            "oversize='shard' needs a mesh to shard over"
         assert shed_policy in ("reject-newest", "reject-oldest"), shed_policy
         assert max_queue is None or max_queue >= 1, max_queue
         assert dispatch_retries >= 0 and retry_backoff_s >= 0
@@ -210,6 +216,8 @@ class MatchingService:
         self.config = config
         self.warm_start = warm_start
         self.device = bucketizer.device
+        self.mesh = mesh
+        self.shard_axis = shard_axis
         self.metrics = metrics if metrics is not None else ServiceMetrics()
         self.max_queue = max_queue
         self.shed_policy = shed_policy
@@ -221,9 +229,11 @@ class MatchingService:
                                      max_delay_s=max_delay_ms / 1e3,
                                      adaptive=adaptive)
         self._matchers: Dict[Tuple[MatcherConfig, str], Matcher] = {}
+        self._sharded: Dict[Tuple[MatcherConfig, str], ShardedMatcher] = {}
         self.matcher()     # validate the default config/warm start eagerly
         self._cond = threading.Condition()
         self._ready: List[Flush] = []
+        self._sharded_q: List[_Request] = []
         self._taken: List[_Request] = []   # in flight on the flush thread
         self._stop = False
         self._thread = self._start_flush_thread()
@@ -253,9 +263,9 @@ class MatchingService:
 
     def _queue_depth_locked(self) -> int:
         """Everything accepted but not yet claimed by the flush thread:
-        accumulating in the batcher or staged in ready flushes.  In-flight
-        (claimed) requests are not queue."""
-        return (self._batcher.pending
+        accumulating in the batcher, staged in ready flushes, or waiting in
+        the sharded lane.  In-flight (claimed) requests are not queue."""
+        return (self._batcher.pending + len(self._sharded_q)
                 + sum(len(f.items) for f in self._ready))
 
     def matcher(self, config: Optional[MatcherConfig] = None,
@@ -329,10 +339,13 @@ class MatchingService:
                     raise QueueFullError(depth, self.max_queue)
                 shed = self._evict_oldest_locked()
             self.metrics.record_submit(adm.nnz, adm.graph.nnz_pad)
-            flush = self._batcher.add((adm.bucket, cfg, ws), req,
-                                      req.submitted_at)
-            if flush is not None:
-                self._ready.append(flush)
+            if adm.route == "sharded":
+                self._sharded_q.append(req)
+            else:
+                flush = self._batcher.add((adm.bucket, cfg, ws), req,
+                                          req.submitted_at)
+                if flush is not None:
+                    self._ready.append(flush)
             self._cond.notify_all()
         if shed is not None:
             # resolve OUTSIDE the lock: done-callbacks may re-enter submit
@@ -345,12 +358,16 @@ class MatchingService:
 
     def _evict_oldest_locked(self) -> Optional[_Request]:
         """Pop the longest-queued request — whether still accumulating in
-        the batcher or already staged in a ready flush — so
-        ``reject-oldest`` really evicts the globally oldest."""
+        the batcher, already staged in a ready flush, or in the sharded
+        lane — so ``reject-oldest`` really evicts the globally oldest."""
         best = None                       # (enqueued_at, kind, ready_index)
         bt = self._batcher.oldest_enqueued_at()
         if bt is not None:
             best = (bt, "batcher", -1)
+        if self._sharded_q:
+            t = self._sharded_q[0].submitted_at
+            if best is None or t < best[0]:
+                best = (t, "sharded", -1)
         for i, f in enumerate(self._ready):
             t = f.items[0].enqueued_at   # items keep enqueue order
             if best is None or t < best[0]:
@@ -361,6 +378,8 @@ class MatchingService:
         if kind == "batcher":
             q = self._batcher.evict_oldest()
             return q.payload if q is not None else None
+        if kind == "sharded":
+            return self._sharded_q.pop(0)
         f = self._ready[i]
         victim, rest = f.items[0], f.items[1:]
         if rest:
@@ -381,7 +400,8 @@ class MatchingService:
         with self._cond:
             self._ready.extend(self._batcher.drain())
             self._cond.notify_all()
-            while self._ready or self._taken or self._batcher.pending:
+            while (self._ready or self._sharded_q or self._taken
+                   or self._batcher.pending):
                 self._cond.wait(0.01)
                 self._ready.extend(self._batcher.drain())
 
@@ -401,6 +421,8 @@ class MatchingService:
             for flush in self._ready:
                 stranded.extend(q.payload for q in flush.items)
             self._ready = []
+            stranded.extend(self._sharded_q)
+            self._sharded_q = []
             stranded.extend(self._taken)
             self._taken = []
             stranded.extend(q.payload
@@ -438,7 +460,7 @@ class MatchingService:
                 while True:
                     now = time.perf_counter()
                     self._ready.extend(self._batcher.due(now))
-                    if self._ready:
+                    if self._ready or self._sharded_q:
                         break
                     if self._stop:
                         if self._batcher.pending:
@@ -450,8 +472,10 @@ class MatchingService:
                                else max(0.0, deadline - now))
                     self._cond.wait(timeout)
                 ready, self._ready = self._ready, []
+                sharded, self._sharded_q = self._sharded_q, []
                 self._taken.extend(q.payload for f in ready
                                    for q in f.items)
+                self._taken.extend(sharded)
             try:
                 # per-item guards: an exception must resolve the affected
                 # futures, never kill the flush thread (which would strand
@@ -462,6 +486,11 @@ class MatchingService:
                         self._dispatch(flush)
                     except Exception as e:
                         self._fail([q.payload for q in flush.items], e)
+                for req in sharded:
+                    try:
+                        self._dispatch_sharded(req)
+                    except Exception as e:
+                        self._fail([req], e)
             except BaseException:
                 # crash unwind (FlushThreadDeath): leave the unresolved
                 # in-flight set in _taken — it is exactly what the
@@ -615,6 +644,40 @@ class MatchingService:
                 bucket=bucket, route="bucket",
                 nc=r.admission.nc, nr=r.admission.nr,
                 batch_size=len(reqs), queue_wait_s=qw, latency_s=lat))
+
+    def _dispatch_sharded(self, req: _Request) -> None:
+        """The oversize lane: one edge-sharded ``ShardedMatcher`` run over
+        the mesh; a failure quarantines the request."""
+        reqs = self._claim([req])
+        if not reqs:
+            return
+        t0 = time.perf_counter()
+        key = (req.config, req.warm_start)
+        m = self._sharded.get(key)
+        if m is None:
+            m = self._sharded[key] = ShardedMatcher(
+                self.mesh, self.shard_axis, req.config, req.warm_start)
+        try:
+            if self.faults is not None:
+                self.faults.before_dispatch(reqs)
+            graph = req.admission.graph.shard(self.mesh, self.shard_axis)
+            out = m.run(graph)
+            if out.cmatch.is_cuda:
+                torch.cuda.current_stream(out.cmatch.device).synchronize()
+        except FlushThreadDeath:
+            raise
+        except Exception as e:
+            self._quarantine(req, e)
+            return
+        done = time.perf_counter()
+        qw = t0 - req.submitted_at
+        lat = done - req.submitted_at
+        self.metrics.record_sharded()
+        self.metrics.record_done(qw, lat)
+        req.future.set_result(MatchResult(
+            state=out, stats=m.stats(out), bucket=None, route="sharded",
+            nc=req.admission.nc, nr=req.admission.nr,
+            batch_size=1, queue_wait_s=qw, latency_s=lat))
 
     def _quarantine(self, req: _Request, exc: Exception) -> None:
         """The isolated poisoned request: fail it with the real error and

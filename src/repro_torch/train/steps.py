@@ -3,7 +3,7 @@ with its loss, ``cross_entropy``, and the serving path's prefill and serve
 steps.  PyTorch runs eagerly, so ``build_*`` returns the plain function
 where the JAX one returns the function that is then jitted; the mesh and
 sharding helpers (``named``, ``batch_sharding``) are not ported (ROADMAP.md,
-Queue 1, item 10)."""
+Queue 1, item 13)."""
 from __future__ import annotations
 
 from typing import Any, Dict, List

@@ -1566,3 +1566,121 @@ def test_cuda_checkpoint_round_trip_and_flash_refused_in_training(tmp_path):
         build_train_step(model, OptConfig())(
             params, adamw_init(params, OptConfig()),
             _train_data(model.cfg, 0, "cuda"))
+
+
+# ---------------------------------------------------------------------------
+# The edge-sharded matcher: D shards on one card
+# ---------------------------------------------------------------------------
+# the three kernel paths and the body each must launch, once a shard a level
+_SHARDED_PATHS = {"jnp": "frontier_expand_fused_wr",
+                  "legacy": "frontier_expand_wr",
+                  "dirop_pallas": "frontier_expand_pull_wr"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", sorted(_SHARDED_PATHS))
+@pytest.mark.parametrize("d", [1, 2, 4])
+def test_cuda_sharded_equals_single_device_and_cpu(d, path):
+    """``ShardedMatcher`` over D shards on the card: the card's
+    single-device state and the CPU's sharded one bit for bit, the
+    single-device run's host syncs and levels, one merge a level, and the
+    path's kernel launched once a shard on each level that swept."""
+    _card()
+    from repro_torch.matching import ShardedMatcher, make_mesh
+    g = random_bipartite(3000, 2800, 4.0, seed=31)
+    cfg = SOLVE_PATHS[path].configure(MatcherConfig())
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        t = TorchCSR.from_host(g, device=dev)
+        t = t.with_csc() if cfg.dirop else t
+        single = Matcher(cfg, "cheap")
+        one = single.run(t)
+        mesh = make_mesh((d,), ("data",), devices=[dev] * d)
+        sharded = ShardedMatcher(mesh, config=cfg, warm_start="cheap")
+        sharded.run(t)                                 # capture
+        reset_launches()
+        st = sharded.run(t)
+        launches = dict(LAUNCHES)
+        runs[dev] = (_outcome(st), sharded.last_counts)
+        _same_outcome(_outcome(one), runs[dev][0], (dev, d, path))
+        c, c1 = sharded.last_counts, single.last_counts
+        assert c["host_syncs"] == c1["host_syncs"], (c, c1)
+        assert c["levels"] == c1["levels"] == c["merges"]
+    _same_outcome(runs["cpu"][0], runs["cuda"][0], (d, path))
+    c = runs["cuda"][1]
+    swept = c["pull_levels"] if path == "dirop_pallas" else c["push_levels"]
+    assert swept > 0 and launches[_SHARDED_PATHS[path]] == d * swept
+    if path == "dirop_pallas":
+        assert launches["frontier_expand_fused_wr"] == d * c["push_levels"]
+
+
+@pytest.mark.gpu
+def test_cuda_kernels_on_shard_slices_equal_plain_versions():
+    """K1a, K2a and K3a on each shard's slice of the edge buffers (views at
+    ``d * per_shard``), K1 and K3 writing into a row of one winner
+    buffer, against their plain versions over the first BFS phase; the
+    rows' min is the whole graph's winners."""
+    _card()
+    from repro_torch.matching import make_mesh
+    g = random_bipartite(5000, 4500, 4.0, seed=37)
+    cpu = TorchCSR.from_host(g, device="cpu").with_csc()
+    warm = Matcher(warm_start="cheap").init(cpu)
+    d = 4
+    sh = TorchCSR.from_host(g, device="cuda").with_csc().shard(
+        make_mesh((d,), ("data",), devices=["cuda:0"] * d))
+    ref = cpu.shard(make_mesh((d,), ("data",), devices=["cpu"] * d))
+    cols, rows = ref.shard_slices("ecol"), ref.shard_slices("cadj")
+    rcols, rrows = ref.shard_slices("radj"), ref.shard_slices("erow")
+    bfs, root = level0_state(warm.cmatch)
+    pred = torch.full((g.nr + 1,), g.nc, dtype=torch.int32)
+    rmatch, level, ins = warm.rmatch, 2, True
+    win = torch.empty((2 * d, g.nr + 1), dtype=torch.int32, device="cuda")
+    while ins:
+        args = (bfs.cuda(), root.cuda(), rmatch.cuda(), level)
+        for i, (e, c, re, rr) in enumerate(zip(
+                sh.shard_slices("ecol"), sh.shard_slices("cadj"),
+                sh.shard_slices("radj"), sh.shard_slices("erow"))):
+            frontier_expand_fused(e, c, *args[:2], args[2], level,
+                                  out=win[i])
+            frontier_expand_pull(re, rr, *args[:2], args[2], level,
+                                 out=win[d + i])
+            prop = frontier_expand(e, c, *args[:2], args[2], level)
+            want = frontier_expand_fused_ref(cols[i], rows[i], bfs, root,
+                                             rmatch, level)
+            torch.cuda.synchronize()
+            assert torch.equal(win[i].cpu(), want), (i, level)
+            assert torch.equal(win[d + i].cpu(), frontier_expand_pull_ref(
+                rcols[i], rrows[i], bfs, root, rmatch, level)), (i, level)
+            assert torch.equal(prop.cpu(), frontier_expand_ref(
+                cols[i], rows[i], bfs, root, rmatch, level)), (i, level)
+        merged = win[:d].amin(0).cpu()
+        assert torch.equal(merged, frontier_expand_fused_ref(
+            cpu.ecol, cpu.cadj, bfs, root, rmatch, level)), level
+        assert torch.equal(win[d:].amin(0).cpu(), merged), level
+        bfs, root, pred, rmatch, ins_t, _ = _apply_winner(
+            merged, bfs, root, pred, rmatch, level, wr=True, wr_exact=False)
+        ins, level = bool(ins_t), level + 1
+    assert level > 3
+
+
+@pytest.mark.gpu
+def test_cuda_service_serves_oversize_on_the_sharded_lane():
+    """``MatchingService(mesh=...)`` with four shards on the card: a graph
+    past every bucket goes down the sharded lane, certified, and equal to
+    the card's single-device run of the bucketed graph bit for bit."""
+    _card()
+    from repro_torch.matching import make_mesh
+    from repro_torch.serving import Bucketizer, MatchingService, SizeBucket
+    mesh = make_mesh((4,), ("data",), devices=["cuda:0"] * 4)
+    big = random_bipartite(2000, 2000, 4.0, seed=41)
+    with MatchingService(
+            bucketizer=Bucketizer((SizeBucket(256, 256, 2048),),
+                                  oversize="shard"),
+            config=MatcherConfig(), warm_start="cheap", mesh=mesh) as svc:
+        res = svc.submit(big).result(timeout=300)
+        snap = svc.metrics.snapshot()
+    assert res.route == "sharded" and res.bucket is None and res.certified
+    want = Matcher(MatcherConfig(), "cheap").run(
+        TorchCSR.from_host(big).bucketed())
+    _same_outcome(_outcome(res.state), _outcome(want), "oversize")
+    assert snap["sharded"] == 1

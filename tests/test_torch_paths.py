@@ -108,6 +108,7 @@ def test_compact_fallback_on_skewed_degrees(kw, seed, perm):
 
 
 def test_registry_mirrors_reference():
-    want = {n: dict(p.overrides) for n, p in REF_PATHS.items()
-            if not p.sharded and p.runner is None}
-    assert {n: dict(p.overrides) for n, p in SOLVE_PATHS.items()} == want
+    want = {n: (dict(p.overrides), p.sharded) for n, p in REF_PATHS.items()
+            if p.runner is None}
+    assert {n: (dict(p.overrides), p.sharded)
+            for n, p in SOLVE_PATHS.items()} == want

@@ -6,9 +6,11 @@ clock, the batch ladder, the service's per-request results (the same
 cardinality, and the same ``MatchState`` as the reference's ``Matcher`` on
 the same admitted graph, bit for bit), deadline flushes, the warm-up
 zero-miss contract on every kernel path, typed errors and refusals, and the
-metrics snapshot's keys.  The oversize graph is rejected; the sharded route
-(``oversize="shard"``, ``mesh=``) is refused, pointing at ROADMAP.md Queue 1
-item 10.  Every service here runs on the CPU (``device="cpu"``).
+metrics snapshot's keys.  The oversize graph is rejected by default; with
+a mesh (``oversize="shard"``, ``mesh=``) it is served on the sharded lane,
+its state the single-device ``Matcher.run``'s bit for bit (the port's and
+the reference's).  Every service here runs on the CPU (``device="cpu"``;
+the mesh: four shards on the CPU).
 """
 import dataclasses
 import functools
@@ -16,6 +18,7 @@ import inspect
 
 import numpy as np
 import pytest
+import torch
 
 from repro.graphs import (banded, comb_chain, community_graph, grid_graph,
                           kron_graph, mtx_fixture, random_bipartite,
@@ -28,10 +31,12 @@ from repro.serving import Bucketizer as RefBucketizer
 from repro_torch.core import validate_matching
 from repro_torch.core.csr import BipartiteCSR
 from repro_torch.matching import (Matcher, MatcherConfig, TorchCSR,
-                                  compile_cache_clear, compile_cache_info)
+                                  compile_cache_clear, compile_cache_info,
+                                  make_mesh)
 import repro_torch.serving as serving
-from repro_torch.serving import (Bucketizer, MatchingService, MicroBatcher,
-                                 OversizeGraphError, ServiceMetrics,
+from repro_torch.serving import (Bucketizer, FaultInjector, MatchingService,
+                                 MicroBatcher, OversizeGraphError,
+                                 PoisonedGraphFault, ServiceMetrics,
                                  SizeBucket, batch_bucket, batch_ladder,
                                  synthetic_bucket_graph)
 
@@ -147,11 +152,105 @@ def test_bucketizer_picks_smallest_fitting_bucket():
                     ).bucket == large
 
 
-def test_sharded_route_is_refused_with_a_pointer():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-        Bucketizer((BUCKET,), oversize="shard", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 10"):
-        MatchingService(bucketizer=bucketizer(), mesh=object())
+# ---------------------------------------------------------------------------
+# The sharded lane: oversize graphs through ShardedMatcher over a CPU mesh
+# ---------------------------------------------------------------------------
+MESH = make_mesh((4,), ("data",), devices=["cpu"] * 4)
+BIG = (320, 320, 3.0, 11)          # random_bipartite arguments and seed
+
+
+def sharded_service(**kw):
+    kw.setdefault("bucketizer", bucketizer(oversize="shard"))
+    return service(mesh=MESH, **kw)
+
+
+def single_device_state(g, cfg=CFG, ws="cheap"):
+    """The port's single-device ``Matcher.run`` of the admitted (edge-
+    bucketed) graph and the reference's, which must agree."""
+    ours = Matcher(cfg, ws).run(
+        TorchCSR.from_host(port(g), device="cpu").bucketed())
+    ref = RefMatcher(REF_CFG, ws).run(
+        RefBucketizer((ref_serving.SizeBucket(*BUCKET.key),),
+                      oversize="shard").admit(g).graph)
+    for f in FIELDS:
+        np.testing.assert_array_equal(getattr(ours, f).numpy(),
+                                      np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+    return ours
+
+
+def test_bucketizer_admits_oversize_on_the_sharded_route():
+    big = random_bipartite(*BIG[:3], seed=BIG[3])
+    adm = bucketizer(oversize="shard").admit(port(big))
+    ref = RefBucketizer((ref_serving.SizeBucket(*BUCKET.key),),
+                        oversize="shard").admit(big)
+    assert adm.route == ref.route == "sharded"
+    assert adm.bucket is None and ref.bucket is None
+    assert (adm.nc, adm.nr, adm.nnz) == (ref.nc, ref.nr, ref.nnz)
+    for name in ("cxadj", "cadj", "ecol"):
+        np.testing.assert_array_equal(getattr(adm.graph, name).numpy(),
+                                      np.asarray(getattr(ref.graph, name)))
+    assert bucketizer(oversize="shard").admit(
+        port(big), csc=True).graph.has_csc
+
+
+def test_service_routes_oversize_to_sharded_matcher():
+    big = random_bipartite(*BIG[:3], seed=BIG[3])
+    with sharded_service() as svc:
+        res = svc.submit(port(big)).result(timeout=T)
+        snap = svc.metrics.snapshot()
+    assert res.route == "sharded" and res.bucket is None
+    assert res.stats.variant == f"sharded-{CFG.name}@4"
+    want = single_device_state(big)
+    for f in FIELDS:
+        assert torch.equal(getattr(res.state, f), getattr(want, f)), f
+    cm, rm = res.matching()
+    assert validate_matching(port(big), cm, rm) == res.cardinality
+    assert res.certified
+    assert snap["sharded"] == 1 and snap["completed"] == 1
+    assert snap["dispatches"] == 1
+
+
+def test_service_mesh_serves_both_lanes():
+    """A mesh-built service makes its own bucketizer shard oversize graphs
+    (on the mesh's device); in-bucket requests still batch, each result
+    the reference's, and the oversize one goes down the sharded lane."""
+    big = random_bipartite(4200, 4200, 2.0, seed=12)     # past the ladder
+    with MatchingService(config=CFG, warm_start="cheap", mesh=MESH,
+                         max_batch=4) as svc:
+        assert svc.bucketizer.oversize == "shard"
+        assert svc.device == torch.device("cpu")
+        small = [svc.submit(port(families()[n])) for n in ("random", "kron")]
+        over = svc.submit(port(big))
+        svc.drain()
+        snap = svc.metrics.snapshot()
+    res = over.result(timeout=T)
+    assert res.route == "sharded" and res.certified
+    assert res.cardinality == int(Matcher(CFG, "cheap").run(
+        TorchCSR.from_host(port(big), device="cpu").bucketed()).cardinality)
+    assert [f.result(timeout=T).route for f in small] == ["bucket"] * 2
+    assert snap["sharded"] == 1 and snap["completed"] == 3
+    with pytest.raises(AssertionError, match="needs a mesh"):
+        MatchingService(bucketizer=bucketizer(oversize="shard"))
+
+
+def test_sharded_lane_quarantines_a_failure(tmp_path):
+    """A request whose sharded dispatch fails gets the real error and a
+    quarantine artifact; the lane goes on serving."""
+    faults = FaultInjector(seed=0)
+    faults.poison("bad")
+    big = random_bipartite(*BIG[:3], seed=BIG[3])
+    with sharded_service(faults=faults,
+                         quarantine_dir=str(tmp_path)) as svc:
+        bad = svc.submit(port(big), tag="bad")
+        exc = bad.exception(timeout=T)
+        good = svc.submit(port(big)).result(timeout=T)
+        snap = svc.metrics.snapshot()
+    assert isinstance(exc, PoisonedGraphFault)
+    assert exc.quarantine_artifact.endswith("quarantine_bad.json")
+    assert good.route == "sharded" and good.certified
+    assert snap["quarantined"] == 1 and snap["failed"] == 1
+    assert snap["sharded"] == 1
 
 
 # ---------------------------------------------------------------------------
@@ -385,11 +484,15 @@ def test_metrics_snapshot_keys_and_public_names_equal_the_reference():
                 [c.__name__ for c in ref.__mro__], name
 
 
-@pytest.mark.parametrize("extra", [[], ["--chaos"]], ids=["smoke", "chaos"])
+@pytest.mark.parametrize("extra", [[], ["--chaos"], ["--shards", "4"]],
+                         ids=["smoke", "chaos", "sharded"])
 def test_serve_matching_smoke_on_cpu(extra, capsys):
     """``python -m repro_torch.launch.serve_matching --smoke --device cpu``
-    (and with the fault drill) exits 0: every request at the direct
-    matcher's cardinality, the poison isolated, the thread restarted."""
+    (and with the fault drill, and with four shards for the oversize
+    lane) exits 0: every request at the direct matcher's cardinality, the
+    poison isolated, the thread restarted, the oversize graph sharded."""
     from repro_torch.launch.serve_matching import main
     assert main(["--smoke", "--device", "cpu", *extra]) == 0
-    assert "smoke OK" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "smoke OK" in out
+    assert ("oversize route=sharded" in out) == ("--shards" in extra)

@@ -156,10 +156,10 @@ def test_loop_with_its_flag_down_counts_nothing():
     counts = P.buf.counts
     before = counts.clone()
     s.level.step(P.buf)
-    assert (counts - before).tolist() == [1, 1, 0, 0, 0]
+    assert (counts - before).tolist() == [1, 1, 0, 0, 0, 0]
     P.set("bfs_live", 0)
     P.loop(s.level)
-    assert (counts - before).tolist() == [1, 1, 0, 0, 0]
+    assert (counts - before).tolist() == [1, 1, 0, 0, 0, 0]
 
 
 def test_runaway_loop_raises_after_the_call_and_load_clears_it():

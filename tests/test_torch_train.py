@@ -334,4 +334,4 @@ def test_launch_train_crash_restart_bitexact(tmp_path):
 def test_launch_train_refuses_a_mesh(tmp_path):
     r = _train(str(tmp_path), "--mesh", "2x2", steps=1)
     assert r.returncode != 0
-    assert "Queue 1, item 10" in r.stderr
+    assert "Queue 1, item 13" in r.stderr
