@@ -110,6 +110,27 @@ What it does, in order; any failure raises and the exit code is not 0:
    ``LANE_CHECK_LEVELS`` levels): one launch against its plain version and
    against 16 single-graph launches, bit for bit, each timed (CUDA events)
    beside its bound;
+6b. the differential fuzzer, the dirop replay, the warm-start wrappers and
+   the examples on the card, with no JAX: (a) ``repro_torch.corpus.
+   verify_corpus`` over every solve path x warm start (none, cheap,
+   Karp-Sipser) x mini instance (the families, the ``.mtx`` fixture and
+   their RCP twins: 420 cells, one shared size bucket) against the port's
+   Hopcroft-Karp, no failure, at most one compile-cache miss per (path,
+   warm start), K1a, K2a and K3a launched; (b) ``corpus.heuristic.
+   trace_instance`` of kron-21 (cheap) and random-4M (Karp-Sipser) on the
+   card, K1a launched twice a traced level (the replay's sweep and the
+   one-phase solves between), held to (i) the default solve's phases,
+   (ii) its BFS levels and (iii) ``modelled_rel``'s pull count against a
+   ``dirop_pallas`` solve's ``pull_levels`` (kron: step 2's runs;
+   random-4M: both solved here under Karp-Sipser, cold then warm), and
+   the modelled rel over the sweep grid printed beside the measured
+   ``dirop_pallas`` / ``jnp`` warm-wall ratio; the nine small families'
+   traces equal a CPU worker's, entry for entry; (c) ``cheap_matching_
+   torch`` and ``karp_sipser_torch`` on the small families equal the
+   CPU's bit for bit, and on kron-21 and random-4M give a valid matching,
+   cold and warm alike; (d) every ``examples/torch`` script once at its
+   default size, in this process, ending normally (the quickstart prints
+   Hopcroft-Karp's cardinality);
 7. holds the flash-attention kernel against its plain version on the card
    (TF32 off): the shapes of ``tests/test_kernels.py`` in fp32 (the CUDA-core
    body, 2e-5) and bf16 (the tensor-core body, 2e-2), granite-20b's
@@ -236,7 +257,8 @@ What it does, in order; any failure raises and the exit code is not 0:
    once a layer) against without it (``blockwise_attn``), within 1e-3;
 20. prints one ``{"kernels": [...]}`` line (the batched launch of each
    body as its own entry, ``lanes`` 16; every body's launches include step
-   5b's, also on their own as ``launches_sharded``, and K1a, K2a and K3a
+   5b's, also on their own as ``launches_sharded``, and step 6b's, as
+   ``launches_corpus``, and K1a, K2a and K3a
    carry their shard-slice checks and times; K1a's launches include the
    exact route's, K4's dbrx's and seamless's prefills', and K4 carries its
    times at dbrx's and seamless's shapes), then as its last line
@@ -247,9 +269,11 @@ repository's ``src/``; without either it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
+import io
 import json
 import multiprocessing
 import os
@@ -257,6 +281,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -439,13 +464,15 @@ def outcome(state) -> tuple:
 
 def start_workers(pool, paths) -> tuple:
     """Start the graph workers, the sharded phase's graph workers, the CPU
-    main-path workers and the CPU small-set workers together."""
+    main-path workers, the CPU small-set workers and the CPU small-set
+    traces (phase 6b) together."""
     graphs = [pool.apply_async(generate, (e,)) for e in MAIN_PATH]
     extra = [pool.apply_async(make_graph, (e,)) for e in SHARDED_GRAPHS]
     cpu = [pool.apply_async(main_path_cpu, (e, CPU_THREADS[i]))
            for i, e in enumerate(MAIN_PATH)]
     small = {p: pool.apply_async(small_sets_cpu, (p,)) for p in paths}
-    return graphs, extra, cpu, small
+    traces = pool.apply_async(small_traces_cpu)
+    return graphs, extra, cpu, small, traces
 
 
 def collect_graphs(pool, pending) -> tuple:
@@ -1711,6 +1738,272 @@ def lane_bound(kind: str, args: tuple, nr: int) -> float:
         else:
             nbytes += pull_bytes(*one) if on else 4 * (nr + 1)
     return bound_ms(nbytes)
+
+
+# ---------------------------------------------------------------------------
+# the fuzzer, the dirop traces, the warm-start wrappers and the examples on
+# the card (phase 6b)
+# ---------------------------------------------------------------------------
+FUZZ_WARM_STARTS = ("none", "cheap", "karp_sipser")
+FUZZ_CELLS = 420                   # 20 mini instances x 7 paths x 3 starts
+# the bodies the fuzz's paths launch under MatcherConfig(): K1a (jnp, fused,
+# adaptive, dirop, sharded and dirop_pallas's push levels), K2a (legacy),
+# K3a (dirop_pallas's pull levels)
+FUZZ_BODIES = ("frontier_expand_fused_wr", "frontier_expand_wr",
+               "frontier_expand_pull_wr")
+# the traced main-path graphs and their warm starts (the main path's)
+TRACES = ((KRON, "cheap"), (RANDOM, "karp_sipser"))
+EXAMPLES = ("quickstart", "distributed_matching", "matching_service",
+            "moe_matching_router", "serve_lm", "train_lm")
+
+
+def small_traces_cpu() -> dict:
+    """Worker process: each ``instance_sets("small")`` family's dirop trace
+    (``cheap`` start) and both warm-start wrappers' matchings on the CPU;
+    (family -> (trace, cheap (cmatch, rmatch), Karp-Sipser (cmatch,
+    rmatch)), the seconds it took)."""
+    use_src()
+    torch.set_num_threads(1)
+    from repro_torch.core import cheap_matching_torch, karp_sipser_torch
+    from repro_torch.corpus.heuristic import trace_instance
+    t0 = time.perf_counter()
+    out = {name: (trace_instance(g, "cheap", device="cpu"),
+                  cheap_matching_torch(g, device="cpu"),
+                  karp_sipser_torch(g, device="cpu"))
+           for name, g in small_sets().items()}
+    return out, time.perf_counter() - t0
+
+
+def counted(fn):
+    """``fn()`` with the frontier kernels' launch counts set to 0 just
+    before and read just after: (its result, body -> launches)."""
+    from repro_torch.kernels.frontier_expand import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(LAUNCHES)
+
+
+def fuzz_on_card() -> dict:
+    """(a): the differential fuzzer over every solve path x warm start x
+    mini instance on the card, against the port's Hopcroft-Karp; returns
+    its launches by body."""
+    from repro_torch.corpus.verify import verify_corpus
+    from repro_torch.matching import compile_cache_clear, compile_cache_info
+
+    compile_cache_clear()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        report, launches = counted(lambda: verify_corpus(
+            scale="mini", warm_starts=FUZZ_WARM_STARTS, device="cuda",
+            artifact_dir=tmp))
+    secs = time.perf_counter() - t0
+    misses = compile_cache_info()["misses"]
+    combos = len({(r.path, r.warm_start) for r in report.results})
+    compile_cache_clear()
+    say(report.summary())
+    say("fuzz on the card:", json.dumps(dict(
+        cells=len(report.results), failures=len(report.failures),
+        path_warm_starts=combos, cache_misses=misses, seconds=secs,
+        launches={b: launches[b] for b in FUZZ_BODIES})))
+    if report.failures:
+        fail(f"the fuzz found {len(report.failures)} failing cells on the "
+             f"card")
+    if len(report.results) != FUZZ_CELLS:
+        fail(f"the fuzz ran {len(report.results)} cells, not {FUZZ_CELLS}")
+    if misses > combos:
+        fail(f"{misses} compile-cache misses for {combos} (path, warm "
+             f"start) cells: the shared bucket did not hold")
+    for body in FUZZ_BODIES:
+        if not launches[body]:
+            fail(f"the fuzz did not launch {body}")
+    return launches
+
+
+def warm_row(g, cfg, ws) -> tuple:
+    """One configuration cold, then once warm: (the warm run's row
+    (:func:`counted_run`) with its phases, both runs' launches)."""
+    _, _, cold = counted_run(g, cfg, ws)
+    state, _, row = counted_run(g, cfg, ws)
+    launches = collections.Counter(cold["launches"])
+    launches.update(row["launches"])
+    return dict(row, phases=int(state.phases),
+                warm_wall_s=row["wall_s"]), launches
+
+
+def trace_checks(graphs, runs) -> dict:
+    """(b) at full width: the dirop trace of kron-21 (cheap) and random-4M
+    (Karp-Sipser) on the card, held to relations (i)-(iii) against solves
+    of the same graph, config and warm start: phase 2's on kron, this
+    phase's on random-4M (phase 2 solves it under ``kernel="gpubfs"``);
+    the modelled rel over the sweep grid beside the measured
+    ``dirop_pallas`` / ``jnp`` warm-wall ratio.  Returns the launches."""
+    from repro_torch.corpus.heuristic import (modelled_rel, sweep_grid,
+                                              trace_instance)
+    from repro_torch.matching import (SOLVE_PATHS, MatcherConfig,
+                                      compile_cache_clear)
+
+    total = collections.Counter()
+    for gi, ws in TRACES:
+        g, expr = graphs[gi], label(MAIN_PATH[gi])
+        t0 = time.perf_counter()
+        tr, launches = counted(lambda: trace_instance(g, ws))
+        secs = time.perf_counter() - t0
+        total.update(launches)
+        k1a = launches["frontier_expand_fused_wr"]
+        # once a traced level by the replay, once a level by the one-phase
+        # solves that advance it (relation ii)
+        if k1a != 2 * tr.levels or sum(launches.values()) != k1a:
+            fail(f"trace of {expr}: launches {launches} for {tr.levels} "
+                 f"traced levels (want K1a alone, twice a level)")
+        cfg = MatcherConfig()
+        pull_cfg = SOLVE_PATHS["dirop_pallas"].configure(cfg)
+        if gi == KRON:
+            base, pull = (next(r for r in runs if r["graph"] == expr
+                               and r["path"] == p and r["warm_start"] == ws)
+                          for p in ("jnp", "dirop_pallas"))
+        else:
+            (base, n_base), (pull, n_pull) = (warm_row(g, c, ws)
+                                              for c in (cfg, pull_cfg))
+            compile_cache_clear()
+            total.update(n_base)
+            total.update(n_pull)
+        alpha, beta = pull_cfg.dirop_alpha, pull_cfg.dirop_beta
+        rel, pulls = modelled_rel(tr, alpha, beta)
+        relations = dict(
+            phases=(len(tr.phases), base["phases"]),
+            levels=(tr.levels, base["levels"], pull["levels"]),
+            pull_levels=(pulls, pull["pull_levels"]))
+        say("dirop trace:", json.dumps(dict(
+            graph=expr, warm_start=ws, seconds=secs, phases=len(tr.phases),
+            levels=tr.levels, k1a_launches=k1a, relations=relations,
+            modelled_rel={f"{a:g}/{b:g}": modelled_rel(tr, a, b)
+                          for a, b in sweep_grid()},
+            measured_dirop_pallas_over_jnp=(
+                pull["warm_wall_s"] / base["warm_wall_s"]),
+            warm_wall_s=dict(jnp=base["warm_wall_s"],
+                             dirop_pallas=pull["warm_wall_s"],
+                             dirop_pallas_with_csc=pull["with_csc_s"]))))
+        if len(tr.phases) != base["phases"]:
+            fail(f"trace of {expr}: {len(tr.phases)} phases, the solve "
+                 f"{base['phases']} (relation i)")
+        if not tr.levels == base["levels"] == pull["levels"]:
+            fail(f"trace of {expr}: {tr.levels} levels, the solves "
+                 f"{base['levels']} / {pull['levels']} (relation ii)")
+        if pulls != pull["pull_levels"]:
+            fail(f"trace of {expr}: {pulls} modelled pulls at {alpha:g}/"
+                 f"{beta:g}, dirop_pallas pulled {pull['pull_levels']} "
+                 f"levels (relation iii)")
+    return total
+
+
+def small_checks(cpu_pending) -> dict:
+    """(b) and (c) on the nine small families: the card's trace (cheap)
+    and both warm-start wrappers equal the CPU worker's, entry for entry
+    and bit for bit.  Returns the launches."""
+    from repro_torch.core import cheap_matching_torch, karp_sipser_torch
+    from repro_torch.corpus.heuristic import trace_instance
+
+    t0 = time.perf_counter()
+    cpu, cpu_s = cpu_pending.get()
+    wait = time.perf_counter() - t0
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    levels = {}
+    for name, g in small_sets().items():
+        tr, launches = counted(lambda: trace_instance(g, "cheap"))
+        total.update(launches)
+        levels[name] = tr.levels
+        if launches["frontier_expand_fused_wr"] != 2 * tr.levels:
+            fail(f"trace of small {name}: {launches} for {tr.levels} "
+                 f"traced levels")
+        if tr != cpu[name][0]:
+            fail(f"the card's trace of small {name} differs from the CPU's")
+        for fn, want in zip((cheap_matching_torch, karp_sipser_torch),
+                            cpu[name][1:]):
+            if not all((a == b).all() for a, b in zip(fn(g), want)):
+                fail(f"{fn.__name__} on small {name}: card != CPU")
+    say(f"small sets: traces and wrappers card == CPU on {len(levels)} "
+        f"families, levels {levels}, card {time.perf_counter() - t0:.2f} s "
+        f"(the CPU worker's {cpu_s:.1f} s, waited {wait:.1f} s)")
+    return total
+
+
+def wrapper_checks(graphs) -> None:
+    """(c) at full width: each warm-start wrapper on kron-21 and random-4M
+    gives a valid matching, the same cold (its entry built) and warm."""
+    from repro_torch.core import (cheap_matching_torch, karp_sipser_torch,
+                                  validate_matching)
+    for gi in (KRON, RANDOM):
+        g = graphs[gi]
+        for fn in (cheap_matching_torch, karp_sipser_torch):
+            secs = []
+            outs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                outs.append(fn(g))
+                secs.append(time.perf_counter() - t0)
+            card = validate_matching(g, *outs[1])
+            same = all((a == b).all() for a, b in zip(*outs))
+            say("wrapper:", json.dumps(dict(
+                graph=label(MAIN_PATH[gi]), wrapper=fn.__name__,
+                cardinality=card, cold_s=secs[0], warm_s=secs[1],
+                cold_equal_warm=same)))
+            if not same:
+                fail(f"{fn.__name__} on {label(MAIN_PATH[gi])}: the warm "
+                     f"call differs from the cold one")
+
+
+def example_runs() -> dict:
+    """(d): each ``examples/torch`` script once on the card at its default
+    size, in this process (``runpy`` with ``sys.argv`` set); each must end
+    normally, the quickstart with Hopcroft-Karp's cardinality.  Returns
+    the launches."""
+    import runpy
+
+    total = collections.Counter()
+    argv = sys.argv
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in EXAMPLES:
+            path = os.path.join(HERE, "examples", "torch", f"{name}.py")
+            sys.argv = [path] + (["--ckpt-dir", tmp] if name == "train_lm"
+                                 else [])
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    _, launches = counted(
+                        lambda: runpy.run_path(path, run_name="__main__"))
+            finally:
+                sys.argv = argv
+            secs = time.perf_counter() - t0
+            total.update(launches)
+            out = buf.getvalue()
+            say(out.rstrip())
+            say(f"example {name}: ended normally in {secs:.2f} s, "
+                f"launches {dict((k, v) for k, v in launches.items() if v)}")
+            if name == "quickstart" and "Hopcroft-Karp cardinality" not in out:
+                fail("quickstart did not print Hopcroft-Karp's cardinality")
+    return total
+
+
+def corpus_phase(graphs, runs, cpu_traces) -> dict:
+    """Phase 6b (module doc); returns its launches by kernel body."""
+    from repro_torch.matching import compile_cache_clear
+
+    total = collections.Counter()
+    for part, fn in (("fuzz", fuzz_on_card),
+                     ("traces", lambda: trace_checks(graphs, runs)),
+                     ("small sets", lambda: small_checks(cpu_traces)),
+                     ("wrappers", lambda: wrapper_checks(graphs)),
+                     ("examples", example_runs)):
+        t0 = time.perf_counter()
+        total.update(fn() or {})
+        compile_cache_clear()
+        torch.cuda.empty_cache()
+        say(f"phase 6b {part}: {time.perf_counter() - t0:.1f} s")
+    return dict(total)
 
 
 # ---------------------------------------------------------------------------
@@ -3913,12 +4206,13 @@ def main() -> int:
 
 
 def run_phases(pool, paths) -> list:
-    """The matching paths (phases 1-6); returns their kernels' entries.
+    """The matching paths (phases 1-6b); returns their kernels' entries.
     The CPU's main-path solves, the longest of the workers' jobs, are
     checked last, after the serving phase."""
     from repro_torch.matching import compile_cache_clear
     t0 = time.perf_counter()
-    pending_graphs, extra, cpu_main, cpu_small = start_workers(pool, paths)
+    pending_graphs, extra, cpu_main, cpu_small, cpu_traces = start_workers(
+        pool, paths)
     graphs, wants = collect_graphs(pool, pending_graphs)
     phase("graphs", t0)
 
@@ -3982,6 +4276,12 @@ def run_phases(pool, paths) -> list:
                 bound_ms_shard_launch=slices[kind]["bound_ms"])
         kernels.append(entry)
     kernels += serving_phase(pool)
+    t0 = time.perf_counter()
+    corpus = corpus_phase(graphs, runs, cpu_traces)
+    phase("6b fuzz, traces, wrappers, examples", t0)
+    for entry in kernels:
+        entry["launches_corpus"] = corpus.get(entry["name"], 0)
+        entry["launches"] += entry["launches_corpus"]
     t0 = time.perf_counter()
     check_cpu(outcomes, cpu_main)
     phase("the main path against the CPU", t0)

@@ -10,7 +10,8 @@ from .generators import (
     random_bipartite,
     scaled_free,
 )
+from .mtx import load_mtx, mtx_fixture
 
 __all__ = ["random_bipartite", "kron_graph", "grid_graph", "scaled_free",
            "banded", "community_graph", "comb_chain", "instance_sets",
-           "INSTANCE_FAMILIES"]
+           "INSTANCE_FAMILIES", "load_mtx", "mtx_fixture"]

@@ -20,8 +20,8 @@ Offline we reproduce the same *structure classes*:
 ``BipartiteCSR.permuted()`` provides the RCP transform, and
 :func:`instance_sets` bundles one instance per family at every scale
 (``rcp=True`` adds the permuted twins) so per-family gates compare like to
-like across scales.  The Matrix Market loader for real UFL/SuiteSparse
-matrices is not part of this package yet.
+like across scales.  Real UFL/SuiteSparse matrices enter through the
+Matrix Market loader, :mod:`.mtx`.
 """
 from __future__ import annotations
 
@@ -42,22 +42,36 @@ def random_bipartite(nc: int, nr: int, avg_deg: float, seed: int = 0,
     return BipartiteCSR.from_edges(cols, rows, nc, nr, pad_to=pad_to)
 
 
+# edges a chunk of kron_graph's quadrant tests: their temporaries stay in
+# the cache, where whole-array passes over 2^25 edges went to memory
+_KRON_CHUNK = 1 << 16
+
+
 def kron_graph(scale: int, edge_factor: int = 8, seed: int = 0,
                pad_to=None) -> BipartiteCSR:
-    """RMAT/Kronecker bipartite graph (Graph500 parameters a,b,c=.57,.19,.19)."""
+    """RMAT/Kronecker bipartite graph (Graph500 parameters a,b,c=.57,.19,.19).
+
+    One uniform draw per edge and bit, bit by bit, as the JAX package's
+    generator draws them, so both give the same graph."""
     n = 1 << scale
     nnz = n * edge_factor
     rng = np.random.default_rng(seed)
     a, b, c = 0.57, 0.19, 0.19
-    cols = np.zeros(nnz, dtype=np.int64)
-    rows = np.zeros(nnz, dtype=np.int64)
+    ids = np.uint32 if scale <= 32 else np.uint64
+    cols = np.zeros(nnz, dtype=ids)
+    rows = np.zeros(nnz, dtype=ids)
+    u = np.empty(nnz)
     for bit in range(scale):
-        u = rng.random(nnz)
-        # quadrant probabilities: (0,0)=a, (0,1)=b, (1,0)=c, (1,1)=d
-        cbit = (u >= a + b).astype(np.int64)
-        rbit = ((u >= a) & (u < a + b) | (u >= a + b + c)).astype(np.int64)
-        cols |= cbit << bit
-        rows |= rbit << bit
+        rng.random(out=u)
+        for s in range(0, nnz, _KRON_CHUNK):
+            uc = u[s:s + _KRON_CHUNK]
+            # quadrant probabilities: (0,0)=a, (0,1)=b, (1,0)=c, (1,1)=d;
+            # the row bit is u >= a+b+c in the column's upper half, else
+            # a <= u (< a+b)
+            cbit = uc >= a + b
+            rbit = np.where(cbit, uc >= a + b + c, uc >= a)
+            cols[s:s + _KRON_CHUNK] |= cbit.astype(ids) << bit
+            rows[s:s + _KRON_CHUNK] |= rbit.astype(ids) << bit
     return BipartiteCSR.from_edges(cols, rows, n, n, pad_to=pad_to)
 
 

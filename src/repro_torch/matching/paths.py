@@ -9,8 +9,9 @@ pull (``dirop``) or the pull kernel (``dirop_pallas``), and the edge-sharded
 matcher over a mesh (``sharded``).  All give the same matching bit for bit.
 
 :meth:`SolvePath.solve` runs a host graph through the path to a device
-state, :meth:`SolvePath.run_host` to host matching vectors; tests,
-``chip_smoke.py`` and differential harnesses call them.  Tests may
+state, :meth:`SolvePath.run_host` to host matching vectors, either in a
+declared size bucket (``pad``); tests, ``chip_smoke.py`` and the
+differential fuzzer (:mod:`repro_torch.corpus.verify`) call them.  Tests may
 :func:`register_solve_path` a throwaway path (a ``runner`` replaces the
 device round trip) and must unregister it again.
 """
@@ -58,23 +59,35 @@ class SolvePath:
         return Matcher(cfg, warm_start)
 
     def solve(self, g, base: MatcherConfig = MatcherConfig(),
-              warm_start: str = "cheap", device=None, mesh=None
-              ) -> MatchState:
-        """Upload the host graph ``g`` (with the CSC mirror where the path
-        pulls) and run the path's matcher: the device-resident state.
-        ``device=None`` is the CUDA card (a sharded path: every card)."""
+              warm_start: str = "cheap", device=None, mesh=None,
+              pad: Optional[Tuple[int, int, int]] = None) -> MatchState:
+        """Upload the host graph ``g`` (padded into ``pad``'s bucket, with
+        the CSC mirror where the path pulls) and run the path's matcher:
+        the device-resident state, of the bucket's size.  ``device=None``
+        is the CUDA card (a sharded path: every card)."""
         graph = TorchCSR.from_host(g, device=device)
+        if pad is not None:
+            nc, nr, cap = pad
+            graph = graph.pad_vertices(nc, nr).pad_to(cap)
         if self.configure(base).dirop:
             graph = graph.with_csc()       # sharded dirop: mirror pre-shard
         return self.matcher(base, warm_start, mesh, device).run(graph)
 
     def run_host(self, g, base: MatcherConfig = MatcherConfig(),
-                 warm_start: str = "cheap", device=None, mesh=None
+                 warm_start: str = "cheap", device=None, mesh=None,
+                 pad: Optional[Tuple[int, int, int]] = None
                  ) -> Tuple[np.ndarray, np.ndarray]:
-        """Host graph in, host ``(cmatch, rmatch)`` out."""
+        """Host graph in, host ``(cmatch, rmatch)`` out (padding stripped).
+
+        ``pad=(nc, nr, nnz_cap)`` places the instance in a declared size
+        bucket, so that many instances share one compile-cache entry: the
+        differential fuzzer's compile budget rests on it.  Padded vertices
+        are isolated, so the true-size matching is unaffected.
+        """
         if self.runner is not None:
             return self.runner(g, base=base, warm_start=warm_start)
-        return self.solve(g, base, warm_start, device, mesh).to_host()
+        cm, rm = self.solve(g, base, warm_start, device, mesh, pad).to_host()
+        return cm[: g.nc], rm[: g.nr]
 
 
 SOLVE_PATHS: Dict[str, SolvePath] = {}

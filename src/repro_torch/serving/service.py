@@ -416,6 +416,10 @@ class MatchingService:
             self._ready.extend(self._batcher.drain())
             self._cond.notify_all()
         self._thread.join(timeout=120)
+        if self._supervisor is not None:
+            # it sees _stop within one interval; a daemon thread still
+            # asleep when the interpreter exits can abort the process
+            self._supervisor.join(timeout=10)
         stranded: List[_Request] = []
         with self._cond:
             for flush in self._ready:

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points run on the CUDA card unless the caller names the CPU."""
+"""The port stands alone: neither it nor its examples (``examples/torch``)
+import JAX or the JAX package, and its entry points run on the CUDA card
+unless the caller names the CPU."""
 import os
 import re
 import subprocess
@@ -10,6 +11,7 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "src", "repro_torch")
+EXAMPLES = os.path.join(REPO, "examples", "torch")
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|repro)(?:[.\s,]|$)",
                      re.MULTILINE)
 
@@ -47,9 +49,11 @@ def test_importing_every_module_loads_no_jax():
 
 def test_no_source_imports_jax_or_reference():
     files = [os.path.join(REPO, "chip_smoke.py")]
-    for dirpath, _, names in os.walk(PKG):
-        files += [os.path.join(dirpath, n) for n in names
-                  if n.endswith((".py", ".cu", ".cuh"))]
+    for root in (PKG, EXAMPLES):
+        for dirpath, _, names in os.walk(root):
+            files += [os.path.join(dirpath, n) for n in names
+                      if n.endswith((".py", ".cu", ".cuh"))]
+    assert any(f.startswith(EXAMPLES) for f in files)
     offenders = [f"{os.path.relpath(f, REPO)}: {m.group(0).strip()}"
                  for f in files for m in _IMPORT.finditer(open(f).read())]
     assert not offenders, offenders

@@ -1,7 +1,8 @@
 """Exported names of the port that mirror the JAX package's: the solve-path
 registry's functions (``register_solve_path``, ``unregister_solve_path``,
 ``solve_path_names``), ``configs.all_configs`` and the ``core.match_many``
-re-export, each driven as the reference's is and held to its behaviour.
+re-export, each driven as the reference's is and held to its behaviour; and
+the ``__all__`` lists of ``core``, ``graphs`` and ``corpus``.
 """
 import dataclasses
 
@@ -104,3 +105,21 @@ def test_core_match_many_equals_reference():
         np.testing.assert_array_equal(getattr(ours, f).numpy(),
                                       np.asarray(getattr(ref, f)), err_msg=f)
     assert "match_many" in core.__all__ and "match_many" in ref_core.__all__
+
+
+_PORT_NAMES = {"cheap_matching_jax": "cheap_matching_torch",
+               "karp_sipser_jax": "karp_sipser_torch",
+               "DeviceCSR": "TorchCSR"}
+
+
+@pytest.mark.parametrize("pkg", ["core", "graphs", "corpus"])
+def test_all_lists_mirror_reference(pkg):
+    """The reference's ``__all__`` in the reference's order, ``*_jax``
+    named ``*_torch`` and ``DeviceCSR`` ``TorchCSR``; each name resolves,
+    and the port's module imports no JAX (tests/test_torch_boundary.py)."""
+    import importlib
+    ours = importlib.import_module(f"repro_torch.{pkg}")
+    ref = importlib.import_module(f"repro.{pkg}")
+    assert list(ours.__all__) == [_PORT_NAMES.get(n, n) for n in ref.__all__]
+    for name in ours.__all__:
+        assert getattr(ours, name) is not None, name

@@ -1684,3 +1684,58 @@ def test_cuda_service_serves_oversize_on_the_sharded_lane():
         TorchCSR.from_host(big).bucketed())
     _same_outcome(_outcome(res.state), _outcome(want), "oversize")
     assert snap["sharded"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ws", ["cheap", "karp_sipser"])
+def test_cuda_trace_equals_cpu_and_launches_k1a_a_level(ws):
+    """The dirop replay on the card: the CPU's trace entry for entry, the
+    fused WR sweep launched once a traced level (and once a level of the
+    one-phase solves between), the relations to the card's solves."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.corpus.heuristic import modelled_rel, trace_instance
+    g = instance_sets("small")["kron"]
+    want = trace_instance(g, ws, device="cpu")
+    reset_launches()
+    got = trace_instance(g, ws, device="cuda")
+    assert got == want
+    assert LAUNCHES["frontier_expand_fused_wr"] == 2 * got.levels
+    m = Matcher(MatcherConfig(), ws)
+    state = m.run(TorchCSR.from_host(g, device="cuda"))
+    assert len(got.phases) == int(state.phases)
+    assert got.levels == m.last_counts["levels"]
+    d = Matcher(MatcherConfig(dirop=True, use_pallas=True), ws)
+    d.run(TorchCSR.from_host(g, device="cuda").with_csc())
+    assert modelled_rel(got, 8.0, 32.0)[1] == d.last_counts["pull_levels"]
+
+
+@pytest.mark.gpu
+def test_cuda_warm_start_wrappers_equal_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.core import cheap_matching_torch, karp_sipser_torch
+    for name, g in instance_sets("small").items():
+        for fn in (cheap_matching_torch, karp_sipser_torch):
+            got, want = fn(g, device="cuda"), fn(g, device="cpu")
+            for a, b in zip(got, want):
+                assert (a == b).all(), (name, fn.__name__)
+
+
+@pytest.mark.gpu
+def test_cuda_budgeted_fuzz_equals_cpu(tmp_path):
+    """A budgeted fuzz on the card: no failure, and cell for cell the
+    CPU's cardinalities; every path reached under the rotation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.corpus.verify import verify_corpus
+    kw = dict(scale="mini", warm_starts=("none", "cheap", "karp_sipser"),
+              budget=63, artifact_dir=str(tmp_path))
+    card = verify_corpus(device="cuda", **kw)
+    cpu = verify_corpus(device="cpu", **kw)
+    assert not card.failures, card.summary()
+    assert [(r.instance, r.path, r.warm_start, r.cardinality)
+            for r in card.results] == [
+        (r.instance, r.path, r.warm_start, r.cardinality)
+        for r in cpu.results]
+    assert {r.path for r in card.results} == set(SOLVE_PATHS)

@@ -24,6 +24,7 @@ from repro.matching import MatcherConfig as RefConfig
 from repro.matching import SOLVE_PATHS as REF_PATHS
 
 from repro_torch.core import validate_matching
+from repro_torch.graphs import instance_sets as instance_sets_port
 from repro_torch.matching import (SOLVE_PATHS, VARIANTS, Matcher,
                                   MatcherConfig, TorchCSR)
 
@@ -112,3 +113,25 @@ def test_registry_mirrors_reference():
             if p.runner is None}
     assert {n: (dict(p.overrides), p.sharded)
             for n, p in SOLVE_PATHS.items()} == want
+
+
+@pytest.mark.parametrize("name", list(SOLVE_PATHS))
+def test_run_host_pad_equals_reference(name):
+    """``run_host(pad=(nc, nr, nnz_cap))`` solves the instance inside a
+    declared bucket (one cache entry for every mini family) and strips the
+    padding: the reference's ``run_host`` arrays with the same ``pad``, and
+    without one.  The sharded path runs cold: the reference's sharded lane
+    fails under a warm start (ROADMAP.md, Queue 3)."""
+    from repro.corpus.verify import shared_bucket
+    ws = "none" if name == "sharded" else "cheap"
+    ref = _mini()
+    ours = instance_sets_port("mini")
+    pad = shared_bucket(ref.values())
+    path, ref_path = SOLVE_PATHS[name], REF_PATHS[name]
+    for k, g in ours.items():
+        for p in (pad, None) if k in ("kron", "comb") else (pad,):
+            cm, rm = path.run_host(g, warm_start=ws, device="cpu", pad=p)
+            want = ref_path.run_host(ref[k], warm_start=ws, pad=p)
+            assert cm.shape == (g.nc,) and rm.shape == (g.nr,), (k, p)
+            np.testing.assert_array_equal(cm, want[0], err_msg=f"{k} {p}")
+            np.testing.assert_array_equal(rm, want[1], err_msg=f"{k} {p}")
