@@ -86,6 +86,32 @@ What it does, in order; any failure raises and the exit code is not 0:
    ``random_bipartite(1<<19, 1<<19, 8.0)`` (past the ladder's top) to
    ``route="sharded"``, certified, at scipy's cardinality, bit for bit the
    card's single-device ``Matcher.run`` of the bucketed graph;
+5c. the data axis over ranks (``repro_torch.distributed``): phase 1's
+   kron-21 and random-4M written once to ``.npz`` files that the ranks
+   read; (a) gloo worlds of 2 and 4 ranks sharing the card
+   (``run_world``), each rank solving step 5b's runs over a mesh of the
+   world (``make_mesh``; ``ShardedMatcher.run`` of the host graph, each
+   rank uploading its shard only, the warm start on rank 0 and broadcast,
+   the merge an ``all_reduce_min_`` a level, the solve uncaptured under
+   gloo), the kron ``jnp`` run also warm: every rank's state step 2's bit
+   for bit (by a sha256 of the matching), one merge a level, host syncs
+   step 2's plus one a test of the uncaptured level and ``ALTERNATE``
+   loops, the run's kernels (K1a, K2a, K3a, K1b) launched once a level on
+   every rank (the counts set to 0 just before, read just after); the
+   walls, each rank's peak device memory, bytes handed to each merge and
+   whether gloo took the card tensors printed; the world of 2 then trains
+   mamba2-2.7b at full width cut to 4 layers two steps (ZeRO-1) and saves
+   collectively; (b) a world of one NCCL rank in this process: kron-21
+   cold and warm, step 2's state and host syncs (the merge captured in the
+   level's graph), and mamba2-2.7b FULL two steps through the world's train
+   step (ZeRO-1; the peak memory printed beside the one-device step's
+   50.02 GB recorded in PERF.md), held in step 18
+   to its first two steps on one device (``TRAIN_GATE_RTOL``; bit for bit
+   or not printed); (c) the
+   world's losses against the one-device ``microbatch=2`` steps
+   (``TRAIN_GATE_RTOL``), the ``W=2`` checkpoint restored at ``W=1`` held
+   to the one-device tree leaf by leaf (the train gate), and one more step
+   from it against the uninterrupted run's;
 6. the serving path: ``repro_torch.serving.MatchingService`` on the card
    over the ladder 16,384² .. 262,144² (edge factor 8, ``max_batch`` 16),
    a 256-request trace (the four families of ``serve_matching.FAMILIES``
@@ -257,7 +283,8 @@ What it does, in order; any failure raises and the exit code is not 0:
    once a layer) against without it (``blockwise_attn``), within 1e-3;
 20. prints one ``{"kernels": [...]}`` line (the batched launch of each
    body as its own entry, ``lanes`` 16; every body's launches include step
-   5b's, also on their own as ``launches_sharded``, and step 6b's, as
+   5b's, also on their own as ``launches_sharded``, step 5c's (every
+   rank's), as ``launches_world``, and step 6b's, as
    ``launches_corpus``, and K1a, K2a and K3a
    carry their shard-slice checks and times; K1a's launches include the
    exact route's, K4's dbrx's and seamless's prefills', and K4 carries its
@@ -1356,6 +1383,381 @@ def sharded_phase(graphs, wants, extra, phase2) -> dict:
     return dict(launches=launches,
                 levels_checked=slices["levels_checked"] * SHARDS,
                 slices=slices)
+
+
+# ---------------------------------------------------------------------------
+# the data axis over ranks: worlds on the card (phase 5c)
+# ---------------------------------------------------------------------------
+# gloo worlds of these sizes share the card; every rank solves
+# SHARDED_RUNS (phase 2's configs), those in WORLD_WARM once more warm
+WORLD_SIZES = (2, 4)
+WORLD_WARM = ((KRON, "jnp"),)
+# data-parallel training in the world of 2: mamba2-2.7b at full width cut
+# to this depth (two full replicas at 64 layers do not fit one card), the
+# launcher's optimizer, steps of TRAIN_BATCH x TRAIN_SEQ tokens
+WORLD_TRAIN_CUTS = dict(n_layers=4)
+WORLD_TRAIN_STEPS = 2
+WORLD_TIMEOUT = 600
+# the NCCL world's mamba2 FULL steps, held by phase 18 to its own first
+# WORLD_TRAIN_STEPS steps (the same weights, optimizer and batches)
+NCCL_TRAIN: dict = {}
+
+
+def digest(cmatch, rmatch) -> str:
+    """A sha256 of a matching (the ranks' states are compared with phase
+    2's through it, not shipped whole)."""
+    import hashlib
+    h = hashlib.sha256()
+    for a in (cmatch, rmatch):
+        a = a.cpu().numpy() if isinstance(a, torch.Tensor) else a
+        h.update(a.astype("int32").tobytes())
+    return h.hexdigest()
+
+
+def save_graph(g, path: str) -> None:
+    import numpy as np
+    np.savez(path, nc=g.nc, nr=g.nr, nnz=g.nnz, cxadj=g.cxadj, cadj=g.cadj,
+             ecol=g.ecol)
+
+
+def load_graph(path: str):
+    import numpy as np
+    from repro_torch.core.csr import BipartiteCSR
+    z = np.load(path)
+    return BipartiteCSR(nc=int(z["nc"]), nr=int(z["nr"]), nnz=int(z["nnz"]),
+                        cxadj=z["cxadj"], cadj=z["cadj"], ecol=z["ecol"])
+
+
+def world_solve(world, g, path: str, kw: dict, ws: str) -> dict:
+    """One solve over a mesh of ``world``'s ranks (``ShardedMatcher.run``
+    of the host graph: each rank uploads its shard, rank 0 the whole graph
+    for the warm start), every count set to 0 just before and read just
+    after, and this rank's peak device memory over it."""
+    from repro_torch.distributed import comm
+    from repro_torch.kernels.frontier_expand import LAUNCHES, reset_launches
+    from repro_torch.matching import (SOLVE_PATHS, MatcherConfig,
+                                      ShardedMatcher, make_mesh)
+    from repro_torch.matching.solve import COUNTERS
+    cfg = SOLVE_PATHS[path].configure(MatcherConfig(**kw))
+    mesh = make_mesh((world.size,), ("data",))
+    torch.cuda.synchronize()
+    reset_launches()
+    COUNTERS.reset()
+    comm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = ShardedMatcher(mesh, "data", cfg, ws)
+    state = m.run(g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    merge = comm.counts()["all_reduce"]
+    return dict(wall_s=wall, digest=digest(state.cmatch, state.rmatch),
+                phases=int(state.phases), fallbacks=int(state.fallbacks),
+                certified=bool(state.certified), launches=dict(LAUNCHES),
+                merge_calls=merge["calls"], merge_bytes_sent=merge["bytes"],
+                merge_tensors=str(state.cmatch.device),
+                peak_bytes=torch.cuda.max_memory_allocated(), **m.last_counts)
+
+
+def world_rank(world, graph_files: dict, runs, train: bool, ckpt: str):
+    """A rank of phase 5c: every run of ``runs`` (cold, and warm where
+    WORLD_WARM says), then, with ``train``, WORLD_TRAIN_STEPS data-parallel
+    steps of mamba2 cut to WORLD_TRAIN_CUTS, saved at ``ckpt``."""
+    use_src()
+    from repro_torch.kernels._build import load_library
+    from repro_torch.matching import compile_cache_clear
+    for name in ("frontier_expand", "graph_loop"):
+        load_library(name)
+    out = {"rank": world.rank, "backend": world.backend, "runs": []}
+    graphs = {}
+    for gi, path, kw, ws in runs:
+        if gi not in graphs:
+            graphs[gi] = load_graph(graph_files[gi])
+        row = dict(cold=world_solve(world, graphs[gi], path, kw, ws))
+        if (gi, path) in WORLD_WARM:
+            row["warm"] = world_solve(world, graphs[gi], path, kw, ws)
+        out["runs"].append(row)
+        compile_cache_clear()
+    del graphs
+    torch.cuda.empty_cache()
+    if train:
+        out["train"] = world_train(world, ckpt)
+    return out
+
+
+def world_train(world, ckpt: str) -> dict:
+    """WORLD_TRAIN_STEPS steps of the world's train step (ZeRO-1) from the
+    seeded weights, each step's loss and wall, the peak memory, then a
+    collective save at ``ckpt``."""
+    from repro_torch.ckpt import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init, zero1_state_dims
+    from repro_torch.train import build_train_step
+    cfg = get_config(MAMBA_ARCH, **WORLD_TRAIN_CUTS)
+    model = build_model(cfg)
+    opt = train_opt_config(MAMBA_ARCH)
+    params = model.init(TRAIN_SEED)
+    state = adamw_init(params, opt, world)
+    step = build_train_step(model, opt, world=world)
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(WORLD_TRAIN_STEPS):
+        b = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, s, device=world.device)
+        (params, state, met), wall, _ = timed(lambda: step(params, state, b))
+        losses.append(float(met["loss"]))
+        walls.append(wall)
+    peak = torch.cuda.max_memory_allocated()
+    _, save_s, _ = timed(lambda: save_checkpoint(
+        ckpt, WORLD_TRAIN_STEPS, {"params": params, "opt": state},
+        world=world, dims={"opt": zero1_state_dims(params, opt, world)}))
+    return dict(losses=losses, step_s=walls, peak_memory_bytes=peak,
+                save_s=save_s)
+
+
+def world_checks(size, results, phase2, wants_digest) -> dict:
+    """Phase 5c's checks of a gloo world of ``size``: every rank's state
+    phase 2's bit for bit (by digest), the counts equal on every rank, one
+    merge a level, the single-device host syncs plus one a test of the
+    uncaptured level and ``ALTERNATE`` loops, and each run's kernels
+    launched on every rank once a level.  Returns the launches of every
+    rank's runs, per body."""
+    launches = {body: 0 for body in KERNELS}
+    for i, (gi, path, kw, ws) in enumerate(SHARDED_RUNS):
+        single_row, single = phase2[(gi, path)]
+        cfg_name = f"{label(MAIN_PATH[gi])} via {path}"
+        from repro_torch.matching import SOLVE_PATHS, MatcherConfig
+        cfg = SOLVE_PATHS[path].configure(MatcherConfig(**kw))
+        for kind in ("cold", "warm"):
+            rows = [r["runs"][i].get(kind) for r in results]
+            if rows[0] is None:
+                continue
+            what = f"{cfg_name}, {kind}, a gloo world of {size}"
+            for rank, row in enumerate(rows):
+                if row["digest"] != wants_digest[(gi, path)] or [
+                        row["phases"], row["fallbacks"],
+                        row["certified"]] != list(single[2:]):
+                    fail(f"{what}: rank {rank}'s state differs from phase "
+                         f"2's")
+                if not row["merges"] == row["levels"] == \
+                        single_row["levels"]:
+                    fail(f"{what}: rank {rank}: {row['merges']} merges, "
+                         f"{row['levels']} levels (phase 2: "
+                         f"{single_row['levels']})")
+                # the level loop's tests: levels + phases; the ALTERNATE
+                # loop's: steps + one a run (every phase but the last,
+                # twice where it fell back)
+                want_syncs = (single_row["host_syncs"] + row["levels"]
+                              + row["alternate_steps"] + 2 * row["phases"]
+                              - 1 + row["fallbacks"])
+                if row["host_syncs"] != want_syncs:
+                    fail(f"{what}: rank {rank}: {row['host_syncs']} host "
+                         f"syncs, not {want_syncs}")
+                for body, levels in sharded_bodies(path, cfg).items():
+                    if not row[levels] or \
+                            row["launches"][body] != row[levels]:
+                        fail(f"{what}: rank {rank}: {body} launched "
+                             f"{row['launches'][body]} times for "
+                             f"{row[levels]} levels")
+                for body in KERNELS:
+                    launches[body] += row["launches"][body]
+            say("world:", json.dumps(dict(
+                graph=label(MAIN_PATH[gi]), path=path, config=cfg.name,
+                warm_start=ws, ranks=size, backend="gloo", run=kind,
+                wall_s=[r["wall_s"] for r in rows],
+                single_warm_wall_s=single_row["warm_wall_s"],
+                peak_bytes_by_rank=[r["peak_bytes"] for r in rows],
+                host_syncs=rows[0]["host_syncs"],
+                single_host_syncs=single_row["host_syncs"],
+                levels=rows[0]["levels"], merges=rows[0]["merges"],
+                merge_bytes_sent=rows[0]["merge_bytes_sent"],
+                merge_bytes_modelled=rows[0]["merge_bytes"],
+                gloo_took=f"card tensors ({rows[0]['merge_tensors']}; "
+                f"none staged by hand)",
+                launches_by_rank=[{b: n for b, n in r["launches"].items()
+                                   if n} for r in rows])))
+    return launches
+
+
+def nccl_world_of_one(graphs, phase2, wants_digest) -> dict:
+    """Phase 5c(b): a world of one NCCL rank in this process.  kron-21
+    under ``MatcherConfig()`` / cheap, cold then warm: phase 2's state,
+    its host syncs (the merge is captured in the level's graph); then two
+    steps of mamba2-2.7b FULL through the world's train step (ZeRO-1)
+    against the same two steps on one device.  Returns the launches."""
+    from repro_torch.distributed import close_world, init_world
+    from repro_torch.matching import compile_cache_clear
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    world = init_world(0, 1, f"file://{store}/store", device=CARD)
+    launches = {body: 0 for body in KERNELS}
+    try:
+        if world.backend != "nccl":
+            fail(f"a world of one rank on the card chose {world.backend}")
+        single_row, single = phase2[(KRON, "jnp")]
+        for kind in ("cold", "warm"):
+            row = world_solve(world, graphs[KRON], "jnp", {}, "cheap")
+            what = f"{label(MAIN_PATH[KRON])}, {kind}, an NCCL world of 1"
+            say("world:", json.dumps(dict(
+                graph=label(MAIN_PATH[KRON]), path="jnp", ranks=1,
+                backend=world.backend, run=kind, single_warm_wall_s=single_row[
+                    "warm_wall_s"], single_host_syncs=single_row[
+                    "host_syncs"], **{k: v for k, v in row.items()
+                                      if k != "launches"},
+                launches={b: n for b, n in row["launches"].items() if n})))
+            if row["digest"] != wants_digest[(KRON, "jnp")] or \
+                    [row["phases"], row["fallbacks"], row["certified"]] \
+                    != list(single[2:]):
+                fail(f"{what}: the state differs from phase 2's")
+            if row["host_syncs"] != single_row["host_syncs"] or \
+                    row["merges"] != row["levels"]:
+                fail(f"{what}: {row['host_syncs']} host syncs (phase 2: "
+                     f"{single_row['host_syncs']}), {row['merges']} merges "
+                     f"for {row['levels']} levels: the merge is not "
+                     f"captured in the level")
+            if row["launches"]["frontier_expand_fused_wr"] != row["levels"]:
+                fail(f"{what}: K1a launched "
+                     f"{row['launches']['frontier_expand_fused_wr']} times "
+                     f"for {row['levels']} levels")
+            for body in KERNELS:
+                launches[body] += row["launches"][body]
+        compile_cache_clear()
+        torch.cuda.empty_cache()
+
+        cfg, model, params = full_model(MAMBA_ARCH)
+        opt = train_opt_config(MAMBA_ARCH)
+        state = adamw_init(params, opt, world)
+        step = build_train_step(model, opt, world=world)
+        losses, walls = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for s in range(WORLD_TRAIN_STEPS):
+            b = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, s)
+            (params, state, met), wall, _ = timed(
+                lambda: step(params, state, b))
+            losses.append(float(met["loss"]))
+            walls.append(wall)
+        NCCL_TRAIN.update(
+            arch=cfg.name, batch=TRAIN_BATCH, seq=TRAIN_SEQ, losses=losses,
+            step_s=walls, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+            one_device_peak_gb_recorded=50.02)
+        say("world train, nccl 1:", json.dumps(NCCL_TRAIN))
+        del params, state, b, met
+        torch.cuda.empty_cache()
+    finally:
+        compile_cache_clear()
+        close_world()
+        shutil.rmtree(store, ignore_errors=True)
+    return launches
+
+
+def world_train_checks(result, ckpt: str) -> dict:
+    """Phase 5c(c): the gloo world of 2's training against one device.
+    The same steps with ``microbatch=2`` on the card (the two ranks' row
+    blocks) held to the world's losses and, leaf by leaf, to the world's
+    checkpoint restored at ``W=1`` (the train gate); then one more step
+    from the restored tree against the uninterrupted one-device run's
+    next step."""
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    cfg = get_config(MAMBA_ARCH, **WORLD_TRAIN_CUTS)
+    model = build_model(cfg)
+    opt = train_opt_config(MAMBA_ARCH)
+    step = build_train_step(model, opt, microbatch=2)
+    params = model.init(TRAIN_SEED)
+    state = adamw_init(params, opt)
+    one = []
+    for s in range(WORLD_TRAIN_STEPS):
+        params, state, met = step(params, state, train_batch(
+            cfg, TRAIN_BATCH, TRAIN_SEQ, s))
+        one.append(float(met["loss"]))
+    fresh = model.init(TRAIN_SEED + 1)
+    (tree, at), restore_s, _ = timed(lambda: restore_checkpoint(
+        ckpt, {"params": fresh, "opt": adamw_init(fresh, opt)}))
+    del fresh
+    gate = leaf_gate(tree, {"params": params, "opt": state}, opt.lr)
+    nxt = train_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, WORLD_TRAIN_STEPS)
+    _, _, met = step(params, state, nxt)
+    straight = float(met["loss"])
+    _, _, met = step(tree["params"], tree["opt"], nxt)
+    resumed = float(met["loss"])
+    world = result["losses"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(world, one)]
+    reading = dict(arch=cfg.name, cuts=WORLD_TRAIN_CUTS, ranks=2,
+                   backend="gloo", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                   world_losses=world, one_device_losses=one,
+                   loss_rel_gaps=gaps, bit_exact=world == one,
+                   world_step_s=result["step_s"],
+                   world_peak_memory_bytes=result["peak_memory_bytes"],
+                   save_s=result["save_s"], restore_s=restore_s,
+                   restored_step=at, gate=gate,
+                   step_after_restore=resumed, step_straight=straight,
+                   restore_rel_gap=abs(resumed - straight) / abs(straight))
+    say("world train, gloo 2:", json.dumps(reading))
+    if not all(g <= TRAIN_GATE_RTOL for g in gaps):
+        fail(f"the world's training differs from one device's: {gaps}")
+    if at != WORLD_TRAIN_STEPS or not gate["passes"]:
+        fail(f"the W=2 checkpoint restored at W=1 fails the train gate: "
+             f"step {at}, {gate}")
+    if not reading["restore_rel_gap"] <= TRAIN_GATE_RTOL:
+        fail(f"the step after the W=2 -> 1 restore: {resumed} against "
+             f"{straight}")
+    return reading
+
+
+def world_phase(graphs, phase2) -> dict:
+    """Phase 5c (module doc): (a) gloo worlds of WORLD_SIZES ranks on the
+    card, the world of 2 also training, (b) an NCCL world of one rank in
+    this process, (c) the world of 2's training against one device.
+    ``phase2``: (graph index, path) -> (row, warm outcome) of phase 2.
+    Returns per kernel body the launches of every rank's runs."""
+    from repro_torch.distributed import run_world
+    wants = {k: digest(v[1][0], v[1][1]) for k, v in phase2.items()}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    ckpt = os.path.join(HERE, "build", "chip_smoke_world_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    launches = {body: 0 for body in KERNELS}
+    try:
+        files = {}
+        for gi in {r[0] for r in SHARDED_RUNS}:
+            files[gi] = os.path.join(tmp, f"graph{gi}.npz")
+            save_graph(graphs[gi], files[gi])
+        trained = None
+        for size in WORLD_SIZES:
+            t0 = time.perf_counter()
+            results = run_world(world_rank, size, files, SHARDED_RUNS,
+                                size == 2, ckpt, timeout=WORLD_TIMEOUT)
+            say(f"phase 5c, a gloo world of {size} on the card: "
+                f"{time.perf_counter() - t0:.1f} s")
+            if {r["backend"] for r in results} != {"gloo"}:
+                fail(f"ranks sharing the card chose "
+                     f"{[r['backend'] for r in results]}")
+            for body, n in world_checks(size, results, phase2,
+                                        wants).items():
+                launches[body] += n
+            if size == 2:
+                trained = results[0]["train"]
+                if any(r["train"]["losses"] != trained["losses"]
+                       for r in results):
+                    fail("the ranks' losses differ")
+        t0 = time.perf_counter()
+        for body, n in nccl_world_of_one(graphs, phase2, wants).items():
+            launches[body] += n
+        say(f"phase 5c, the NCCL world of one: "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        world_train_checks(trained, ckpt)
+        say(f"phase 5c, the training against one device: "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3909,6 +4311,17 @@ def train_phase() -> dict:
     params, state, losses = train_run(model, params, opt, TRAIN_BATCH,
                                       TRAIN_SEQ, range(TRAIN_STEPS),
                                       f"{cfg.name} FULL")
+    if NCCL_TRAIN:
+        # phase 5c's NCCL world of one took these steps through ZeRO-1
+        one = losses[:WORLD_TRAIN_STEPS]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(NCCL_TRAIN["losses"],
+                                                     one)]
+        say("world train, nccl 1 against one device:", json.dumps(dict(
+            nccl_world=NCCL_TRAIN["losses"], one_device=one,
+            loss_rel_gaps=gaps, bit_exact=NCCL_TRAIN["losses"] == one)))
+        if not all(g <= TRAIN_GATE_RTOL for g in gaps):
+            fail(f"the NCCL world's mamba2 steps differ from one device's: "
+                 f"{gaps}")
     learned = falls(model, params, losses, TRAIN_BATCH, TRAIN_SEQ, 0,
                     f"{cfg.name} FULL")
     step_fn = build_train_step(model, opt)
@@ -4234,12 +4647,14 @@ def run_phases(pool, paths) -> list:
         compile_cache_clear()
         torch.cuda.empty_cache()
     phase("profile", t0)
+    phase2 = {(gi, path): (row, got)
+              for row, (gi, path, got) in zip(runs, outcomes)}
     t0 = time.perf_counter()
-    sharded = sharded_phase(
-        graphs, wants, extra,
-        {(gi, path): (row, got)
-         for row, (gi, path, got) in zip(runs, outcomes)})
+    sharded = sharded_phase(graphs, wants, extra, phase2)
     phase("sharded matcher", t0)
+    t0 = time.perf_counter()
+    world = world_phase(graphs, phase2)
+    phase("5c worlds of ranks", t0)
 
     # one line for the kernels, each timed on the main-path graph of its
     # body: kron for WR, the random graph for plain
@@ -4255,8 +4670,9 @@ def run_phases(pool, paths) -> list:
             source="src/repro_torch/csrc/frontier_expand.cu",
             replaces=replaces,
             launches=(sum(r["launches"][name] for r in runs)
-                      + sharded["launches"][name]),
+                      + sharded["launches"][name] + world[name]),
             launches_sharded=sharded["launches"][name],
+            launches_world=world[name],
             max_abs_err=max(r["max_abs_err"] for r in mine),
             ms=row["kernel_ms"], plain_ms=row["plain_ms"],
             ms_device_level=row["kernel_ms_device_level"],

@@ -19,9 +19,17 @@ manifest; they are read back by viewing the bytes as int16 and then as
 (``astype`` from ``V2`` fails, ROADMAP.md, Queue 3); this one reads its
 files and its own.  The manifest codec is :mod:`._msgpack`.
 
-Elastic restore onto another mesh (the JAX function's ``mesh`` and
-``sharding_tree``) waits for training over a mesh (ROADMAP.md, Queue 1,
-item 13).
+Over a world's ranks (ZeRO-1, :mod:`repro_torch.optim.adamw`):
+``save_checkpoint(..., world=, dims=)`` gathers each cut leaf from every
+rank (``all_gather_into``, one leaf whole at a time), and rank 0 alone
+writes the reference's layout of whole leaves and publishes it; then every
+rank waits for the others.  So one device, any world size and the JAX
+package (fp32 leaves) all restore it.  ``restore_checkpoint(...,
+world=)`` reads each whole leaf and keeps this rank's slice of it where
+``tree_like``'s leaf is a slice (its shape the whole one's with one dim
+divided by the world's size): elastic restore, from any world size to any
+other, the counterpart of the JAX function's ``mesh`` and
+``sharding_tree``.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import torch
 from numpy.lib import format as npy_format
 
 from repro_torch._device import resolve_device
+from repro_torch.distributed.comm import all_gather_into, barrier
 
 from . import _msgpack
 
@@ -73,21 +82,42 @@ def _save_leaf(path: str, arr: np.ndarray, dtype: str) -> None:
         f.write(arr.tobytes())
 
 
-def save_checkpoint(directory: str, step: int, tree, keep: int = 3) -> str:
+def save_checkpoint(directory: str, step: int, tree, keep: int = 3,
+                    world=None, dims=None) -> str:
+    """Write ``tree`` as step ``step`` (module doc); returns its directory.
+    ``world``: called on every rank, ``dims`` a tree over the subtrees
+    whose leaves are ZeRO-1 slices (``{"opt": adamw.zero1_state_dims(...)}``),
+    each leaf's dim (None: whole, equal on every rank); the gathered whole
+    leaves written by rank 0."""
     d = os.path.join(directory, f"step_{step:09d}")
     tmp = d + ".tmp"
-    os.makedirs(tmp, exist_ok=True)
+    writer = world is None or world.rank == 0
+    if writer:
+        os.makedirs(tmp, exist_ok=True)
+    cut = _flatten(dims) if dims is not None else {}
     meta: Dict[str, Any] = {"step": step, "leaves": {}}
     for key, leaf in _flatten(tree).items():
+        dim = cut.get(key)
+        if world is not None and dim is not None:
+            whole = leaf.new_empty(
+                leaf.shape[:dim] + (leaf.shape[dim] * world.size,)
+                + leaf.shape[dim + 1:])
+            leaf = all_gather_into(whole, leaf, dim, world)
+        if not writer:
+            continue
         arr, dtype = _to_numpy(leaf)
+        del leaf
         fn = key.replace("/", "__") + ".npy"
         _save_leaf(os.path.join(tmp, fn), arr, dtype)
         meta["leaves"][key] = {"file": fn, "shape": list(arr.shape),
                                "dtype": dtype}
-    with open(os.path.join(tmp, MANIFEST), "wb") as f:
-        f.write(_msgpack.packb(meta))
-    os.replace(tmp, d)                      # atomic publish
-    _gc(directory, keep)
+    if writer:
+        with open(os.path.join(tmp, MANIFEST), "wb") as f:
+            f.write(_msgpack.packb(meta))
+        os.replace(tmp, d)                  # atomic publish
+        _gc(directory, keep)
+    if world is not None:
+        barrier(world)
     return d
 
 
@@ -122,13 +152,15 @@ def _load_leaf(path: str, dtype: str) -> torch.Tensor:
 
 
 def restore_checkpoint(directory: str, tree_like, step: Optional[int] = None,
-                       device=None) -> Tuple[Any, int]:
+                       device=None, world=None) -> Tuple[Any, int]:
     """Restore into the structure of ``tree_like`` (nested dicts), each
     leaf cast to the dtype of ``tree_like``'s leaf there and put on
     ``device`` (the card unless given).  A leaf of ``tree_like`` that is
     already a tensor of that shape and dtype on that device is filled in
     place and returned, so restoring a model's state on the card needs no
-    second copy of it.  Returns ``(tree, step)``."""
+    second copy of it.  ``world``: where ``tree_like``'s leaf is this
+    rank's slice of the whole one (module doc), the slice is kept.
+    Returns ``(tree, step)``."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -143,6 +175,8 @@ def restore_checkpoint(directory: str, tree_like, step: Optional[int] = None,
         if info is None:
             raise KeyError(f"checkpoint at step {step} missing leaf {key}")
         t = _load_leaf(os.path.join(d, info["file"]), info["dtype"])
+        if world is not None and isinstance(like, torch.Tensor):
+            t = _rank_part(t, tuple(like.shape), world, key)
         if isinstance(like, torch.Tensor):
             t = t.to(like.dtype)
             if like.device == dev and like.shape == t.shape:
@@ -156,3 +190,19 @@ def restore_checkpoint(directory: str, tree_like, step: Optional[int] = None,
         return out[prefix[:-1]]
 
     return rebuild(tree_like), step
+
+
+def _rank_part(t: torch.Tensor, shape: tuple, world, key: str
+               ) -> torch.Tensor:
+    """This rank's slice of the whole leaf ``t`` where ``shape`` is a slice's
+    (one dim of ``t``'s divided by the world's size), else ``t``."""
+    if tuple(t.shape) == shape:
+        return t
+    diff = [i for i, (a, b) in enumerate(zip(t.shape, shape)) if a != b]
+    if len(t.shape) != len(shape) or len(diff) != 1 or \
+            t.shape[diff[0]] != shape[diff[0]] * world.size:
+        raise ValueError(f"leaf {key}: the checkpoint's shape "
+                         f"{tuple(t.shape)} is not {shape} nor a world of "
+                         f"{world.size} ranks' slices of it")
+    k = shape[diff[0]]
+    return t.narrow(diff[0], world.rank * k, k).contiguous()

@@ -8,6 +8,11 @@ directly::
 
     graph = TorchCSR.from_host(g).shard(mesh, "data")
     state = ShardedMatcher(mesh, config=cfg, warm_start="cheap").run(graph)
+
+Over the ranks of a world (:mod:`repro_torch.distributed`), call it on
+every rank with the same host graph and a mesh of the world
+(``make_mesh((world.size,), ("data",))``): each rank uploads only its
+shard, and every rank returns the same arrays.
 """
 from __future__ import annotations
 
@@ -28,11 +33,13 @@ def maximum_matching_distributed(
     rmatch0: Optional[np.ndarray] = None,
 ) -> Tuple[np.ndarray, np.ndarray, dict]:
     """Edge-partitioned matcher: edges sharded over ``axis`` of ``mesh``,
-    the state whole.  Uploads to the mesh's device and shards once, runs
-    :meth:`ShardedMatcher.run` (no warm start; ``cmatch0``/``rmatch0``
-    resume from a given matching), downloads once.  ``g`` is a host
-    :class:`repro_torch.core.csr.BipartiteCSR`."""
-    graph = TorchCSR.from_host(g, device=mesh.device).shard(mesh, axis)
+    the state whole.  Uploads to the mesh's device (over a world, this
+    rank's shard only), runs :meth:`ShardedMatcher.run` (which shards it;
+    no warm start; ``cmatch0``/``rmatch0`` resume from a given matching),
+    downloads once.  ``g`` is a host :class:`repro_torch.core.csr.
+    BipartiteCSR`."""
+    graph = g if mesh.world is not None else TorchCSR.from_host(
+        g, device=mesh.device)
     state = None
     if cmatch0 is not None:
         state = MatchState.from_host(np.asarray(cmatch0, np.int32),

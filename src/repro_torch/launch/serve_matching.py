@@ -17,10 +17,10 @@ warmup, per-family, and service-level metrics.
 direct ``Matcher.run`` for every request and, where the service has a
 mesh, sends one graph larger than every bucket down the sharded lane.
 ``--device`` picks where the service runs (default: the CUDA card).  The
-mesh: ``--shards D`` puts D shards on that device; by default, as in the
-JAX package, a mesh over every card when there is more than one (which
-waits for ROADMAP.md, Queue 1, item 13: the launcher says so and serves
-without the lane), none on one card.  ``--chaos`` arms a seeded
+mesh: ``--shards D`` puts D shards on that device; by default none.  (The
+JAX package's default, a mesh over every card when there are several,
+needs a world of ranks, and the service is one process: the launcher says
+so and serves without the lane, ROADMAP.md, Queue 1, item 15.)  ``--chaos`` arms a seeded
 :class:`repro_torch.serving.FaultInjector` and, after the replay, runs a fault
 drill: poisons one tagged request among innocents (asserting bisection
 isolates exactly it), then kills the flush thread mid-batch (asserting the
@@ -124,20 +124,20 @@ def chaos_drill(service: MatchingService, injector: FaultInjector,
 
 
 def build_mesh(shards: int, device):
-    """The oversize lane's mesh: ``shards`` shards on ``device``; with
-    ``shards`` 0 a mesh over every card when there are several (refused
-    until ROADMAP.md, Queue 1, item 13: said, and no lane), else none."""
+    """The oversize lane's mesh: ``shards`` shards on ``device``.  With
+    ``shards`` 0 and one card, none.  With several cards, none either: the
+    service is one process, and a lane over cards needs a world of ranks
+    (ROADMAP.md, Queue 1, item 15); said, and no lane."""
     if shards:
         return make_mesh((shards,), ("data",),
                          every_device(device)[:1] * shards)
     devices = every_device(device)
-    if len(devices) < 2:
-        return None
-    try:
-        return make_mesh((len(devices),), ("data",), devices)
-    except NotImplementedError as e:
-        print(f"[serve_matching] no sharded lane: {e}")
-        return None
+    if len(devices) > 1:
+        print(f"[serve_matching] {len(devices)} cards, no sharded lane: the "
+              f"service is one process, and a lane over cards needs a "
+              f"torch.distributed world (ROADMAP.md, Queue 1, item 15); "
+              f"--shards D puts D shards on one card")
+    return None
 
 
 def main(argv=None) -> int:
@@ -163,8 +163,7 @@ def main(argv=None) -> int:
                     help="where the service runs (default: the CUDA card)")
     ap.add_argument("--shards", type=int, default=0,
                     help="edge shards of the oversize lane's mesh, all on "
-                         "the service's device (default: a mesh over every "
-                         "card when there is more than one)")
+                         "the service's device (default: no lane)")
     args = ap.parse_args(argv)
 
     if args.smoke:

@@ -2,7 +2,7 @@
 
 ``python -m repro_torch.launch.train --arch <id> [--smoke] --steps N
 [--batch B] [--seq S] [--ckpt-dir DIR] [--microbatch K] [--lr LR]
-[--simulate-failure K] [--device cpu]``
+[--simulate-failure K] [--mesh D] [--device cpu]``
 
 The loop is restart-safe: the state lives in step-atomic checkpoints
 (:mod:`repro_torch.ckpt`, the JAX package's layout); on start it resumes
@@ -10,8 +10,19 @@ from the newest manifest; the data pipeline is a pure function of (seed,
 step), so no data state is saved.  ``--simulate-failure K`` saves at step
 K and ends the process at once with exit code 17, so a restart must
 continue bit for bit.  It runs on the card unless ``--device`` names
-another device.  ``--mesh`` other than ``1`` waits for training over a
-mesh of cards (ROADMAP.md, Queue 1, item 13) and is refused.
+another device.
+
+``--mesh D`` (or ``Dx1``) trains data-parallel over a world of ``D`` ranks
+(:mod:`repro_torch.distributed`): started here through ``run_world``, or,
+under ``torchrun`` (its environment set), this process is one rank of
+torchrun's world.  Each rank steps its rows of the global batch, the
+optimizer state is cut by ZeRO-1, checkpoints are written whole by rank 0
+(so any world size, or one device, resumes them), and rank 0 alone prints.
+``--simulate-failure K`` then saves collectively and every rank, and this
+process, exits 17.  The backend follows where the ranks sit: NCCL when
+each has a card of its own, else gloo.
+``--mesh DxM`` with ``M > 1``, the model axis, is refused (ROADMAP.md,
+Queue 1, item 14).
 
 Each logged step prints ``loss`` to four places, as the JAX launcher does,
 and the float in full after ``exact``.
@@ -20,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import torch
@@ -28,9 +40,12 @@ from repro_torch._device import resolve_device
 from repro_torch.ckpt import latest_step, restore_checkpoint, save_checkpoint
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.data import DataConfig, synthetic_batch
+from repro_torch.distributed import close_world, init_world, run_world
 from repro_torch.models import build_model
-from repro_torch.optim import OptConfig, adamw_init
+from repro_torch.optim import OptConfig, adamw_init, zero1_state_dims
 from repro_torch.train import build_train_step
+
+MODEL_AXIS_ITEM = "ROADMAP.md, Queue 1, item 14"
 
 
 def opt_config_for(cfg, steps: int, lr: float = 3e-4) -> OptConfig:
@@ -42,32 +57,83 @@ def opt_config_for(cfg, steps: int, lr: float = 3e-4) -> OptConfig:
                      warmup=min(100, steps // 10 + 1))
 
 
+def mesh_ranks(mesh: str) -> int:
+    """The data axis of ``--mesh``: ``D`` or ``DxM``; a model axis ``M >
+    1`` is refused."""
+    parts = [int(x) for x in mesh.lower().split("x")]
+    if len(parts) > 2 or min(parts) < 1:
+        raise ValueError(f"--mesh {mesh}: give D or DxM")
+    if len(parts) == 2 and parts[1] > 1:
+        raise ValueError(
+            f"--mesh {mesh}: the model axis (tensor parallelism over heads, "
+            f"d_ff, experts and vocab, and FSDP) is not ported "
+            f"({MODEL_AXIS_ITEM}); train data-parallel with --mesh "
+            f"{parts[0]}")
+    return parts[0]
+
+
+def _torchrun() -> bool:
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
 def run(arch: str, steps: int, smoke: bool, batch: int, seq: int,
         ckpt_dir: str, simulate_failure: int = 0, microbatch: int = 0,
         log_every: int = 10, lr: float = 3e-4, device=None, mesh: str = "1"):
     """Train ``arch`` for ``steps`` steps (resuming from ``ckpt_dir``);
-    returns (params, opt_state, [(step, loss), ...] as logged)."""
-    if mesh != "1":
-        raise NotImplementedError(
-            f"--mesh {mesh}: training over a device mesh waits for "
-            f"ROADMAP.md, Queue 1, item 13; this launcher trains on one "
-            f"device (--mesh 1)")
-    dev = resolve_device(device)
+    returns (params, opt_state, [(step, loss), ...] as logged).  Over a
+    world of ranks started here (``mesh`` D > 1) the params and state stay
+    in the ranks: returns (None, None, rank 0's logged losses)."""
+    ranks = mesh_ranks(mesh)
+    args = (arch, steps, smoke, batch, seq, ckpt_dir, simulate_failure,
+            microbatch, log_every, lr)
+    if _torchrun():
+        world = init_world(device=device)
+        try:
+            return train(world, *args)
+        finally:
+            close_world()
+    if ranks == 1:
+        return train(None, *args, device=device)
+    losses = run_world(_rank, ranks, *args, device=device, timeout=3600)[0]
+    return None, None, losses
+
+
+def _rank(world, *args):
+    """One rank started by ``run``: its logged losses (rank 0's print)."""
+    return train(world, *args)[2]
+
+
+def train(world, arch: str, steps: int, smoke: bool, batch: int, seq: int,
+          ckpt_dir: str, simulate_failure: int = 0, microbatch: int = 0,
+          log_every: int = 10, lr: float = 3e-4, device=None):
+    """The training loop on one device (``world`` None) or as one rank of
+    ``world``; returns (params, this rank's state, logged losses)."""
+    dev = resolve_device(device) if world is None else world.device
+    talk = world is None or world.rank == 0
     cfg = get_config(arch, smoke=smoke)
     model = build_model(cfg)
     params = model.init(0, device=dev)
     opt_cfg = opt_config_for(cfg, steps, lr)
-    opt_state = adamw_init(params, opt_cfg)
+    opt_state = adamw_init(params, opt_cfg, world)
+    dims = None if world is None else {
+        "opt": zero1_state_dims(params, opt_cfg, world)}
+
+    def save(step):
+        save_checkpoint(ckpt_dir, step, {"params": params, "opt": opt_state},
+                        world=world, dims=dims)
 
     start = 0
     if ckpt_dir and latest_step(ckpt_dir) is not None:
         state, start = restore_checkpoint(
-            ckpt_dir, {"params": params, "opt": opt_state}, device=dev)
+            ckpt_dir, {"params": params, "opt": opt_state}, device=dev,
+            world=world)
         params, opt_state = state["params"], state["opt"]
-        print(f"[train] resumed from step {start}", flush=True)
+        if talk:
+            print(f"[train] resumed from step {start}", flush=True)
 
     dcfg = DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch)
-    step_fn = build_train_step(model, opt_cfg, microbatch=microbatch)
+    step_fn = build_train_step(model, opt_cfg, microbatch=microbatch,
+                               world=world)
     losses = []
     t0 = time.time()
     for step in range(start, steps):
@@ -76,21 +142,23 @@ def run(arch: str, steps: int, smoke: bool, batch: int, seq: int,
         params, opt_state, metrics = step_fn(params, opt_state, batch_t)
         if simulate_failure and step + 1 == simulate_failure:
             # checkpoint then die hard: the restart path must resume
-            save_checkpoint(ckpt_dir, step + 1,
-                            {"params": params, "opt": opt_state})
-            print(f"[train] simulated failure at step {step + 1}",
-                  flush=True)
+            save(step + 1)
+            if talk:
+                print(f"[train] simulated failure at step {step + 1}",
+                      flush=True)
+            if world is not None:
+                sys.exit(17)            # every rank; run_world passes it on
             os._exit(17)
         if (step + 1) % log_every == 0 or step + 1 == steps:
             loss = float(metrics["loss"])       # waits for the step
             losses.append((step + 1, loss))
             dt = time.time() - t0
-            print(f"[train] step {step + 1:5d} loss {loss:.4f} "
-                  f"({dt / max(1, step + 1 - start):.2f}s/step) "
-                  f"exact {loss!r}", flush=True)
+            if talk:
+                print(f"[train] step {step + 1:5d} loss {loss:.4f} "
+                      f"({dt / max(1, step + 1 - start):.2f}s/step) "
+                      f"exact {loss!r}", flush=True)
         if ckpt_dir and ((step + 1) % 50 == 0 or step + 1 == steps):
-            save_checkpoint(ckpt_dir, step + 1,
-                            {"params": params, "opt": opt_state})
+            save(step + 1)
     return params, opt_state, losses
 
 
@@ -109,6 +177,10 @@ def main():
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' to run on the CPU")
     args = ap.parse_args()
+    try:
+        mesh_ranks(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
     run(args.arch, args.steps, args.smoke, args.batch, args.seq,
         args.ckpt_dir, args.simulate_failure, args.microbatch, lr=args.lr,
         device=args.device, mesh=args.mesh)

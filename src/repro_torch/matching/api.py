@@ -88,17 +88,17 @@ class Matcher:
         return (self.warm_start, warm_start_version(self.warm_start))
 
     def _call(self, graph: TorchCSR, cfg, entry, state: Optional[MatchState],
-              shards: Optional[int] = None) -> MatchState:
+              shards: Optional[int] = None, world=None) -> MatchState:
         """Run the cache entry of ``(graph's bucket, cfg, warm start or
         resume, entry)`` on ``graph`` from ``state`` (``shards``: its solve
-        edge-sharded so); then hold the cache to its byte budget, the
-        entry just run kept."""
+        edge-sharded so, over the ranks of ``world`` where one is given);
+        then hold the cache to its byte budget, the entry just run kept."""
         cold = state is None or entry == "init"
         key = compile_cache_key(graph.bucket_key, cfg, self._cache_tag(cold),
                                 entry)
         ws = stages(self.warm_start) if cold else None
         prog = get_compiled(key, lambda: MatcherProgram(
-            graph.nc, graph.nr, graph.nnz_pad, cfg, ws, shards))
+            graph.nc, graph.nr, graph.nnz_pad, cfg, ws, shards, world))
         out = prog(graph, state)
         compile_cache_fit(keep=key)
         return out
@@ -131,14 +131,14 @@ class Matcher:
         return self._run(graph, state, "run")
 
     def _run(self, graph: TorchCSR, state: Optional[MatchState], entry,
-             shards: Optional[int] = None) -> MatchState:
+             shards: Optional[int] = None, world=None) -> MatchState:
         """:meth:`run` through the cache entry ``entry``, its counts kept
         for :attr:`last_counts`."""
         if state is not None:
             self._check_state(graph, state)
         self._check_graph(graph)
         before = COUNTERS.snapshot(graph.device)
-        out = self._call(graph, self.config, entry, state, shards)
+        out = self._call(graph, self.config, entry, state, shards, world)
         self._counts = (before, COUNTERS.snapshot(graph.device))
         self._last_counts = None
         return out

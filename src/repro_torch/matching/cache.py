@@ -139,9 +139,15 @@ def mesh_cache_key(mesh, axis: str) -> Tuple:
     """Hashable mesh identity for the compile cache: the mesh's axes and
     sizes, its devices (by name, so a rebuilt but identical mesh still
     hits) and the axis sharded over.  ``ShardedMatcher``'s entry is
-    ``("sharded_run",) + mesh_cache_key(mesh, axis)``."""
-    return (tuple(mesh.shape.items()), tuple(str(d) for d in mesh.devices),
-            axis)
+    ``("sharded_run",) + mesh_cache_key(mesh, axis)``; a mesh over a
+    world's ranks adds the world (its number in this process, the rank, the
+    size and the backend: a captured collective belongs to one world)."""
+    key = (tuple(mesh.shape.items()), tuple(str(d) for d in mesh.devices),
+           axis)
+    w = getattr(mesh, "world", None)
+    if w is not None:
+        key += (("world", w.ident, w.rank, w.size, w.backend),)
+    return key
 
 
 def get_compiled(key: Hashable, build: Callable[[], object]) -> object:

@@ -122,6 +122,17 @@ def per_shard_nnz(nnz_pad: int, ndev: int, lane: int = LANE) -> int:
     return bucket_nnz(-(-nnz_pad // ndev), lane)
 
 
+def _check_world_axis(mesh, axis: str):
+    """The world of ``mesh``, whose ``axis`` must span its ranks."""
+    world = mesh.world
+    ndev = int(mesh.shape[axis])
+    if ndev != world.size or mesh.size != world.size:
+        raise ValueError(f"a mesh over a world of {world.size} ranks "
+                         f"shards over one axis of that size; axis "
+                         f"{axis!r} has {ndev} of {mesh.size} positions")
+    return world
+
+
 def _full(shape, value: int, device) -> torch.Tensor:
     return torch.full(shape if isinstance(shape, tuple) else (shape,), value,
                       dtype=torch.int32, device=device)
@@ -188,6 +199,9 @@ class TorchCSR:
         if self.batch_shape:
             raise ValueError(f"{what} takes a single graph; unstack() a "
                              f"batched TorchCSR first")
+        if self.rank_shard:
+            raise ValueError(f"{what} needs the whole edge list; this graph "
+                             f"holds one rank's shard of it")
 
     # -- host <-> device ------------------------------------------------------
     @classmethod
@@ -253,6 +267,7 @@ class TorchCSR:
         if self.batch_shape:
             raise ValueError("with_csc() takes a single graph; build the "
                              "mirror before stack()")
+        self._single("with_csc()")
         with DEVICE_LOCK:         # never inside another thread's capture
             order = torch.argsort(self.cadj, stable=True)
             erow = self.cadj.index_select(0, order)
@@ -348,14 +363,96 @@ class TorchCSR:
         power-of-two bucket (:meth:`shard_slices`).  The O(n) arrays stay
         whole.  The graph moves to the mesh's device and records the mesh
         and axis; on a graph already sharded so, this is a no-op.
+
+        A mesh over the ranks of a world (``mesh.world``): rank ``r`` keeps
+        only shard ``r`` of the edge arrays (copies; the whole arrays are
+        the caller's to drop), on its own device; ``nnz_pad`` is then the
+        shard's capacity and ``nnz`` the whole graph's edge count.
         """
+        if self.rank_shard and self.mesh == mesh and self.axis == axis:
+            return self
         self._single("shard()")
         ndev = int(mesh.shape[axis])
-        cap = ndev * per_shard_nnz(self.nnz_pad, ndev)
-        if self.mesh == mesh and self.axis == axis and self.nnz_pad == cap:
-            return self
-        g = self.to(mesh.device).pad_to(cap)
-        return dataclasses.replace(g, mesh=mesh, axis=axis)
+        per = per_shard_nnz(self.nnz_pad, ndev)
+        world = getattr(mesh, "world", None)
+        if world is None:
+            if self.mesh == mesh and self.axis == axis and \
+                    self.nnz_pad == ndev * per:
+                return self
+            g = self.to(mesh.device).pad_to(ndev * per)
+            return dataclasses.replace(g, mesh=mesh, axis=axis)
+        _check_world_axis(mesh, axis)
+        g = self.to(world.device).pad_to(ndev * per)
+        mine = slice(world.rank * per, (world.rank + 1) * per)
+        fields = ("cadj", "ecol", "radj", "erow", "eperm")
+        with DEVICE_LOCK:
+            return dataclasses.replace(
+                g, mesh=mesh, axis=axis,
+                **{f: getattr(g, f)[mine].clone() for f in fields
+                   if getattr(g, f) is not None})
+
+    @classmethod
+    def from_host_shard(cls, g: "BipartiteCSR", mesh, axis: str = "data",
+                        csc: bool = False) -> "TorchCSR":
+        """This rank's shard of the host graph ``g`` over a mesh of a
+        world's ranks, uploaded alone: the whole edge list never reaches
+        the device.  Equal, array for array, to ``from_host(g, device=
+        world.device)`` (``.with_csc()`` where ``csc``) ``.shard(mesh,
+        axis)``.  The CSC mirror's slice: the host finds the edges of the
+        rows it meets (one pass over the rows of every edge); the device
+        sorts those stably by row and keeps the shard's slots."""
+        world = _check_world_axis(mesh, axis)
+        nnz, nc, nr = int(g.nnz), int(g.nc), int(g.nr)
+        per = per_shard_nnz(int(np.shape(g.cadj)[0]), world.size)
+        lo = world.rank * per
+        real = slice(min(lo, nnz), min(lo + per, nnz))   # real edge slots
+        n_real = real.stop - real.start
+        cadj = np.asarray(g.cadj[:nnz], np.int32)
+        dev = world.device
+
+        def put(x):
+            return torch.from_numpy(
+                np.ascontiguousarray(x, dtype=np.int32)).to(dev)
+
+        def part(x, fill):
+            out = _full(per, fill, dev)
+            out[:n_real] = x
+            return out
+
+        with DEVICE_LOCK:         # never inside another thread's capture
+            t = dict(cxadj=put(g.cxadj), cadj=part(put(cadj[real]), nr),
+                     ecol=part(put(g.ecol[real]), nc))
+            if csc:
+                rxadj = np.zeros(nr + 1, np.int64)
+                np.cumsum(np.bincount(cadj, minlength=nr), out=rxadj[1:])
+                # the sentinel slots map to themselves; the real ones are
+                # the row-sorted slots [real): the edges of the rows they
+                # meet, stably sorted by row, then cut to them
+                eperm = torch.arange(lo, lo + per, dtype=torch.int32,
+                                     device=dev)
+                erow = _full(per, nr, dev)
+                if n_real:
+                    r0 = int(np.searchsorted(rxadj, real.start, "right")) - 1
+                    r1 = int(np.searchsorted(rxadj, real.stop, "left"))
+                    pos = np.flatnonzero((cadj >= r0) & (cadj < r1))
+                    rows, order = torch.sort(put(cadj[pos]), stable=True)
+                    first = real.start - int(rxadj[r0])
+                    cut = order[first:first + n_real]
+                    eperm[:n_real] = put(pos)[cut]
+                    erow[:n_real] = rows[first:first + n_real]
+                # a real edge's column: the last column starting at or
+                # before it
+                radj = _full(per, nc, dev)
+                radj[:n_real] = torch.searchsorted(
+                    t["cxadj"], eperm[:n_real], right=True) - 1
+                t.update(rxadj=put(rxadj), radj=radj, erow=erow,
+                         eperm=eperm)
+        return cls(nnz=nnz, nc=nc, nr=nr, mesh=mesh, axis=axis, **t)
+
+    @property
+    def rank_shard(self) -> bool:
+        """Whether the graph holds one rank's shard of its edges only."""
+        return getattr(self.mesh, "world", None) is not None
 
     @property
     def shards(self) -> int:
@@ -363,9 +460,12 @@ class TorchCSR:
         return 1 if self.mesh is None else int(self.mesh.shape[self.axis])
 
     def shard_slices(self, name: str) -> Tuple[torch.Tensor, ...]:
-        """The ``shards`` contiguous views of the edge array ``name``
-        (``ecol``, ``cadj``, ``radj``, ``erow`` or ``eperm``)."""
+        """The contiguous views of the edge array ``name`` (``ecol``,
+        ``cadj``, ``radj``, ``erow`` or ``eperm``), one a shard this
+        process holds: all ``shards`` of them, or a rank's own one."""
         t = getattr(self, name)
+        if self.rank_shard:
+            return (t,)
         return tuple(t.chunk(self.shards, dim=-1))
 
     def to(self, device) -> "TorchCSR":

@@ -24,7 +24,10 @@ entry needs on one device:
   (:meth:`Program.sub`).
 
 On the CPU the same step functions run uncaptured; the host makes the
-loop's test before every step, as the WHILE node does.
+loop's test before every step, as the WHILE node does.  So does a program
+built with ``capture=False`` on a card, for steps that hold a call no
+capture can (the matcher's merge over a gloo world): there each test is a
+counted host sync.
 
 Capture.  Each step runs once on a side stream against scratch copies of
 the buffers (kernel launches uncounted) before its capture, so that lazy
@@ -41,7 +44,7 @@ steps in device counters the steps add to; host syncs, the reads the host
 makes between loops (:meth:`Program.read`), on the host.  A loop's own test
 is the device's (the WHILE node on a card; on the CPU, where the host is
 the device, the same test made uncounted), so a solve counts the same host
-syncs on either device.
+syncs on either device; an uncaptured loop on a card counts each test.
 """
 from __future__ import annotations
 
@@ -444,8 +447,8 @@ class Program:
     def loop(self, loop: Loop) -> None:
         """Run ``loop`` to its end: on a card one launch of its WHILE node
         (inside another step's capture, the node added to that capture);
-        on the CPU its step while the flag is set, tested before every
-        step."""
+        uncaptured its step while the flag is set, tested before every
+        step by the host (on a card, a counted host sync a test)."""
         if loop.start:
             self.set(loop.live, 1)
         self._unread = True
@@ -462,7 +465,10 @@ class Program:
                 f"loop {loop.name!r} of an uncaptured program cannot run "
                 f"inside a CUDA graph capture")
         step, live = loop.step, self.buf[loop.live]
+        # on the CPU the host is the device: its test is the WHILE node's
+        card = self.device.type == "cuda"
         for _ in range(self.loop_limit):
+            COUNTERS.host_syncs += card
             if not int(live):
                 return
             step(self.buf)

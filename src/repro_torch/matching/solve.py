@@ -71,6 +71,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from repro_torch.distributed.comm import all_reduce_min_
 from repro_torch.kernels.frontier_expand import (frontier_expand,
                                                  frontier_expand_fused,
                                                  frontier_expand_pull)
@@ -598,12 +599,21 @@ class Solver:
     its own and merges the rows (:func:`_merge_shards`), all inside the
     level step, so it is captured and looped as the single-device level
     is and makes the same host syncs.
+
+    ``world``: the edge-sharded solve over the ranks of a world, this rank
+    holding one shard.  Each level sweeps that shard and merges the ranks'
+    winners with one ``all_reduce_min_`` inside the level step: under NCCL
+    captured with it; under gloo, which no capture can hold, the entry's
+    program runs uncaptured (:class:`MatcherProgram`), the host testing
+    every loop's flag (a counted host sync a test on a card).  The
+    ``degrade_maximal`` round is then the matcher's, on rank 0 over the
+    whole edge list.
     """
 
     lanes: tuple = ()           # one graph; a batch's solver has (B,)
 
     def __init__(self, cfg: MatcherConfig, nc: int, nr: int,
-                 shards: Optional[int] = None):
+                 shards: Optional[int] = None, world=None):
         if shards is not None and cfg.adaptive_frontier:
             raise ValueError(
                 "adaptive_frontier is single-device only; the sharded "
@@ -612,6 +622,10 @@ class Solver:
                 "heuristic that composes with sharding)")
         self.cfg, self.nc, self.nr = cfg, nc, nr
         self.shards = shards
+        self.world = world
+        # the shards this process sweeps: one over a world's ranks
+        self.local = None if shards is None else (
+            1 if world is not None else shards)
         self.wr = cfg.kernel == "gpubfs_wr"
         # compact/pull geometry: the one auto rule lives on MatcherConfig
         self.compact_cap = cfg.resolve_cap(cfg.compact_cap, nc)
@@ -625,7 +639,8 @@ class Solver:
         # dirop pulls by the streamed sweep, gated as dirop_pallas is
         self.branching = shards is None and (
             cfg.adaptive_frontier or (cfg.dirop and not cfg.use_pallas))
-        self.degrade = cfg.degrade_maximal and cfg.max_phases > 0
+        self.degrade = (cfg.degrade_maximal and cfg.max_phases > 0
+                        and world is None)
         self.phase_begin = Once("phase_begin", self._phase_begin)
         body = self._level
         if self.branching:
@@ -653,7 +668,7 @@ class Solver:
         if self.shards is not None:
             # a row per shard's sweep (dirop: the push rows, then the pull
             # rows) and the merged winners
-            rows = self.shards * (2 if self.cfg.dirop else 1)
+            rows = self.local * (2 if self.cfg.dirop else 1)
             P.alloc("shard_win", (rows, self.nr + 1))
             P.alloc("winner", self.nr + 1)
 
@@ -719,10 +734,19 @@ class Solver:
         B.bfs_live.copy_(go)
 
     def _level(self, B: Buffers) -> None:
-        """One BFS level: the push sweep, or with ``dirop`` + ``use_pallas``
-        (or sharded ``dirop``) both sweeps, each gated by the level's
-        direction (decided on the device), so that only one of them sweeps;
-        sharded, each sweep once a shard, then the merge."""
+        """One BFS level: the sweep (:meth:`_sweep`), over a world's ranks
+        the merge (under NCCL, captured with the step), then the fold."""
+        winner = self._sweep(B)
+        if self.world is not None:
+            all_reduce_min_(winner, self.world)
+        self._fold(B, winner)
+
+    def _sweep(self, B: Buffers) -> torch.Tensor:
+        """A level's winners: the push sweep, or with ``dirop`` +
+        ``use_pallas`` (or sharded ``dirop``) both sweeps, each gated by the
+        level's direction (decided on the device), so that only one of them
+        sweeps; sharded, each sweep once a shard this process holds, then
+        the merge of those; the level's counts."""
         rt = B.root if self.wr else None
         pull = self._plan(B) if self.cfg.dirop else None
         if self.shards is not None:
@@ -745,15 +769,16 @@ class Solver:
             B.counts[PULL].add_(pull)
         else:
             B.counts[LEVELS:PUSH + 1].add_(1)
-        self._fold(B, winner)
+        return winner
 
     def _shard_sweeps(self, B: Buffers, rt, pull) -> torch.Tensor:
         """The level's winners of a sharded solve: shard ``d``'s sweep over
         its slice of the edge buffers into row ``d`` of ``shard_win`` (with
         ``dirop``, gated off on a pull level, and its streamed pull over
         its slice of the mirror into row ``D + d``, gated off on a push
-        level), then the rows merged into ``winner``."""
-        D, win = self.shards, B.shard_win
+        level), then the rows merged into ``winner``.  Over a world's ranks
+        ``D`` is this rank's one shard."""
+        D, win = self.local, B.shard_win
         push_gate = None if pull is None else (~pull).to(I32)
         for d, (ecol, cadj) in enumerate(zip(B.ecol.chunk(D),
                                              B.cadj.chunk(D))):
@@ -902,22 +927,27 @@ class MatcherProgram:
     ``shards``: the solve is edge-sharded over that many shards (the
     ``"sharded_run"`` entry of ``ShardedMatcher``); the warm start and the
     ``degrade_maximal`` round still run over the whole edge list.
+    ``world``: the solve over the ranks of a world, ``nnz_pad`` this rank's
+    shard's (the warm start and the degrade round are then the matcher's).
+    Under gloo, whose collectives no CUDA graph can hold, its program runs
+    uncaptured on a card too.
     """
 
     lanes: tuple = ()           # one graph; a batch's entry has (B,)
 
     def __init__(self, nc: int, nr: int, nnz_pad: int,
                  cfg: Optional[MatcherConfig], stages: Optional[Sequence],
-                 shards: Optional[int] = None):
+                 shards: Optional[int] = None, world=None):
         self.nc, self.nr, self.nnz_pad = nc, nr, nnz_pad
         self.cfg = cfg
         self.stages = tuple(stages or ())
         self.shards = shards
+        self.world = world
         self.solver = self._solver(cfg) if cfg is not None else None
         self._programs: dict = {}
 
     def _solver(self, cfg: MatcherConfig) -> Solver:
-        return Solver(cfg, self.nc, self.nr, self.shards)
+        return Solver(cfg, self.nc, self.nr, self.shards, self.world)
 
     def program(self, device) -> Program:
         """The entry's :class:`Program` on ``device`` (built on first use;
@@ -932,7 +962,9 @@ class MatcherProgram:
         nc, nr, m = self.nc, self.nr, self.nnz_pad
         # every loop ends within nc + nr + 4 iterations (levels, ALTERNATE
         # steps, warm-start rounds); the guard stops a runaway past that
-        P = Program(device, loop_limit=nc + nr + 8)
+        gloo = self.world is not None and self.world.backend != "nccl"
+        P = Program(device, capture=False if gloo else None,
+                    loop_limit=nc + nr + 8)
 
         def alloc(name, n, dtype=I32):
             P.alloc(name, (*self.lanes, n), dtype)

@@ -7,8 +7,22 @@ checkpoint maps leaf for leaf: ``m``, ``v``, ``step`` and, with
 Adafactor-style row/column second moment and a bf16 first moment) ``m``,
 ``vr``, ``vc`` and ``step``.  ``step`` is a 0-d int32 tensor.
 
-The JAX module's ZeRO-1 sharding specs are not ported: they partition the
-state over a mesh (ROADMAP.md, Queue 1, item 13).
+ZeRO-1 over a world's ranks (the JAX module's ``_zero1_spec`` on the data
+axis): with ``world``, rank ``r`` keeps the ``r``-th slice of every state
+leaf (``m``, ``v``, ``master``; factored: ``m``, ``vr``, ``vc``) along
+:func:`zero1_dim` of its parameter, the first dim the world's size divides
+(the reference's spec once ``sanitize_spec`` has moved the axis to a dim
+that divides); for a factorable leaf of the factored branch, not one of its
+last two, so that ``vr``, ``vc`` and ``vr.mean(-1)`` stay whole within the
+slice.  A leaf with no such dim keeps its state whole on every rank (each
+rank then updates it whole, from the same mean gradient, to the same
+values).  ``adamw_update`` then takes the gradients already cut
+(:func:`repro_torch.distributed.reduce_scatter_mean`, or the whole mean
+where the state is whole), clips by the global norm (the square root of
+``all_reduce_sum_`` of the ranks' sums over their slices, plus the whole
+leaves' once), updates its slices in place and gathers the new parameter
+slices into the whole parameters (``all_gather_into``).  The values are the
+one-device update's, up to the order of the norm's sum.
 
 ``adamw_update`` updates the params and the state in place and returns
 them, as a PyTorch optimizer does (the JAX function returns new trees: at
@@ -24,10 +38,11 @@ blocks of rows.  The values are a whole-leaf update's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.distributed.comm import all_gather_into, all_reduce_sum_
 from repro_torch.models.common import tree_leaves, tree_map
 
 # elements of a leaf updated at once: on the card a slab bounds the fp32
@@ -54,8 +69,59 @@ def _factorable(shape) -> bool:
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
 
 
-def adamw_init(params, cfg: OptConfig) -> Dict[str, Any]:
-    """The zero state of ``params`` (on their devices)."""
+def zero1_dim(shape: Sequence[int], ranks: int,
+              factored: bool = False) -> Optional[int]:
+    """The dim along which ZeRO-1 cuts the optimizer state of a leaf of
+    ``shape`` over ``ranks`` ranks: the first dim ``ranks`` divides (with
+    ``factored``, for a factorable leaf not one of its last two); None
+    where there is none, the state then kept whole."""
+    dims = len(shape) - (2 if factored and _factorable(shape) else 0)
+    for d in range(dims):
+        if shape[d] and shape[d] % ranks == 0:
+            return d
+    return None
+
+
+def zero1_dims(params, cfg: OptConfig, world):
+    """:func:`zero1_dim` of every leaf of ``params`` over ``world``'s ranks
+    (a tree of the same structure; ``world`` None: every leaf whole)."""
+    return tree_map(lambda p: None if world is None else zero1_dim(
+        tuple(p.shape), world.size, cfg.factored), params)
+
+
+def zero1_state_dims(params, cfg: OptConfig, world) -> Dict[str, Any]:
+    """The dims of the state leaves that :func:`adamw_init` cuts over
+    ``world``'s ranks, a tree like the state's (for
+    ``save_checkpoint(..., dims={"opt": ...})``): each moment's (and
+    master's) the parameter's :func:`zero1_dim`; a non-factorable leaf's
+    ``vc``, ``(1,)``, and ``step`` whole."""
+    dims = zero1_dims(params, cfg, world)
+    if not cfg.factored:
+        out = {"m": dims, "v": dims, "step": None}
+        if cfg.master_fp32:
+            out["master"] = dims
+        return out
+    it = iter(tree_leaves(dims))
+    vc = tree_map(lambda p: next(it) if _factorable(p.shape) else None,
+                  params)
+    return {"m": dims, "vr": dims, "vc": vc, "step": None}
+
+
+def rank_slice(t: torch.Tensor, dim: Optional[int], world) -> torch.Tensor:
+    """This rank's slice of ``t`` along ``dim`` (a view; ``t`` itself where
+    ``dim`` is None)."""
+    if dim is None:
+        return t
+    k = t.shape[dim] // world.size
+    return t.narrow(dim, world.rank * k, k)
+
+
+def adamw_init(params, cfg: OptConfig, world=None) -> Dict[str, Any]:
+    """The zero state of ``params`` (on their devices); with ``world``,
+    this rank's ZeRO-1 slices of it (module doc)."""
+    if world is not None:
+        it = iter(tree_leaves(zero1_dims(params, cfg, world)))
+        params = tree_map(lambda p: rank_slice(p, next(it), world), params)
     dev = tree_leaves(params)[0].device
     step = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.factored:
@@ -168,15 +234,20 @@ def _work(work: dict, i: int, like: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: OptConfig
+def adamw_update(params, grads, state, cfg: OptConfig, world=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place: ``(params, state, {"grad_norm", "lr"})``
     with ``params`` and ``state`` the trees given, updated.  The JAX
     function's order of operations: the global norm of the fp32 grads,
     ``scale = min(1, clip / max(gnorm, 1e-9))``, the learning rate from
     the step before the increment, the bias corrections from the step
-    after."""
-    gnorm = torch.sqrt(sum(_square_sum(g) for g in _sorted_leaves(grads)))
+    after.  With ``world``: ``grads`` and ``state`` are this rank's ZeRO-1
+    slices, ``params`` whole (module doc)."""
+    dims = zero1_dims(params, cfg, world)
+    if world is None:
+        gnorm = torch.sqrt(sum(_square_sum(g) for g in _sorted_leaves(grads)))
+    else:
+        gnorm = _world_norm(grads, dims, world)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = _schedule(cfg, state["step"])
@@ -191,40 +262,77 @@ def adamw_update(params, grads, state, cfg: OptConfig
         w32 = p.float()
         return w32 - lr * (u + cfg.weight_decay * w32)
 
+    work: dict = {}
     if cfg.factored:
-        work: dict = {}
-        for p, g, m, vr, vc in _zip(params, grads, state["m"], state["vr"],
-                                    state["vc"]):
-            if _factorable(p.shape):
-                _factored_leaf(cfg, scale, finish, p, g, m, vr, vc, work)
-                continue
-            ins = [_flat(t) for t in (p, g, m, vr)]
-            o = [_flat_out(t) for t in (p, m, vr)]
-            for sl in _blocks(p.numel(), _block(p)):
-                pb, gb, mb, vb = (t[sl] for t in ins)
-                gb = gb.float() * scale
-                m32 = cfg.b1 * mb.float() + (1 - cfg.b1) * gb
-                vr_n = cfg.b2 * vb + (1 - cfg.b2) * (gb.square() + 1e-30)
-                o[0][sl] = finish(pb, m32, vr_n)
-                o[1][sl] = m32
-                o[2][sl] = vr_n
-        return params, state, {"grad_norm": gnorm, "lr": lr}
-
+        leaves = _zip(params, grads, state["m"], state["vr"], state["vc"])
+        update = _factored_update
+    else:
+        leaves = _zip(params, grads, state["m"], state["v"],
+                      state.get("master", params))
+        update = _plain_update
     has_master = "master" in state
-    for p, g, m, v, w in _zip(params, grads, state["m"], state["v"],
-                              state.get("master", params)):
-        ins = [_flat(t) for t in (g, m, v, w)]
-        o = [_flat_out(t) for t in ((p, m, v, w) if has_master
-                                    else (p, m, v))]
-        for sl in _blocks(p.numel(), _block(p)):
-            gb, mb, vb, wb = (t[sl] for t in ins)
-            gb = gb.float() * scale
-            m_n = cfg.b1 * mb + (1 - cfg.b1) * gb
-            v_n = cfg.b2 * vb + (1 - cfg.b2) * gb.square()
-            w32 = finish(wb, m_n, v_n)
-            for out, val in zip(o, (w32, m_n, v_n, w32)):
-                out[sl] = val
+    for (p, *rest), (d,) in zip(leaves, _zip(dims)):
+        mine = rank_slice(p, d, world)
+        if d is not None:
+            mine = mine.contiguous()
+            if not cfg.factored and not has_master:
+                rest[-1] = mine              # w: the slice it updates
+        update(cfg, scale, finish, has_master, mine, *rest, work)
+        if d is not None:
+            all_gather_into(p, mine, d, world)
     return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def _world_norm(grads, dims, world) -> torch.Tensor:
+    """The global gradient norm over a world: the ranks' sums of squares
+    over their slices, summed by ``all_reduce_sum_``, plus the whole
+    leaves' (equal on every rank) once; each in the JAX package's leaf
+    order."""
+    pairs = list(zip(_sorted_leaves(grads), _sorted_leaves(dims)))
+    part = torch.zeros((), dtype=torch.float32, device=pairs[0][0].device)
+    for g, d in pairs:
+        if d is not None:
+            part = part + _square_sum(g)
+    all_reduce_sum_(part, world)
+    for g, d in pairs:
+        if d is None:
+            part = part + _square_sum(g)
+    return torch.sqrt(part)
+
+
+def _plain_update(cfg, scale, finish, has_master, p, g, m, v, w, work
+                  ) -> None:
+    """The update of one leaf with fp32 ``m`` and ``v`` (and masters
+    ``w``, else ``w`` is ``p``), a block at a time."""
+    ins = [_flat(t) for t in (g, m, v, w)]
+    o = [_flat_out(t) for t in ((p, m, v, w) if has_master else (p, m, v))]
+    for sl in _blocks(p.numel(), _block(p)):
+        gb, mb, vb, wb = (t[sl] for t in ins)
+        gb = gb.float() * scale
+        m_n = cfg.b1 * mb + (1 - cfg.b1) * gb
+        v_n = cfg.b2 * vb + (1 - cfg.b2) * gb.square()
+        w32 = finish(wb, m_n, v_n)
+        for out, val in zip(o, (w32, m_n, v_n, w32)):
+            out[sl] = val
+
+
+def _factored_update(cfg, scale, finish, has_master, p, g, m, vr, vc, work
+                     ) -> None:
+    """The factored update of one leaf: :func:`_factored_leaf` for a
+    factorable one, else elementwise with ``vr`` as its second moment."""
+    if _factorable(p.shape):
+        _factored_leaf(cfg, scale, finish, p, g, m, vr, vc, work)
+        return
+    ins = [_flat(t) for t in (p, g, m, vr)]
+    o = [_flat_out(t) for t in (p, m, vr)]
+    for sl in _blocks(p.numel(), _block(p)):
+        pb, gb, mb, vb = (t[sl] for t in ins)
+        gb = gb.float() * scale
+        m32 = cfg.b1 * mb.float() + (1 - cfg.b1) * gb
+        vr_n = cfg.b2 * vb + (1 - cfg.b2) * (gb.square() + 1e-30)
+        o[0][sl] = finish(pb, m32, vr_n)
+        o[1][sl] = m32
+        o[2][sl] = vr_n
 
 
 def _factored_leaf(cfg, scale, finish, p, g, m, vr, vc, work: dict

@@ -1,18 +1,31 @@
 """Step builders (the JAX package's ``train/steps.py``): the train step
 with its loss, ``cross_entropy``, and the serving path's prefill and serve
 steps.  PyTorch runs eagerly, so ``build_*`` returns the plain function
-where the JAX one returns the function that is then jitted; the mesh and
-sharding helpers (``named``, ``batch_sharding``) are not ported (ROADMAP.md,
-Queue 1, item 13)."""
+where the JAX one returns the function that is then jitted.
+
+Data parallelism over a world's ranks (the reference's ``batch_sharding``
+over the data axis): :func:`batch_rows` gives rank ``r`` rows ``[r B/W,
+(r+1) B/W)`` of the global batch, and ``build_train_step(..., world=)``
+runs the step body on them, then reduce-scatters the fp32 gradients with
+the mean (ZeRO-1, ``optim.adamw``) and takes the mean of the ranks'
+losses.  That is the reference's ``build_train_step(microbatch=W)``: the
+mean of ``W`` contiguous blocks' mean losses and gradients (a rank's own
+``microbatch`` m makes it ``microbatch=W m``), in every family, the MoE
+family's batch-dependent ``lb_loss`` and routing capacity included.  The
+model axis (tensor parallelism, FSDP) is not ported (ROADMAP.md, Queue 1,
+item 14)."""
 from __future__ import annotations
 
 from typing import Any, Dict, List
 
 import torch
 
+from repro_torch.distributed.comm import (all_reduce_sum_,
+                                          reduce_scatter_mean)
 from repro_torch.models import Model
 from repro_torch.models.common import tree_leaves, tree_map
 from repro_torch.optim import OptConfig, adamw_update
+from repro_torch.optim.adamw import zero1_dims
 
 
 def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -41,7 +54,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return tot / (B * S)
 
 
-def build_train_step(model: Model, opt_cfg: OptConfig, microbatch: int = 0):
+def batch_rows(batch: Dict[str, torch.Tensor], world=None
+               ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of the global ``batch``: rows ``[r B/W, (r+1)
+    B/W)`` of every entry (the whole batch without a world)."""
+    if world is None:
+        return batch
+    B = next(iter(batch.values())).shape[0]
+    if B % world.size:
+        raise ValueError(f"a batch of {B} rows does not split over "
+                         f"{world.size} ranks")
+    k = B // world.size
+    return {name: v[world.rank * k:(world.rank + 1) * k]
+            for name, v in batch.items()}
+
+
+def build_train_step(model: Model, opt_cfg: OptConfig, microbatch: int = 0,
+                     world=None):
     """Returns ``train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)`` with metrics ``loss``, ``grad_norm`` and ``lr``
     (0-d tensors).  Gradients come from ``torch.autograd`` over
@@ -50,7 +79,9 @@ def build_train_step(model: Model, opt_cfg: OptConfig, microbatch: int = 0):
     sequential chunks (chunk i holds rows ``[i*B/mb, (i+1)*B/mb)``), sums
     their fp32 grads, divides by ``microbatch`` and takes the mean of the
     losses.  The params and state are updated in place (``adamw_update``)
-    and returned."""
+    and returned.  With ``world`` (module doc): the global batch in, this
+    rank's rows stepped, ``opt_state`` this rank's ZeRO-1 slices
+    (``adamw_init(params, opt_cfg, world)``), the loss the global one."""
     cfg = model.cfg
 
     def loss_fn(params, batch):
@@ -72,6 +103,7 @@ def build_train_step(model: Model, opt_cfg: OptConfig, microbatch: int = 0):
         return loss.detach(), grads
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
+        batch = batch_rows(batch, world)
         if microbatch > 1:
             B = next(iter(batch.values())).shape[0]
             if B % microbatch:
@@ -95,11 +127,31 @@ def build_train_step(model: Model, opt_cfg: OptConfig, microbatch: int = 0):
             loss = torch.stack(losses).mean()
         else:
             loss, grads = grads_of(params, batch)
+        if world is not None:
+            loss, grads = reduce_over(world, loss, grads, params)
         it = iter(grads)
         grads = tree_map(lambda _: next(it), params)
         params, opt_state, om = adamw_update(params, grads, opt_state,
-                                             opt_cfg)
+                                             opt_cfg, world)
         return params, opt_state, {"loss": loss, **om}
+
+    def reduce_over(world, loss, grads, params):
+        """The global loss and this rank's share of the mean gradients: a
+        leaf's ZeRO-1 slice (``reduce_scatter_mean``), or where its state is
+        whole the whole mean (``all_reduce_sum_`` / W); each leaf's whole
+        gradient dropped as soon as it is reduced."""
+        loss = all_reduce_sum_(loss.float().clone(), world) / world.size
+        out = []
+        for i, d in enumerate(tree_leaves(zero1_dims(params, opt_cfg,
+                                                     world))):
+            g = grads[i].float()
+            grads[i] = None
+            if d is None:
+                out.append(all_reduce_sum_(g, world).div_(world.size))
+            else:
+                out.append(reduce_scatter_mean(g, d, world))
+            del g
+        return loss, out
 
     return train_step
 

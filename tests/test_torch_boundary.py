@@ -31,8 +31,10 @@ def _port_modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
-    assert {"repro_torch.matching.solve", "repro_torch.matching.paths"} <= \
-        set(mods) and len(mods) >= 16
+    assert {"repro_torch.matching.solve", "repro_torch.matching.paths",
+            "repro_torch.distributed", "repro_torch.distributed.world",
+            "repro_torch.distributed.comm",
+            "repro_torch.distributed.spawn"} <= set(mods) and len(mods) >= 16
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -123,3 +123,37 @@ def test_all_lists_mirror_reference(pkg):
     assert list(ours.__all__) == [_PORT_NAMES.get(n, n) for n in ref.__all__]
     for name in ours.__all__:
         assert getattr(ours, name) is not None, name
+
+
+# the port's own packages of the data axis, with no reference counterpart
+# of the same shape (the JAX package is one controller)
+_OWN_ALL = {
+    "repro_torch.distributed": [
+        "World", "init_world", "close_world", "current_world",
+        "require_world", "rank_devices", "choose_backend",
+        "all_reduce_min_", "all_reduce_sum_",
+        "broadcast_", "reduce_scatter_mean", "all_gather_into", "barrier",
+        "run_world", "RankError"],
+    "repro_torch.optim": [
+        "adamw_init", "adamw_update", "OptConfig", "compress_grads",
+        "decompress_grads", "zero1_dim", "zero1_dims", "zero1_state_dims"],
+    "repro_torch.train": [
+        "build_prefill_step", "build_serve_step", "build_train_step",
+        "cross_entropy", "batch_rows"],
+}
+
+
+@pytest.mark.parametrize("pkg", sorted(_OWN_ALL))
+def test_data_axis_all_lists(pkg):
+    """``__all__`` of the packages the data axis adds to or extends: the
+    names pinned, each resolving to an object; the reference's names of
+    ``optim`` and ``train`` among them."""
+    import importlib
+    mod = importlib.import_module(pkg)
+    assert list(mod.__all__) == _OWN_ALL[pkg]
+    for name in mod.__all__:
+        assert getattr(mod, name) is not None, name
+    if pkg != "repro_torch.distributed":
+        ref = importlib.import_module(pkg.replace("repro_torch", "repro"))
+        assert set(ref.__all__) <= set(mod.__all__), \
+            set(ref.__all__) - set(mod.__all__)

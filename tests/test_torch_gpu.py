@@ -1739,3 +1739,92 @@ def test_cuda_budgeted_fuzz_equals_cpu(tmp_path):
         (r.instance, r.path, r.warm_start, r.cardinality)
         for r in cpu.results]
     assert {r.path for r in card.results} == set(SOLVE_PATHS)
+
+
+# -- the data axis over ranks (repro_torch.distributed) ----------------------
+_WORLD_PATHS = {"jnp": "frontier_expand_fused_wr",
+                "legacy": "frontier_expand_wr",
+                "dirop_pallas": "frontier_expand_pull_wr"}
+
+
+def _world_cases(g):
+    return [((path, "cheap"), g, path, "cheap", {}, None)
+            for path in _WORLD_PATHS]
+
+
+@pytest.mark.gpu
+def test_cuda_gloo_device_ops():
+    """gloo takes card tensors for every collective of ``comm`` (two ranks
+    sharing the card): each equals the same collective on CPU tensors."""
+    _card()
+    import torch_world_ranks as ranks
+    from repro_torch.distributed import run_world
+    for out in run_world(ranks.card_collectives, 2, timeout=120):
+        assert out["card"]["backend"] == "gloo"
+        for k, v in out["cpu"].items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(out["card"][k], v), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [2, 4])
+def test_cuda_gloo_world_equals_single_device(size):
+    """A gloo world of ``size`` ranks sharing the card (its solve
+    uncaptured, the host testing every loop's flag): every rank's state the
+    card's single-device one bit for bit, one merge a level, the
+    single-device host syncs plus one a test of the level and ``ALTERNATE``
+    loops, and each path's kernel launched on every rank (a warm run)."""
+    _card()
+    import torch_world_ranks as ranks
+    from repro_torch.distributed import run_world
+    g = random_bipartite(3000, 2800, 4.0, seed=31)
+    out = run_world(ranks.solve_cases, size, _world_cases(g), timeout=300)
+    for key, g_, path, ws, kw, _ in _world_cases(g):
+        cfg = SOLVE_PATHS[path].configure(MatcherConfig())
+        t = TorchCSR.from_host(g, device="cuda")
+        t = t.with_csc() if cfg.dirop else t
+        single = Matcher(cfg, ws)
+        want = ranks.outcome(single.run(t))
+        for rank, res in enumerate(out):
+            state, counts, launches, again = res[key]
+            for a, b, c in zip(state, again, want):
+                assert (a == c).all() and (b == c).all(), (key, rank)
+            c1 = single.last_counts
+            assert counts["merges"] == counts["levels"] == c1["levels"]
+            # tests: the level loop's levels + phases, the ALTERNATE
+            # loop's steps + one a run (every phase but the last, twice
+            # where it fell back)
+            phases, fallbacks = int(state[2]), int(state[3])
+            assert counts["host_syncs"] == c1["host_syncs"] + \
+                counts["levels"] + counts["alternate_steps"] + \
+                2 * phases - 1 + fallbacks, (counts, c1)
+            assert launches[_WORLD_PATHS[path]] > 0, (key, rank, launches)
+
+
+@pytest.mark.gpu
+def test_cuda_nccl_world_of_one_captures_the_merge(tmp_path):
+    """A world of one NCCL rank in this process: its merge is captured in
+    the level's graph under the WHILE node, so a solve makes the
+    single-device host syncs; the state bit for bit."""
+    _card()
+    import torch_world_ranks as ranks
+    from repro_torch.distributed import close_world, init_world
+    g = random_bipartite(3000, 2800, 4.0, seed=31)
+    world = init_world(0, 1, f"file://{tmp_path}/store", device="cuda:0")
+    try:
+        assert world.backend == "nccl"
+        out = ranks.solve_cases(world, _world_cases(g))
+    finally:
+        close_world()
+    for key, g_, path, ws, kw, _ in _world_cases(g):
+        cfg = SOLVE_PATHS[path].configure(MatcherConfig())
+        t = TorchCSR.from_host(g, device="cuda")
+        t = t.with_csc() if cfg.dirop else t
+        single = Matcher(cfg, ws)
+        want = ranks.outcome(single.run(t))
+        state, counts, launches, again = out[key]
+        for a, b, c in zip(state, again, want):
+            assert (a == c).all() and (b == c).all(), key
+        assert counts["host_syncs"] == single.last_counts["host_syncs"]
+        assert counts["merges"] == counts["levels"] > 0
+        assert launches[_WORLD_PATHS[path]] > 0

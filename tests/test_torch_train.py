@@ -332,6 +332,8 @@ def test_launch_train_crash_restart_bitexact(tmp_path):
 
 
 def test_launch_train_refuses_a_mesh(tmp_path):
+    """A model axis (``DxM``, ``M > 1``) waits for ROADMAP item 14; the data
+    axis alone runs (``tests/test_torch_train_world.py``)."""
     r = _train(str(tmp_path), "--mesh", "2x2", steps=1)
     assert r.returncode != 0
-    assert "Queue 1, item 13" in r.stderr
+    assert "Queue 1, item 14" in r.stderr
