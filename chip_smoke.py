@@ -12,10 +12,13 @@ What it does, in order; any failure raises and the exit code is not 0:
    source, ``sm_90a``, all started together), printing the build times and
    each kernel's registers and spills (the tensor-core flash body must not
    spill); then worker processes make the main-path graphs (each graph's
-   cardinality by scipy is started in a worker as it arrives, and read in
-   step 4) and the graphs of step 5b with their scipy cardinalities, solve
-   each main-path graph on the CPU (checked after step 6) and solve the
-   small corpus on the CPU through every solve path (for step 4);
+   cardinality by scipy and its CPU solve, checked after step 15, are
+   started in workers as it arrives; the cardinality is read in step 4)
+   and the graphs of step 5b with their scipy cardinalities, and solve the
+   small corpus on the CPU through every solve path (for step 4); the
+   workers run at the lowest priority, so that the card's phases and the
+   ranks of step 5c go first; steps 7-9, 16 and 17, which need no graph,
+   run on the card while the workers draw the graphs;
 2. drives the matching main path, ``TorchCSR.from_host`` (then ``with_csc``
    for the direction-optimizing paths) -> warm start -> APFB/APsB solve, on
    three full-size graphs made by the port's own generators, through every
@@ -35,7 +38,7 @@ What it does, in order; any failure raises and the exit code is not 0:
    to scipy's ``maximum_bipartite_matching`` (independent of the code under
    test; in step 4), ``certified`` True, the CPU's state bit for bit (a
    worker's run of the main-path config on the same graph; every path
-   gives the same state; after step 6), and the run's own kernel launched
+   gives the same state; after step 15), and the run's own kernel launched
    or compact branch taken.  The
    entry's bytes are read: its static buffers, and the memory the card
    holds for it (buffers and the graphs' pool);
@@ -112,6 +115,31 @@ What it does, in order; any failure raises and the exit code is not 0:
    (``TRAIN_GATE_RTOL``), the ``W=2`` checkpoint restored at ``W=1`` held
    to the one-device tree leaf by leaf (the train gate), and one more step
    from it against the uninterrupted run's;
+5d. the model axis (tensor and sequence parallelism, FSDP;
+   ``build_model(cfg, world)``), its ranks phase 5c's worlds of 2 and 4
+   remeshed (``World.remesh``) after 5c's work, its checks in this
+   process: (a) the gloo world of 1 x 2 ranks sharing the card:
+   granite-20b at full width cut to 4 layers, bf16,
+   ``attn_impl="pallas"``, each rank drawing the whole tree from the seed a
+   layer at a time and keeping its slices; the prefill B=1 x 4096 with K4
+   on each rank's 24 query heads and the one replicated K/V head (K4's
+   counts set to 0 just before, read just after: once a layer a rank, on
+   the tensor-core body), the gathered logits held to the one-device
+   prefill of the same weights within ``LOGIT_GAP_TOL``, which a control
+   with the middle layer's attention zeroed must exceed; 8 greedy decode
+   steps over each rank's KV cache, each step's gathered logits held to
+   the one-device decode of the same tokens within ``LOGIT_GAP_TOL``, the
+   cache bytes of each rank printed; K4 at a rank's layer shape (1, 4096,
+   24, 1, 128), both masks, against its plain version (2e-2), timed beside
+   the plain version, SDPA and its bound; (b) the gloo world of 2 x 2
+   ranks: granite-20b at full width (FSDP over ``data``, sequence
+   parallelism over ``model``, remat): the fp32 gate, one layer, two steps
+   of B=2 x 512, saved at 2 x 2 (every leaf gathered onto rank 0's host)
+   and restored on one device, held leaf by leaf to the one-device
+   ``microbatch=2`` steps (the train gate) and one more step from each
+   (``TRAIN_GATE_RTOL``), the losses too; then bf16, two layers, two steps
+   of B=4 x 2048: seconds a step, peak bytes a rank and the bytes handed
+   to each axis's collectives printed;
 6. the serving path: ``repro_torch.serving.MatchingService`` on the card
    over the ladder 16,384² .. 262,144² (edge factor 8, ``max_batch`` 16),
    a 256-request trace (the four families of ``serve_matching.FAMILIES``
@@ -272,8 +300,9 @@ What it does, in order; any failure raises and the exit code is not 0:
    run, below that first step's loss (each step trains on a fresh batch,
    whose spread at ln(vocab) hides a few steps' progress; the last loss
    against the first is printed beside it);
-19. the two knobs: granite-20b FULL served as in phase 9 with the bf16
-   cache and with the int8 one (``opt_kv_quant``: the cache's bytes, the
+19. the two knobs: granite-20b at full width, its depth cut to
+   ``KVQ_CUTS`` (a quarter of its 52 layers, for the script's time), served
+   as in phase 9 with the bf16 cache and with the int8 one (``opt_kv_quant``: the cache's bytes, the
    decode ms a step of both, the logits gap over the decode steps of a
    lockstep run of both caches on the same tokens); two fp32 granite
    layers at full width, the int8 codes and bf16 scales of 8 decode steps
@@ -287,8 +316,10 @@ What it does, in order; any failure raises and the exit code is not 0:
    rank's), as ``launches_world``, and step 6b's, as
    ``launches_corpus``, and K1a, K2a and K3a
    carry their shard-slice checks and times; K1a's launches include the
-   exact route's, K4's dbrx's and seamless's prefills', and K4 carries its
-   times at dbrx's and seamless's shapes), then as its last line
+   exact route's, K4's dbrx's and seamless's prefills' and the model
+   axis's ranks' (``launches_model_axis``), and K4 carries its times at
+   dbrx's and seamless's shapes and at a rank's heads under the model
+   axis), then as its last line
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.  It needs a CUDA card and the
@@ -302,6 +333,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import multiprocessing
 import os
 import re
@@ -309,6 +341,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -414,6 +447,18 @@ def label(entry) -> str:
     return f"{name}({', '.join(parts)})"
 
 
+def import_in_background() -> threading.Thread:
+    """Import ``torch._dynamo`` in a thread of its own while this process
+    does other work: ``torch.utils.checkpoint``'s first call (remat, in
+    every train step) imports it, 13 s in each rank of a world sharing the
+    card host.  Join the thread before the first train step."""
+    import importlib
+    t = threading.Thread(target=importlib.import_module,
+                         args=("torch._dynamo",), daemon=True)
+    t.start()
+    return t
+
+
 def use_src() -> None:
     """Import the port from this checkout (worker processes start bare)."""
     if os.path.join(HERE, "src") not in sys.path:
@@ -447,16 +492,13 @@ def make_graph(entry):
     return g, want, gen_s, scipy_s
 
 
-def main_path_cpu(entry, threads: int) -> tuple:
-    """Worker process: one main-path graph solved on the CPU with its
+def main_path_cpu(entry, g, threads: int) -> tuple:
+    """Worker process: the main-path graph ``g`` solved on the CPU with its
     main-path config and warm start, on ``threads`` threads.  Returns the
     outcome and the seconds it took."""
     use_src()
     torch.set_num_threads(threads)
-    from repro_torch import graphs
     from repro_torch.matching import Matcher, MatcherConfig, TorchCSR
-    name, args, kw = entry[:3]
-    g = getattr(graphs, name)(*args, **kw)
     t0 = time.perf_counter()
     state = Matcher(MatcherConfig(**entry[3]), entry[4]).run(
         TorchCSR.from_host(g, device="cpu"))
@@ -491,29 +533,32 @@ def outcome(state) -> tuple:
 
 def start_workers(pool, paths) -> tuple:
     """Start the graph workers, the sharded phase's graph workers, the CPU
-    main-path workers, the CPU small-set workers and the CPU small-set
-    traces (phase 6b) together."""
+    small-set workers and the CPU small-set traces (phase 6b) together.
+    The CPU main-path solves start as their graphs arrive
+    (:func:`collect_graphs`), on those graphs: none of them draws a graph
+    again while the graphs are being drawn."""
     graphs = [pool.apply_async(generate, (e,)) for e in MAIN_PATH]
     extra = [pool.apply_async(make_graph, (e,)) for e in SHARDED_GRAPHS]
-    cpu = [pool.apply_async(main_path_cpu, (e, CPU_THREADS[i]))
-           for i, e in enumerate(MAIN_PATH)]
     small = {p: pool.apply_async(small_sets_cpu, (p,)) for p in paths}
     traces = pool.apply_async(small_traces_cpu)
-    return graphs, extra, cpu, small, traces
+    return graphs, extra, small, traces
 
 
 def collect_graphs(pool, pending) -> tuple:
     """The main-path graphs as they arrive, each graph's scipy cardinality
-    started in a worker at once (read later, by :func:`check_scipy`):
-    (graphs, pending cardinalities)."""
-    graphs, wants = [], []
-    for entry, r in zip(MAIN_PATH, pending):
+    (read by :func:`check_scipy`) and its CPU main-path solve (read by
+    :func:`check_cpu`) started in workers at once: (graphs, pending
+    cardinalities, pending CPU solves)."""
+    graphs, wants, cpu = [], [], []
+    for i, (entry, r) in enumerate(zip(MAIN_PATH, pending)):
         g, gen_s = r.get()
         graphs.append(g)
         wants.append(pool.apply_async(scipy_cardinality, (g,)))
+        cpu.append(pool.apply_async(main_path_cpu,
+                                    (entry, g, CPU_THREADS[i])))
         say(f"graph {label(entry)}: {g.nc} x {g.nr}, {g.nnz} edges, "
             f"generated in {gen_s:.1f} s")
-    return graphs, wants
+    return graphs, wants, cpu
 
 
 def check_scipy(rows, wants) -> list:
@@ -1459,11 +1504,15 @@ def world_solve(world, g, path: str, kw: dict, ws: str) -> dict:
                 peak_bytes=torch.cuda.max_memory_allocated(), **m.last_counts)
 
 
-def world_rank(world, graph_files: dict, runs, train: bool, ckpt: str):
+def world_rank(world, graph_files: dict, runs, train: bool, ckpt: str,
+               axis_ckpt: str):
     """A rank of phase 5c: every run of ``runs`` (cold, and warm where
     WORLD_WARM says), then, with ``train``, WORLD_TRAIN_STEPS data-parallel
-    steps of mamba2 cut to WORLD_TRAIN_CUTS, saved at ``ckpt``."""
+    steps of mamba2 cut to WORLD_TRAIN_CUTS, saved at ``ckpt``.  Then the
+    same ranks as phase 5d's mesh (``World.remesh``: a world of 2 as 1 x 2,
+    of 4 as 2 x 2) run phase 5d's part (saving at ``axis_ckpt``), timed."""
     use_src()
+    dynamo = import_in_background()
     from repro_torch.kernels._build import load_library
     from repro_torch.matching import compile_cache_clear
     for name in ("frontier_expand", "graph_loop"):
@@ -1480,8 +1529,16 @@ def world_rank(world, graph_files: dict, runs, train: bool, ckpt: str):
         compile_cache_clear()
     del graphs
     torch.cuda.empty_cache()
+    dynamo.join()
     if train:
         out["train"] = world_train(world, ckpt)
+    t0 = time.perf_counter()
+    if world.size == 2:
+        out["axis"] = axis_serve_rank(world.remesh((1, 2)))
+    else:
+        out["axis"] = axis_train_rank(world.remesh((2, 2)), axis_ckpt)
+    torch.cuda.synchronize()
+    out["axis_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1492,7 +1549,7 @@ def world_train(world, ckpt: str) -> dict:
     from repro_torch.ckpt import save_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
-    from repro_torch.optim import adamw_init, zero1_state_dims
+    from repro_torch.optim import adamw_init, state_cuts
     from repro_torch.train import build_train_step
     cfg = get_config(MAMBA_ARCH, **WORLD_TRAIN_CUTS)
     model = build_model(cfg)
@@ -1510,7 +1567,7 @@ def world_train(world, ckpt: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     _, save_s, _ = timed(lambda: save_checkpoint(
         ckpt, WORLD_TRAIN_STEPS, {"params": params, "opt": state},
-        world=world, dims={"opt": zero1_state_dims(params, opt, world)}))
+        world=world, dims={"opt": state_cuts(params, opt, world, None)}))
     return dict(losses=losses, step_s=walls, peak_memory_bytes=peak,
                 save_s=save_s)
 
@@ -1709,18 +1766,22 @@ def world_train_checks(result, ckpt: str) -> dict:
     return reading
 
 
-def world_phase(graphs, phase2) -> dict:
+def world_phase(graphs, phase2, axis_ckpt: str) -> tuple:
     """Phase 5c (module doc): (a) gloo worlds of WORLD_SIZES ranks on the
     card, the world of 2 also training, (b) an NCCL world of one rank in
     this process, (c) the world of 2's training against one device.
     ``phase2``: (graph index, path) -> (row, warm outcome) of phase 2.
-    Returns per kernel body the launches of every rank's runs."""
+    The worlds of (a) then run phase 5d's ranks (saving at
+    ``axis_ckpt``).  Returns (per kernel body the launches of every rank's
+    runs, phase 5d's rank results by world size, the seconds the ranks
+    spent on phase 5d)."""
     from repro_torch.distributed import run_world
     wants = {k: digest(v[1][0], v[1][1]) for k, v in phase2.items()}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_world_")
     ckpt = os.path.join(HERE, "build", "chip_smoke_world_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
     launches = {body: 0 for body in KERNELS}
+    axis, axis_s = {}, 0.0
     try:
         files = {}
         for gi in {r[0] for r in SHARDED_RUNS}:
@@ -1730,9 +1791,13 @@ def world_phase(graphs, phase2) -> dict:
         for size in WORLD_SIZES:
             t0 = time.perf_counter()
             results = run_world(world_rank, size, files, SHARDED_RUNS,
-                                size == 2, ckpt, timeout=WORLD_TIMEOUT)
+                                size == 2, ckpt, axis_ckpt,
+                                timeout=WORLD_TIMEOUT)
+            axis[size] = [r["axis"] for r in results]
+            axis_s += max(r["axis_s"] for r in results)
             say(f"phase 5c, a gloo world of {size} on the card: "
-                f"{time.perf_counter() - t0:.1f} s")
+                f"{time.perf_counter() - t0:.1f} s, of which phase 5d's "
+                f"ranks {max(r['axis_s'] for r in results):.1f} s")
             if {r["backend"] for r in results} != {"gloo"}:
                 fail(f"ranks sharing the card chose "
                      f"{[r['backend'] for r in results]}")
@@ -1757,7 +1822,301 @@ def world_phase(graphs, phase2) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(ckpt, ignore_errors=True)
         torch.cuda.empty_cache()
-    return launches
+    return launches, axis, axis_s
+
+
+# ---------------------------------------------------------------------------
+# the model axis: tensor and sequence parallelism, FSDP (phase 5d)
+# ---------------------------------------------------------------------------
+# Its ranks are phase 5c's worlds, remeshed (World.remesh).
+# (a) a world of 1 x 2 ranks sharing the card: granite-20b at full width cut
+# to AXIS_SERVE_CUTS, bf16, K4 on each rank's heads: the prefill (rows,
+# positions) and greedy decode steps; K4 at a rank's layer shape
+AXIS_SERVE_CUTS = dict(n_layers=4, attn_impl="pallas")
+AXIS_PREFILL = (1, 4096)
+AXIS_DECODE = 8
+FA_LOCAL = (1, 4096, 24, 1, 128)
+# (b) a world of 2 x 2 ranks: granite-20b at full width (FSDP over data,
+# sequence parallelism over model, remat); the fp32 gate (cuts; rows,
+# positions, steps) against one device's microbatch=2 steps, saved at 2x2
+# and restored on one device; then a bf16 run (cuts; rows, positions,
+# steps) for its seconds a step, peak bytes and collective bytes
+AXIS_GATE_CUTS = dict(n_layers=1, dtype="float32")
+AXIS_GATE = (2, 512, 2)
+AXIS_BF16_CUTS = dict(n_layers=2)
+AXIS_BF16 = (4, 2048, 2)
+# phase 5d's K4 launches and times, for the kernels' line
+AXIS: dict = {}
+
+
+def axis_gate_opt():
+    """The gate's optimizer: the launcher's for granite-20b, without fp32
+    masters (the gate's params are fp32 already)."""
+    return dataclasses.replace(train_opt_config(LM_ARCH), master_fp32=False)
+
+
+def axis_tokens(cfg, batch: int, seq: int) -> torch.Tensor:
+    """Seeded prompt tokens (on the CPU: every rank and the parent draw
+    the same)."""
+    gen = torch.Generator().manual_seed(LM_SEED)
+    return torch.randint(0, cfg.vocab, (batch, seq), generator=gen)
+
+
+def axis_serve_rank(world) -> dict:
+    """Phase 5d(a) on one rank: the prefill through K4 on this rank's heads
+    (K4's counts set to 0 just before, read just after), then AXIS_DECODE
+    greedy steps on a fresh cache from the prefill's argmax; the gathered
+    logits, the tokens, the cache's bytes on this rank."""
+    use_src()
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import comm
+    from repro_torch.kernels.flash_attention import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.train import build_prefill_step, build_serve_step
+    cfg = get_config(LM_ARCH, **AXIS_SERVE_CUTS)
+    model = build_model(cfg, world)
+    params, init_s, _ = timed(lambda: model.init(LM_SEED))
+    B, S = AXIS_PREFILL
+    batch = {"tokens": axis_tokens(cfg, B, S).to(world.device)}
+    prefill = build_prefill_step(model)
+    prefill(params, batch)                             # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    comm.reset_counts()
+    logits, wall, peak = timed(lambda: prefill(params, batch))
+    launches = dict(LAUNCHES)
+    prefill_comm = comm.axis_counts()
+    serve = build_serve_step(model)
+    cache = model.init_cache(B, AXIS_DECODE)
+    tok = logits[:, -1:].argmax(-1)
+    toks, steps = [], []
+    t0 = time.perf_counter()
+    for _ in range(AXIS_DECODE):
+        toks.append(tok.cpu())
+        lg, cache = serve(params, cache, tok)
+        steps.append(lg.cpu())
+        tok = lg[:, -1:].argmax(-1)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values()
+                      if isinstance(t, torch.Tensor))
+    return dict(rank=world.rank, backend=world.backend, init_s=init_s,
+                logits=logits.cpu(), launches=launches, prefill_s=wall,
+                peak_bytes=peak, prefill_comm=prefill_comm,
+                tokens=torch.cat(toks, 1), decode=torch.cat(steps, 1),
+                decode_ms_per_step=decode_s / AXIS_DECODE * 1e3,
+                cache_bytes=cache_bytes)
+
+
+def axis_train_rank(world, ckpt: str) -> dict:
+    """Phase 5d(b) on one rank: the fp32 gate's steps, saved at ``ckpt``
+    (collectively: rank 0 writes), then the bf16 run's steps, each timed,
+    with the peak bytes and the bytes handed to each axis's collectives."""
+    use_src()
+    from repro_torch.ckpt import save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import comm
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_map_paths
+    from repro_torch.optim import adamw_init, state_cuts
+    from repro_torch.train import build_train_step
+
+    def run(cfg, opt, batch, seq, steps, ckpt=None):
+        model = build_model(cfg, world)
+        params = model.init(TRAIN_SEED)
+        places = model.places(params)
+        state = adamw_init(params, opt, world, places)
+        step = build_train_step(model, opt)
+        losses, walls = [], []
+        comm.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        for s in range(steps):
+            b = train_batch(cfg, batch, seq, s, device=world.device)
+            (params, state, met), wall, _ = timed(
+                lambda: step(params, state, b))
+            losses.append(float(met["loss"]))
+            walls.append(wall)
+        out = dict(losses=losses, step_s=walls,
+                   peak_bytes=torch.cuda.max_memory_allocated(),
+                   comm=comm.axis_counts())
+        if ckpt:
+            dims = {"params": tree_map_paths(lambda _, pl: pl.cuts, places),
+                    "opt": state_cuts(params, opt, world, places)}
+            _, out["save_s"], _ = timed(lambda: save_checkpoint(
+                ckpt, steps, {"params": params, "opt": state}, world=world,
+                dims=dims))
+        del params, state
+        torch.cuda.empty_cache()
+        return out
+
+    B, S, n = AXIS_GATE
+    gate = run(get_config(LM_ARCH, **AXIS_GATE_CUTS), axis_gate_opt(), B, S,
+               n, ckpt)
+    B, S, n = AXIS_BF16
+    bf16 = run(get_config(LM_ARCH, **AXIS_BF16_CUTS),
+               train_opt_config(LM_ARCH), B, S, n)
+    return dict(rank=world.rank, backend=world.backend, gate=gate,
+                bf16=bf16)
+
+
+def axis_serve_checks(results) -> dict:
+    """Phase 5d(a)'s checks on one device: the same weights' prefill
+    (the gathered logits within LOGIT_GAP_TOL, which a control with one
+    layer's attention zeroed must exceed), K4 launched once a layer on
+    every rank, and the world's greedy tokens teacher-forced here, each
+    step's logits within LOGIT_GAP_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import build_prefill_step, build_serve_step
+    cfg = get_config(LM_ARCH, **AXIS_SERVE_CUTS)
+    model = build_model(cfg)
+    params = model.init(LM_SEED)
+    B, S = AXIS_PREFILL
+    batch = {"tokens": axis_tokens(cfg, B, S).to(CARD)}
+    prefill = build_prefill_step(model)
+    want, one_s, _ = timed(lambda: prefill(params, batch))
+    control = with_attention(skip_attention(cfg.n_layers // 2),
+                             lambda: prefill(params, batch))
+    got = results[0]["logits"].to(CARD)
+    what = f"{cfg.name} ({cfg.n_layers} layers) over a 1 x 2 world"
+    gap, control_gap = logit_gap(got, want), logit_gap(control, want)
+    for r in results:
+        if not torch.equal(r["logits"], results[0]["logits"]):
+            fail(f"{what}: the ranks' gathered logits differ")
+        if r["launches"]["flash_attention"] != cfg.n_layers or \
+                r["launches"]["flash_attention_tc"] != cfg.n_layers:
+            fail(f"{what}: rank {r['rank']} launched K4 "
+                 f"{r['launches']} times for {cfg.n_layers} layers")
+    serve = build_serve_step(model)
+    cache = model.init_cache(B, AXIS_DECODE)
+    toks = results[0]["tokens"].to(CARD)
+    gaps, agree = [], 0
+    for t in range(AXIS_DECODE):
+        lg, cache = serve(params, cache, toks[:, t:t + 1])
+        mine = results[0]["decode"][:, t:t + 1].to(CARD)
+        gaps.append(logit_gap(mine, lg))
+        agree += int((mine.argmax(-1) == lg.argmax(-1)).sum())
+    out = dict(arch=cfg.name, layers=cfg.n_layers, mesh="1x2",
+               backend=results[0]["backend"], batch=B, seq=S,
+               logits_gap=gap, control_gap=control_gap,
+               gate=LOGIT_GAP_TOL, prefill_s=[r["prefill_s"] for r in results],
+               one_device_prefill_s=one_s,
+               peak_bytes_by_rank=[r["peak_bytes"] for r in results],
+               init_s=[r["init_s"] for r in results],
+               prefill_collectives=results[0]["prefill_comm"],
+               launches_by_rank=[r["launches"]["flash_attention"]
+                                 for r in results],
+               decode_gaps=gaps, decode_argmax_agree=f"{agree}/"
+               f"{B * AXIS_DECODE}",
+               decode_ms_per_step=[r["decode_ms_per_step"] for r in results],
+               cache_bytes_by_rank=[r["cache_bytes"] for r in results])
+    say("model axis, serve:", json.dumps(out))
+    if not gap <= LOGIT_GAP_TOL < control_gap:
+        fail(f"{what}: logits gap {gap}, control {control_gap}, gate "
+             f"{LOGIT_GAP_TOL}")
+    if not max(gaps) <= LOGIT_GAP_TOL:
+        fail(f"{what}: decode logits gaps {gaps} against one device")
+    del params, cache, control, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def axis_train_checks(results, ckpt: str) -> dict:
+    """Phase 5d(b)'s checks on one device: the fp32 gate's steps with
+    ``microbatch=2`` (the data axis's row blocks) against the world's
+    losses, the 2 x 2 checkpoint restored here against those steps' tree
+    leaf by leaf (the train gate), and one more step from each."""
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    cfg = get_config(LM_ARCH, **AXIS_GATE_CUTS)
+    model = build_model(cfg)
+    opt = axis_gate_opt()
+    B, S, n = AXIS_GATE
+    step = build_train_step(model, opt, microbatch=2)
+    params = model.init(TRAIN_SEED)
+    state = adamw_init(params, opt)
+    one = []
+    for s in range(n):
+        params, state, met = step(params, state, train_batch(cfg, B, S, s))
+        one.append(float(met["loss"]))
+    fresh = model.init(TRAIN_SEED + 1)
+    (tree, at), restore_s, _ = timed(lambda: restore_checkpoint(
+        ckpt, {"params": fresh, "opt": adamw_init(fresh, opt)}))
+    del fresh
+    gate = leaf_gate(tree, {"params": params, "opt": state}, opt.lr)
+    nxt = train_batch(cfg, B, S, n)
+    _, _, met = step(params, state, nxt)
+    straight = float(met["loss"])
+    del params, state
+    torch.cuda.empty_cache()
+    _, _, met = step(tree["params"], tree["opt"], nxt)
+    resumed = float(met["loss"])
+    del tree
+    torch.cuda.empty_cache()
+    g = results[0]["gate"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(g["losses"], one)]
+    bf = results[0]["bf16"]
+    out = dict(arch=cfg.name, mesh="2x2", backend=results[0]["backend"],
+               fsdp=True, sequence_parallel=True,
+               gate=dict(cuts=AXIS_GATE_CUTS, batch=B, seq=S,
+                         world_losses=g["losses"], one_device_losses=one,
+                         loss_rel_gaps=gaps,
+                         step_s=[r["gate"]["step_s"] for r in results],
+                         peak_bytes_by_rank=[r["gate"]["peak_bytes"]
+                                             for r in results],
+                         save_s=g["save_s"], restore_s=restore_s,
+                         restored_step=at, leaves=gate,
+                         step_after_restore=resumed, step_straight=straight,
+                         restore_rel_gap=abs(resumed - straight)
+                         / abs(straight)),
+               bf16=dict(cuts=AXIS_BF16_CUTS, batch=AXIS_BF16[0],
+                         seq=AXIS_BF16[1], losses=bf["losses"],
+                         step_s=[r["bf16"]["step_s"] for r in results],
+                         peak_bytes_by_rank=[r["bf16"]["peak_bytes"]
+                                             for r in results],
+                         collectives_rank0=bf["comm"]))
+    say("model axis, train:", json.dumps(out))
+    if any(r["gate"]["losses"] != g["losses"] or r["bf16"]["losses"] !=
+           bf["losses"] for r in results):
+        fail("phase 5d: the ranks' losses differ")
+    if not all(x <= TRAIN_GATE_RTOL for x in gaps):
+        fail(f"phase 5d: the 2 x 2 world's losses against one device's "
+             f"microbatch=2 steps: {gaps}")
+    if at != n or not gate["passes"]:
+        fail(f"phase 5d: the 2 x 2 checkpoint restored on one device fails "
+             f"the train gate: step {at}, {gate}")
+    if not out["gate"]["restore_rel_gap"] <= TRAIN_GATE_RTOL:
+        fail(f"phase 5d: the step after the 2x2 -> 1 restore: {resumed} "
+             f"against {straight}")
+    if not all(math.isfinite(x) for x in bf["losses"]):
+        fail(f"phase 5d: bf16 losses {bf['losses']}")
+    return out
+
+
+def model_axis_phase(axis: dict, ckpt: str) -> dict:
+    """Phase 5d's checks on one device (module doc) of the ranks' results
+    ``axis`` (phase 5c's worlds of 2 and 4 as 1 x 2 and 2 x 2), and K4 at
+    the 1 x 2 world's layer shape.  Returns K4's launches over the ranks'
+    prefills and its times at the local shape."""
+    try:
+        t0 = time.perf_counter()
+        axis_serve_checks(axis[2])
+        times = flash_at(FA_LOCAL, torch.Generator(device=CARD).manual_seed(
+            LM_SEED), "granite-20b under M = 2 (one rank's heads)")
+        say(f"phase 5d, the 1 x 2 world's checks and K4 at the local shape: "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        axis_train_checks(axis[4], ckpt)
+        say(f"phase 5d, the 2 x 2 world's checks: "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return dict(launches=sum(r["launches"]["flash_attention"]
+                             for r in axis[2]), times=times)
 
 
 # ---------------------------------------------------------------------------
@@ -3976,6 +4335,7 @@ TRAIN_GATE_SHARE = 1e-3
 # prompt stepped, tokens generated), and a lockstep run of both caches
 # over the same tokens (prompt, decode steps) for the logits gap; the
 # codes card against CPU over (batch, steps) of two fp32 layers
+KVQ_CUTS = dict(n_layers=13)
 KVQ_GAP_RUN = (8, 8)
 KVQ_CHECK = (2, 8)
 # opt_attn_layout: two fp32 dbrx layers, the prefill (batch, positions)
@@ -4412,22 +4772,23 @@ def kvq_codes_check() -> dict:
 
 
 def kvq_serving() -> dict:
-    """granite-20b FULL served with the bf16 cache and with the int8 one
-    (phase 9's greedy serving), then both caches stepped in lockstep over
-    the same tokens (the bf16 run's greedy ones): the logits gap at each
-    decode step."""
+    """granite-20b at full width cut to KVQ_CUTS, served with the bf16
+    cache and with the int8 one (phase 9's greedy serving), then both
+    caches stepped in lockstep over the same tokens (the bf16 run's greedy
+    ones): the logits gap at each decode step."""
     from repro_torch.configs import get_config
     from repro_torch.configs.shapes import ShapeCell, make_inputs
     from repro_torch.models import build_model
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(LM_ARCH, **KVQ_CUTS)
     plain, quant = build_model(cfg), build_model(
         dataclasses.replace(cfg, opt_kv_quant=True))
     params, init_s, _ = timed(lambda: plain.init(LM_SEED))
     inputs = make_inputs(cfg, ShapeCell("serve", SERVE_PROMPT, SERVE_BATCH,
                                         "prefill"), seed=LM_SEED)
     max_len = SERVE_PROMPT + SERVE_GEN
-    out = {"arch": cfg.name, "batch": SERVE_BATCH, "max_len": max_len,
+    out = {"arch": cfg.name, "cuts": KVQ_CUTS, "batch": SERVE_BATCH,
+           "max_len": max_len,
            "cache_bytes_bf16": kv_cache_bytes(
                plain.init_cache(SERVE_BATCH, max_len)),
            "cache_bytes_int8": kv_cache_bytes(
@@ -4509,15 +4870,19 @@ def knob_phase() -> dict:
                 attn_layout=layout_check())
 
 
-def family_phases() -> tuple:
-    """Phases 14-17: mamba2, zamba2, seamless, paligemma.  Returns (K4's
-    launches in seamless's prefill, K4's times at seamless's shape)."""
+def family_phases() -> None:
+    """Phases 14-15: mamba2, zamba2."""
     t0 = time.perf_counter()
     mamba_phase()
     phase(MAMBA_ARCH, t0)
     t0 = time.perf_counter()
     zamba_phase()
     phase(ZAMBA_ARCH, t0)
+
+
+def attention_family_phases() -> tuple:
+    """Phases 16-17: seamless, paligemma.  Returns (K4's launches in
+    seamless's prefill, K4's times at seamless's shape)."""
     t0 = time.perf_counter()
     k4, times = seamless_phase(
         torch.Generator(device=CARD).manual_seed(FAMILY_SEED))
@@ -4555,6 +4920,7 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     use_src()
+    dynamo = import_in_background()
     from repro_torch.kernels._build import load_library
     from repro_torch.matching import SOLVE_PATHS
 
@@ -4580,18 +4946,26 @@ def main() -> int:
         if spilled:
             fail(f"tensor-core flash bodies spill registers: {spilled}")
 
-    # graphs and the CPU half of the small-set check, in worker processes;
-    # terminated on the way out whatever happens
-    pool = multiprocessing.get_context("spawn").Pool(2 * len(MAIN_PATH) + 1)
+    dynamo.join()
+    # graphs, the CPU half of the small-set check and the CPU main-path
+    # solves, in worker processes at the lowest priority (the card's
+    # phases and the ranks of phase 5c's worlds, which the host bounds, go
+    # first); terminated on the way out whatever happens
+    pool = multiprocessing.get_context("spawn").Pool(
+        2 * len(MAIN_PATH) + 1, initializer=os.nice, initargs=(19,))
     try:
-        kernels = run_phases(pool, list(SOLVE_PATHS))
+        kernels, lm, (k4_seamless, seamless_times), cpu = run_phases(
+            pool, list(SOLVE_PATHS))
+        torch.cuda.empty_cache()
+        k1a, k1a_levels, k4 = moe_phases()
+        family_phases()
+        t0 = time.perf_counter()
+        check_cpu(*cpu)
+        phase("the main path against the CPU", t0)
     finally:
         pool.terminate()
         pool.join()
-    torch.cuda.empty_cache()
-    kernels.append(lm_phases())
-    k1a, k1a_levels, k4 = moe_phases()
-    k4_seamless, seamless_times = family_phases()
+    kernels.append(lm)
     t0 = time.perf_counter()
     train_phase()
     phase("training", t0)
@@ -4605,10 +4979,12 @@ def main() -> int:
             entry["levels_checked"] += k1a_levels
             entry["levels_checked_exact_router"] = k1a_levels
         if entry["name"] == "flash_attention":
-            entry["launches"] += k4 + k4_seamless
+            entry["launches"] += k4 + k4_seamless + AXIS["launches"]
             entry["launches_dbrx_prefill"] = k4
             entry["launches_seamless_prefill"] = k4_seamless
             entry["seamless"] = seamless_times
+            entry["launches_model_axis"] = AXIS["launches"]
+            entry["model_axis_local_heads"] = AXIS["times"]
 
     say(f"total: {time.perf_counter() - started:.1f} s")
     say(json.dumps({"kernels": kernels}))
@@ -4618,16 +4994,22 @@ def main() -> int:
     return 0
 
 
-def run_phases(pool, paths) -> list:
-    """The matching paths (phases 1-6b); returns their kernels' entries.
-    The CPU's main-path solves, the longest of the workers' jobs, are
-    checked last, after the serving phase."""
+def run_phases(pool, paths) -> tuple:
+    """The matching paths (phases 1-6b), with phases 7-9, 16 and 17 run on
+    the card while the workers draw the graphs (the matching phases wait
+    for them; those need none).  Returns (the matching kernels' entries,
+    K4's, ``attention_family_phases``' result, the arguments of
+    ``check_cpu``: the CPU's main-path solves, the longest of the
+    workers' jobs, are checked after phase 15)."""
     from repro_torch.matching import compile_cache_clear
     t0 = time.perf_counter()
-    pending_graphs, extra, cpu_main, cpu_small, cpu_traces = start_workers(
-        pool, paths)
-    graphs, wants = collect_graphs(pool, pending_graphs)
-    phase("graphs", t0)
+    pending_graphs, extra, cpu_small, cpu_traces = start_workers(pool, paths)
+    lm = lm_phases()
+    torch.cuda.empty_cache()
+    seamless = attention_family_phases()
+    torch.cuda.empty_cache()
+    graphs, wants, cpu_main = collect_graphs(pool, pending_graphs)
+    phase("graphs (phases 7-9, 16 and 17 on the card meanwhile)", t0)
 
     t0 = time.perf_counter()
     warm_up()
@@ -4653,8 +5035,16 @@ def run_phases(pool, paths) -> list:
     sharded = sharded_phase(graphs, wants, extra, phase2)
     phase("sharded matcher", t0)
     t0 = time.perf_counter()
-    world = world_phase(graphs, phase2)
-    phase("5c worlds of ranks", t0)
+    axis_ckpt = os.path.join(HERE, "build", "chip_smoke_axis_ckpt")
+    shutil.rmtree(axis_ckpt, ignore_errors=True)
+    world, axis, axis_s = world_phase(graphs, phase2, axis_ckpt)
+    say(f"phase 5c worlds of ranks: {time.perf_counter() - t0 - axis_s:.1f} "
+        f"s (less phase 5d's ranks, {axis_s:.1f} s)")
+    t0 = time.perf_counter()
+    AXIS.update(model_axis_phase(axis, axis_ckpt))
+    say(f"phase 5d the model axis: {time.perf_counter() - t0 + axis_s:.1f} "
+        f"s (its ranks {axis_s:.1f} s in phase 5c's worlds, its checks "
+        f"{time.perf_counter() - t0:.1f} s)")
 
     # one line for the kernels, each timed on the main-path graph of its
     # body: kron for WR, the random graph for plain
@@ -4698,10 +5088,7 @@ def run_phases(pool, paths) -> list:
     for entry in kernels:
         entry["launches_corpus"] = corpus.get(entry["name"], 0)
         entry["launches"] += entry["launches_corpus"]
-    t0 = time.perf_counter()
-    check_cpu(outcomes, cpu_main)
-    phase("the main path against the CPU", t0)
-    return kernels
+    return kernels, lm, seamless, (outcomes, cpu_main)
 
 
 def phase(name: str, t0: float) -> None:

@@ -19,17 +19,22 @@ manifest; they are read back by viewing the bytes as int16 and then as
 (``astype`` from ``V2`` fails, ROADMAP.md, Queue 3); this one reads its
 files and its own.  The manifest codec is :mod:`._msgpack`.
 
-Over a world's ranks (ZeRO-1, :mod:`repro_torch.optim.adamw`):
-``save_checkpoint(..., world=, dims=)`` gathers each cut leaf from every
-rank (``all_gather_into``, one leaf whole at a time), and rank 0 alone
-writes the reference's layout of whole leaves and publishes it; then every
-rank waits for the others.  So one device, any world size and the JAX
-package (fp32 leaves) all restore it.  ``restore_checkpoint(...,
-world=)`` reads each whole leaf and keeps this rank's slice of it where
-``tree_like``'s leaf is a slice (its shape the whole one's with one dim
-divided by the world's size): elastic restore, from any world size to any
-other, the counterpart of the JAX function's ``mesh`` and
-``sharding_tree``.
+Over a world's ranks a leaf may be cut over the data axis (ZeRO-1, FSDP)
+and the model axis: ``dims`` holds, per leaf, its cuts
+(:data:`~repro_torch.models.common.Cut` tuples: the model's
+:func:`~repro_torch.models.common.leaf_place` for the params,
+:func:`~repro_torch.optim.adamw.state_cuts` for the state).
+``save_checkpoint(..., world=, dims=)`` gathers each cut leaf over its
+axes onto rank 0 (``gather_cuts(..., root=True)``, one leaf whole at a
+time: on the host under gloo, on the card under NCCL), and rank 0 alone
+writes the reference's layout of whole leaves and publishes it; then
+every rank waits for the others.  So one device, any world and the JAX
+package (fp32 leaves) all restore it.
+``restore_checkpoint(..., world=, dims=)`` reads each whole leaf and
+keeps this rank's part of it by the ``dims`` given for the world it runs
+in: elastic restore, from any ``D x M`` to any other (``2x2 -> 1``, ``1
+-> 1x2``, ``2x2 -> 2``), the counterpart of the JAX function's ``mesh``
+and ``sharding_tree``.
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ import torch
 from numpy.lib import format as npy_format
 
 from repro_torch._device import resolve_device
-from repro_torch.distributed.comm import all_gather_into, barrier
+from repro_torch.distributed.comm import barrier
+from repro_torch.models.common import gather_cuts, take_cuts
 
 from . import _msgpack
 
@@ -86,9 +92,9 @@ def save_checkpoint(directory: str, step: int, tree, keep: int = 3,
                     world=None, dims=None) -> str:
     """Write ``tree`` as step ``step`` (module doc); returns its directory.
     ``world``: called on every rank, ``dims`` a tree over the subtrees
-    whose leaves are ZeRO-1 slices (``{"opt": adamw.zero1_state_dims(...)}``),
-    each leaf's dim (None: whole, equal on every rank); the gathered whole
-    leaves written by rank 0."""
+    whose leaves are cut (``{"params": ..., "opt": adamw.state_cuts(...)}``),
+    each leaf's cuts (``()``: whole, equal on every rank); the gathered
+    whole leaves written by rank 0."""
     d = os.path.join(directory, f"step_{step:09d}")
     tmp = d + ".tmp"
     writer = world is None or world.rank == 0
@@ -97,12 +103,8 @@ def save_checkpoint(directory: str, step: int, tree, keep: int = 3,
     cut = _flatten(dims) if dims is not None else {}
     meta: Dict[str, Any] = {"step": step, "leaves": {}}
     for key, leaf in _flatten(tree).items():
-        dim = cut.get(key)
-        if world is not None and dim is not None:
-            whole = leaf.new_empty(
-                leaf.shape[:dim] + (leaf.shape[dim] * world.size,)
-                + leaf.shape[dim + 1:])
-            leaf = all_gather_into(whole, leaf, dim, world)
+        if world is not None and cut.get(key):
+            leaf = gather_cuts(leaf, cut[key], world, root=True)
         if not writer:
             continue
         arr, dtype = _to_numpy(leaf)
@@ -152,15 +154,16 @@ def _load_leaf(path: str, dtype: str) -> torch.Tensor:
 
 
 def restore_checkpoint(directory: str, tree_like, step: Optional[int] = None,
-                       device=None, world=None) -> Tuple[Any, int]:
+                       device=None, world=None, dims=None
+                       ) -> Tuple[Any, int]:
     """Restore into the structure of ``tree_like`` (nested dicts), each
     leaf cast to the dtype of ``tree_like``'s leaf there and put on
     ``device`` (the card unless given).  A leaf of ``tree_like`` that is
     already a tensor of that shape and dtype on that device is filled in
     place and returned, so restoring a model's state on the card needs no
-    second copy of it.  ``world``: where ``tree_like``'s leaf is this
-    rank's slice of the whole one (module doc), the slice is kept.
-    Returns ``(tree, step)``."""
+    second copy of it.  ``world`` and ``dims`` (as :func:`save_checkpoint`
+    takes it, for the world restored in): the leaves it cuts are cut to
+    this rank's part.  Returns ``(tree, step)``."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -169,14 +172,15 @@ def restore_checkpoint(directory: str, tree_like, step: Optional[int] = None,
     d = os.path.join(directory, f"step_{step:09d}")
     with open(os.path.join(d, MANIFEST), "rb") as f:
         meta = _msgpack.unpackb(f.read())
+    cut = _flatten(dims) if dims is not None else {}
     out = {}
     for key, like in _flatten(tree_like).items():
         info = meta["leaves"].get(key)
         if info is None:
             raise KeyError(f"checkpoint at step {step} missing leaf {key}")
         t = _load_leaf(os.path.join(d, info["file"]), info["dtype"])
-        if world is not None and isinstance(like, torch.Tensor):
-            t = _rank_part(t, tuple(like.shape), world, key)
+        if world is not None and cut.get(key):
+            t = take_cuts(t, cut[key], world).contiguous()
         if isinstance(like, torch.Tensor):
             t = t.to(like.dtype)
             if like.device == dev and like.shape == t.shape:
@@ -190,19 +194,3 @@ def restore_checkpoint(directory: str, tree_like, step: Optional[int] = None,
         return out[prefix[:-1]]
 
     return rebuild(tree_like), step
-
-
-def _rank_part(t: torch.Tensor, shape: tuple, world, key: str
-               ) -> torch.Tensor:
-    """This rank's slice of the whole leaf ``t`` where ``shape`` is a slice's
-    (one dim of ``t``'s divided by the world's size), else ``t``."""
-    if tuple(t.shape) == shape:
-        return t
-    diff = [i for i, (a, b) in enumerate(zip(t.shape, shape)) if a != b]
-    if len(t.shape) != len(shape) or len(diff) != 1 or \
-            t.shape[diff[0]] != shape[diff[0]] * world.size:
-        raise ValueError(f"leaf {key}: the checkpoint's shape "
-                         f"{tuple(t.shape)} is not {shape} nor a world of "
-                         f"{world.size} ranks' slices of it")
-    k = shape[diff[0]]
-    return t.narrow(diff[0], world.rank * k, k).contiguous()

@@ -8,6 +8,11 @@ resumes mid-epoch by recomputing exactly the shards it owns, and skipping a
 straggler's shard reassigns it deterministically.  A real deployment swaps
 ``synthetic_batch`` for a tokenized-shard reader keyed the same way.
 
+Over a world of ``D x M`` ranks a batch's rows go to the data axis only
+(``repro_torch.train.steps.batch_rows``): rank ``r`` of the data axis
+takes rows ``[r B/D, (r+1) B/D)``, and the ``M`` model ranks of a data
+group take the same rows.
+
 The generator is a tiny LCG-mixed ngram sampler rather than uniform noise so
 train loss actually decreases in the end-to-end example (quickstart trains a
 ~100M model a few hundred steps on it).

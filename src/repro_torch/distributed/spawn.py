@@ -30,7 +30,7 @@ from typing import Any, Callable, List
 import torch
 import torch.multiprocessing as mp
 
-from .world import DEFAULT_TIMEOUT, close_world, init_world
+from .world import DEFAULT_TIMEOUT, close_world, init_world, mesh_shape
 
 # seconds a rank has to report once its process has ended (its pipe drains)
 _DRAIN = 5.0
@@ -41,7 +41,7 @@ class RankError(RuntimeError):
 
 
 def _rank_main(fn, rank, size, init_method, device, timeout, args,
-               results) -> None:
+               results, mesh=None) -> None:
     """One rank: join the world, call ``fn``, report, leave."""
     code = 0
     # every rank of run_world is on this host: gloo's pairs over loopback
@@ -52,7 +52,7 @@ def _rank_main(fn, rank, size, init_method, device, timeout, args,
         if device is not None and torch.device(device).type == "cpu":
             torch.set_num_threads(1)
         world = init_world(rank, size, init_method, device=device,
-                           timeout=timeout)
+                           timeout=timeout, mesh=mesh)
         out = fn(world, *args)
         results.put((rank, "ok", pickle.dumps(out)))
     except SystemExit as e:
@@ -74,19 +74,21 @@ def _rank_main(fn, rank, size, init_method, device, timeout, args,
 
 
 def run_world(fn: Callable, size: int, *args, device=None,
-              timeout: float = DEFAULT_TIMEOUT) -> List[Any]:
+              timeout: float = DEFAULT_TIMEOUT, mesh=None) -> List[Any]:
     """Run ``fn(world, *args)`` on each of ``size`` ranks (module doc);
     returns the ranks' results in rank order.  ``device`` as
     :func:`~.world.init_world` takes it (None: rank ``r`` on card ``r %
-    device_count()``; ``"cpu"``: every rank on the CPU, one thread each).
-    ``fn`` and ``args`` must pickle (a module-level function)."""
+    device_count()``; ``"cpu"``: every rank on the CPU, one thread each);
+    ``mesh``: ``(D, M)``, ``D * M = size`` (None: ``(size, 1)``).  ``fn``
+    and ``args`` must pickle (a module-level function)."""
+    mesh = mesh_shape(size, mesh)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     store = tempfile.mkdtemp(prefix="repro_torch_world_")
     init_method = "file://" + os.path.join(store, "store")
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, r, size, init_method, device, timeout,
-                               args, results))
+                               args, results, mesh))
              for r in range(size)]
     got: dict = {}
     ended: dict = {}            # rank -> when its process was seen ended

@@ -18,6 +18,14 @@ over several ranks is a process of its own: rank ``r`` drives position
 * every world has a ``timeout``: a rank that dies ends its peers'
   collectives with an error after it, never a hang.
 
+A world of ``D x M`` ranks (``mesh=(D, M)``) has two axes, as
+``jax.make_mesh((D, M), ("data", "model"))`` has: rank ``r`` sits at data
+index ``r // M`` and model index ``r % M``, so the model ranks of one data
+group are neighbours.  Each axis is an :class:`Axis` of this rank: its
+index, its size and the process group of the ranks along it (every rank
+creates every group, in the same order).  ``mesh=None`` is ``(size, 1)``:
+the data axis is the whole world.
+
 Under ``torchrun`` call :func:`init_world` with no arguments: it reads
 ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT`` and
 ``LOCAL_RANK`` (the card of this rank on its host).  As everywhere in the
@@ -30,7 +38,7 @@ import dataclasses
 import datetime
 import itertools
 import os
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -42,22 +50,89 @@ _IDS = itertools.count(1)
 
 
 @dataclasses.dataclass(frozen=True)
+class Axis:
+    """One axis of a world's mesh as a rank sees it: its ``name``, this
+    rank's index along it (``rank``), its ``size``, the global ranks along
+    it (``ranks``) and their process ``group`` (None: the default group,
+    where the axis is the whole world).  The collectives of
+    :mod:`.comm` take an axis where they take a world."""
+
+    name: str
+    rank: int
+    size: int
+    ranks: Tuple[int, ...]
+    group: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
 class World:
     """This process's place in a world: its ``rank`` of ``size``, the
-    ``backend``, every rank's device (``devices[r]``) and ``ident``, a
+    ``backend``, every rank's device (``devices[r]``), ``ident``, a
     number no other world of this process has had (captured programs and
-    cache entries are keyed by it)."""
+    cache entries are keyed by it), and the ``mesh`` ``(D, M)`` with this
+    rank's ``data`` and ``model`` axes."""
 
     rank: int
     size: int
     backend: str
     devices: Tuple[torch.device, ...]
     ident: int
+    mesh: Tuple[int, int]
+    data: Axis
+    model: Axis
 
     @property
     def device(self) -> torch.device:
         """This rank's device."""
         return self.devices[self.rank]
+
+    @property
+    def every(self) -> Axis:
+        """The whole world as an axis (``"world"``, the default group)."""
+        return Axis("world", self.rank, self.size, tuple(range(self.size)))
+
+    def remesh(self, mesh) -> "World":
+        """The same ranks as a mesh of another shape ``(D, M)`` (every
+        rank calls it: it creates the new axes' groups); the returned
+        world, with an ``ident`` of its own, becomes the current one."""
+        global _CURRENT
+        shape = mesh_shape(self.size, mesh)
+        data, model = _axes(self.rank, self.size, shape)
+        _CURRENT = dataclasses.replace(self, ident=next(_IDS), mesh=shape,
+                                       data=data, model=model)
+        return _CURRENT
+
+
+def mesh_shape(size: int, mesh=None) -> Tuple[int, int]:
+    """``(D, M)`` of a world of ``size`` ranks (``mesh`` None: ``(size,
+    1)``); raises where ``D * M`` is not ``size``."""
+    if mesh is None:
+        return (size, 1)
+    d, m = (int(x) for x in mesh)
+    if d < 1 or m < 1 or d * m != size:
+        raise ValueError(f"a mesh of {d} x {m} is not a world of {size} "
+                         f"ranks")
+    return (d, m)
+
+
+def _axes(rank: int, size: int, mesh: Tuple[int, int]) -> Tuple[Axis, Axis]:
+    """This rank's data and model axes; every rank creates every group of
+    an axis that is neither one rank nor the whole world, data groups
+    first, in the same order."""
+    d, m = mesh
+    lines = {"data": [tuple(j * m + i for j in range(d)) for i in range(m)],
+             "model": [tuple(j * m + i for i in range(m)) for j in range(d)]}
+    out = []
+    for name in ("data", "model"):
+        mine, group = None, None
+        for ranks in lines[name]:
+            g = None
+            if 1 < len(ranks) < size:
+                g = dist.new_group(ranks=list(ranks))
+            if rank in ranks:
+                mine, group = ranks, g
+        out.append(Axis(name, mine.index(rank), len(mine), mine, group))
+    return out[0], out[1]
 
 
 _CURRENT: Optional[World] = None
@@ -119,10 +194,11 @@ def _torchrun() -> Tuple[int, int, Tuple[torch.device, ...], str]:
 
 def init_world(rank: Optional[int] = None, size: Optional[int] = None,
                init_method: Optional[str] = None, device=None,
-               timeout: float = DEFAULT_TIMEOUT) -> World:
+               timeout: float = DEFAULT_TIMEOUT, mesh=None) -> World:
     """Join this process to a world as ``rank`` of ``size`` (module doc);
-    ``rank=None``: torchrun's environment.  Returns the :class:`World`,
-    also :func:`current_world` until :func:`close_world`."""
+    ``rank=None``: torchrun's environment; ``mesh``: ``(D, M)`` with ``D *
+    M = size`` (None: ``(size, 1)``).  Returns the :class:`World`, also
+    :func:`current_world` until :func:`close_world`."""
     global _CURRENT
     if _CURRENT is not None:
         raise RuntimeError(f"this process is already rank {_CURRENT.rank} of "
@@ -143,6 +219,7 @@ def init_world(rank: Optional[int] = None, size: Optional[int] = None,
         backend = choose_backend(devices)
     if not 0 <= rank < size:
         raise ValueError(f"rank {rank} is not in a world of {size}")
+    shape = mesh_shape(size, mesh)
     mine = devices[rank]
     if mine.type == "cuda":
         torch.cuda.set_device(mine)
@@ -150,8 +227,9 @@ def init_world(rank: Optional[int] = None, size: Optional[int] = None,
     dist.init_process_group(
         backend, init_method=init_method, world_size=size, rank=rank,
         timeout=datetime.timedelta(seconds=timeout), **kw)
+    data, model = _axes(rank, size, shape)
     _CURRENT = World(rank=rank, size=size, backend=backend, devices=devices,
-                     ident=next(_IDS))
+                     ident=next(_IDS), mesh=shape, data=data, model=model)
     return _CURRENT
 
 

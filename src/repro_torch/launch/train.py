@@ -2,7 +2,7 @@
 
 ``python -m repro_torch.launch.train --arch <id> [--smoke] --steps N
 [--batch B] [--seq S] [--ckpt-dir DIR] [--microbatch K] [--lr LR]
-[--simulate-failure K] [--mesh D] [--device cpu]``
+[--simulate-failure K] [--mesh D | DxM] [--device cpu]``
 
 The loop is restart-safe: the state lives in step-atomic checkpoints
 (:mod:`repro_torch.ckpt`, the JAX package's layout); on start it resumes
@@ -21,8 +21,16 @@ optimizer state is cut by ZeRO-1, checkpoints are written whole by rank 0
 ``--simulate-failure K`` then saves collectively and every rank, and this
 process, exits 17.  The backend follows where the ranks sit: NCCL when
 each has a card of its own, else gloo.
-``--mesh DxM`` with ``M > 1``, the model axis, is refused (ROADMAP.md,
-Queue 1, item 14).
+``--mesh DxM`` adds the model axis: a world of ``D x M`` ranks (rank
+``r`` at data index ``r // M``, model index ``r % M``), each rank holding
+its slices of the model (:mod:`repro_torch.models.common`'s placement:
+tensor parallelism over heads, ``d_ff`` and the vocab, sequence
+parallelism and FSDP where the config has ``fsdp``); the step is the
+one-device ``microbatch=D`` step.  It takes the attention families; the
+MoE, SSM and hybrid families are refused under ``M > 1`` (ROADMAP.md,
+Queue 1, item 16).  On the CPU: ``--mesh 2x2 --device cpu`` (gloo); on
+the cards, NCCL where each rank has a card of its own, gloo where they
+share one.
 
 Each logged step prints ``loss`` to four places, as the JAX launcher does,
 and the float in full after ``exact``.
@@ -42,10 +50,9 @@ from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.data import DataConfig, synthetic_batch
 from repro_torch.distributed import close_world, init_world, run_world
 from repro_torch.models import build_model
-from repro_torch.optim import OptConfig, adamw_init, zero1_state_dims
+from repro_torch.models.common import check_model_axis, tree_map_paths
+from repro_torch.optim import OptConfig, adamw_init, state_cuts
 from repro_torch.train import build_train_step
-
-MODEL_AXIS_ITEM = "ROADMAP.md, Queue 1, item 14"
 
 
 def opt_config_for(cfg, steps: int, lr: float = 3e-4) -> OptConfig:
@@ -57,19 +64,21 @@ def opt_config_for(cfg, steps: int, lr: float = 3e-4) -> OptConfig:
                      warmup=min(100, steps // 10 + 1))
 
 
-def mesh_ranks(mesh: str) -> int:
-    """The data axis of ``--mesh``: ``D`` or ``DxM``; a model axis ``M >
-    1`` is refused."""
+def parse_mesh(mesh: str) -> tuple:
+    """``(D, M)`` of ``--mesh``: ``D`` or ``DxM``."""
     parts = [int(x) for x in mesh.lower().split("x")]
     if len(parts) > 2 or min(parts) < 1:
         raise ValueError(f"--mesh {mesh}: give D or DxM")
-    if len(parts) == 2 and parts[1] > 1:
-        raise ValueError(
-            f"--mesh {mesh}: the model axis (tensor parallelism over heads, "
-            f"d_ff, experts and vocab, and FSDP) is not ported "
-            f"({MODEL_AXIS_ITEM}); train data-parallel with --mesh "
-            f"{parts[0]}")
-    return parts[0]
+    return (parts[0], parts[1] if len(parts) == 2 else 1)
+
+
+def check_mesh(arch: str, mesh: str, smoke: bool = True) -> tuple:
+    """``(D, M)`` of ``--mesh``, refused where ``arch``'s family cannot
+    take the model axis (the MoE, SSM and hybrid families, ROADMAP.md,
+    Queue 1, item 16) or its heads, ``d_ff`` or vocab do not split."""
+    d, m = parse_mesh(mesh)
+    check_model_axis(get_config(arch, smoke=smoke), m)
+    return d, m
 
 
 def _torchrun() -> bool:
@@ -81,20 +90,23 @@ def run(arch: str, steps: int, smoke: bool, batch: int, seq: int,
         log_every: int = 10, lr: float = 3e-4, device=None, mesh: str = "1"):
     """Train ``arch`` for ``steps`` steps (resuming from ``ckpt_dir``);
     returns (params, opt_state, [(step, loss), ...] as logged).  Over a
-    world of ranks started here (``mesh`` D > 1) the params and state stay
-    in the ranks: returns (None, None, rank 0's logged losses)."""
-    ranks = mesh_ranks(mesh)
+    world of ranks started here (``mesh`` D > 1, or DxM) the params and
+    state stay in the ranks: returns (None, None, rank 0's logged
+    losses)."""
+    shape = check_mesh(arch, mesh, smoke)
+    ranks = shape[0] * shape[1]
     args = (arch, steps, smoke, batch, seq, ckpt_dir, simulate_failure,
             microbatch, log_every, lr)
     if _torchrun():
-        world = init_world(device=device)
+        world = init_world(device=device, mesh=shape)
         try:
             return train(world, *args)
         finally:
             close_world()
     if ranks == 1:
         return train(None, *args, device=device)
-    losses = run_world(_rank, ranks, *args, device=device, timeout=3600)[0]
+    losses = run_world(_rank, ranks, *args, device=device, timeout=3600,
+                       mesh=shape)[0]
     return None, None, losses
 
 
@@ -111,12 +123,14 @@ def train(world, arch: str, steps: int, smoke: bool, batch: int, seq: int,
     dev = resolve_device(device) if world is None else world.device
     talk = world is None or world.rank == 0
     cfg = get_config(arch, smoke=smoke)
-    model = build_model(cfg)
+    model = build_model(cfg, world)
     params = model.init(0, device=dev)
     opt_cfg = opt_config_for(cfg, steps, lr)
-    opt_state = adamw_init(params, opt_cfg, world)
+    places = None if world is None else model.places(params)
+    opt_state = adamw_init(params, opt_cfg, world, places)
     dims = None if world is None else {
-        "opt": zero1_state_dims(params, opt_cfg, world)}
+        "params": tree_map_paths(lambda _, pl: pl.cuts, places),
+        "opt": state_cuts(params, opt_cfg, world, places)}
 
     def save(step):
         save_checkpoint(ckpt_dir, step, {"params": params, "opt": opt_state},
@@ -126,7 +140,7 @@ def train(world, arch: str, steps: int, smoke: bool, batch: int, seq: int,
     if ckpt_dir and latest_step(ckpt_dir) is not None:
         state, start = restore_checkpoint(
             ckpt_dir, {"params": params, "opt": opt_state}, device=dev,
-            world=world)
+            world=world, dims=dims)
         params, opt_state = state["params"], state["opt"]
         if talk:
             print(f"[train] resumed from step {start}", flush=True)
@@ -178,7 +192,7 @@ def main():
                     help="default: the CUDA card; 'cpu' to run on the CPU")
     args = ap.parse_args()
     try:
-        mesh_ranks(args.mesh)
+        check_mesh(args.arch, args.mesh, args.smoke)
     except ValueError as e:
         ap.error(str(e))
     run(args.arch, args.steps, args.smoke, args.batch, args.seq,

@@ -9,6 +9,14 @@ kernel (``attn_impl="pallas"``, self-attention, causal or full mask) ->
 ``blockwise_attn`` above 2048 positions -> ``_plain_attn``.  With
 ``kv_x`` it is cross-attention (the enc-dec family): K and V from
 ``kv_x``, no rope, the full mask over ``kv_pos``, never the flash kernel.
+Over a world's model axis (``par``, a :class:`~.common.Par`) the weights
+given are this rank's: ``wq``, ``wk``, ``wv`` cut by heads (column
+parallel), ``wo`` by heads (row parallel: the output is this rank's part
+of the sum, which the block reduces); GQA stays contiguous, local query
+heads ``[rH/M, (r+1)H/M)`` reading local K/V heads ``[rKV/M, ...)``, or,
+where the K/V weights are replicated (``M`` a multiple of ``n_kv_heads``),
+the one head they share (:func:`kv_weights`).  Every attention function
+then runs on the local heads as it runs on all of them, K4 included.
 The flash kernel has no backward, in either package: under autograd
 ``attention`` refuses ``attn_impl="pallas"`` (ROADMAP.md, Queue 1, item
 12) rather than train through other ops.
@@ -30,6 +38,17 @@ from repro_torch.kernels.flash_attention import flash_attention
 from .common import ModelConfig, dense_init, rope
 
 NEG_INF = -1e30
+
+
+def kv_weights(params, cfg: ModelConfig, par=None):
+    """``(wk, wv)`` of this rank's K/V heads: the weights as given, or,
+    where they are replicated over the model axis, the head this rank's
+    query heads share."""
+    wk, wv = params["wk"], params["wv"]
+    if par is not None and par.kv_replicated(cfg):
+        lo, hi = par.kv_range(cfg)
+        wk, wv = wk[:, lo:hi], wv[:, lo:hi]
+    return wk, wv
 
 
 def init_attn(gen: torch.Generator, cfg: ModelConfig):
@@ -183,14 +202,16 @@ def hflat_blockwise_attn(q, k, v, qpos, kpos, mask_kind, window, prefix_len,
 def attention(params, x, pos, cfg: ModelConfig, *, mask_kind: str,
               kv_x: Optional[torch.Tensor] = None,
               kv_pos: Optional[torch.Tensor] = None,
-              prefix_len: int = 0):
+              prefix_len: int = 0, par=None):
     """Full-sequence attention (training / prefill); ``kv_x`` switches to
-    cross-attention (keys and values from the encoder output)."""
+    cross-attention (keys and values from the encoder output).  With
+    ``par``: this rank's heads, its part of the output (module doc)."""
     B, S, D = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
     src = x if kv_x is None else kv_x
-    k = torch.einsum("bsd,dhk->bshk", src, params["wk"])
-    v = torch.einsum("bsd,dhk->bshk", src, params["wv"])
+    wk, wv = kv_weights(params, cfg, par)
+    k = torch.einsum("bsd,dhk->bshk", src, wk)
+    v = torch.einsum("bsd,dhk->bshk", src, wv)
     if kv_x is None:
         q, k = rope(q, k, pos, cfg.rope_theta)
         kpos = pos
@@ -223,14 +244,18 @@ def attention(params, x, pos, cfg: ModelConfig, *, mask_kind: str,
 # KV-cache decode
 # ---------------------------------------------------------------------------
 def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
-                  dtype: Optional[torch.dtype] = None, *, device):
+                  dtype: Optional[torch.dtype] = None, *, device, par=None):
     """Ring-buffer KV cache. For swa/chunked archs max_len = window size.
+    With ``par``: this rank's K/V heads (:meth:`~.common.Par.kv_range`).
 
     ``opt_kv_quant``: int8 ``k``/``v`` and bf16 ``k_scale``/``v_scale`` of
     shape (L, B, Sc, KV), one scale per (position, K/V head): half the
     bytes a decode step reads from the cache."""
     dtype = dtype or cfg.tdtype
     KV, hd = cfg.n_kv_heads, cfg.hd
+    if par is not None:
+        lo, hi = par.kv_range(cfg)
+        KV = hi - lo
     cache_len = min(max_len, cfg.window) if cfg.attn in ("swa", "chunked") \
         else max_len
     shape = (n_layers, batch, cache_len, KV, hd)
@@ -285,14 +310,15 @@ def _quantize(x: torch.Tensor):
 
 
 def update_cache(params, x, cache_k, cache_v, cache_idx, pos: int,
-                 cfg: ModelConfig, k_scale=None, v_scale=None):
+                 cfg: ModelConfig, k_scale=None, v_scale=None, par=None):
     """Write this token's k/v into the ring buffer, in place; returns the
     same (cache_k, cache_v, cache_idx), and the scales after them when
     given.  With ``k_scale``/``v_scale`` (an int8 cache) the slot holds the
     int8 codes and the scales rounded to bf16."""
     B = x.shape[0]
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"])    # (B,1,KV,hd)
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"])
+    wk, wv = kv_weights(params, cfg, par)
+    k = torch.einsum("bsd,dhk->bshk", x, wk)              # (B,1,KV,hd)
+    v = torch.einsum("bsd,dhk->bshk", x, wv)
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     _, k = rope(k, k, posv, cfg.rope_theta)
     slot = pos % cache_k.shape[1]

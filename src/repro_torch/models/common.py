@@ -6,17 +6,29 @@ for leaf, so carrying weights across (:mod:`repro_torch.interop`) is a walk
 of the tree.  Init draws from an explicit ``torch.Generator`` on the
 device the parameters live on.
 
-The JAX module's mesh and sharding helpers (``set_mesh``, ``resolve_spec``,
-``sanitize_spec``, ``named_sharding``, ``fsdp_spec``, ``constrain``) are not
-ported: on one card ``constrain`` is the identity, so the port simply makes
-no such call, and ``init`` functions return parameters without specs.
-``ModelConfig.fsdp`` is kept as a field and has no effect here.
+The JAX module's mesh helpers (``set_mesh``, ``resolve_spec``,
+``named_sharding``, ``constrain``) have no counterpart: GSPMD places a
+tensor by its spec, and here each rank of a world holds its own slices and
+calls the collectives itself.  What the reference's specs and
+``fsdp_spec`` say is :func:`leaf_place`: for each leaf of the params tree,
+the dim the ``model`` axis cuts and the dim the ``data`` axis cuts (FSDP,
+where ``cfg.fsdp``), as a :class:`Place`; :class:`Par` is a model's view
+of a world (its axes, FSDP, sequence parallelism).  Where the reference's
+``sanitize_spec`` moves an axis that does not divide, the port has its own
+rule: K/V heads are replicated over ``model`` when ``M`` does not divide
+``n_kv_heads`` (granite's and paligemma's one head; the reference moves the
+axis to ``head_dim``: the same values, another layout), the vocab is cut
+over ``vocab_padded`` (the last rank's block short), and ``M`` dividing
+neither ``n_heads`` nor ``d_ff`` is refused.  The model axis takes the
+attention families (dense, vision prefix, enc-dec); the MoE, SSM and hybrid
+families wait for ROADMAP.md, Queue 1, item 16 (their leaves are whole on
+every rank, FSDP off).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -212,3 +224,244 @@ def tree_leaves(tree: Any) -> list:
 
 def tree_size(params: Dict) -> int:
     return sum(int(x.numel()) for x in tree_leaves(params))
+
+
+def tree_map_paths(fn: Callable, tree: Any,
+                   prefix: Tuple[str, ...] = ()) -> Any:
+    """``fn(path, leaf)`` on every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map_paths(fn, v, prefix + (k,))
+                for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
+# ---------------------------------------------------------------------------
+# placement over a world's mesh (the reference's specs and fsdp_spec)
+# ---------------------------------------------------------------------------
+MODEL_AXIS_FAMILIES = ("dense", "vlm", "audio")
+MODEL_AXIS_ITEM = "ROADMAP.md, Queue 1, item 16"
+
+# (dim, axis name, whole length, block): rank i along the axis holds
+# [i * block, min((i + 1) * block, whole)) of the dim
+Cut = Tuple[int, str, int, int]
+
+
+@dataclasses.dataclass(frozen=True)
+class Place:
+    """Where a leaf lives over a world's mesh: its ``cuts`` (at most one
+    over ``model``, one over ``data``) and ``sum_model``: the leaf is whole
+    on every model rank, but each rank's gradient of it is a part (the
+    K/V weights replicated over ``model``; under sequence parallelism the
+    norm scales), which the train step sums over ``model``."""
+
+    cuts: Tuple[Cut, ...] = ()
+    sum_model: bool = False
+
+    def dim(self, axis: str) -> Optional[int]:
+        """The dim ``axis`` cuts (None: whole over it)."""
+        return next((c[0] for c in self.cuts if c[1] == axis), None)
+
+    @property
+    def model(self) -> Optional[int]:
+        return self.dim("model")
+
+    @property
+    def data(self) -> Optional[int]:
+        return self.dim("data")
+
+
+def axis_range(whole: int, block: int, index: int) -> Tuple[int, int]:
+    """``[lo, hi)`` of rank ``index``'s block of a dim (module doc)."""
+    lo = min(whole, index * block)
+    return lo, min(whole, lo + block)
+
+
+def _whole_shape(name: str, cfg: ModelConfig) -> Tuple[int, ...]:
+    d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    return {"wq": (d, H, hd), "wk": (d, KV, hd), "wv": (d, KV, hd),
+            "wo": (H, hd, d), "w_in": (d, cfg.d_ff), "w_gate": (d, cfg.d_ff),
+            "w_out": (cfg.d_ff, d), "tok": (cfg.vocab, d),
+            "unembed": (d, cfg.vocab), "vproj": (d, d)}.get(name, (d,))
+
+
+def check_model_axis(cfg: ModelConfig, m: int) -> None:
+    """Refuse a model axis of ``m`` ranks that ``cfg`` cannot take."""
+    if m == 1:
+        return
+    if cfg.family not in MODEL_AXIS_FAMILIES:
+        raise ValueError(
+            f"{cfg.name}: a model axis of {m} ranks for the {cfg.family} "
+            f"family (the expert axis, d_inner cut over model) is not "
+            f"ported ({MODEL_AXIS_ITEM})")
+    if cfg.n_heads % m:
+        raise ValueError(
+            f"{cfg.name}: {cfg.n_heads} heads do not split over a model "
+            f"axis of {m} (the reference's sanitize_spec moves the axis to "
+            f"head_dim; the port refuses it)")
+    if cfg.d_ff % m:
+        raise ValueError(
+            f"{cfg.name}: d_ff {cfg.d_ff} does not split over a model axis "
+            f"of {m} (the reference's sanitize_spec moves the axis to "
+            f"d_model; the port refuses it)")
+    kv = cfg.n_kv_heads
+    if kv % m and m % kv:
+        raise ValueError(
+            f"{cfg.name}: {kv} K/V heads neither split over a model axis of "
+            f"{m} nor divide it (the reference's sanitize_spec moves the "
+            f"axis to head_dim; the port refuses it)")
+    if vocab_padded(cfg) % m:
+        raise ValueError(f"{cfg.name}: the padded vocab "
+                         f"{vocab_padded(cfg)} does not split over {m}")
+
+
+def vocab_padded(cfg: ModelConfig) -> int:
+    """Vocab rounded up to a multiple of 128, as in the JAX package (there
+    so logits cut over the model axis; here too).  Params keep the exact
+    vocab."""
+    return -(-cfg.vocab // 128) * 128
+
+
+_FSDP = ("wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out", "unembed")
+_NORMS = ("ln1", "ln2", "lnx", "ln_f")
+
+
+def leaf_place(path: Tuple[str, ...], cfg: ModelConfig,
+               mesh: Tuple[int, int]) -> Place:
+    """The :class:`Place` of the params leaf at ``path`` over a mesh ``(D,
+    M)`` (module doc): the reference's spec of the leaf (``P(None, model,
+    None)`` for ``wq``, ``wk``, ``wv``; ``P(model, None, None)`` for
+    ``wo``; ``P(None, model)`` / ``P(model, None)`` for the MLP's in and
+    out; ``P(model, None)`` for ``tok``, ``P(None, model)`` for
+    ``unembed``), shifted by one for the stacked ``(L, ...)`` leaves as
+    ``P(None, *s)``, and with ``fsdp_spec``'s data axis on the first dim
+    the model axis leaves free (the first that ``D`` divides)."""
+    d, m = mesh
+    if cfg.family not in MODEL_AXIS_FAMILIES:
+        return Place()
+    name = path[-1]
+    stacked = path[0] in ("layers", "enc")
+    shape = _whole_shape(name, cfg)
+    if stacked:
+        shape = ((cfg.n_layers if path[0] == "layers" else cfg.enc_layers),
+                 ) + shape
+    off = 1 if stacked else 0
+    mdim = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_in": 1, "w_gate": 1,
+            "w_out": 0, "tok": 0, "unembed": 1}.get(name)
+    replicated_kv = name in ("wk", "wv") and cfg.n_kv_heads % m != 0
+    if replicated_kv or m == 1:
+        mdim = None
+    cuts = []
+    if mdim is not None:
+        mdim += off
+        whole = shape[mdim]
+        if name in ("tok", "unembed"):
+            block = vocab_padded(cfg) // m
+        else:
+            block = whole // m
+        cuts.append((mdim, "model", whole, block))
+    if cfg.fsdp and d > 1 and name in _FSDP:
+        for i in range(off, len(shape)):
+            if i != mdim and shape[i] % d == 0:
+                cuts.append((i, "data", shape[i], shape[i] // d))
+                break
+    sp = cfg.fsdp and m > 1
+    return Place(tuple(cuts), sum_model=m > 1 and (
+        replicated_kv or (sp and name in _NORMS)))
+
+
+def tree_places(tree: Any, cfg: ModelConfig, mesh: Tuple[int, int]) -> Any:
+    """:func:`leaf_place` of every leaf of a params tree."""
+    return tree_map_paths(lambda p, _: leaf_place(p, cfg, mesh), tree)
+
+
+def take_cuts(t: torch.Tensor, cuts, world) -> torch.Tensor:
+    """This rank's part of the whole leaf ``t`` under ``cuts`` (a view)."""
+    for dim, axis, whole, block in cuts:
+        if t.shape[dim] != whole:
+            raise ValueError(f"a leaf of {tuple(t.shape)} is not whole "
+                             f"({whole}) along dim {dim}")
+        lo, hi = axis_range(whole, block, getattr(world, axis).rank)
+        t = t.narrow(dim, lo, hi - lo)
+    return t
+
+
+def gather_cuts(t: torch.Tensor, cuts, world, root: bool = False
+                ) -> Optional[torch.Tensor]:
+    """The whole leaf from every rank's part ``t`` under ``cuts`` (each rank
+    calls it; a block short of ``block`` is padded for the gather).
+    ``root``: gathered on the host of rank 0 alone, an axis at a time
+    (the ranks at index 0 of the axes gathered so far take part in the
+    next); every other rank gets None.  gloo gathers host tensors (it
+    gathers no card tensor), NCCL card tensors (it takes no host tensor):
+    under NCCL the whole leaf is on rank 0's card."""
+    from repro_torch.distributed.comm import all_gather, gather_to_first
+    if root:
+        t = t.detach()
+        if world.backend != "nccl":
+            t = t.cpu()
+    for dim, axis, whole, block in cuts:
+        ax = getattr(world, axis)
+        if t is None:
+            continue
+        if t.shape[dim] < block:
+            pad = list(t.shape)
+            pad[dim] = block - t.shape[dim]
+            t = torch.cat([t, t.new_zeros(pad)], dim)
+        t = (gather_to_first(t.contiguous(), dim, ax) if root else
+             all_gather(t.contiguous(), dim, ax))
+        if t is not None:
+            t = t.narrow(dim, 0, whole)
+    if root and world.rank != 0:
+        return None
+    return t
+
+
+@dataclasses.dataclass(frozen=True)
+class Par:
+    """A model's view of a world (None on one device): the ``world``, its
+    ``model`` and ``data`` axes, ``fsdp`` (the FSDP leaves cut over
+    ``data`` and gathered a layer at a time) and ``sp`` (the residual
+    stream cut by sequence over ``model`` where it is longer than one
+    position: Megatron-style sequence parallelism, the reference's
+    ``constrain(x, P(data, model, None))`` under ``cfg.fsdp``)."""
+
+    world: Any
+    fsdp: bool
+    sp: bool
+
+    @property
+    def model(self):
+        return self.world.model
+
+    @property
+    def data(self):
+        return self.world.data
+
+    @staticmethod
+    def of(cfg: ModelConfig, world) -> Optional["Par"]:
+        if world is None:
+            return None
+        d, m = world.mesh
+        check_model_axis(cfg, m)
+        attn = cfg.family in MODEL_AXIS_FAMILIES
+        return Par(world, fsdp=attn and cfg.fsdp and d > 1,
+                   sp=attn and cfg.fsdp and m > 1)
+
+    def head_range(self, cfg: ModelConfig) -> Tuple[int, int]:
+        """This rank's query heads ``[lo, hi)``."""
+        k = cfg.n_heads // self.model.size
+        return self.model.rank * k, (self.model.rank + 1) * k
+
+    def kv_range(self, cfg: ModelConfig) -> Tuple[int, int]:
+        """The K/V heads this rank's query heads read, ``[lo, hi)``: its
+        cut of them, or where they are replicated the one they share."""
+        kv, m = cfg.n_kv_heads, self.model.size
+        if kv % m == 0:
+            k = kv // m
+            return self.model.rank * k, (self.model.rank + 1) * k
+        g = cfg.n_heads // kv
+        lo = self.head_range(cfg)[0] // g
+        return lo, lo + 1
+
+    def kv_replicated(self, cfg: ModelConfig) -> bool:
+        return cfg.n_kv_heads % self.model.size != 0

@@ -6,7 +6,7 @@ Python loop over that axis; the stacked ``(L, ...)`` layout is kept, so a
 parameter tree carries across leaf for leaf.  ``build_model(cfg)`` returns
 a ``Model`` with:
 
-  init(rng, device)              -> params        (no sharding specs)
+  init(rng, device)              -> params        (this rank's, in a world)
   forward(params, batch)         -> (logits, aux) (train / prefill)
   init_cache(batch, max_len)     -> cache
   prefill_encoder(params, cache, batch) -> cache  (enc-dec only)
@@ -24,7 +24,10 @@ load-balance loss summed over the layers.
 block after it) under ``torch.utils.checkpoint`` when autograd records
 it (grad mode on, and the stack's input or a weight needing a gradient),
 as the JAX package wraps the body in ``jax.checkpoint``: only the
-layer inputs are kept for the backward.  ``opt_attn_layout`` routes
+layer inputs are kept for the backward.  Over a world with FSDP the body
+gathers the layer's cut leaves, so the backward gathers them again, as
+the reference's GSPMD re-gathers them each scan step.
+``opt_attn_layout`` routes
 self-attention through ``hflat_blockwise_attn``; ``opt_kv_quant`` makes
 the KV cache int8 with bf16 scales (a no-op for the SSM, which has no KV
 cache; refused for the hybrid, see ``init_cache``).
@@ -35,15 +38,20 @@ import dataclasses
 from typing import Any, Dict, Tuple, Union
 
 import torch
+
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
+from repro_torch.distributed.comm import (all_gather, copy_to, gather_from,
+                                          reduce_from, scatter_to, split_to)
 
 from . import attention as att
 from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .common import ModelConfig, dense_init, rms_norm, tree_leaves, tree_map
+from .common import (ModelConfig, Par, dense_init, gather_cuts, rms_norm,
+                     take_cuts, tree_leaves, tree_map, tree_map_paths,
+                     tree_places, vocab_padded)
 
 
 # ---------------------------------------------------------------------------
@@ -74,23 +82,44 @@ def ffn_fwd(params, h, cfg: ModelConfig, kind: str):
     return mlp_mod.mlp(params, h, cfg), {}
 
 
+def enter(h: torch.Tensor, par) -> torch.Tensor:
+    """``h`` into a region cut over the model axis: the whole sequence
+    gathered under sequence parallelism, else ``copy_to``."""
+    if par is None:
+        return h
+    if par.sp:
+        return gather_from(h, 1, par.model)
+    return copy_to(h, par.model)
+
+
+def leave(y: torch.Tensor, par) -> torch.Tensor:
+    """The ranks' parts of a row-parallel product summed: into this rank's
+    sequence shard under sequence parallelism, else whole."""
+    if par is None:
+        return y
+    if par.sp:
+        return scatter_to(y, 1, par.model)
+    return reduce_from(y, par.model)
+
+
 def block_fwd(params, x, pos, cfg: ModelConfig, kind: str, mask_kind: str,
-              enc_out=None, enc_pos=None, prefix_len: int = 0):
+              enc_out=None, enc_pos=None, prefix_len: int = 0, par=None):
     if kind == "mamba":
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
         y, _ = ssm_mod.mamba_forward(params["mix"], h, cfg)
         return x + y, {}
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
-    x = x + att.attention(params["attn"], h, pos, cfg, mask_kind=mask_kind,
-                          prefix_len=prefix_len)
+    x = x + leave(att.attention(params["attn"], enter(h, par), pos, cfg,
+                                mask_kind=mask_kind, prefix_len=prefix_len,
+                                par=par), par)
     if enc_out is not None:
         h = rms_norm(x, params["lnx"], cfg.norm_eps)
-        x = x + att.attention(params["xattn"], h, pos, cfg,
-                              mask_kind="bidir", kv_x=enc_out,
-                              kv_pos=enc_pos)
+        x = x + leave(att.attention(params["xattn"], enter(h, par), pos,
+                                    cfg, mask_kind="bidir", kv_x=enc_out,
+                                    kv_pos=enc_pos, par=par), par)
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
-    y, aux = ffn_fwd(params["ffn"], h, cfg, kind)
-    return x + y, aux
+    y, aux = ffn_fwd(params["ffn"], enter(h, par), cfg, kind)
+    return x + leave(y, par), aux
 
 
 # ---------------------------------------------------------------------------
@@ -106,37 +135,70 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig):
     return params
 
 
-def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig
+def vocab_block(cfg: ModelConfig, par=None) -> tuple:
+    """``(first id, block)`` of this rank's columns of the padded vocab
+    (one device: ``(0, vocab_padded)``)."""
+    m = 1 if par is None else par.model.size
+    blk = vocab_padded(cfg) // m
+    return (0 if par is None else par.model.rank) * blk, blk
+
+
+def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig, par=None
                  ) -> torch.Tensor:
-    return params["tok"][tokens.long()]
+    """The token embeddings; over a model axis this rank's part of them
+    (its vocab rows looked up, every other token zero), which the caller
+    sums over the axis."""
+    if par is None or par.model.size == 1:
+        return params["tok"][tokens.long()]
+    tok = params["tok"]
+    ids = tokens.long() - vocab_block(cfg, par)[0]
+    hit = (ids >= 0) & (ids < tok.shape[0])
+    e = tok[ids.clamp(0, tok.shape[0] - 1)]
+    return torch.where(hit[..., None], e, e.new_zeros(()))
 
 
-def vocab_padded(cfg: ModelConfig) -> int:
-    """Vocab rounded up to a multiple of 128, as in the JAX package (there
-    so logits shard over the model axis; kept so shapes agree).  Params
-    keep the exact vocab."""
-    return -(-cfg.vocab // 128) * 128
-
-
-def lm_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    V, Vp = cfg.vocab, vocab_padded(cfg)
+def lm_head(params, x: torch.Tensor, cfg: ModelConfig, par=None
+            ) -> torch.Tensor:
+    """The final norm and the logits over the padded vocab, its padded
+    columns -1e30; over a model axis this rank's columns, ``(B, S,
+    Vp/M)``, from ``x`` entered as a block enters it (``par.sp``: ``x``
+    this rank's sequence shard)."""
+    x = enter(rms_norm(x, params["ln_f"], cfg.norm_eps), par)
+    V = cfg.vocab
+    lo, blk = vocab_block(cfg, par)
     if cfg.tie_embeddings:
         w = params["tok"]
-        if Vp != V:
-            w = torch.nn.functional.pad(w, (0, 0, 0, Vp - V))
+        if w.shape[0] < blk:
+            w = torch.nn.functional.pad(w, (0, 0, 0, blk - w.shape[0]))
         logits = torch.einsum("bsd,vd->bsv", x, w)
     else:
         w = params["unembed"]
-        if Vp != V:
-            w = torch.nn.functional.pad(w, (0, Vp - V))
+        if w.shape[1] < blk:
+            w = torch.nn.functional.pad(w, (0, blk - w.shape[1]))
         logits = torch.einsum("bsd,dv->bsv", x, w)
-    if Vp != V:
-        pad = torch.arange(Vp, device=x.device) >= V
+    if lo + blk > V:
+        pad = torch.arange(lo, lo + blk, device=x.device) >= V
         logits = torch.where(pad[None, None, :],
                              torch.tensor(-1e30, dtype=x.dtype,
                                           device=x.device), logits)
     return logits
+
+
+def fsdp_gather(tree, places, par, shift: int = 0):
+    """Every FSDP leaf of ``tree`` gathered whole over the data axis
+    (``gather_from``: its backward reduce-scatters the gradient); ``shift``
+    1 for a layer of a stacked tree."""
+    if par is None or not par.fsdp:
+        return tree
+    return tree_map_paths(
+        lambda path, t: t if _at(places, path).data is None else
+        gather_from(t, _at(places, path).data - shift, par.data), tree)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 def _layer(stacked, i: int):
@@ -154,12 +216,15 @@ def _unstack(stacked, n: int) -> list:
 
 
 def _stack_init(gen: torch.Generator, cfg: ModelConfig, n: int, kind: str,
-                cross: bool = False):
+                cross: bool = False, cut=None):
     """``n`` blocks stacked on a leading axis, filled one layer at a time:
-    beside the stack, one layer and one leaf's fp32 draw are alive."""
+    beside the stack, one layer and one leaf's fp32 draw are alive.
+    ``cut(path, leaf)``: the part of a whole layer's leaf to keep."""
     stacked = None
     for i in range(n):
         block = init_block(gen, cfg, kind, cross)
+        if cut is not None:
+            block = tree_map_paths(cut, block)
         if stacked is None:
             stacked = tree_map(lambda t: t.new_empty((n,) + t.shape), block)
         for dst, src in zip(tree_leaves(stacked), tree_leaves(block)):
@@ -174,31 +239,90 @@ def _stack_init(gen: torch.Generator, cfg: ModelConfig, n: int, kind: str,
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
+    world: Any = dataclasses.field(default=None, compare=False)
+
+    @property
+    def par(self) -> Any:
+        """The model's view of its world (None on one device)."""
+        return Par.of(self.cfg, self.world)
+
+    def places(self, params) -> Any:
+        """:func:`~.common.leaf_place` of every leaf of ``params`` over the
+        world's mesh (``(1, 1)`` on one device)."""
+        mesh = (1, 1) if self.world is None else self.world.mesh
+        return tree_places(params, self.cfg, mesh)
 
     # ---------------- init -------------------------------------------------
     def init(self, rng: Union[int, torch.Generator] = 0, device=None
              ) -> Dict[str, Any]:
         """Parameters drawn from ``rng`` (a seed, or a generator whose
-        device is then used)."""
+        device is then used); in a world this rank's slices of them, drawn
+        whole a layer at a time (on the rank's device by default)."""
         if isinstance(rng, torch.Generator):
             gen = rng
         else:
+            if device is None and self.world is not None:
+                device = self.world.device
             gen = torch.Generator(device=resolve_device(device))
             gen.manual_seed(int(rng))
         cfg = self.cfg
-        params = {"embed": init_embed(gen, cfg),
-                  "layers": _stack_init(gen, cfg, cfg.n_layers,
-                                        self._block_kind(),
-                                        cross=cfg.enc_layers > 0)}
+        cut = None
+        if self.world is not None:
+            mesh = self.world.mesh
+
+            def cut(path, t, stacked=None):
+                from .common import leaf_place
+                place = leaf_place(((stacked,) if stacked else ()) + path,
+                                   cfg, mesh)
+                cuts = [(c[0] - (1 if stacked else 0),) + c[1:]
+                        for c in place.cuts]
+                part = take_cuts(t, cuts, self.world)
+                return part if part is t else part.clone()
+
+        def stack(n, kind, name, cross=False):
+            return _stack_init(gen, cfg, n, kind, cross, cut and (
+                lambda p, t: cut(p, t, name)))
+
+        embed = init_embed(gen, cfg)
+        params = {"embed": embed if cut is None else tree_map_paths(
+                      lambda p, t: cut(("embed",) + p, t), embed),
+                  "layers": stack(cfg.n_layers, self._block_kind(), "layers",
+                                  cross=cfg.enc_layers > 0)}
+        del embed
         if cfg.family == "hybrid" and cfg.shared_every:
             params["shared"] = init_block(gen, cfg, "attn")
         if cfg.enc_layers:
-            params["enc"] = _stack_init(gen, cfg, cfg.enc_layers, "attn")
+            params["enc"] = stack(cfg.enc_layers, "attn", "enc")
         if cfg.frontend == "vision":
             # projection of the (stub) patch embeddings into d_model
             params["vproj"] = dense_init(gen, (cfg.d_model, cfg.d_model),
                                          cfg.tdtype)
         return params
+
+    def shard(self, params) -> Dict[str, Any]:
+        """This rank's slices of a whole params tree (copies)."""
+        if self.world is None:
+            return params
+        places = self.places(params)
+        return tree_map_paths(lambda p, t: take_cuts(
+            t, _at(places, p).cuts, self.world).contiguous(), params)
+
+    def gather(self, params) -> Dict[str, Any]:
+        """The whole params tree from every rank's slices (every rank
+        calls it; a leaf at a time)."""
+        if self.world is None:
+            return params
+        places = self.places(params)
+        return tree_map_paths(lambda p, t: gather_cuts(
+            t, _at(places, p).cuts, self.world), params)
+
+    def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The whole padded vocab's logits from every model rank's columns
+        (the identity on one device)."""
+        par = self.par
+        if par is None or par.model.size == 1:
+            return logits
+        return all_gather(logits.contiguous(), -1, par.model)
 
     def _block_kind(self) -> str:
         if self.cfg.family == "moe":
@@ -213,17 +337,21 @@ class Model:
 
     # ---------------- stacks ----------------------------------------------
     def _run_stack(self, layer_params, x, pos, kind, mask_kind, shared=None,
-                   enc_out=None, enc_pos=None, prefix_len: int = 0):
+                   enc_out=None, enc_pos=None, prefix_len: int = 0,
+                   par=None, places=None):
         """The blocks of a stack in order (the shared block after every
-        ``shared_every``-th); returns (x, the summed load-balance loss)."""
+        ``shared_every``-th); returns (x, the summed load-balance loss).
+        ``places``: the stack's, whose FSDP leaves each layer's body
+        gathers."""
         cfg = self.cfg
         n = tree_leaves(layer_params)[0].shape[0]
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def body(lp, x, with_shared: bool):
+            lp = fsdp_gather(lp, places, par, shift=1)
             x, aux = block_fwd(lp, x, pos, cfg, kind, mask_kind,
                                enc_out=enc_out, enc_pos=enc_pos,
-                               prefix_len=prefix_len)
+                               prefix_len=prefix_len, par=par)
             if with_shared:
                 x, _ = block_fwd(shared, x, pos, cfg, "attn", "swa")
             return x, aux.get("lb_loss", zero)
@@ -252,42 +380,87 @@ class Model:
         return self.cfg.family == "hybrid" and bool(every) and \
             i % every == every - 1
 
-    def _encode(self, params, batch):
+    def _par(self, seq: int):
+        """The model's :class:`~.common.Par` for a pass over ``seq``
+        positions: sequence parallelism only where there is more than one
+        (the sequence then split evenly over the model axis)."""
+        par = self.par
+        if par is None or not par.sp:
+            return par
+        if seq == 1:
+            return dataclasses.replace(par, sp=False)
+        if seq % par.model.size:
+            raise ValueError(f"{self.cfg.name}: {seq} positions do not split "
+                             f"over a model axis of {par.model.size} "
+                             f"(sequence parallelism under cfg.fsdp)")
+        return par
+
+    def _encode(self, params, batch, places=None):
         """The encoder stack over the frame embeddings, bidirectional, rope
-        on the frame positions; its raw output (no final norm)."""
+        on the frame positions; its raw output (no final norm), whole on
+        every model rank."""
         frames = batch["enc_frames"].to(self.cfg.tdtype)
+        par = self._par(frames.shape[1])
         enc_pos = torch.arange(frames.shape[1], dtype=torch.int32,
                                device=frames.device)
-        enc_out, _ = self._run_stack(params["enc"], frames, enc_pos, "attn",
-                                     "bidir")
+        if par is not None and par.sp:
+            frames = split_to(frames, 1, par.model)
+        enc_out, _ = self._run_stack(
+            params["enc"], frames, enc_pos, "attn", "bidir", par=par,
+            places=None if places is None else places["enc"])
+        if par is not None:
+            # whole for every decoder layer's K/V; backward, the ranks'
+            # parts of its gradient summed
+            enc_out = (gather_from(enc_out, 1, par.model) if par.sp
+                       else copy_to(enc_out, par.model))
         return enc_out, enc_pos
 
     # ---------------- forward (train / prefill) ---------------------------
     def forward(self, params, batch, last_only: bool = False
                 ) -> Tuple[torch.Tensor, Dict]:
+        """``(logits, aux)``; in a world the logits are this rank's
+        columns of the padded vocab (:meth:`gather_logits`)."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = embed_tokens(params["embed"], tokens, cfg)
+        seq = tokens.shape[1] + (cfg.frontend_len
+                                 if cfg.frontend == "vision" else 0)
+        par = self._par(seq)
+        places = None if par is None else self.places(params)
+        embed = params["embed"] if places is None else fsdp_gather(
+            params["embed"], places["embed"], par)
+        x = embed_tokens(embed, tokens, cfg, par)
         prefix_len = 0
         if cfg.frontend == "vision":
+            if par is not None:
+                x = reduce_from(x, par.model)
             v = torch.einsum("bfd,de->bfe",
                              batch["frontend"].to(cfg.tdtype),
                              params["vproj"])
             x = torch.cat([v, x], dim=1)
             prefix_len = cfg.frontend_len
-        pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+            if par is not None and par.sp:
+                x = split_to(x, 1, par.model)
+        elif par is not None:
+            x = (scatter_to(x, 1, par.model) if par.sp
+                 else reduce_from(x, par.model))
+        pos = torch.arange(seq, dtype=torch.int32, device=x.device)
         enc_out = enc_pos = None
         if cfg.enc_layers:
-            enc_out, enc_pos = self._encode(params, batch)
+            enc_out, enc_pos = self._encode(params, batch, places)
         mask_kind = "prefix" if prefix_len else self._mask_kind()
         x, lb = self._run_stack(params["layers"], x, pos, self._block_kind(),
                                 mask_kind, shared=params.get("shared"),
                                 enc_out=enc_out, enc_pos=enc_pos,
-                                prefix_len=prefix_len)
+                                prefix_len=prefix_len, par=par,
+                                places=None if places is None
+                                else places["layers"])
         if last_only:
             # serving prefill needs only the next-token logits
-            return lm_head(params["embed"], x[:, -1:], cfg), {"lb_loss": lb}
-        logits = lm_head(params["embed"], x, cfg)
+            if par is not None and par.sp:
+                x = gather_from(x, 1, par.model)
+                par = dataclasses.replace(par, sp=False)
+            return lm_head(embed, x[:, -1:], cfg, par), {"lb_loss": lb}
+        logits = lm_head(embed, x, cfg, par)
         if cfg.frontend == "vision":
             logits = logits[:, cfg.frontend_len:]
         return logits, {"lb_loss": lb}
@@ -303,6 +476,8 @@ class Model:
         Enc-dec also ``xk``/``xv`` (L, B, enc_len, KV, hd), which
         ``prefill_encoder`` fills."""
         cfg = self.cfg
+        if device is None and self.world is not None:
+            device = self.world.device
         dev = resolve_device(device)
         if cfg.opt_kv_quant and cfg.family == "hybrid":
             raise TypeError(
@@ -323,10 +498,11 @@ class Model:
                     device=dev)
         else:
             cache.update(att.init_kv_cache(cfg, cfg.n_layers, batch_size,
-                                           max_len, device=dev))
+                                           max_len, device=dev,
+                                           par=self.par))
         if cfg.enc_layers:
-            shape = (cfg.n_layers, batch_size, enc_len, cfg.n_kv_heads,
-                     cfg.hd)
+            shape = (cfg.n_layers, batch_size, enc_len,
+                     cache["k"].shape[3], cfg.hd)
             cache["xk"] = torch.zeros(shape, dtype=cfg.tdtype, device=dev)
             cache["xv"] = torch.zeros_like(cache["xk"])
         return cache
@@ -334,14 +510,24 @@ class Model:
     def prefill_encoder(self, params, cache, batch):
         """Enc-dec: run the encoder and fill the cross-attention K/V cache
         of every decoder layer from its raw output."""
-        enc_out, _ = self._encode(params, batch)
+        par = self.par
+        places = None if par is None else self.places(params)
+        enc_out, _ = self._encode(params, batch, places)
         layers = params["layers"]
         xk, xv = [], []
         for i in range(self.cfg.n_layers):
-            xp = _layer(layers, i)["xattn"]
-            xk.append(torch.einsum("bsd,dhk->bshk", enc_out, xp["wk"]))
-            xv.append(torch.einsum("bsd,dhk->bshk", enc_out, xp["wv"]))
+            xp = self._layer(layers, i, places)["xattn"]
+            wk, wv = att.kv_weights(xp, self.cfg, par)
+            xk.append(torch.einsum("bsd,dhk->bshk", enc_out, wk))
+            xv.append(torch.einsum("bsd,dhk->bshk", enc_out, wv))
         return dict(cache, xk=torch.stack(xk), xv=torch.stack(xv))
+
+    def _layer(self, layers, i: int, places=None):
+        """Layer ``i`` of the decoder stack, its FSDP leaves gathered."""
+        lp = _layer(layers, i)
+        if places is None:
+            return lp
+        return fsdp_gather(lp, places["layers"], self._par(1), shift=1)
 
     def decode_step(self, params, cache, tokens, pos):
         """tokens: (B, 1); pos: the position (int, or a 0-d tensor, read
@@ -350,12 +536,18 @@ class Model:
         place and returns the cache with ``pos + 1``."""
         cfg = self.cfg
         pos = int(pos)
-        x = embed_tokens(params["embed"], tokens, cfg)
+        par = self._par(1)
+        places = None if par is None else self.places(params)
+        embed = params["embed"] if places is None else fsdp_gather(
+            params["embed"], places["embed"], par)
+        x = embed_tokens(embed, tokens, cfg, par)
+        if par is not None:
+            x = reduce_from(x, par.model)
         layers = params["layers"]
         kind = self._block_kind()
         quant = "k_scale" in cache
         for i in range(cfg.n_layers):
-            lp = _layer(layers, i)
+            lp = self._layer(layers, i, places)
             if kind != "mamba":
                 cross = ((cache["xk"][i], cache["xv"][i]) if cfg.enc_layers
                          else (None, None))
@@ -377,7 +569,7 @@ class Model:
                 kv, inv = cache["shared_kv"], i // cfg.shared_every
                 x = self._block_decode(params["shared"], x, kv["k"][inv],
                                        kv["v"][inv], kv["idx"], pos, "attn")
-        logits = lm_head(params["embed"], x, cfg)
+        logits = lm_head(embed, x, cfg, par)
         return logits, dict(cache, pos=pos + 1)
 
     def _block_decode(self, lp, x, cache_k, cache_v, cache_idx, pos: int,
@@ -388,17 +580,19 @@ class Model:
         attention over it, the cross-attention over the encoder's
         ``xk``/``xv`` when given, the feed-forward."""
         cfg = self.cfg
-        h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+        par = self._par(1)
+        h = enter(rms_norm(x, lp["ln1"], cfg.norm_eps), par)
         att.update_cache(lp["attn"], h, cache_k, cache_v, cache_idx, pos,
-                         cfg, k_scale, v_scale)
-        x = x + att.decode_attention(lp["attn"], h, cache_k, cache_v,
-                                     cache_idx, pos, cfg, k_scale, v_scale)
+                         cfg, k_scale, v_scale, par)
+        x = x + leave(att.decode_attention(lp["attn"], h, cache_k, cache_v,
+                                           cache_idx, pos, cfg, k_scale,
+                                           v_scale), par)
         if xk is not None:
-            h = rms_norm(x, lp["lnx"], cfg.norm_eps)
-            x = x + self._cross_decode(lp["xattn"], h, xk, xv)
-        h = rms_norm(x, lp["ln2"], cfg.norm_eps)
+            h = enter(rms_norm(x, lp["lnx"], cfg.norm_eps), par)
+            x = x + leave(self._cross_decode(lp["xattn"], h, xk, xv), par)
+        h = enter(rms_norm(x, lp["ln2"], cfg.norm_eps), par)
         y, _ = ffn_fwd(lp["ffn"], h, cfg, kind)
-        return x + y
+        return x + leave(y, par)
 
     def _cross_decode(self, p, x, xk, xv):
         """One token's cross-attention over the encoder's K/V (no rope, no
@@ -406,7 +600,7 @@ class Model:
         cfg = self.cfg
         B = x.shape[0]
         q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-        H, hd = cfg.n_heads, cfg.hd
+        H, hd = q.shape[2], cfg.hd
         KV = xk.shape[2]
         qg = q.reshape(B, KV, H // KV, hd)
         s = torch.einsum("bkgh,btkh->bkgt", qg, xk).float() * hd ** -0.5
@@ -415,5 +609,9 @@ class Model:
         return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    return Model(cfg)
+def build_model(cfg: ModelConfig, world=None) -> Model:
+    """The model of ``cfg``, over ``world``'s ranks where one is given
+    (module doc; a model axis the family cannot take is refused)."""
+    model = Model(cfg, world)
+    model.par                               # the refusals, now
+    return model

@@ -24,6 +24,17 @@ leaves' once), updates its slices in place and gathers the new parameter
 slices into the whole parameters (``all_gather_into``).  The values are the
 one-device update's, up to the order of the norm's sum.
 
+Over a world of ``D x M`` ranks (``places``, the model's
+:func:`~repro_torch.models.common.leaf_place` tree): ``params`` are this
+rank's slices; ZeRO-1 cuts over the ``data`` axis only, on a dim the model
+axis leaves free, and skips FSDP leaves (the reference's ``_zero1_spec``),
+whose state is cut as the parameter is and which are not gathered after
+the update.  The global norm counts each leaf once: the model-cut and
+data-cut parts summed over their axes, a leaf whole on every rank once.
+In the factored branch, where an axis cuts one of a leaf's last two dims
+(``wq``'s heads at ``(D, H, hd)``, an FSDP dim), ``vr``, ``vc`` and
+``vr.mean(-1)`` are reduced over that axis.
+
 ``adamw_update`` updates the params and the state in place and returns
 them, as a PyTorch optimizer does (the JAX function returns new trees: at
 full width a second copy of params and state does not fit on the card).
@@ -43,7 +54,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.distributed.comm import all_gather_into, all_reduce_sum_
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import Place, tree_leaves, tree_map
 
 # elements of a leaf updated at once: on the card a slab bounds the fp32
 # temporaries of one update; on the CPU a block keeps them in cache
@@ -69,68 +80,132 @@ def _factorable(shape) -> bool:
     return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
 
 
+def _whole(p: torch.Tensor, pl: Place) -> tuple:
+    """The whole shape of the leaf of which ``p`` is a rank's part (its
+    factored moments are the whole leaf's: a cut K/V head dim of one is
+    still a factorable leaf's)."""
+    shape = list(p.shape)
+    for dim, _, whole, _ in pl.cuts:
+        shape[dim] = whole
+    return tuple(shape)
+
+
 def zero1_dim(shape: Sequence[int], ranks: int,
-              factored: bool = False) -> Optional[int]:
+              factored: bool = False, skip: Optional[int] = None,
+              whole: Optional[Sequence[int]] = None) -> Optional[int]:
     """The dim along which ZeRO-1 cuts the optimizer state of a leaf of
     ``shape`` over ``ranks`` ranks: the first dim ``ranks`` divides (with
-    ``factored``, for a factorable leaf not one of its last two); None
-    where there is none, the state then kept whole."""
-    dims = len(shape) - (2 if factored and _factorable(shape) else 0)
+    ``factored``, for a factorable leaf, judged by its ``whole`` shape, not
+    one of its last two; never ``skip``, the dim the model axis cuts);
+    None where there is none, the state then kept whole."""
+    fact = _factorable(shape if whole is None else whole)
+    dims = len(shape) - (2 if factored and fact else 0)
     for d in range(dims):
-        if shape[d] and shape[d] % ranks == 0:
+        if d != skip and shape[d] and shape[d] % ranks == 0:
             return d
     return None
 
 
-def zero1_dims(params, cfg: OptConfig, world):
-    """:func:`zero1_dim` of every leaf of ``params`` over ``world``'s ranks
-    (a tree of the same structure; ``world`` None: every leaf whole)."""
-    return tree_map(lambda p: None if world is None else zero1_dim(
-        tuple(p.shape), world.size, cfg.factored), params)
+def _places(params, places):
+    """``places``, or every leaf whole (one device, or the data axis
+    alone)."""
+    return places if places is not None else tree_map(lambda _: Place(),
+                                                      params)
 
 
-def zero1_state_dims(params, cfg: OptConfig, world) -> Dict[str, Any]:
-    """The dims of the state leaves that :func:`adamw_init` cuts over
-    ``world``'s ranks, a tree like the state's (for
-    ``save_checkpoint(..., dims={"opt": ...})``): each moment's (and
-    master's) the parameter's :func:`zero1_dim`; a non-factorable leaf's
-    ``vc``, ``(1,)``, and ``step`` whole."""
-    dims = zero1_dims(params, cfg, world)
+def zero1_dims(params, cfg: OptConfig, world, places=None):
+    """:func:`zero1_dim` of every leaf of ``params`` over ``world``'s data
+    axis (a tree of the same structure; ``world`` None: every leaf whole;
+    an FSDP leaf of ``places``: None, its state cut as it is)."""
+    if world is None:
+        return tree_map(lambda p: None, params)
+    it = iter(tree_leaves(_places(params, places)))
+
+    def dim(p):
+        pl = next(it)
+        if pl.data is not None:
+            return None
+        return zero1_dim(tuple(p.shape), world.data.size, cfg.factored,
+                         skip=pl.model, whole=_whole(p, pl))
+
+    return tree_map(dim, params)
+
+
+def state_cuts(params, cfg: OptConfig, world, places) -> Dict[str, Any]:
+    """Every state leaf's cuts over the world (a tree like the state's, of
+    :data:`~repro_torch.models.common.Cut` tuples, for
+    ``save_checkpoint(..., dims=)`` and ``restore_checkpoint``): the
+    parameter's model and FSDP cuts and its ZeRO-1 cut over ``data``;
+    ``vr`` without a cut of the last dim (reduced over it), ``vc`` without
+    one of the second-last, a non-factorable leaf's ``vc`` and ``step``
+    whole."""
+    places = _places(params, places)
+    zd = iter(tree_leaves(zero1_dims(params, cfg, world, places)))
+    pl = iter(tree_leaves(places))
+    fact = iter([_factorable(_whole(p, q)) for p, q in zip(
+        tree_leaves(params), tree_leaves(places))] * 2)
+    d = world.data.size
+
+    def full(p):
+        cuts, z = next(pl).cuts, next(zd)
+        if z is not None:
+            cuts += ((z, "data", p.shape[z], p.shape[z] // d),)
+        return cuts
+
+    moments = tree_map(full, params)
     if not cfg.factored:
-        out = {"m": dims, "v": dims, "step": None}
+        out = {"m": moments, "v": moments, "step": ()}
         if cfg.master_fp32:
-            out["master"] = dims
+            out["master"] = moments
         return out
-    it = iter(tree_leaves(dims))
-    vc = tree_map(lambda p: next(it) if _factorable(p.shape) else None,
-                  params)
-    return {"m": dims, "vr": dims, "vc": vc, "step": None}
+
+    def vr(p, cuts):
+        if not next(fact):
+            return cuts
+        return tuple(c for c in cuts if c[0] != p.dim() - 1)
+
+    def vc(p, cuts):
+        if not next(fact):
+            return ()
+        n = p.dim()
+        return tuple((c[0] - 1,) + c[1:] if c[0] == n - 1 else c
+                     for c in cuts if c[0] != n - 2)
+
+    def both(fn):
+        it = iter(tree_leaves(moments))
+        return tree_map(lambda p: fn(p, next(it)), params)
+
+    return {"m": moments, "vr": both(vr), "vc": both(vc), "step": ()}
 
 
 def rank_slice(t: torch.Tensor, dim: Optional[int], world) -> torch.Tensor:
-    """This rank's slice of ``t`` along ``dim`` (a view; ``t`` itself where
-    ``dim`` is None)."""
+    """This rank's slice of ``t`` along ``dim`` over ``world``'s data axis
+    (a view; ``t`` itself where ``dim`` is None)."""
     if dim is None:
         return t
-    k = t.shape[dim] // world.size
-    return t.narrow(dim, world.rank * k, k)
+    data = world.data
+    k = t.shape[dim] // data.size
+    return t.narrow(dim, data.rank * k, k)
 
 
-def adamw_init(params, cfg: OptConfig, world=None) -> Dict[str, Any]:
+def adamw_init(params, cfg: OptConfig, world=None, places=None
+               ) -> Dict[str, Any]:
     """The zero state of ``params`` (on their devices); with ``world``,
     this rank's ZeRO-1 slices of it (module doc)."""
+    fact = iter([_factorable(_whole(p, q)) for p, q in zip(
+        tree_leaves(params), tree_leaves(_places(params, places)))] * 2)
     if world is not None:
-        it = iter(tree_leaves(zero1_dims(params, cfg, world)))
+        it = iter(tree_leaves(zero1_dims(params, cfg, world, places)))
         params = tree_map(lambda p: rank_slice(p, next(it), world), params)
     dev = tree_leaves(params)[0].device
     step = torch.zeros((), dtype=torch.int32, device=dev)
     if cfg.factored:
         def mk_vr(p):   # row second moment (last dim reduced)
-            shape = p.shape[:-1] if _factorable(p.shape) else p.shape
+            shape = p.shape[:-1] if next(fact) else p.shape
             return p.new_zeros(shape, dtype=torch.float32)
 
         def mk_vc(p):   # col second moment (second-to-last reduced)
-            if _factorable(p.shape):
+            if next(fact):
                 return p.new_zeros(p.shape[:-2] + p.shape[-1:],
                                    dtype=torch.float32)
             return p.new_zeros((1,), dtype=torch.float32)
@@ -234,7 +309,8 @@ def _work(work: dict, i: int, like: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: OptConfig, world=None
+def adamw_update(params, grads, state, cfg: OptConfig, world=None,
+                 places=None
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place: ``(params, state, {"grad_norm", "lr"})``
     with ``params`` and ``state`` the trees given, updated.  The JAX
@@ -242,12 +318,14 @@ def adamw_update(params, grads, state, cfg: OptConfig, world=None
     ``scale = min(1, clip / max(gnorm, 1e-9))``, the learning rate from
     the step before the increment, the bias corrections from the step
     after.  With ``world``: ``grads`` and ``state`` are this rank's ZeRO-1
-    slices, ``params`` whole (module doc)."""
-    dims = zero1_dims(params, cfg, world)
+    slices, ``params`` whole over the data axis, or over a model axis
+    this rank's slices (``places``; module doc)."""
+    places = _places(params, places)
+    dims = zero1_dims(params, cfg, world, places)
     if world is None:
         gnorm = torch.sqrt(sum(_square_sum(g) for g in _sorted_leaves(grads)))
     else:
-        gnorm = _world_norm(grads, dims, world)
+        gnorm = _world_norm(grads, dims, places, world)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = _schedule(cfg, state["step"])
@@ -271,31 +349,54 @@ def adamw_update(params, grads, state, cfg: OptConfig, world=None
                       state.get("master", params))
         update = _plain_update
     has_master = "master" in state
-    for (p, *rest), (d,) in zip(leaves, _zip(dims)):
+    for (p, *rest), (d, pl) in zip(leaves, _zip(dims, places)):
         mine = rank_slice(p, d, world)
         if d is not None:
             mine = mine.contiguous()
             if not cfg.factored and not has_master:
                 rest[-1] = mine              # w: the slice it updates
+        if cfg.factored:
+            rest.append((_factorable(_whole(p, pl)),
+                         _last_two_cuts(pl, p.dim(), world)))
         update(cfg, scale, finish, has_master, mine, *rest, work)
         if d is not None:
-            all_gather_into(p, mine, d, world)
+            all_gather_into(p, mine, d, world.data)
     return params, state, {"grad_norm": gnorm, "lr": lr}
 
 
-def _world_norm(grads, dims, world) -> torch.Tensor:
-    """The global gradient norm over a world: the ranks' sums of squares
-    over their slices, summed by ``all_reduce_sum_``, plus the whole
-    leaves' (equal on every rank) once; each in the JAX package's leaf
-    order."""
-    pairs = list(zip(_sorted_leaves(grads), _sorted_leaves(dims)))
-    part = torch.zeros((), dtype=torch.float32, device=pairs[0][0].device)
-    for g, d in pairs:
-        if d is not None:
+def _last_two_cuts(pl: Place, ndim: int, world) -> tuple:
+    """For the factored moments: ``(axis, whole length)`` of the axis that
+    cuts the leaf's last dim and of the one that cuts its second-last
+    (None where none does)."""
+    out = []
+    for dim in (ndim - 1, ndim - 2):
+        cut = next((c for c in pl.cuts if c[0] == dim), None)
+        out.append(None if cut is None or world is None else
+                   (getattr(world, cut[1]),
+                    cut[2]))
+    return tuple(out)
+
+
+def _world_norm(grads, dims, places, world) -> torch.Tensor:
+    """The global gradient norm over a world, each leaf counted once (in
+    the JAX package's leaf order): the ranks' sums of squares over their
+    parts, a part summed on the ranks that hold it (a leaf whole over an
+    axis counted on its rank 0 of that axis), by one ``all_reduce_sum_``
+    over the world; then the leaves whole on every rank, once."""
+    rows = list(zip(_sorted_leaves(grads), _sorted_leaves(dims),
+                    _sorted_leaves(places)))
+    part = torch.zeros((), dtype=torch.float32, device=rows[0][0].device)
+    for g, d, pl in rows:
+        model_cut, data_cut = pl.model is not None, (
+            d is not None or pl.data is not None)
+        if not (model_cut or data_cut):
+            continue
+        if (model_cut or world.model.rank == 0) and \
+                (data_cut or world.data.rank == 0):
             part = part + _square_sum(g)
     all_reduce_sum_(part, world)
-    for g, d in pairs:
-        if d is None:
+    for g, d, pl in rows:
+        if d is None and pl.model is None and pl.data is None:
             part = part + _square_sum(g)
     return torch.sqrt(part)
 
@@ -316,12 +417,14 @@ def _plain_update(cfg, scale, finish, has_master, p, g, m, v, w, work
             out[sl] = val
 
 
-def _factored_update(cfg, scale, finish, has_master, p, g, m, vr, vc, work
-                     ) -> None:
+def _factored_update(cfg, scale, finish, has_master, p, g, m, vr, vc, how,
+                     work) -> None:
     """The factored update of one leaf: :func:`_factored_leaf` for a
-    factorable one, else elementwise with ``vr`` as its second moment."""
-    if _factorable(p.shape):
-        _factored_leaf(cfg, scale, finish, p, g, m, vr, vc, work)
+    factorable one, else elementwise with ``vr`` as its second moment.
+    ``how``: (factorable, the cuts of the last two dims)."""
+    factorable, cuts = how
+    if factorable:
+        _factored_leaf(cfg, scale, finish, p, g, m, vr, vc, work, cuts)
         return
     ins = [_flat(t) for t in (p, g, m, vr)]
     o = [_flat_out(t) for t in (p, m, vr)]
@@ -335,22 +438,35 @@ def _factored_update(cfg, scale, finish, has_master, p, g, m, vr, vc, work
         o[2][sl] = vr_n
 
 
-def _factored_leaf(cfg, scale, finish, p, g, m, vr, vc, work: dict
-                   ) -> None:
+def _mean(t: torch.Tensor, dim: int, cut) -> torch.Tensor:
+    """``t.mean(dim)``, over every rank's part of the dim where ``cut``
+    (``(axis, whole length)``) says an axis cuts it."""
+    if cut is None:
+        return t.mean(dim)
+    axis, whole = cut
+    return all_reduce_sum_(t.sum(dim), axis).div_(whole)
+
+
+def _factored_leaf(cfg, scale, finish, p, g, m, vr, vc, work: dict,
+                   cuts=(None, None)) -> None:
     """The factored update of a factorable leaf, a slab of whole matrices
     at a time: the row and column moments from the slab's squared
     gradient, then the elementwise rest in blocks of rows.  The slab's two
     fp32 temporaries live in ``work``, reused from slab to slab (on the
-    CPU a fresh allocation of that size costs more than the arithmetic)."""
+    CPU a fresh allocation of that size costs more than the arithmetic).
+    ``cuts``: the axes cutting the last and second-last dims (module
+    doc)."""
     c = p.shape[-1]
+    last, second = cuts
     for at in _matrices(tuple(p.shape)):
         ga = g[at]
         gs = torch.mul(ga.float(), scale, out=_work(work, 0, ga))
         g2 = torch.square(gs, out=_work(work, 1, ga)).add_(1e-30)
-        vr_n = cfg.b2 * vr[at] + (1 - cfg.b2) * g2.mean(-1)
-        vc_n = cfg.b2 * vc[at] + (1 - cfg.b2) * g2.mean(-2)
+        vr_n = cfg.b2 * vr[at] + (1 - cfg.b2) * _mean(g2, -1, last)
+        vc_n = cfg.b2 * vc[at] + (1 - cfg.b2) * _mean(g2, -2, second)
         del g2
-        vmean = torch.clamp(vr_n.mean(-1)[..., None, None], min=1e-30)
+        vmean = torch.clamp(_mean(vr_n, -1, second)[..., None, None],
+                            min=1e-30)
         rows = max(1, _block(p) // c)
         pm, mm = p[at], m[at]
         for rs in _blocks(p.shape[-2], rows):

@@ -125,18 +125,20 @@ def test_all_lists_mirror_reference(pkg):
         assert getattr(ours, name) is not None, name
 
 
-# the port's own packages of the data axis, with no reference counterpart
-# of the same shape (the JAX package is one controller)
+# the port's own packages of the data and model axes, with no reference
+# counterpart of the same shape (the JAX package is one controller)
 _OWN_ALL = {
     "repro_torch.distributed": [
         "World", "init_world", "close_world", "current_world",
         "require_world", "rank_devices", "choose_backend",
         "all_reduce_min_", "all_reduce_sum_",
         "broadcast_", "reduce_scatter_mean", "all_gather_into", "barrier",
-        "run_world", "RankError"],
+        "run_world", "RankError",
+        "Axis", "all_reduce_max_", "reduce_scatter_sum", "all_gather",
+        "copy_to", "reduce_from", "gather_from", "scatter_to", "split_to"],
     "repro_torch.optim": [
         "adamw_init", "adamw_update", "OptConfig", "compress_grads",
-        "decompress_grads", "zero1_dim", "zero1_dims", "zero1_state_dims"],
+        "decompress_grads", "zero1_dim", "zero1_dims", "state_cuts"],
     "repro_torch.train": [
         "build_prefill_step", "build_serve_step", "build_train_step",
         "cross_entropy", "batch_rows"],

@@ -653,6 +653,47 @@ def test_cuda_tensor_core_body_reads_views():
 
 
 @pytest.mark.gpu
+def test_cuda_flash_attention_at_local_head_shapes():
+    """K4 on one rank's heads under a model axis of 2: granite-20b's 24 of
+    48 query heads on its one replicated K/V head (G = 24) and
+    deepseek-coder-33b's 28 of 56 on 4 of its 8 K/V heads, bf16 (the
+    tensor-core body) and fp32 (the CUDA-core body), both masks, against
+    the plain version; then a 1 x 2 gloo world sharing the card runs
+    granite-20b SMOKE's ``pallas`` prefill: K4 launched once a layer on
+    each rank, the gathered logits the card's one-device prefill's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa.reset_launches()
+    n = 0
+    for (B, S, H, KV, hd), dtype in [((1, 1024, 24, 1, 128), torch.bfloat16),
+                                     ((1, 512, 28, 4, 128), torch.bfloat16),
+                                     ((1, 256, 24, 1, 128), torch.float32)]:
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        q, k, v = _qkv(B, S, H, KV, hd, dtype, seed=S + H)
+        for causal in (True, False):
+            got = fa.flash_attention(q.cuda(), k.cuda(), v.cuda(),
+                                     causal=causal)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_ref(q, k, v, causal=causal)
+            torch.testing.assert_close(got.cpu().float(), want.float(),
+                                       rtol=tol, atol=tol)
+            n += 1
+    assert fa.LAUNCHES["flash_attention"] == n
+    import torch_world_ranks as ranks
+    from repro_torch.distributed import run_world
+    out = run_world(ranks.axis_card_prefill, 2, "granite-20b", 2, 64,
+                    mesh=(1, 2), timeout=300)
+    single = ranks.axis_card_prefill(None, "granite-20b", 2, 64)
+    layers = get_config("granite-20b", smoke=True).n_layers
+    assert single["launches"]["flash_attention"] == layers
+    for r in out:
+        assert r["launches"]["flash_attention"] == layers
+        torch.testing.assert_close(r["logits"], single["logits"],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 def test_cuda_flash_attention_refuses_what_it_has_no_kernel_for():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -1828,3 +1869,36 @@ def test_cuda_nccl_world_of_one_captures_the_merge(tmp_path):
         assert counts["host_syncs"] == single.last_counts["host_syncs"]
         assert counts["merges"] == counts["levels"] > 0
         assert launches[_WORLD_PATHS[path]] > 0
+
+
+@pytest.mark.gpu
+def test_cuda_nccl_model_axis_trains_and_saves(tmp_path):
+    """A 2 x 2 world of NCCL ranks, one card each: granite-20b SMOKE (fp32,
+    FSDP over ``data``, sequence parallelism over ``model``) takes three
+    steps; the losses within the train gate (``rtol = 1e-5``) of one
+    card's ``microbatch=2`` steps; the save, each leaf gathered over both
+    axes onto rank 0's card, restores on one card to the world's own
+    gathered leaves bit for bit."""
+    _card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices: an NCCL world takes a card "
+                    "a rank")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import torch_world_ranks as ranks
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.distributed import run_world
+    ckpt = str(tmp_path / "ckpt")
+    out = run_world(ranks.axis_train, 4, "granite-20b", 3, 4, 64, None,
+                    ckpt, 0, True, mesh=(2, 2), timeout=600)
+    one = ranks.axis_train(None, "granite-20b", 3, 4, 64, microbatch=2,
+                           card=True)
+    for r in out:
+        assert r["losses"] == out[0]["losses"]
+    torch.testing.assert_close(torch.tensor(out[0]["losses"]),
+                               torch.tensor(one["losses"]), rtol=1e-5,
+                               atol=0)
+    like = {"params": out[0]["params"], "opt": out[0]["state"]}
+    tree, step = restore_checkpoint(ckpt, like, device="cpu")
+    assert step == 3
+    for got, want in zip(ranks._leaves(tree), ranks._leaves(like)):
+        assert torch.equal(got, torch.as_tensor(want))

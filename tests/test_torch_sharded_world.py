@@ -304,7 +304,7 @@ def test_host_shard_is_the_whole_graphs_shard(size):
     slicing needs no collective) equals ``from_host(...).with_csc()
     .shard(...)`` array for array, on graphs whose shards cut rows of the
     mirror, hold only padding, or meet empty rows."""
-    from repro_torch.distributed import World
+    from repro_torch.distributed import Axis, World
     from repro_torch.matching import Mesh
     cpu = torch.device("cpu")
     graphs = dict(GRAPHS, tiny=random_bipartite(5, 40, 0.3, seed=1),
@@ -314,7 +314,9 @@ def test_host_shard_is_the_whole_graphs_shard(size):
         whole = TorchCSR.from_host(g, device="cpu").with_csc()
         for rank in range(size):
             w = World(rank=rank, size=size, backend="gloo",
-                      devices=(cpu,) * size, ident=-1)
+                      devices=(cpu,) * size, ident=-1, mesh=(size, 1),
+                      data=Axis("data", rank, size, tuple(range(size))),
+                      model=Axis("model", 0, 1, (rank,)))
             mesh = Mesh(devices=(cpu,) * size, axis_names=("data",),
                         axis_sizes=(size,), world=w)
             want = whole.shard(mesh, "data")

@@ -300,10 +300,10 @@ def test_flash_kernel_is_refused_under_autograd():
         assert torch.isfinite(model.forward(params, batch)[0]).all()
 
 
-def _train(ckpt, *extra, steps=6):
+def _train(ckpt, *extra, steps=6, arch="mamba2-2.7b"):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           "mamba2-2.7b", "--smoke", "--batch", "4", "--seq", "64",
+           arch, "--smoke", "--batch", "4", "--seq", "64",
            "--steps", str(steps), "--ckpt-dir", ckpt, "--device", "cpu",
            *extra]
     return subprocess.run(cmd, env=env, capture_output=True, text=True,
@@ -332,8 +332,15 @@ def test_launch_train_crash_restart_bitexact(tmp_path):
 
 
 def test_launch_train_refuses_a_mesh(tmp_path):
-    """A model axis (``DxM``, ``M > 1``) waits for ROADMAP item 14; the data
-    axis alone runs (``tests/test_torch_train_world.py``)."""
-    r = _train(str(tmp_path), "--mesh", "2x2", steps=1)
-    assert r.returncode != 0
-    assert "Queue 1, item 14" in r.stderr
+    """A model axis (``DxM``, ``M > 1``) runs for the attention families
+    (granite-20b SMOKE at ``--mesh 2x2``; its losses against one device in
+    ``tests/test_torch_train_world.py``) and is refused for the SSM and MoE
+    families, which wait for ROADMAP item 16."""
+    for arch in ("mamba2-2.7b", "dbrx-132b"):
+        r = _train(str(tmp_path / arch), "--mesh", "2x2", steps=1, arch=arch)
+        assert r.returncode != 0
+        assert "Queue 1, item 16" in r.stderr
+    r = _train(str(tmp_path / "granite"), "--mesh", "2x2", steps=1,
+               arch="granite-20b")
+    assert r.returncode == 0, r.stderr
+    assert len(_exact_losses(r.stdout)) == 1

@@ -18,7 +18,10 @@
   one-device run with the same row blocks; the JAX package's
   ``restore_checkpoint`` reads it (every leaf fp32) and gets the port's
   one-device restore of it exactly;
-* ``--mesh 2x2`` is refused, naming ROADMAP item 14.
+* ``--mesh 2x2`` (the model axis) runs for granite-20b SMOKE, its last
+  loss within ``1e-5`` of the one-device ``microbatch=2`` run and of the
+  JAX package's step; it is refused for mamba2-2.7b and dbrx-132b, naming
+  ROADMAP item 16; ``--mesh 2x2x2`` is refused.
 
 The launchers run as subprocesses started together, the worlds through
 ``run_world`` (their timeouts bound them); ranks run one thread each.
@@ -47,7 +50,7 @@ from repro.train import build_train_step as jax_build_train_step
 from repro_torch.ckpt import restore_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.interop import lm_params_to_reference
-from repro_torch.launch.train import mesh_ranks, opt_config_for, run, train
+from repro_torch.launch.train import opt_config_for, parse_mesh, run, train
 from repro_torch.models import build_model
 from repro_torch.optim import adamw_init
 
@@ -177,15 +180,30 @@ def test_reference_restores_a_w2_checkpoint(crashed):
 
 
 def test_a_model_axis_is_refused():
-    with pytest.raises(ValueError, match="Queue 1, item 14"):
-        mesh_ranks("2x2")
-    assert mesh_ranks("2") == mesh_ranks("2x1") == 2
+    """The model axis runs for an attention family and is refused for the
+    SSM and MoE families (ROADMAP item 16)."""
+    assert parse_mesh("2x2") == (2, 2)
+    assert parse_mesh("2") == parse_mesh("2x1") == (2, 1)
     with pytest.raises(ValueError, match="D or DxM"):
-        mesh_ranks("2x2x2")
+        parse_mesh("2x2x2")
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-         "mamba2-2.7b", "--smoke", "--steps", "1", "--device", "cpu",
-         "--mesh", "2x2"], env=env, capture_output=True, text=True,
-        timeout=120)
-    assert r.returncode != 0 and "Queue 1, item 14" in r.stderr
+
+    def launch(arch):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             arch, "--smoke", "--batch", str(BATCH), "--seq", str(SEQ),
+             "--steps", str(STEPS), "--device", "cpu", "--mesh", "2x2"],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+
+    procs = {arch: launch(arch) for arch in
+             ("granite-20b", "mamba2-2.7b", "dbrx-132b")}
+    out = {arch: p.communicate(timeout=300) + (p.returncode,)
+           for arch, p in procs.items()}
+    for arch in ("mamba2-2.7b", "dbrx-132b"):
+        assert out[arch][2] != 0 and "Queue 1, item 16" in out[arch][1]
+    stdout, stderr, rc = out["granite-20b"]
+    assert rc == 0, stderr[-3000:]
+    got = exact(stdout)
+    np.testing.assert_allclose(got, one_device("granite-20b"), rtol=RTOL)
+    np.testing.assert_allclose(got, reference_loss("granite-20b"), rtol=RTOL)

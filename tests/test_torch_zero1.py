@@ -304,7 +304,11 @@ def test_zero1_update_equals_one_device(world, run):
 def test_init_cuts_the_state_and_keeps_whole_leaves_whole():
     """``adamw_init`` over a stand-in world of 4 at rank 2: each state
     leaf is the slice ``rank`` of the one-device leaf along its dim."""
-    world = types.SimpleNamespace(rank=2, size=4)
+    from repro_torch.distributed import Axis, World
+    world = World(rank=2, size=4, backend="gloo",
+                  devices=(torch.device("cpu"),) * 4, ident=-1, mesh=(4, 1),
+                  data=Axis("data", 2, 4, (0, 1, 2, 3)),
+                  model=Axis("model", 0, 1, (2,)))
     p = lm_params_from_reference(draw(np.random.default_rng(0)),
                                  device="cpu")
     for factored in (False, True):

@@ -221,3 +221,260 @@ def zero1_suite(world, runs) -> list:
     """:func:`zero1_steps` of every ``(params, grads_by_rank, kw)`` in
     ``runs``."""
     return [zero1_steps(world, *run) for run in runs]
+
+
+# -- the model axis -------------------------------------------------------------
+AXIS_ARCHS = ("granite-20b", "deepseek-coder-33b", "nemotron-4-340b",
+              "h2o-danube-1.8b", "paligemma-3b", "seamless-m4t-medium")
+ENC_LEN = 16
+
+
+def axis_config(arch, **overrides):
+    """``arch``'s SMOKE config (fp32) with its FULL config's ``fsdp`` and
+    ``remat``: sequence parallelism and FSDP where the FULL config has
+    them, each layer recomputed in the backward."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    return get_config(arch, smoke=True, fsdp=full.fsdp, remat=full.remat,
+                      **overrides)
+
+
+def axis_batch(cfg, step, batch, seq) -> dict:
+    """numpy inputs of step ``step``: ``synthetic_batch``'s tokens and
+    labels, and the vision prefix's patch embeddings or the enc-dec's
+    frames drawn from the step."""
+    from repro_torch.data import DataConfig, synthetic_batch
+    out = dict(synthetic_batch(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                          global_batch=batch), step))
+    rng = np.random.default_rng(100 + step)
+    if cfg.frontend == "vision":
+        out["frontend"] = rng.standard_normal(
+            (batch, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    if cfg.enc_layers:
+        out["enc_frames"] = rng.standard_normal(
+            (batch, ENC_LEN, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def as_torch(batch) -> dict:
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+COLLECTIVES = ("copy_to", "reduce_from", "gather_from", "scatter_to",
+               "split_to")
+
+
+def axis_collectives(world) -> dict:
+    """Each differentiable collective over each axis of more than one
+    rank, on seeded per-rank inputs: the forward and the gradient of the
+    input under a seeded per-rank output gradient; and
+    ``all_reduce_max_``."""
+    from repro_torch.distributed import comm
+    out = {}
+    for name in ("data", "model"):
+        axis = getattr(world, name)
+        if axis.size == 1:
+            continue
+        out[name] = {"ranks": axis.ranks, "index": axis.rank}
+        for op in COLLECTIVES:
+            x = ranked(world, (2, 2 * axis.size, 3)).requires_grad_(True)
+            fn = getattr(comm, op)
+            y = fn(x, axis) if op in ("copy_to", "reduce_from") \
+                else fn(x, 1, axis)
+            g = torch.Generator().manual_seed(2000 + world.rank)
+            gy = torch.randn(y.shape, generator=g)
+            y.backward(gy)
+            out[name][op] = (y.detach(), x.grad)
+        out[name]["max"] = comm.all_reduce_max_(
+            ranked(world, (5,)), axis)
+    return out
+
+
+def _gathered_state(model, params, state, opt, world):
+    from repro_torch.models.common import gather_cuts, tree_leaves
+    if world is None:
+        return state
+    from repro_torch.optim import state_cuts
+    cuts = state_cuts(params, opt, world, model.places(params))
+    it = iter(tree_leaves(cuts))
+    return _tree_to(state, lambda t: gather_cuts(t, next(it), world))
+
+
+def axis_layout(model, params, opt, world) -> dict:
+    """The ``dims`` of a params-and-state checkpoint over ``world``."""
+    from repro_torch.models.common import tree_map_paths
+    from repro_torch.optim import state_cuts
+    places = model.places(params)
+    return {"params": tree_map_paths(lambda _, pl: pl.cuts, places),
+            "opt": state_cuts(params, opt, world, places)}
+
+
+def axis_train(world, arch, steps, batch, seq, opt_kw=None,
+               ckpt=None, microbatch=0, card=False) -> dict:
+    """``steps`` steps of ``build_train_step`` over ``world`` (None: one
+    device, ``microbatch``) from the seeded init, on the CPU or, with
+    ``card``, on this rank's card: the losses, the whole params and state
+    after them (on the host), and, with ``ckpt``, a save there."""
+    from repro_torch.ckpt import save_checkpoint
+    from repro_torch.launch.train import opt_config_for
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptConfig, adamw_init
+    from repro_torch.train import build_train_step
+    dev = torch.device("cpu") if not card else (
+        torch.device("cuda") if world is None else world.device)
+    cfg = axis_config(arch)
+    model = build_model(cfg, world)
+    p = model.init(0, device=dev)
+    opt = OptConfig(**opt_kw) if opt_kw else opt_config_for(cfg, steps)
+    state = adamw_init(p, opt, world, model.places(p))
+    step = build_train_step(model, opt, microbatch=microbatch)
+    losses = []
+    for i in range(steps):
+        b = {k: v.to(dev)
+             for k, v in as_torch(axis_batch(cfg, i, batch, seq)).items()}
+        p, state, met = step(p, state, b)
+        losses.append(float(met["loss"]))
+    if ckpt:
+        save_checkpoint(ckpt, steps, {"params": p, "opt": state},
+                        world=world, dims=None if world is None else
+                        axis_layout(model, p, opt, world))
+    host = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t  # noqa
+    return dict(losses=losses, params=_tree_to(model.gather(p), host),
+                state=_tree_to(_gathered_state(model, p, state, opt, world),
+                               host))
+
+
+def axis_restore(world, arch, ckpt, steps, opt_kw=None) -> dict:
+    """Restore ``ckpt`` into this world's slices (a fresh init of another
+    seed as the tree) and gather it whole again."""
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.launch.train import opt_config_for
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptConfig, adamw_init
+    cfg = axis_config(arch)
+    model = build_model(cfg, world)
+    p = model.init(1, device="cpu")
+    opt = OptConfig(**opt_kw) if opt_kw else opt_config_for(cfg, steps)
+    like = {"params": p, "opt": adamw_init(p, opt, world, model.places(p))}
+    tree, at = restore_checkpoint(ckpt, like, device="cpu", world=world,
+                                  dims=axis_layout(model, p, opt, world))
+    return dict(step=at, params=model.gather(tree["params"]),
+                state=_gathered_state(model, tree["params"], tree["opt"],
+                                      opt, world))
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def axis_serve(world, arch, batch, seq, decode_steps) -> dict:
+    """The forward's logits, the ``attn_impl="pallas"`` prefill and
+    ``decode_steps`` teacher-forced serve steps, all gathered whole, the
+    KV cache's heads on this rank, and whether ``Model.shard`` of the
+    one-device init is this rank's init, leaf for leaf."""
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.train import build_prefill_step, build_serve_step
+    cfg = axis_config(arch)
+    model = build_model(cfg, world)
+    p = model.init(0, device="cpu")
+    cut = model.shard(build_model(cfg).init(0, device="cpu"))
+    same = all(torch.equal(x, y) and x.shape == y.shape for x, y in zip(
+        _leaves(p), _leaves(cut)))
+    b = as_torch(axis_batch(cfg, 7, batch, seq))
+    logits = model.gather_logits(model.forward(p, b)[0])
+    pallas = build_model(dataclasses.replace(cfg, attn_impl="pallas"), world)
+    prefill = build_prefill_step(pallas)(p, b)
+    cache = model.init_cache(batch, decode_steps, enc_len=ENC_LEN,
+                             device="cpu")
+    if cfg.enc_layers:
+        cache = model.prefill_encoder(p, cache, b)
+    serve = build_serve_step(model)
+    dec = []
+    for t in range(decode_steps):
+        lg, cache = serve(p, cache, b["tokens"][:, t:t + 1])
+        dec.append(lg)
+    return dict(logits=logits, prefill=prefill, decode=torch.cat(dec, 1),
+                kv_heads=int(cache["k"].shape[3]), shard_is_init=same)
+
+
+def axis_remesh(world, mesh) -> dict:
+    """The world remeshed to ``mesh``: its axes, and a sum over each."""
+    from repro_torch.distributed import all_reduce_sum_, current_world
+    w = world.remesh(mesh)
+    out = {"current": current_world() is w, "ident": w.ident != world.ident}
+    for name in ("data", "model"):
+        ax = getattr(w, name)
+        out[name] = (ax.rank, ax.size, ax.ranks, float(all_reduce_sum_(
+            torch.tensor([float(w.rank)]), ax)))
+    return out
+
+
+def axis_suite(world, jobs) -> dict:
+    """Every job ``(key, function name, args)`` in turn, and the
+    collectives."""
+    out = {key: globals()[fn](world, *args) for key, fn, args in jobs}
+    out["collectives"] = axis_collectives(world)
+    return out
+
+
+def _collective_want(op, xs, gys, me, dim=1):
+    """(forward, input gradient) of ``op`` on rank ``me`` of an axis whose
+    ranks hold ``xs`` and feed back ``gys``."""
+    n = len(xs)
+
+    def piece(t, i):
+        k = t.shape[dim] // n
+        return t.narrow(dim, i * k, k)
+
+    if op == "copy_to":
+        return xs[me], sum(gys)
+    if op == "reduce_from":
+        return sum(xs), gys[me]
+    if op == "gather_from":
+        return torch.cat(xs, dim), piece(sum(gys), me)
+    if op == "scatter_to":
+        return piece(sum(xs), me), torch.cat(gys, dim)
+    return piece(xs[me], me), torch.cat(gys, dim)          # split_to
+
+
+def check_collectives(results, name, op):
+    """Every rank's ``op`` over axis ``name`` against its one-process
+    value (the ranks' inputs and output gradients drawn again here, as
+    ``torch_world_ranks.axis_collectives`` draws them)."""
+    for r in results:
+        c = r["collectives"][name]
+        stand = [type("Rank", (), {"rank": g})() for g in c["ranks"]]
+        if op == "max":
+            xs = [ranked(w, (5,)) for w in stand]
+            assert torch.equal(c["max"], torch.stack(xs).amax(0))
+            continue
+        got_fwd, got_grad = c[op]
+        xs = [ranked(w, (2, 2 * len(stand), 3)) for w in stand]
+        gys = [torch.randn(got_fwd.shape, generator=torch.Generator()
+                           .manual_seed(2000 + w.rank)) for w in stand]
+        fwd, grad = _collective_want(op, xs, gys, c["index"])
+        torch.testing.assert_close(got_fwd, fwd, rtol=0, atol=1e-6)
+        torch.testing.assert_close(got_grad, grad, rtol=0, atol=1e-6)
+
+
+def axis_card_prefill(world, arch, batch, seq) -> dict:
+    """The ``attn_impl="pallas"`` prefill of ``arch`` (SMOKE, fp32) on this
+    rank's card over the world's model axis: the gathered logits and K4's
+    launches on this rank (its counts set to 0 just before)."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import build_model
+    from repro_torch.train import build_prefill_step
+    cfg = dataclasses.replace(axis_config(arch), attn_impl="pallas")
+    model = build_model(cfg, world)
+    p = model.init(0)
+    dev = "cuda" if world is None else world.device
+    b = {k: v.to(dev)
+         for k, v in as_torch(axis_batch(cfg, 7, batch, seq)).items()}
+    fa.reset_launches()
+    logits = build_prefill_step(model)(p, b)
+    torch.cuda.synchronize()
+    return dict(logits=logits.cpu(), launches=dict(fa.LAUNCHES))

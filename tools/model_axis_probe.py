@@ -1,0 +1,188 @@
+"""Where ``chip_smoke.py`` phase 5d's time goes, on the card.
+
+    python tools/model_axis_probe.py phase
+    python tools/model_axis_probe.py collectives
+    python tools/model_axis_probe.py save
+    python tools/model_axis_probe.py first-step
+
+* ``phase``: phase 5d alone: a gloo world of 2 remeshed as 1 x 2 runs
+  ``chip_smoke.axis_serve_rank``, one of 4 remeshed as 2 x 2
+  ``chip_smoke.axis_train_rank``, then ``chip_smoke.model_axis_phase``
+  checks them; prints each world's seconds and the phase's;
+* ``collectives``: a gloo world of 2 sharing the card, ``all_gather`` and
+  ``reduce_scatter_sum`` of 1 GB and 512 MB fp32 card tensors, three calls
+  each (the first call at a size against the later ones), once as the
+  process starts and once with ``PYTORCH_CUDA_ALLOC_CONF=pinned_use_cuda_
+  host_register:True,pinned_num_register_threads:8`` in the ranks'
+  environment;
+* ``save``: ``chip_smoke.axis_train_rank`` over 2 x 2 with the checkpoint's
+  gathers and writes timed apart;
+* ``first-step``: the 2 x 2 fp32 gate's first three steps, the first under
+  ``torch.profiler`` on rank 0 (its 25 most expensive entries by self CPU
+  time).
+
+Each prints the card's name and power limit first.  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
+sys.path.insert(0, os.path.join(HERE, "src"))
+
+HOST_REGISTER = ("pinned_use_cuda_host_register:True,"
+                 "pinned_num_register_threads:8")
+
+
+def phase_rank(world, ckpt: str):
+    """One rank of ``phase``: its part of phase 5d, timed."""
+    import chip_smoke as cs
+    t0 = time.perf_counter()
+    if world.size == 2:
+        out = cs.axis_serve_rank(world.remesh((1, 2)))
+    else:
+        out = cs.axis_train_rank(world.remesh((2, 2)), ckpt)
+    return out, time.perf_counter() - t0
+
+
+def collectives_rank(world) -> dict:
+    """Seconds of each gather and reduce-scatter, by size and call."""
+    import torch
+    from repro_torch.distributed import all_gather, reduce_scatter_sum
+    out = {}
+    for n in (1 << 28, 1 << 27):
+        x = torch.ones(n // world.size, device=world.device)
+        y = torch.ones(n, device=world.device)
+        for i in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            all_gather(x, 0, world)
+            torch.cuda.synchronize()
+            out[f"all_gather {4 * n} B, call {i}"] = time.perf_counter() - t
+            t = time.perf_counter()
+            reduce_scatter_sum(y, 0, world)
+            torch.cuda.synchronize()
+            out[f"reduce_scatter {4 * n} B, call {i}"] = \
+                time.perf_counter() - t
+    return out
+
+
+def save_rank(world, ckpt: str) -> dict:
+    """``axis_train_rank`` over 2 x 2, its save's gathers and writes
+    timed apart."""
+    import chip_smoke as cs
+    import repro_torch.ckpt.checkpoint as ck
+    acc = collections.defaultdict(float)
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[name] += time.perf_counter() - t
+        return run
+
+    ck.gather_cuts = timed("gathers_s", ck.gather_cuts)
+    ck._save_leaf = timed("writes_s", ck._save_leaf)
+    out = cs.axis_train_rank(world.remesh((2, 2)), ckpt)
+    return dict(save_s=out["gate"]["save_s"], **acc)
+
+
+def first_step_rank(world) -> dict:
+    """The fp32 gate's first three steps; the first profiled on rank 0."""
+    import torch
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import build_train_step
+    world = world.remesh((2, 2))
+    cfg = get_config(cs.LM_ARCH, **cs.AXIS_GATE_CUTS)
+    model = build_model(cfg, world)
+    params = model.init(cs.TRAIN_SEED)
+    opt = cs.axis_gate_opt()
+    state = adamw_init(params, opt, world, model.places(params))
+    step = build_train_step(model, opt)
+    B, S, _ = cs.AXIS_GATE
+    out = {}
+    for s in range(3):
+        b = cs.train_batch(cfg, B, S, s, device=world.device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if s == 0 and world.rank == 0:
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU]) as prof:
+                params, state, _ = step(params, state, b)
+                torch.cuda.synchronize()
+            rows = sorted(prof.key_averages(),
+                          key=lambda e: -e.self_cpu_time_total)[:25]
+            out["top"] = [(e.key[:60], e.self_cpu_time_total / 1e6, e.count)
+                          for e in rows]
+        else:
+            params, state, _ = step(params, state, b)
+            torch.cuda.synchronize()
+        out[f"step {s} s"] = time.perf_counter() - t
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("what", choices=("phase", "collectives", "save",
+                                     "first-step"))
+    args = ap.parse_args()
+    import chip_smoke as cs
+    from repro_torch.distributed import run_world
+    from repro_torch.kernels._build import load_library
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip(), flush=True)
+    ckpt = os.path.join(HERE, "build", "model_axis_probe_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        if args.what == "phase":
+            load_library("flash_attention")
+            t0 = time.perf_counter()
+            axis = {}
+            for size in (2, 4):
+                t = time.perf_counter()
+                got = run_world(phase_rank, size, ckpt, timeout=600)
+                axis[size] = [r[0] for r in got]
+                print(f"world of {size}: {time.perf_counter() - t:.1f} s, "
+                      f"its ranks' part {max(r[1] for r in got):.1f} s",
+                      flush=True)
+            cs.model_axis_phase(axis, ckpt)
+            print(f"phase 5d: {time.perf_counter() - t0:.1f} s", flush=True)
+        elif args.what == "collectives":
+            for env in (None, HOST_REGISTER):
+                if env:
+                    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = env
+                got = run_world(collectives_rank, 2, timeout=300)
+                print(json.dumps(dict(alloc_conf=env, **got[0])), flush=True)
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        elif args.what == "save":
+            got = run_world(save_rank, 4, ckpt, timeout=600)
+            print(json.dumps(got[0]), flush=True)
+        else:
+            got = run_world(first_step_rank, 4, timeout=600)
+            for r in got:
+                print(json.dumps({k: v for k, v in r.items()
+                                  if k != "top"}), flush=True)
+            for row in got[0]["top"]:
+                print(row, flush=True)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
