@@ -140,6 +140,37 @@ What it does, in order; any failure raises and the exit code is not 0:
    (``TRAIN_GATE_RTOL``), the losses too; then bf16, two layers, two steps
    of B=4 x 2048: seconds a step, peak bytes a rank and the bytes handed
    to each axis's collectives printed;
+5e. the model axis of the MoE, SSM and hybrid families (the expert axis,
+   ``d_inner`` and the SSM heads cut over ``model``, the hybrid's shared
+   block by heads), its ranks phase 5c's worlds remeshed as 5d's, after
+   5d's work; one device's side first (before the worlds start), the
+   checks after 5d's: (a) the gloo world of 1 x 2 ranks sharing the card,
+   bf16, seeded weights at full width: dbrx-132b at 2 of its 40 layers
+   (``attn_impl="pallas"``, FULL's sequence parallelism) with a prefill of
+   B=1 x 2048, mamba2-2.7b at 8 of 64 layers and zamba2-7b at 14 of 81
+   (one shared-block invocation) with prefills of B=1 x 4096, each timed
+   after a warm one (K4's counts set to 0 just before, read just after:
+   once a layer a rank on dbrx's 24 local query heads on 4 K/V heads, the
+   tensor-core body), then 8 decode steps teacher-forced on one device's
+   greedy tokens; the gathered last logits held to one device's prefill
+   of the same weights and depth within ``LOGIT_GAP_TOL``, which a control
+   with the middle block skipped must exceed (dbrx's free-running, with
+   the routes that differ from one device's printed, and again under one
+   device's routes, ``pinned_routing``), the routes' digest equal
+   on both ranks, each decode step's logits within ``LOGIT_GAP_TOL`` and
+   its argmax one device's (dbrx's decode under one device's routes), the
+   SSM state's bytes a rank half one device's; the prefill walls beside
+   one device's, decode ms a step, cache and peak bytes a rank printed; K4
+   at dbrx's local shape (1, 2048, 24, 4, 128), both masks, against its
+   plain version (2e-2), timed beside the plain version, SDPA and its
+   bound; (b) the gloo world of 2 x 2 ranks: mamba2-2.7b at full width,
+   one layer, fp32, two steps of B=2 x 512, saved at 2 x 2 and restored on
+   one device, held to the one-device ``microbatch=2`` steps as 5d(b)'s
+   gate; dbrx-132b at full width, one layer, bf16, under the launcher's
+   optimizer (the factored state), one step of B=2 x 512 (FSDP over
+   ``data``, the experts and sequence over ``model``): the loss finite and
+   equal on every rank, seconds a step, peak bytes a rank and the bytes
+   handed to each axis's collectives printed;
 6. the serving path: ``repro_torch.serving.MatchingService`` on the card
    over the ladder 16,384² .. 262,144² (edge factor 8, ``max_batch`` 16),
    a 256-request trace (the four families of ``serve_matching.FAMILIES``
@@ -317,9 +348,10 @@ What it does, in order; any failure raises and the exit code is not 0:
    ``launches_corpus``, and K1a, K2a and K3a
    carry their shard-slice checks and times; K1a's launches include the
    exact route's, K4's dbrx's and seamless's prefills' and the model
-   axis's ranks' (``launches_model_axis``), and K4 carries its times at
-   dbrx's and seamless's shapes and at a rank's heads under the model
-   axis), then as its last line
+   axis's ranks' (``launches_model_axis``) and phase 5e's dbrx prefills'
+   (``launches_model_axis_families``), and K4 carries its times at dbrx's
+   and seamless's shapes and at a rank's heads under the model axis, for
+   granite's and dbrx's heads), then as its last line
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.  It needs a CUDA card and the
@@ -1505,12 +1537,14 @@ def world_solve(world, g, path: str, kw: dict, ws: str) -> dict:
 
 
 def world_rank(world, graph_files: dict, runs, train: bool, ckpt: str,
-               axis_ckpt: str):
+               axis_ckpt: str, refs: dict, family_ckpt: str):
     """A rank of phase 5c: every run of ``runs`` (cold, and warm where
     WORLD_WARM says), then, with ``train``, WORLD_TRAIN_STEPS data-parallel
     steps of mamba2 cut to WORLD_TRAIN_CUTS, saved at ``ckpt``.  Then the
     same ranks as phase 5d's mesh (``World.remesh``: a world of 2 as 1 x 2,
-    of 4 as 2 x 2) run phase 5d's part (saving at ``axis_ckpt``), timed."""
+    of 4 as 2 x 2) run phase 5d's part (saving at ``axis_ckpt``) and phase
+    5e's (against the one-device ``refs``, saving at ``family_ckpt``),
+    each timed."""
     use_src()
     dynamo = import_in_background()
     from repro_torch.kernels._build import load_library
@@ -1534,11 +1568,21 @@ def world_rank(world, graph_files: dict, runs, train: bool, ckpt: str,
         out["train"] = world_train(world, ckpt)
     t0 = time.perf_counter()
     if world.size == 2:
-        out["axis"] = axis_serve_rank(world.remesh((1, 2)))
+        mesh = world.remesh((1, 2))
+        out["axis"] = axis_serve_rank(mesh)
     else:
-        out["axis"] = axis_train_rank(world.remesh((2, 2)), axis_ckpt)
+        mesh = world.remesh((2, 2))
+        out["axis"] = train_rank(mesh, axis_ckpt, AXIS_GATE_RUN,
+                                 AXIS_BF16_RUN)
     torch.cuda.synchronize()
     out["axis_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["family"] = (family_serve_rank(mesh, refs) if world.size == 2
+                     else train_rank(mesh, family_ckpt, AXIS_FAMILY_GATE,
+                                     AXIS_FAMILY_BF16))
+    torch.cuda.synchronize()
+    out["family_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1766,22 +1810,24 @@ def world_train_checks(result, ckpt: str) -> dict:
     return reading
 
 
-def world_phase(graphs, phase2, axis_ckpt: str) -> tuple:
+def world_phase(graphs, phase2, axis_ckpt: str, refs: dict,
+                family_ckpt: str) -> tuple:
     """Phase 5c (module doc): (a) gloo worlds of WORLD_SIZES ranks on the
     card, the world of 2 also training, (b) an NCCL world of one rank in
     this process, (c) the world of 2's training against one device.
     ``phase2``: (graph index, path) -> (row, warm outcome) of phase 2.
     The worlds of (a) then run phase 5d's ranks (saving at
-    ``axis_ckpt``).  Returns (per kernel body the launches of every rank's
-    runs, phase 5d's rank results by world size, the seconds the ranks
-    spent on phase 5d)."""
+    ``axis_ckpt``) and phase 5e's (against ``refs``, saving at
+    ``family_ckpt``).  Returns (per kernel body the launches of every
+    rank's runs, phase 5d's and phase 5e's rank results by world size,
+    the seconds the ranks spent on each)."""
     from repro_torch.distributed import run_world
     wants = {k: digest(v[1][0], v[1][1]) for k, v in phase2.items()}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_world_")
     ckpt = os.path.join(HERE, "build", "chip_smoke_world_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
     launches = {body: 0 for body in KERNELS}
-    axis, axis_s = {}, 0.0
+    axis, axis_s, family, family_s = {}, 0.0, {}, 0.0
     try:
         files = {}
         for gi in {r[0] for r in SHARDED_RUNS}:
@@ -1791,13 +1837,16 @@ def world_phase(graphs, phase2, axis_ckpt: str) -> tuple:
         for size in WORLD_SIZES:
             t0 = time.perf_counter()
             results = run_world(world_rank, size, files, SHARDED_RUNS,
-                                size == 2, ckpt, axis_ckpt,
-                                timeout=WORLD_TIMEOUT)
+                                size == 2, ckpt, axis_ckpt, refs,
+                                family_ckpt, timeout=WORLD_TIMEOUT)
             axis[size] = [r["axis"] for r in results]
             axis_s += max(r["axis_s"] for r in results)
+            family[size] = [r["family"] for r in results]
+            family_s += max(r["family_s"] for r in results)
             say(f"phase 5c, a gloo world of {size} on the card: "
                 f"{time.perf_counter() - t0:.1f} s, of which phase 5d's "
-                f"ranks {max(r['axis_s'] for r in results):.1f} s")
+                f"ranks {max(r['axis_s'] for r in results):.1f} s, phase "
+                f"5e's {max(r['family_s'] for r in results):.1f} s")
             if {r["backend"] for r in results} != {"gloo"}:
                 fail(f"ranks sharing the card chose "
                      f"{[r['backend'] for r in results]}")
@@ -1822,7 +1871,7 @@ def world_phase(graphs, phase2, axis_ckpt: str) -> tuple:
         shutil.rmtree(tmp, ignore_errors=True)
         shutil.rmtree(ckpt, ignore_errors=True)
         torch.cuda.empty_cache()
-    return launches, axis, axis_s
+    return launches, (axis, family), (axis_s, family_s)
 
 
 # ---------------------------------------------------------------------------
@@ -1837,22 +1886,22 @@ AXIS_PREFILL = (1, 4096)
 AXIS_DECODE = 8
 FA_LOCAL = (1, 4096, 24, 1, 128)
 # (b) a world of 2 x 2 ranks: granite-20b at full width (FSDP over data,
-# sequence parallelism over model, remat); the fp32 gate (cuts; rows,
-# positions, steps) against one device's microbatch=2 steps, saved at 2x2
-# and restored on one device; then a bf16 run (cuts; rows, positions,
-# steps) for its seconds a step, peak bytes and collective bytes
-AXIS_GATE_CUTS = dict(n_layers=1, dtype="float32")
-AXIS_GATE = (2, 512, 2)
-AXIS_BF16_CUTS = dict(n_layers=2)
-AXIS_BF16 = (4, 2048, 2)
+# sequence parallelism over model, remat); the fp32 gate (arch, cuts;
+# rows, positions, steps) against one device's microbatch=2 steps, saved
+# at 2x2 and restored on one device; then a bf16 run (arch, cuts; rows,
+# positions, steps) under the launcher's optimizer for its seconds a step,
+# peak bytes and collective bytes
+AXIS_GATE_RUN = ("granite-20b", dict(n_layers=1, dtype="float32"),
+                 (2, 512, 2))
+AXIS_BF16_RUN = ("granite-20b", dict(n_layers=2), (4, 2048, 2))
 # phase 5d's K4 launches and times, for the kernels' line
 AXIS: dict = {}
 
 
-def axis_gate_opt():
-    """The gate's optimizer: the launcher's for granite-20b, without fp32
+def gate_opt(arch: str):
+    """A train gate's optimizer: the launcher's for ``arch``, without fp32
     masters (the gate's params are fp32 already)."""
-    return dataclasses.replace(train_opt_config(LM_ARCH), master_fp32=False)
+    return dataclasses.replace(train_opt_config(arch), master_fp32=False)
 
 
 def axis_tokens(cfg, batch: int, seq: int) -> torch.Tensor:
@@ -1908,53 +1957,60 @@ def axis_serve_rank(world) -> dict:
                 cache_bytes=cache_bytes)
 
 
-def axis_train_rank(world, ckpt: str) -> dict:
-    """Phase 5d(b) on one rank: the fp32 gate's steps, saved at ``ckpt``
-    (collectively: rank 0 writes), then the bf16 run's steps, each timed,
-    with the peak bytes and the bytes handed to each axis's collectives."""
-    use_src()
+def axis_run(world, cfg, opt, batch: int, seq: int, steps: int,
+             ckpt=None) -> dict:
+    """``steps`` train steps of ``cfg`` built over ``world`` from the
+    seeded weights, each timed (the losses, the walls), with the peak
+    bytes and the bytes handed to each axis's collectives; with ``ckpt`` a
+    collective save there (rank 0 writes), timed."""
     from repro_torch.ckpt import save_checkpoint
-    from repro_torch.configs import get_config
     from repro_torch.distributed import comm
     from repro_torch.models import build_model
     from repro_torch.models.common import tree_map_paths
     from repro_torch.optim import adamw_init, state_cuts
     from repro_torch.train import build_train_step
+    model = build_model(cfg, world)
+    params = model.init(TRAIN_SEED)
+    places = model.places(params)
+    state = adamw_init(params, opt, world, places)
+    step = build_train_step(model, opt)
+    losses, walls = [], []
+    comm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for s in range(steps):
+        b = train_batch(cfg, batch, seq, s, device=world.device)
+        (params, state, met), wall, _ = timed(
+            lambda: step(params, state, b))
+        losses.append(float(met["loss"]))
+        walls.append(wall)
+    out = dict(losses=losses, step_s=walls,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               comm=comm.axis_counts())
+    if ckpt:
+        dims = {"params": tree_map_paths(lambda _, pl: pl.cuts, places),
+                "opt": state_cuts(params, opt, world, places)}
+        _, out["save_s"], _ = timed(lambda: save_checkpoint(
+            ckpt, steps, {"params": params, "opt": state}, world=world,
+            dims=dims))
+    del params, state
+    torch.cuda.empty_cache()
+    return out
 
-    def run(cfg, opt, batch, seq, steps, ckpt=None):
-        model = build_model(cfg, world)
-        params = model.init(TRAIN_SEED)
-        places = model.places(params)
-        state = adamw_init(params, opt, world, places)
-        step = build_train_step(model, opt)
-        losses, walls = [], []
-        comm.reset_counts()
-        torch.cuda.reset_peak_memory_stats()
-        for s in range(steps):
-            b = train_batch(cfg, batch, seq, s, device=world.device)
-            (params, state, met), wall, _ = timed(
-                lambda: step(params, state, b))
-            losses.append(float(met["loss"]))
-            walls.append(wall)
-        out = dict(losses=losses, step_s=walls,
-                   peak_bytes=torch.cuda.max_memory_allocated(),
-                   comm=comm.axis_counts())
-        if ckpt:
-            dims = {"params": tree_map_paths(lambda _, pl: pl.cuts, places),
-                    "opt": state_cuts(params, opt, world, places)}
-            _, out["save_s"], _ = timed(lambda: save_checkpoint(
-                ckpt, steps, {"params": params, "opt": state}, world=world,
-                dims=dims))
-        del params, state
-        torch.cuda.empty_cache()
-        return out
 
-    B, S, n = AXIS_GATE
-    gate = run(get_config(LM_ARCH, **AXIS_GATE_CUTS), axis_gate_opt(), B, S,
-               n, ckpt)
-    B, S, n = AXIS_BF16
-    bf16 = run(get_config(LM_ARCH, **AXIS_BF16_CUTS),
-               train_opt_config(LM_ARCH), B, S, n)
+def train_rank(world, ckpt: str, gate_run, bf16_run) -> dict:
+    """Phase 5d(b) or 5e(b) on one rank: the fp32 gate's steps of
+    ``gate_run`` (arch, cuts, (rows, positions, steps)), saved at
+    ``ckpt`` (collectively: rank 0 writes), then ``bf16_run``'s steps
+    under the launcher's optimizer, each timed, with the peak bytes and
+    the bytes handed to each axis's collectives."""
+    use_src()
+    from repro_torch.configs import get_config
+    arch, cuts, (B, S, n) = gate_run
+    gate = axis_run(world, get_config(arch, **cuts), gate_opt(arch), B, S,
+                    n, ckpt)
+    arch, cuts, (B, S, n) = bf16_run
+    bf16 = axis_run(world, get_config(arch, **cuts), train_opt_config(arch),
+                    B, S, n)
     return dict(rank=world.rank, backend=world.backend, gate=gate,
                 bf16=bf16)
 
@@ -2021,20 +2077,18 @@ def axis_serve_checks(results) -> dict:
     return out
 
 
-def axis_train_checks(results, ckpt: str) -> dict:
-    """Phase 5d(b)'s checks on one device: the fp32 gate's steps with
-    ``microbatch=2`` (the data axis's row blocks) against the world's
-    losses, the 2 x 2 checkpoint restored here against those steps' tree
-    leaf by leaf (the train gate), and one more step from each."""
+def one_device_gate(cfg, opt, B: int, S: int, n: int, ckpt: str) -> tuple:
+    """The one-device side of a 2 x 2 world's train gate: ``n``
+    ``microbatch=2`` steps (the data axis's row blocks) from the seeded
+    weights, the world's save at ``ckpt`` restored here and read against
+    their tree leaf by leaf (``leaf_gate``), and one more step from each.
+    Returns (the losses, the restore's seconds, its step, the gate's
+    reading, the step after the restore, the same step straight on)."""
     from repro_torch.ckpt import restore_checkpoint
-    from repro_torch.configs import get_config
     from repro_torch.models import build_model
     from repro_torch.optim import adamw_init
     from repro_torch.train import build_train_step
-    cfg = get_config(LM_ARCH, **AXIS_GATE_CUTS)
     model = build_model(cfg)
-    opt = axis_gate_opt()
-    B, S, n = AXIS_GATE
     step = build_train_step(model, opt, microbatch=2)
     params = model.init(TRAIN_SEED)
     state = adamw_init(params, opt)
@@ -2056,12 +2110,27 @@ def axis_train_checks(results, ckpt: str) -> dict:
     resumed = float(met["loss"])
     del tree
     torch.cuda.empty_cache()
+    return one, restore_s, at, gate, resumed, straight
+
+
+def train_checks(phase: str, results, ckpt: str, gate_run, bf16_run
+                 ) -> dict:
+    """Phase 5d(b)'s or 5e(b)'s checks on one device: the fp32 gate's
+    steps with ``microbatch=2`` (the data axis's row blocks) against the
+    world's losses, the 2 x 2 checkpoint restored here against those
+    steps' tree leaf by leaf (the train gate), and one more step from each
+    (``one_device_gate``); the bf16 run's losses finite and equal on every
+    rank."""
+    from repro_torch.configs import get_config
+    arch, cuts, (B, S, n) = gate_run
+    one, restore_s, at, gate, resumed, straight = one_device_gate(
+        get_config(arch, **cuts), gate_opt(arch), B, S, n, ckpt)
     g = results[0]["gate"]
     gaps = [abs(a - b) / abs(b) for a, b in zip(g["losses"], one)]
     bf = results[0]["bf16"]
-    out = dict(arch=cfg.name, mesh="2x2", backend=results[0]["backend"],
-               fsdp=True, sequence_parallel=True,
-               gate=dict(cuts=AXIS_GATE_CUTS, batch=B, seq=S,
+    b_arch, b_cuts, (b_rows, b_seq, _) = bf16_run
+    out = dict(mesh="2x2", backend=results[0]["backend"],
+               gate=dict(arch=arch, cuts=cuts, batch=B, seq=S,
                          world_losses=g["losses"], one_device_losses=one,
                          loss_rel_gaps=gaps,
                          step_s=[r["gate"]["step_s"] for r in results],
@@ -2072,27 +2141,28 @@ def axis_train_checks(results, ckpt: str) -> dict:
                          step_after_restore=resumed, step_straight=straight,
                          restore_rel_gap=abs(resumed - straight)
                          / abs(straight)),
-               bf16=dict(cuts=AXIS_BF16_CUTS, batch=AXIS_BF16[0],
-                         seq=AXIS_BF16[1], losses=bf["losses"],
+               bf16=dict(arch=b_arch, cuts=b_cuts, batch=b_rows, seq=b_seq,
+                         factored=train_opt_config(b_arch).factored,
+                         losses=bf["losses"],
                          step_s=[r["bf16"]["step_s"] for r in results],
                          peak_bytes_by_rank=[r["bf16"]["peak_bytes"]
                                              for r in results],
                          collectives_rank0=bf["comm"]))
-    say("model axis, train:", json.dumps(out))
+    say(f"{phase}, train:", json.dumps(out))
     if any(r["gate"]["losses"] != g["losses"] or r["bf16"]["losses"] !=
            bf["losses"] for r in results):
-        fail("phase 5d: the ranks' losses differ")
+        fail(f"{phase}: the ranks' losses differ")
     if not all(x <= TRAIN_GATE_RTOL for x in gaps):
-        fail(f"phase 5d: the 2 x 2 world's losses against one device's "
+        fail(f"{phase}: the 2 x 2 world's losses against one device's "
              f"microbatch=2 steps: {gaps}")
     if at != n or not gate["passes"]:
-        fail(f"phase 5d: the 2 x 2 checkpoint restored on one device fails "
+        fail(f"{phase}: the 2 x 2 checkpoint restored on one device fails "
              f"the train gate: step {at}, {gate}")
     if not out["gate"]["restore_rel_gap"] <= TRAIN_GATE_RTOL:
-        fail(f"phase 5d: the step after the 2x2 -> 1 restore: {resumed} "
+        fail(f"{phase}: the step after the 2x2 -> 1 restore: {resumed} "
              f"against {straight}")
     if not all(math.isfinite(x) for x in bf["losses"]):
-        fail(f"phase 5d: bf16 losses {bf['losses']}")
+        fail(f"{phase}: bf16 losses {bf['losses']}")
     return out
 
 
@@ -2109,7 +2179,8 @@ def model_axis_phase(axis: dict, ckpt: str) -> dict:
         say(f"phase 5d, the 1 x 2 world's checks and K4 at the local shape: "
             f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        axis_train_checks(axis[4], ckpt)
+        train_checks("phase 5d", axis[4], ckpt, AXIS_GATE_RUN,
+                     AXIS_BF16_RUN)
         say(f"phase 5d, the 2 x 2 world's checks: "
             f"{time.perf_counter() - t0:.1f} s")
     finally:
@@ -2117,6 +2188,296 @@ def model_axis_phase(axis: dict, ckpt: str) -> dict:
         torch.cuda.empty_cache()
     return dict(launches=sum(r["launches"]["flash_attention"]
                              for r in axis[2]), times=times)
+
+
+# ---------------------------------------------------------------------------
+# the model axis of the MoE, SSM and hybrid families (phase 5e)
+# ---------------------------------------------------------------------------
+# Its ranks are phase 5c's worlds, remeshed as phase 5d's, after 5d's work.
+# (a) 1 x 2 serving, bf16, seed LM_SEED: (arch, cuts of the FULL config,
+# prompt (rows, positions)); then AXIS_DECODE greedy decode steps.  dbrx's
+# K4 runs on each rank's 24 query heads on 4 K/V heads (FA_DBRX_LOCAL)
+AXIS_FAMILIES = (("dbrx-132b", dict(n_layers=2, attn_impl="pallas"),
+                  (1, 2048)),
+                 ("mamba2-2.7b", dict(n_layers=8), (1, 4096)),
+                 ("zamba2-7b", dict(n_layers=14), (1, 4096)))
+FA_DBRX_LOCAL = (1, 2048, 24, 4, 128)
+# (b) 2 x 2 training: the fp32 gate (arch, cuts; rows, positions, steps)
+# against one device's microbatch=2 steps, saved at 2x2 and restored on
+# one device; then one bf16 step of dbrx under the launcher's optimizer
+# (the factored state) for its seconds, peak bytes and collective bytes
+AXIS_FAMILY_GATE = ("mamba2-2.7b", dict(n_layers=1, dtype="float32"),
+                    (2, 512, 2))
+AXIS_FAMILY_BF16 = ("dbrx-132b", dict(n_layers=1), (2, 512, 1))
+# phase 5e's K4 launches and times, for the kernels' line
+AXIS_FAMILY: dict = {}
+
+
+@contextlib.contextmanager
+def routes_kept(seen: list):
+    """Every ``route_matching`` call of the MoE layers while the block
+    runs: its ``(assign, slot)`` on the host appended to ``seen``."""
+    from repro_torch.models import moe as moe_mod
+    with spying(moe_mod, "route_matching", seen,
+                lambda args, out: (out[0].cpu(), out[1].cpu())):
+        yield seen
+
+
+@contextlib.contextmanager
+def pinned_or_free(routes, device):
+    """``pinned_routing`` of the MoE layers to ``routes`` (host tensors,
+    moved to ``device``; None: as they route)."""
+    from repro_torch.models import moe as moe_mod
+    with (pinned_routing(moe_mod, [(a.to(device), s.to(device))
+                                   for a, s in routes])
+          if routes is not None else contextlib.nullcontext()):
+        yield
+
+
+def routes_digest(routes) -> str:
+    """A sha256 of a run's routes (``(assign, slot)`` a call)."""
+    import hashlib
+    h = hashlib.sha256()
+    for a, sl in routes:
+        h.update(a.cpu().numpy().astype("int32").tobytes())
+        h.update(sl.cpu().numpy().astype("int32").tobytes())
+    return h.hexdigest()
+
+
+def skip_block(index: int):
+    """A control: the ``index``-th block call of a forward (counted from 0,
+    the hybrid's shared block counted too) returns its input unchanged, as
+    if its output were zero."""
+    from repro_torch.models import transformer as tm
+    calls, real = [], tm.block_fwd
+
+    @contextlib.contextmanager
+    def ctx():
+        def fault(params, x, *args, **kw):
+            calls.append(None)
+            y, aux = real(params, x, *args, **kw)
+            return (x, aux) if len(calls) == index + 1 else (y, aux)
+        tm.block_fwd = fault
+        try:
+            yield
+        finally:
+            tm.block_fwd = real
+    return ctx()
+
+
+def family_references() -> dict:
+    """Phase 5e(a)'s one-device side, before the world runs: for each of
+    AXIS_FAMILIES at its cut, the prefill's last logits (timed, after a
+    warm one) and its routes, a control with the middle block skipped,
+    AXIS_DECODE greedy steps (the tokens, each step's logits and routes)
+    and the SSM state's bytes.  The ranks replay dbrx's routes and
+    teacher-force these tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import build_prefill_step, build_serve_step
+    out = {}
+    for arch, cuts, (B, S) in AXIS_FAMILIES:
+        cfg = get_config(arch, **cuts)
+        model = build_model(cfg)
+        params = model.init(LM_SEED)
+        batch = {"tokens": axis_tokens(cfg, B, S).to(CARD)}
+        prefill = build_prefill_step(model)
+        V = cfg.vocab                      # the padded columns dropped
+        prefill(params, batch)                         # warm
+        with routes_kept([]) as routes:
+            logits, wall, peak = timed(lambda: prefill(params, batch))
+        logits = logits[..., :V]
+        with skip_block(cfg.n_layers // 2):
+            control = prefill(params, batch)[..., :V]
+        serve = build_serve_step(model)
+        cache = model.init_cache(B, AXIS_DECODE)
+        tok = logits[:, -1:].argmax(-1)
+        toks, steps, dec_routes = [], [], []
+        with routes_kept(dec_routes):
+            for _ in range(AXIS_DECODE):
+                toks.append(tok.cpu())
+                lg, cache = serve(params, cache, tok)
+                steps.append(lg[..., :V].cpu())
+                tok = lg[:, -1:, :V].argmax(-1)
+        out[arch] = dict(
+            logits=logits.cpu(), control=control.cpu(), prefill_s=wall,
+            peak_bytes=peak, routes=list(routes), tokens=torch.cat(toks, 1),
+            decode=torch.cat(steps, 1), decode_routes=dec_routes,
+            h_bytes=(cache["h"].numel() * cache["h"].element_size()
+                     if "h" in cache else 0))
+        del model, params, cache, logits, control
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_serve_rank(world, refs) -> dict:
+    """Phase 5e(a) on one rank, for each of AXIS_FAMILIES: the prefill
+    (after a warm one; K4's counts set to 0 just before, read just after)
+    with its routes' digest, for dbrx again under one device's routes
+    (``refs``), then AXIS_DECODE steps teacher-forced on one device's
+    greedy tokens (dbrx's under its decode routes): the gathered logits,
+    the walls, the cache's bytes on this rank, the collectives' bytes."""
+    use_src()
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import comm
+    from repro_torch.kernels.flash_attention import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.train import build_prefill_step, build_serve_step
+    out = {}
+    for arch, cuts, (B, S) in AXIS_FAMILIES:
+        ref = refs[arch]
+        cfg = get_config(arch, **cuts)
+        model = build_model(cfg, world)
+        params, init_s, _ = timed(lambda: model.init(LM_SEED))
+        batch = {"tokens": axis_tokens(cfg, B, S).to(world.device)}
+        prefill = build_prefill_step(model)
+        prefill(params, batch)                         # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        comm.reset_counts()
+        with routes_kept([]) as routes:
+            logits, wall, peak = timed(lambda: prefill(params, batch))
+        V = cfg.vocab                      # the padded columns dropped
+        row = dict(logits=logits[..., :V].cpu(), prefill_s=wall,
+                   peak_bytes=peak,
+                   init_s=init_s, launches=dict(LAUNCHES),
+                   prefill_comm=comm.axis_counts(),
+                   routes_digest=routes_digest(routes),
+                   routes_differing=sum(
+                       int((a != b[0]).sum()) for (a, _), b in
+                       zip(routes, ref["routes"])))
+        moe = cfg.family == "moe"
+        if moe:
+            with pinned_or_free(ref["routes"], world.device):
+                row["pinned"] = prefill(params, batch)[..., :V].cpu()
+        serve = build_serve_step(model)
+        cache = model.init_cache(B, AXIS_DECODE)
+        toks = ref["tokens"].to(world.device)
+        steps = []
+        t0 = time.perf_counter()
+        with pinned_or_free(ref["decode_routes"] if moe else None,
+                            world.device):
+            for t in range(AXIS_DECODE):
+                lg, cache = serve(params, cache, toks[:, t:t + 1])
+                steps.append(lg[..., :V].cpu())
+        torch.cuda.synchronize()
+        row.update(decode=torch.cat(steps, 1),
+                   decode_ms_per_step=(time.perf_counter() - t0)
+                   / AXIS_DECODE * 1e3,
+                   cache_bytes=sum(
+                       t.numel() * t.element_size()
+                       for t in [*cache.values(),
+                                 *cache.get("shared_kv", {}).values()]
+                       if isinstance(t, torch.Tensor)),
+                   h_bytes=(cache["h"].numel() * cache["h"].element_size()
+                            if "h" in cache else 0))
+        out[arch] = row
+        del model, params, cache, logits
+        torch.cuda.empty_cache()
+    return dict(rank=world.rank, backend=world.backend, serve=out)
+
+
+def family_serve_checks(refs, results) -> dict:
+    """Phase 5e(a)'s checks against ``refs`` (one device, the same
+    weights and depth): the gathered last logits (the vocab's columns)
+    within LOGIT_GAP_TOL, which the control with the middle block skipped
+    must exceed (dbrx also under one device's routes), the routes' digest
+    equal on both
+    ranks, K4 once a layer a rank on the tensor-core body where the model
+    takes it, each decode step's logits within LOGIT_GAP_TOL and its
+    argmax one device's, and half the SSM state's bytes a rank."""
+    from repro_torch.configs import get_config
+    rows = []
+    for arch, cuts, (B, S) in AXIS_FAMILIES:
+        ref = refs[arch]
+        cfg = get_config(arch, **cuts)
+        mine = [r["serve"][arch] for r in results]
+        what = f"{cfg.name} ({cfg.n_layers} layers) over a 1 x 2 world"
+        want = ref["logits"].to(CARD)
+        gap = logit_gap(mine[0]["logits"].to(CARD), want)
+        control_gap = logit_gap(ref["control"].to(CARD), want)
+        moe = cfg.family == "moe"
+        pinned_gap = (logit_gap(mine[0]["pinned"].to(CARD), want) if moe
+                      else None)
+        gaps = [logit_gap(mine[0]["decode"][:, t:t + 1].to(CARD),
+                          ref["decode"][:, t:t + 1].to(CARD))
+                for t in range(AXIS_DECODE)]
+        argmax = [bool(torch.equal(mine[0]["decode"][:, t].argmax(-1),
+                                   ref["decode"][:, t].argmax(-1)))
+                  for t in range(AXIS_DECODE)]
+        k4 = cfg.attn_impl == "pallas"
+        row = dict(arch=cfg.name, layers=cfg.n_layers, mesh="1x2",
+                   backend=results[0]["backend"], batch=B, seq=S,
+                   logits_gap=gap, control_gap=control_gap,
+                   pinned_gap=pinned_gap, gate=LOGIT_GAP_TOL,
+                   routes_differing_from_one_device=[
+                       m["routes_differing"] for m in mine],
+                   routes_digests_equal=len({m["routes_digest"]
+                                             for m in mine}) == 1,
+                   prefill_s=[m["prefill_s"] for m in mine],
+                   one_device_prefill_s=ref["prefill_s"],
+                   peak_bytes_by_rank=[m["peak_bytes"] for m in mine],
+                   one_device_peak_bytes=ref["peak_bytes"],
+                   init_s=[m["init_s"] for m in mine],
+                   prefill_collectives=mine[0]["prefill_comm"],
+                   k4_launches_by_rank=[m["launches"]["flash_attention"]
+                                        for m in mine],
+                   decode_gaps=gaps, decode_argmax_equal=argmax,
+                   decode_ms_per_step=[m["decode_ms_per_step"]
+                                       for m in mine],
+                   cache_bytes_by_rank=[m["cache_bytes"] for m in mine],
+                   h_bytes_by_rank=[m["h_bytes"] for m in mine],
+                   one_device_h_bytes=ref["h_bytes"])
+        say("model axis, families, serve:", json.dumps(row))
+        rows.append(row)
+        for m in mine:
+            if not torch.equal(m["logits"], mine[0]["logits"]):
+                fail(f"{what}: the ranks' gathered logits differ")
+        if not row["routes_digests_equal"]:
+            fail(f"{what}: the ranks routed differently")
+        for g in (gap, pinned_gap) if moe else (gap,):
+            if not g <= LOGIT_GAP_TOL < control_gap:
+                fail(f"{what}: logits gap {g} (under one device's routes "
+                     f"{pinned_gap}), control {control_gap}, gate "
+                     f"{LOGIT_GAP_TOL}")
+        if not max(gaps) <= LOGIT_GAP_TOL or not all(argmax):
+            fail(f"{what}: decode against one device: gaps {gaps}, argmax "
+                 f"equal {argmax}")
+        for m in mine:
+            if k4 and (m["launches"]["flash_attention"] != cfg.n_layers or
+                       m["launches"]["flash_attention_tc"] != cfg.n_layers):
+                fail(f"{what}: K4 launched {m['launches']} times for "
+                     f"{cfg.n_layers} layers")
+            if ref["h_bytes"] and 2 * m["h_bytes"] != ref["h_bytes"]:
+                fail(f"{what}: {m['h_bytes']} bytes of SSM state a rank "
+                     f"against one device's {ref['h_bytes']}")
+    return rows
+
+
+def family_axis_phase(family: dict, refs: dict, ckpt: str) -> dict:
+    """Phase 5e's checks (module doc) of the ranks' results ``family``
+    (phase 5c's worlds of 2 and 4 as 1 x 2 and 2 x 2), and K4 at dbrx's
+    local shape.  Returns K4's launches over the ranks' prefills and its
+    times at the local shape."""
+    try:
+        t0 = time.perf_counter()
+        family_serve_checks(refs, family[2])
+        times = flash_at(FA_DBRX_LOCAL, torch.Generator(
+            device=CARD).manual_seed(LM_SEED),
+            "dbrx-132b under M = 2 (one rank's heads)")
+        say(f"phase 5e, the 1 x 2 world's checks and K4 at the local shape: "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        train_checks("phase 5e", family[4], ckpt, AXIS_FAMILY_GATE,
+                     AXIS_FAMILY_BF16)
+        say(f"phase 5e, the 2 x 2 world's checks: "
+            f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return dict(launches=sum(r["serve"][AXIS_FAMILIES[0][0]]["launches"]
+                             ["flash_attention"] for r in family[2]),
+                times=times)
 
 
 # ---------------------------------------------------------------------------
@@ -4979,12 +5340,15 @@ def main() -> int:
             entry["levels_checked"] += k1a_levels
             entry["levels_checked_exact_router"] = k1a_levels
         if entry["name"] == "flash_attention":
-            entry["launches"] += k4 + k4_seamless + AXIS["launches"]
+            entry["launches"] += (k4 + k4_seamless + AXIS["launches"]
+                                  + AXIS_FAMILY["launches"])
             entry["launches_dbrx_prefill"] = k4
             entry["launches_seamless_prefill"] = k4_seamless
             entry["seamless"] = seamless_times
             entry["launches_model_axis"] = AXIS["launches"]
             entry["model_axis_local_heads"] = AXIS["times"]
+            entry["launches_model_axis_families"] = AXIS_FAMILY["launches"]
+            entry["model_axis_dbrx_local_heads"] = AXIS_FAMILY["times"]
 
     say(f"total: {time.perf_counter() - started:.1f} s")
     say(json.dumps({"kernels": kernels}))
@@ -5035,16 +5399,31 @@ def run_phases(pool, paths) -> tuple:
     sharded = sharded_phase(graphs, wants, extra, phase2)
     phase("sharded matcher", t0)
     t0 = time.perf_counter()
+    refs = family_references()
+    refs_s = time.perf_counter() - t0
+    say(f"phase 5e, one device's side: {refs_s:.1f} s")
+    t0 = time.perf_counter()
     axis_ckpt = os.path.join(HERE, "build", "chip_smoke_axis_ckpt")
-    shutil.rmtree(axis_ckpt, ignore_errors=True)
-    world, axis, axis_s = world_phase(graphs, phase2, axis_ckpt)
-    say(f"phase 5c worlds of ranks: {time.perf_counter() - t0 - axis_s:.1f} "
-        f"s (less phase 5d's ranks, {axis_s:.1f} s)")
+    family_ckpt = os.path.join(HERE, "build", "chip_smoke_family_ckpt")
+    for d in (axis_ckpt, family_ckpt):
+        shutil.rmtree(d, ignore_errors=True)
+    world, (axis, family), (axis_s, family_s) = world_phase(
+        graphs, phase2, axis_ckpt, refs, family_ckpt)
+    say(f"phase 5c worlds of ranks: "
+        f"{time.perf_counter() - t0 - axis_s - family_s:.1f} s (less phase "
+        f"5d's ranks, {axis_s:.1f} s, and 5e's, {family_s:.1f} s)")
     t0 = time.perf_counter()
     AXIS.update(model_axis_phase(axis, axis_ckpt))
     say(f"phase 5d the model axis: {time.perf_counter() - t0 + axis_s:.1f} "
         f"s (its ranks {axis_s:.1f} s in phase 5c's worlds, its checks "
         f"{time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    AXIS_FAMILY.update(family_axis_phase(family, refs, family_ckpt))
+    del refs
+    say(f"phase 5e the model axis of the MoE, SSM and hybrid families: "
+        f"{time.perf_counter() - t0 + family_s + refs_s:.1f} s (one "
+        f"device's side {refs_s:.1f} s, its ranks {family_s:.1f} s in "
+        f"phase 5c's worlds, its checks {time.perf_counter() - t0:.1f} s)")
 
     # one line for the kernels, each timed on the main-path graph of its
     # body: kron for WR, the random graph for plain

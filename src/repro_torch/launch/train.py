@@ -24,13 +24,14 @@ each has a card of its own, else gloo.
 ``--mesh DxM`` adds the model axis: a world of ``D x M`` ranks (rank
 ``r`` at data index ``r // M``, model index ``r % M``), each rank holding
 its slices of the model (:mod:`repro_torch.models.common`'s placement:
-tensor parallelism over heads, ``d_ff`` and the vocab, sequence
-parallelism and FSDP where the config has ``fsdp``); the step is the
-one-device ``microbatch=D`` step.  It takes the attention families; the
-MoE, SSM and hybrid families are refused under ``M > 1`` (ROADMAP.md,
-Queue 1, item 16).  On the CPU: ``--mesh 2x2 --device cpu`` (gloo); on
-the cards, NCCL where each rank has a card of its own, gloo where they
-share one.
+tensor parallelism over heads, ``d_ff`` and the vocab, the MoE family's
+experts, the SSM's ``d_inner`` and heads, sequence parallelism and FSDP
+where the config has ``fsdp``); the step is the one-device
+``microbatch=D`` step.  It takes all ten architectures; a model axis that
+a config's heads, ``d_ff``, K/V heads, experts or SSM heads do not split
+is refused (ROADMAP.md, Queue 1, item 17).  On the CPU: ``--mesh 2x2
+--device cpu`` (gloo); on the cards, NCCL where each rank has a card of
+its own, gloo where they share one.
 
 Each logged step prints ``loss`` to four places, as the JAX launcher does,
 and the float in full after ``exact``.
@@ -73,9 +74,9 @@ def parse_mesh(mesh: str) -> tuple:
 
 
 def check_mesh(arch: str, mesh: str, smoke: bool = True) -> tuple:
-    """``(D, M)`` of ``--mesh``, refused where ``arch``'s family cannot
-    take the model axis (the MoE, SSM and hybrid families, ROADMAP.md,
-    Queue 1, item 16) or its heads, ``d_ff`` or vocab do not split."""
+    """``(D, M)`` of ``--mesh``, refused where ``arch``'s heads, ``d_ff``,
+    K/V heads, experts, SSM heads or vocab do not split over the model
+    axis (ROADMAP.md, Queue 1, item 17)."""
     d, m = parse_mesh(mesh)
     check_model_axis(get_config(arch, smoke=smoke), m)
     return d, m

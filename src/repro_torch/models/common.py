@@ -18,11 +18,13 @@ of a world (its axes, FSDP, sequence parallelism).  Where the reference's
 rule: K/V heads are replicated over ``model`` when ``M`` does not divide
 ``n_kv_heads`` (granite's and paligemma's one head; the reference moves the
 axis to ``head_dim``: the same values, another layout), the vocab is cut
-over ``vocab_padded`` (the last rank's block short), and ``M`` dividing
-neither ``n_heads`` nor ``d_ff`` is refused.  The model axis takes the
-attention families (dense, vision prefix, enc-dec); the MoE, SSM and hybrid
-families wait for ROADMAP.md, Queue 1, item 16 (their leaves are whole on
-every rank, FSDP off).
+over ``vocab_padded`` (the last rank's block short), and a model axis
+that does not divide ``n_heads``, ``d_ff``, the experts or the SSM heads
+is refused, pointing at ROADMAP.md, Queue 1, item 17
+(:func:`check_model_axis`).  It takes every family: the MoE family's
+experts are cut over it (the expert axis, the router whole), the SSM's
+``d_inner`` and heads (the B/C projections whole), and the hybrid's
+shared attention block is placed as an attention block.
 """
 from __future__ import annotations
 
@@ -238,8 +240,7 @@ def tree_map_paths(fn: Callable, tree: Any,
 # ---------------------------------------------------------------------------
 # placement over a world's mesh (the reference's specs and fsdp_spec)
 # ---------------------------------------------------------------------------
-MODEL_AXIS_FAMILIES = ("dense", "vlm", "audio")
-MODEL_AXIS_ITEM = "ROADMAP.md, Queue 1, item 16"
+MODEL_AXIS_ITEM = "ROADMAP.md, Queue 1, item 17"
 
 # (dim, axis name, whole length, block): rank i along the axis holds
 # [i * block, min((i + 1) * block, whole)) of the dim
@@ -251,8 +252,11 @@ class Place:
     """Where a leaf lives over a world's mesh: its ``cuts`` (at most one
     over ``model``, one over ``data``) and ``sum_model``: the leaf is whole
     on every model rank, but each rank's gradient of it is a part (the
-    K/V weights replicated over ``model``; under sequence parallelism the
-    norm scales), which the train step sums over ``model``."""
+    K/V weights replicated over ``model``; the MoE router, whose combine
+    weights each rank takes for its own experts' instances; the SSM's B/C
+    projections and convolutions, which each rank reads for its own heads;
+    under sequence parallelism the norm scales), which the train step sums
+    over ``model``."""
 
     cuts: Tuple[Cut, ...] = ()
     sum_model: bool = False
@@ -276,39 +280,53 @@ def axis_range(whole: int, block: int, index: int) -> Tuple[int, int]:
     return lo, min(whole, lo + block)
 
 
-def _whole_shape(name: str, cfg: ModelConfig) -> Tuple[int, ...]:
+def _whole_shape(path: Tuple[str, ...], cfg: ModelConfig) -> Tuple[int, ...]:
+    """The whole shape of the (unstacked) leaf at ``path``."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    F_, E, name = cfg.d_ff, cfg.n_experts, path[-1]
+    if "mix" in path:                              # the SSM block
+        di, N, Hs, K = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_conv
+        return {"wz": (d, di), "wx": (d, di), "wB": (d, N), "wC": (d, N),
+                "wdt": (d, Hs), "conv_x": (K, di), "conv_B": (K, N),
+                "conv_C": (K, N), "A_log": (Hs,), "Dp": (Hs,),
+                "dt_bias": (Hs,), "norm": (di,), "out": (di, d)}[name]
+    if "ffn" in path and cfg.family == "moe" and path[0] != "shared":
+        return {"router": (d, E), "w_in": (E, d, F_), "w_gate": (E, d, F_),
+                "w_out": (E, F_, d), "sh_in": (d, F_), "sh_gate": (d, F_),
+                "sh_out": (F_, d)}[name]
     return {"wq": (d, H, hd), "wk": (d, KV, hd), "wv": (d, KV, hd),
-            "wo": (H, hd, d), "w_in": (d, cfg.d_ff), "w_gate": (d, cfg.d_ff),
-            "w_out": (cfg.d_ff, d), "tok": (cfg.vocab, d),
+            "wo": (H, hd, d), "w_in": (d, F_), "w_gate": (d, F_),
+            "w_out": (F_, d), "tok": (cfg.vocab, d),
             "unembed": (d, cfg.vocab), "vproj": (d, d)}.get(name, (d,))
 
 
+def _refuse(cfg: ModelConfig, m: int, what: str) -> None:
+    raise ValueError(f"{cfg.name}: {what} over a model axis of {m} (the "
+                     f"reference's sanitize_spec moves the axis to another "
+                     f"dim; the port refuses it, {MODEL_AXIS_ITEM})")
+
+
 def check_model_axis(cfg: ModelConfig, m: int) -> None:
-    """Refuse a model axis of ``m`` ranks that ``cfg`` cannot take."""
+    """Refuse a model axis of ``m`` ranks that ``cfg`` cannot take: the
+    attention's heads (the MoE family's, the hybrid's shared block's),
+    ``d_ff`` (a dense FFN's, the shared block's, the MoE shared expert's)
+    or K/V heads that ``m`` does not divide, experts or SSM heads that it
+    does not divide, or a padded vocab it does not divide."""
     if m == 1:
         return
-    if cfg.family not in MODEL_AXIS_FAMILIES:
-        raise ValueError(
-            f"{cfg.name}: a model axis of {m} ranks for the {cfg.family} "
-            f"family (the expert axis, d_inner cut over model) is not "
-            f"ported ({MODEL_AXIS_ITEM})")
-    if cfg.n_heads % m:
-        raise ValueError(
-            f"{cfg.name}: {cfg.n_heads} heads do not split over a model "
-            f"axis of {m} (the reference's sanitize_spec moves the axis to "
-            f"head_dim; the port refuses it)")
-    if cfg.d_ff % m:
-        raise ValueError(
-            f"{cfg.name}: d_ff {cfg.d_ff} does not split over a model axis "
-            f"of {m} (the reference's sanitize_spec moves the axis to "
-            f"d_model; the port refuses it)")
+    attention = cfg.family != "ssm"
+    dense_ffn = cfg.family not in ("ssm", "moe") or cfg.moe_shared_expert
+    if cfg.family == "moe" and cfg.n_experts % m:
+        _refuse(cfg, m, f"{cfg.n_experts} experts do not split")
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm_heads % m:
+        _refuse(cfg, m, f"{cfg.ssm_heads} SSM heads do not split")
+    if attention and cfg.n_heads % m:
+        _refuse(cfg, m, f"{cfg.n_heads} heads do not split")
+    if dense_ffn and cfg.d_ff % m:
+        _refuse(cfg, m, f"d_ff {cfg.d_ff} does not split")
     kv = cfg.n_kv_heads
-    if kv % m and m % kv:
-        raise ValueError(
-            f"{cfg.name}: {kv} K/V heads neither split over a model axis of "
-            f"{m} nor divide it (the reference's sanitize_spec moves the "
-            f"axis to head_dim; the port refuses it)")
+    if attention and kv % m and m % kv:
+        _refuse(cfg, m, f"{kv} K/V heads neither split nor divide the axis")
     if vocab_padded(cfg) % m:
         raise ValueError(f"{cfg.name}: the padded vocab "
                          f"{vocab_padded(cfg)} does not split over {m}")
@@ -321,8 +339,17 @@ def vocab_padded(cfg: ModelConfig) -> int:
     return -(-cfg.vocab // 128) * 128
 
 
-_FSDP = ("wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out", "unembed")
+_FSDP = ("wq", "wk", "wv", "wo", "w_in", "w_gate", "w_out", "unembed",
+         "sh_in", "sh_gate", "sh_out", "wz", "wx", "out")
 _NORMS = ("ln1", "ln2", "lnx", "ln_f")
+# the dim the model axis cuts, by leaf name (of the unstacked leaf)
+_MODEL_DIM = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_in": 1, "w_gate": 1,
+              "w_out": 0, "tok": 0, "unembed": 1, "sh_in": 1, "sh_gate": 1,
+              "sh_out": 0, "wz": 1, "wx": 1, "wdt": 1, "conv_x": 1,
+              "A_log": 0, "Dp": 0, "dt_bias": 0, "norm": 0, "out": 0}
+# whole on every model rank, each rank's gradient a part: the MoE router
+# and the SSM's B/C projections and convolutions
+_SUM_MODEL = ("router", "wB", "wC", "conv_B", "conv_C")
 
 
 def leaf_place(path: Tuple[str, ...], cfg: ModelConfig,
@@ -331,22 +358,25 @@ def leaf_place(path: Tuple[str, ...], cfg: ModelConfig,
     M)`` (module doc): the reference's spec of the leaf (``P(None, model,
     None)`` for ``wq``, ``wk``, ``wv``; ``P(model, None, None)`` for
     ``wo``; ``P(None, model)`` / ``P(model, None)`` for the MLP's in and
-    out; ``P(model, None)`` for ``tok``, ``P(None, model)`` for
-    ``unembed``), shifted by one for the stacked ``(L, ...)`` leaves as
-    ``P(None, *s)``, and with ``fsdp_spec``'s data axis on the first dim
-    the model axis leaves free (the first that ``D`` divides)."""
+    out and the MoE shared expert's; ``P(model, None)`` for ``tok``,
+    ``P(None, model)`` for ``unembed``; the experts ``P(model, None,
+    None)``; the SSM's ``wz``, ``wx``, ``wdt``, ``conv_x`` on their last
+    dim, its head vectors, ``norm`` and ``out`` on their first), shifted by
+    one for the stacked ``(L, ...)`` leaves as ``P(None, *s)``, and with
+    ``fsdp_spec``'s data axis on the first dim the model axis leaves free
+    (the first that ``D`` divides); under ``opt_moe_dispatch`` the
+    experts' ``w_in`` and ``w_gate`` take it on ``d_ff`` (the reference's
+    ``P(model, None, data)``)."""
     d, m = mesh
-    if cfg.family not in MODEL_AXIS_FAMILIES:
-        return Place()
     name = path[-1]
     stacked = path[0] in ("layers", "enc")
-    shape = _whole_shape(name, cfg)
+    shape = _whole_shape(path, cfg)
     if stacked:
         shape = ((cfg.n_layers if path[0] == "layers" else cfg.enc_layers),
                  ) + shape
     off = 1 if stacked else 0
-    mdim = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_in": 1, "w_gate": 1,
-            "w_out": 0, "tok": 0, "unembed": 1}.get(name)
+    experts = len(shape) - off == 3 and name in ("w_in", "w_gate", "w_out")
+    mdim = 0 if experts else _MODEL_DIM.get(name)
     replicated_kv = name in ("wk", "wv") and cfg.n_kv_heads % m != 0
     if replicated_kv or m == 1:
         mdim = None
@@ -360,13 +390,15 @@ def leaf_place(path: Tuple[str, ...], cfg: ModelConfig,
             block = whole // m
         cuts.append((mdim, "model", whole, block))
     if cfg.fsdp and d > 1 and name in _FSDP:
-        for i in range(off, len(shape)):
+        first = off + (2 if experts and cfg.opt_moe_dispatch
+                       and name != "w_out" else 0)
+        for i in range(first, len(shape)):
             if i != mdim and shape[i] % d == 0:
                 cuts.append((i, "data", shape[i], shape[i] // d))
                 break
     sp = cfg.fsdp and m > 1
     return Place(tuple(cuts), sum_model=m > 1 and (
-        replicated_kv or (sp and name in _NORMS)))
+        replicated_kv or name in _SUM_MODEL or (sp and name in _NORMS)))
 
 
 def tree_places(tree: Any, cfg: ModelConfig, mesh: Tuple[int, int]) -> Any:
@@ -443,9 +475,7 @@ class Par:
             return None
         d, m = world.mesh
         check_model_axis(cfg, m)
-        attn = cfg.family in MODEL_AXIS_FAMILIES
-        return Par(world, fsdp=attn and cfg.fsdp and d > 1,
-                   sp=attn and cfg.fsdp and m > 1)
+        return Par(world, fsdp=cfg.fsdp and d > 1, sp=cfg.fsdp and m > 1)
 
     def head_range(self, cfg: ModelConfig) -> Tuple[int, int]:
         """This rank's query heads ``[lo, hi)``."""

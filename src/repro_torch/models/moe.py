@@ -11,9 +11,23 @@ Dispatch is scatter-based (a MegaBlocks-style slot table), not the
             JAX package leaves them to XLA, outside any Pallas kernel)
   combine : gather expert outputs back per (token, choice), weight, sum.
 
-The JAX package's sharding specs and mesh are not ported (one card): the
-local dispatch (``opt_moe_dispatch``) runs the one-shard form it takes with
-no mesh.
+The local dispatch (``opt_moe_dispatch``) runs the one-shard form the JAX
+function takes with no mesh; over a world's data axis each rank's rows are
+the reference's data shard (the train step's ``microbatch=D`` form).
+
+Over a world's model axis (``axis``, the expert axis) the experts are cut:
+rank ``r`` holds experts ``[r E/M, (r+1) E/M)`` of ``w_in``, ``w_gate`` and
+``w_out``, and the shared expert column- and row-parallel as the MLP is.
+Tokens are replicated, not exchanged: every model rank is given the same
+tokens, computes the same router logits and routes them the same way (the
+same ``assign``, ``slot`` and ``prob``, the capacity of those ``T``
+tokens), keeps in its slot table only the instances routed to its own
+experts (every other one goes to the dump row), runs its experts over
+``(E/M, C, D)`` and combines its own instances, weighted.  Its output is
+this rank's part of the sum, which the block reduces over the axis with the
+shared expert's.  There is no all-to-all.  ``lb_loss`` is computed alike on
+every rank; its gradient flows from the axis's rank 0 alone, so that the
+block's reduction of the input gradient counts it once.
 """
 from __future__ import annotations
 
@@ -93,13 +107,22 @@ def _aux(logits: torch.Tensor, assign: torch.Tensor, keep: torch.Tensor,
             "drop_rate": 1.0 - keep.sum() / n_inst}
 
 
-def _routed(params, x: torch.Tensor, cfg: ModelConfig
+def _once(aux: dict, axis) -> dict:
+    """``aux`` with ``lb_loss``'s gradient kept on the axis's rank 0 only
+    (the value alike on every rank; module doc)."""
+    if axis is None or axis.size == 1 or axis.rank == 0:
+        return aux
+    return dict(aux, lb_loss=aux["lb_loss"].detach())
+
+
+def _routed(params, x: torch.Tensor, cfg: ModelConfig, axis=None
             ) -> Tuple[torch.Tensor, dict]:
     """What both dispatches share: route the B*S tokens, scatter each kept
-    (token, choice) instance into an (E*C+1, D) buffer whose last row is
-    the dump, run the experts over (E, C, D), gather each instance's
-    output back and weight it.  Returns the (T, k, D) weighted outputs,
-    zero for dropped instances, and ``aux``."""
+    (token, choice) instance of this rank's experts (all of them on one
+    device) into an (E_loc*C+1, D) buffer whose last row is the dump, run
+    the experts over (E_loc, C, D), gather each instance's output back and
+    weight it.  Returns the (T, k, D) weighted outputs, zero for dropped
+    instances and for other ranks' experts, and ``aux``."""
     B, S, D = x.shape
     T = B * S
     E, k = cfg.n_experts, cfg.top_k
@@ -109,20 +132,24 @@ def _routed(params, x: torch.Tensor, cfg: ModelConfig
     logits = xt.float() @ params["router"]
     assign, slot, prob = _router(cfg)(logits, k, C)
 
+    El = params["w_in"].shape[0]                   # this rank's experts
+    first = 0 if axis is None else axis.rank * El
     flat_e = assign.reshape(T * k)
     keep = flat_e >= 0
-    slot_id = torch.where(keep, flat_e * C + slot.reshape(T * k), E * C).long()
+    mine = keep & (flat_e >= first) & (flat_e < first + El)
+    slot_id = torch.where(mine, (flat_e - first) * C + slot.reshape(T * k),
+                          El * C).long()
     # instance i is token i // k: a broadcast, not a gather
     inst = xt[:, None].expand(T, k, D).reshape(T * k, D)
-    buf = x.new_zeros((E * C + 1, D)).index_copy_(0, slot_id, inst)
-    out_buf = _expert_ffn(params, buf[: E * C].reshape(E, C, D), cfg)
+    buf = x.new_zeros((El * C + 1, D)).index_copy_(0, slot_id, inst)
+    out_buf = _expert_ffn(params, buf[: El * C].reshape(El, C, D), cfg)
 
     gathered = torch.where(
-        keep[:, None], out_buf.reshape(E * C, D)[slot_id.clamp(0, E * C - 1)],
-        0.0)
+        mine[:, None],
+        out_buf.reshape(El * C, D)[slot_id.clamp(0, El * C - 1)], 0.0)
     w = prob.reshape(T * k, 1).to(x.dtype)
-    return (gathered * w).reshape(T, k, D), _aux(logits, assign, keep, E,
-                                                 T * k)
+    return (gathered * w).reshape(T, k, D), _once(
+        _aux(logits, assign, keep, E, T * k), axis)
 
 
 def _finish(params, x: torch.Tensor, out: torch.Tensor, cfg: ModelConfig
@@ -133,22 +160,24 @@ def _finish(params, x: torch.Tensor, out: torch.Tensor, cfg: ModelConfig
     return out
 
 
-def moe_ffn_local_dispatch(params, x: torch.Tensor, cfg: ModelConfig
-                           ) -> Tuple[torch.Tensor, dict]:
+def moe_ffn_local_dispatch(params, x: torch.Tensor, cfg: ModelConfig,
+                           axis=None) -> Tuple[torch.Tensor, dict]:
     """``opt_moe_dispatch``: locality-first expert dispatch, in the form
     the JAX function takes with no mesh, one shard, which routes and
     dispatches as :func:`moe_ffn` does.  Only its combine differs: a
     reshape-sum over the contiguous instances of each token."""
-    contrib, aux = _routed(params, x, cfg)
+    contrib, aux = _routed(params, x, cfg, axis)
     return _finish(params, x, contrib.sum(dim=1), cfg), aux
 
 
-def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig
+def moe_ffn(params, x: torch.Tensor, cfg: ModelConfig, axis=None
             ) -> Tuple[torch.Tensor, dict]:
-    """x: (B, S, D) -> (B, S, D), aux metrics (load-balance loss, drops)."""
+    """x: (B, S, D) -> (B, S, D), aux metrics (load-balance loss, drops).
+    ``axis``: the model axis the experts are cut over (module doc); the
+    output is then this rank's part of the sum."""
     if cfg.opt_moe_dispatch:
-        return moe_ffn_local_dispatch(params, x, cfg)
-    contrib, aux = _routed(params, x, cfg)
+        return moe_ffn_local_dispatch(params, x, cfg, axis)
+    contrib, aux = _routed(params, x, cfg, axis)
     # the JAX function's scatter-add over the token ids, whose k instances
     # of a token are contiguous: added in order, in x's dtype, no atomics
     out = contrib[:, 0]

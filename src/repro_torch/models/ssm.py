@@ -15,6 +15,17 @@ from chunk to chunk in a loop over the chunks (the JAX function's
 Every dtype cast of the JAX function is kept (the intra-chunk weights,
 the chunk states and the carried state in the activation dtype, ``dt`` and
 the decays in float32), so bfloat16 rounds where the JAX function rounds.
+
+Over a world's model axis (``axis``) the weights given are this rank's:
+``d_inner`` and the heads cut (``wz``, ``wx``, ``wdt``, ``conv_x`` on
+their last dim, ``A_log``, ``Dp``, ``dt_bias``, ``norm`` and ``out`` on
+their first; the B/C projections and convolutions whole), so the block
+runs on its ``H/M`` heads and ``d_inner/M`` channels, the causal
+convolution on the local channels, and ``out`` is row-parallel: the
+output is this rank's part of the sum, which the block reduces.  The
+gated norm's mean of squares is over the whole ``d_inner``: the ranks'
+sums of squares all-reduced, one all-reduce a layer, whose backward is an
+all-reduce too (``copy_to(reduce_from(...))``).
 """
 from __future__ import annotations
 
@@ -22,6 +33,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.comm import copy_to, reduce_from
 
 from .common import ModelConfig, dense_init
 
@@ -68,21 +81,34 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _gated_norm(y, z, scale, eps):
+def _gated_norm(y, z, scale, eps, axis=None):
+    """The gated RMS norm over ``d_inner``; over a model axis, of which
+    each rank holds ``y``'s channels (module doc)."""
     y = y * F.silu(z)
-    var = y.float().square().mean(dim=-1, keepdim=True)
+    if axis is None or axis.size == 1:
+        var = y.float().square().mean(dim=-1, keepdim=True)
+    else:
+        ss = y.float().square().sum(dim=-1, keepdim=True)
+        var = copy_to(reduce_from(ss, axis), axis) / (y.shape[-1] * axis.size)
     return (y.float() * torch.rsqrt(var + eps)
             * (1.0 + scale)).to(y.dtype)
 
 
+def _local(params) -> Tuple[int, int]:
+    """``(d_inner, heads)`` of the weights given (a rank's, over a model
+    axis)."""
+    return params["wx"].shape[1], params["A_log"].shape[0]
+
+
 def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
-                  h0: Optional[torch.Tensor] = None
+                  h0: Optional[torch.Tensor] = None, axis=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence SSD.  x: (B, S, D) -> (B, S, D) and the final state
-    (B, H, hd, N).  S must be a multiple of ``CHUNK`` when longer."""
+    (B, H, hd, N).  S must be a multiple of ``CHUNK`` when longer.
+    ``axis``: the model axis (module doc; H and the output this rank's)."""
     B, S, D = x.shape
-    di, N = cfg.d_inner, cfg.ssm_state
-    H, hd = cfg.ssm_heads, cfg.ssm_headdim
+    (di, H), N = _local(params), cfg.ssm_state
+    hd = cfg.ssm_headdim
     Q = min(CHUNK, S)
     if S % Q:
         raise ValueError(f"mamba_forward: S={S} is no multiple of the "
@@ -147,18 +173,20 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     # jnp.repeat repeats each head's D_h hd times (Tensor.repeat would tile)
     y = (y_intra + y_inter).reshape(B, S, di) \
         + xs * params["Dp"].repeat_interleave(hd)[None, None, :].to(dtype)
-    y = _gated_norm(y, z, params["norm"], cfg.norm_eps)
+    y = _gated_norm(y, z, params["norm"], cfg.norm_eps, axis)
     return torch.einsum("bse,ed->bsd", y, params["out"]), h
 
 
 def init_ssm_cache(cfg: ModelConfig, n_layers: int, batch: int,
-                   dtype: Optional[torch.dtype] = None, *, device
-                   ) -> Dict[str, torch.Tensor]:
+                   dtype: Optional[torch.dtype] = None, *, device,
+                   model: int = 1) -> Dict[str, torch.Tensor]:
     """The state ``h`` (L, B, H, hd, N) and the convolution's last K-1
-    inputs ``conv`` (L, B, K-1, di + 2N), in the order x, B, C."""
+    inputs ``conv`` (L, B, K-1, di + 2N), in the order x, B, C; over a
+    model axis of ``model`` ranks a rank's: ``H/M`` heads, ``di/M``
+    channels (the B/C inputs whole)."""
     dtype = dtype or cfg.tdtype
-    H, hd, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-    K, di = cfg.ssm_conv, cfg.d_inner
+    H, hd, N = cfg.ssm_heads // model, cfg.ssm_headdim, cfg.ssm_state
+    K, di = cfg.ssm_conv, cfg.d_inner // model
     return {"h": torch.zeros((n_layers, batch, H, hd, N), dtype=dtype,
                              device=device),
             "conv": torch.zeros((n_layers, batch, K - 1, di + 2 * N),
@@ -166,12 +194,14 @@ def init_ssm_cache(cfg: ModelConfig, n_layers: int, batch: int,
 
 
 def mamba_decode_step(params, x: torch.Tensor, h: torch.Tensor,
-                      conv_state: torch.Tensor, cfg: ModelConfig):
+                      conv_state: torch.Tensor, cfg: ModelConfig, axis=None):
     """One-token recurrence.  x: (B, 1, D); h: (B, H, hd, N); conv_state:
-    (B, K-1, di+2N).  Returns (out (B, 1, D), new h, new conv_state)."""
+    (B, K-1, di+2N).  Returns (out (B, 1, D), new h, new conv_state).
+    ``axis``: the model axis (module doc; H, di and the output this
+    rank's)."""
     B = x.shape[0]
-    di, N = cfg.d_inner, cfg.ssm_state
-    H, hd = cfg.ssm_heads, cfg.ssm_headdim
+    (di, H), N = _local(params), cfg.ssm_state
+    hd = cfg.ssm_headdim
     z = torch.einsum("bsd,de->bse", x, params["wz"])[:, 0]
     xBC = torch.cat([
         torch.einsum("bsd,de->bse", x, params["wx"]),
@@ -192,6 +222,6 @@ def mamba_decode_step(params, x: torch.Tensor, h: torch.Tensor,
         "bh,bhp,bn->bhpn", dt.to(x.dtype), xs, Bc)
     y = torch.einsum("bhpn,bn->bhp", h, Cc) \
         + xs * params["Dp"][None, :, None].to(x.dtype)
-    y = _gated_norm(y.reshape(B, di), z, params["norm"], cfg.norm_eps)
+    y = _gated_norm(y.reshape(B, di), z, params["norm"], cfg.norm_eps, axis)
     out = torch.einsum("be,ed->bd", y, params["out"])[:, None]
     return out, h, conv_state

@@ -74,11 +74,16 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: str,
     return params
 
 
-def ffn_fwd(params, h, cfg: ModelConfig, kind: str):
+def _axis(par):
+    """The model axis of ``par`` (None on one device)."""
+    return None if par is None else par.model
+
+
+def ffn_fwd(params, h, cfg: ModelConfig, kind: str, par=None):
     """The block's feed-forward: (output, aux); aux is empty for a dense
-    block."""
+    block.  ``par``: ``h`` entered, the output this rank's part."""
     if kind == "moe":
-        return moe_mod.moe_ffn(params, h, cfg)
+        return moe_mod.moe_ffn(params, h, cfg, _axis(par))
     return mlp_mod.mlp(params, h, cfg), {}
 
 
@@ -106,8 +111,9 @@ def block_fwd(params, x, pos, cfg: ModelConfig, kind: str, mask_kind: str,
               enc_out=None, enc_pos=None, prefix_len: int = 0, par=None):
     if kind == "mamba":
         h = rms_norm(x, params["ln1"], cfg.norm_eps)
-        y, _ = ssm_mod.mamba_forward(params["mix"], h, cfg)
-        return x + y, {}
+        y, _ = ssm_mod.mamba_forward(params["mix"], enter(h, par), cfg,
+                                     axis=_axis(par))
+        return x + leave(y, par), {}
     h = rms_norm(x, params["ln1"], cfg.norm_eps)
     x = x + leave(att.attention(params["attn"], enter(h, par), pos, cfg,
                                 mask_kind=mask_kind, prefix_len=prefix_len,
@@ -118,7 +124,7 @@ def block_fwd(params, x, pos, cfg: ModelConfig, kind: str, mask_kind: str,
                                     cfg, mask_kind="bidir", kv_x=enc_out,
                                     kv_pos=enc_pos, par=par), par)
     h = rms_norm(x, params["ln2"], cfg.norm_eps)
-    y, aux = ffn_fwd(params["ffn"], enter(h, par), cfg, kind)
+    y, aux = ffn_fwd(params["ffn"], enter(h, par), cfg, kind, par)
     return x + leave(y, par), aux
 
 
@@ -290,7 +296,10 @@ class Model:
                                   cross=cfg.enc_layers > 0)}
         del embed
         if cfg.family == "hybrid" and cfg.shared_every:
-            params["shared"] = init_block(gen, cfg, "attn")
+            shared = init_block(gen, cfg, "attn")
+            params["shared"] = shared if cut is None else tree_map_paths(
+                lambda p, t: cut(("shared",) + p, t), shared)
+            del shared
         if cfg.enc_layers:
             params["enc"] = stack(cfg.enc_layers, "attn", "enc")
         if cfg.frontend == "vision":
@@ -338,11 +347,11 @@ class Model:
     # ---------------- stacks ----------------------------------------------
     def _run_stack(self, layer_params, x, pos, kind, mask_kind, shared=None,
                    enc_out=None, enc_pos=None, prefix_len: int = 0,
-                   par=None, places=None):
+                   par=None, places=None, shared_places=None):
         """The blocks of a stack in order (the shared block after every
         ``shared_every``-th); returns (x, the summed load-balance loss).
         ``places``: the stack's, whose FSDP leaves each layer's body
-        gathers."""
+        gathers (``shared_places``: the shared block's)."""
         cfg = self.cfg
         n = tree_leaves(layer_params)[0].shape[0]
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -353,7 +362,8 @@ class Model:
                                enc_out=enc_out, enc_pos=enc_pos,
                                prefix_len=prefix_len, par=par)
             if with_shared:
-                x, _ = block_fwd(shared, x, pos, cfg, "attn", "swa")
+                x, _ = block_fwd(fsdp_gather(shared, shared_places, par), x,
+                                 pos, cfg, "attn", "swa", par=par)
             return x, aux.get("lb_loss", zero)
 
         # only where autograd records the layer: a forward under grad mode
@@ -453,7 +463,9 @@ class Model:
                                 enc_out=enc_out, enc_pos=enc_pos,
                                 prefix_len=prefix_len, par=par,
                                 places=None if places is None
-                                else places["layers"])
+                                else places["layers"],
+                                shared_places=None if places is None
+                                else places.get("shared"))
         if last_only:
             # serving prefill needs only the next-token logits
             if par is not None and par.sp:
@@ -487,19 +499,20 @@ class Model:
                 f"and raises TypeError on the first decode step, so there "
                 f"is no reference to hold one to (ROADMAP.md, Queue 3)")
         cache: Dict[str, Any] = {"pos": 0}
+        par = self.par
         if cfg.family in ("ssm", "hybrid"):
-            cache.update(ssm_mod.init_ssm_cache(cfg, cfg.n_layers,
-                                                batch_size, device=dev))
+            cache.update(ssm_mod.init_ssm_cache(
+                cfg, cfg.n_layers, batch_size, device=dev,
+                model=1 if par is None else par.model.size))
             if cfg.family == "hybrid" and cfg.shared_every:
                 # each invocation sees other activations: its own slice
                 n_inv = cfg.n_layers // cfg.shared_every
                 cache["shared_kv"] = att.init_kv_cache(
                     cfg, n_inv, batch_size, min(max_len, cfg.window),
-                    device=dev)
+                    device=dev, par=par)
         else:
             cache.update(att.init_kv_cache(cfg, cfg.n_layers, batch_size,
-                                           max_len, device=dev,
-                                           par=self.par))
+                                           max_len, device=dev, par=par))
         if cfg.enc_layers:
             shape = (cfg.n_layers, batch_size, enc_len,
                      cache["k"].shape[3], cfg.hd)
@@ -544,6 +557,9 @@ class Model:
         if par is not None:
             x = reduce_from(x, par.model)
         layers = params["layers"]
+        shared = params.get("shared")
+        if shared is not None and places is not None:
+            shared = fsdp_gather(shared, places["shared"], par)
         kind = self._block_kind()
         quant = "k_scale" in cache
         for i in range(cfg.n_layers):
@@ -557,17 +573,18 @@ class Model:
                                        cache["idx"], pos, kind, *cross,
                                        *scales)
                 continue
-            h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+            h = enter(rms_norm(x, lp["ln1"], cfg.norm_eps), par)
             y, h_new, conv = ssm_mod.mamba_decode_step(
-                lp["mix"], h, cache["h"][i], cache["conv"][i], cfg)
+                lp["mix"], h, cache["h"][i], cache["conv"][i], cfg,
+                _axis(par))
             cache["h"][i].copy_(h_new)
             cache["conv"][i].copy_(conv)
-            x = x + y
+            x = x + leave(y, par)
             if self._shared_after(i):
                 # invocation i // shared_every's KV slice; the slices share
                 # one ``idx``
                 kv, inv = cache["shared_kv"], i // cfg.shared_every
-                x = self._block_decode(params["shared"], x, kv["k"][inv],
+                x = self._block_decode(shared, x, kv["k"][inv],
                                        kv["v"][inv], kv["idx"], pos, "attn")
         logits = lm_head(embed, x, cfg, par)
         return logits, dict(cache, pos=pos + 1)
@@ -591,7 +608,7 @@ class Model:
             h = enter(rms_norm(x, lp["lnx"], cfg.norm_eps), par)
             x = x + leave(self._cross_decode(lp["xattn"], h, xk, xv), par)
         h = enter(rms_norm(x, lp["ln2"], cfg.norm_eps), par)
-        y, _ = ffn_fwd(lp["ffn"], h, cfg, kind)
+        y, _ = ffn_fwd(lp["ffn"], h, cfg, kind, par)
         return x + leave(y, par)
 
     def _cross_decode(self, p, x, xk, xv):

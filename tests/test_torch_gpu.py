@@ -1873,12 +1873,14 @@ def test_cuda_nccl_world_of_one_captures_the_merge(tmp_path):
 
 @pytest.mark.gpu
 def test_cuda_nccl_model_axis_trains_and_saves(tmp_path):
-    """A 2 x 2 world of NCCL ranks, one card each: granite-20b SMOKE (fp32,
-    FSDP over ``data``, sequence parallelism over ``model``) takes three
-    steps; the losses within the train gate (``rtol = 1e-5``) of one
-    card's ``microbatch=2`` steps; the save, each leaf gathered over both
-    axes onto rank 0's card, restores on one card to the world's own
-    gathered leaves bit for bit."""
+    """A 2 x 2 world of NCCL ranks, one card each: granite-20b and
+    dbrx-132b SMOKE (fp32, FSDP over ``data``, sequence parallelism over
+    ``model``, dbrx's experts cut over it) and mamba2-2.7b SMOKE
+    (``d_inner`` cut over ``model``) each take three steps; the losses
+    within the train gate (``rtol = 1e-5``) of one card's ``microbatch=2``
+    steps; each save, every leaf gathered over both axes onto rank 0's
+    card, restores on one card to the world's own gathered leaves bit for
+    bit."""
     _card()
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA devices: an NCCL world takes a card "
@@ -1887,18 +1889,22 @@ def test_cuda_nccl_model_axis_trains_and_saves(tmp_path):
     import torch_world_ranks as ranks
     from repro_torch.ckpt import restore_checkpoint
     from repro_torch.distributed import run_world
-    ckpt = str(tmp_path / "ckpt")
-    out = run_world(ranks.axis_train, 4, "granite-20b", 3, 4, 64, None,
-                    ckpt, 0, True, mesh=(2, 2), timeout=600)
-    one = ranks.axis_train(None, "granite-20b", 3, 4, 64, microbatch=2,
-                           card=True)
-    for r in out:
-        assert r["losses"] == out[0]["losses"]
-    torch.testing.assert_close(torch.tensor(out[0]["losses"]),
-                               torch.tensor(one["losses"]), rtol=1e-5,
-                               atol=0)
-    like = {"params": out[0]["params"], "opt": out[0]["state"]}
-    tree, step = restore_checkpoint(ckpt, like, device="cpu")
-    assert step == 3
-    for got, want in zip(ranks._leaves(tree), ranks._leaves(like)):
-        assert torch.equal(got, torch.as_tensor(want))
+    archs = ("granite-20b", "dbrx-132b", "mamba2-2.7b")
+    ckpts = {a: str(tmp_path / a) for a in archs}
+    jobs = [(a, "axis_train", (a, 3, 4, 64, None, ckpts[a], 0, True))
+            for a in archs]
+    out = run_world(ranks.axis_jobs, 4, jobs, mesh=(2, 2), timeout=900)
+    for arch in archs:
+        one = ranks.axis_train(None, arch, 3, 4, 64, microbatch=2,
+                               card=True)
+        for r in out:
+            assert r[arch]["losses"] == out[0][arch]["losses"], arch
+        torch.testing.assert_close(torch.tensor(out[0][arch]["losses"]),
+                                   torch.tensor(one["losses"]), rtol=1e-5,
+                                   atol=0)
+        like = {"params": out[0][arch]["params"],
+                "opt": out[0][arch]["state"]}
+        tree, step = restore_checkpoint(ckpts[arch], like, device="cpu")
+        assert step == 3
+        for got, want in zip(ranks._leaves(tree), ranks._leaves(like)):
+            assert torch.equal(got, torch.as_tensor(want)), arch

@@ -9,8 +9,9 @@ its padded length).
   specs: the dim ``model`` cuts and the dim ``fsdp_spec`` gives ``data``,
   leaf for leaf, over a 2 x 2 mesh (K/V heads that ``M`` does not divide:
   whole, where the reference moves the axis to ``head_dim``); a model axis
-  is refused for the MoE, SSM and hybrid families ("item 16") and where
-  heads or K/V heads do not split;
+  is refused where heads or K/V heads do not split, and where experts or
+  SSM heads do not (each naming "item 17"; the MoE, SSM and hybrid
+  families over the model axis are ``test_torch_model_axis_moe_ssm.py``'s);
 * each rank's ``init`` its slices of the one-device init bit for bit
   (``Model.shard``); the forward's logits (gathered over ``model``)
   against the port's one device within ``rtol = atol = 1e-5``, and against the JAX package's
@@ -124,16 +125,24 @@ def test_placement_follows_reference_specs(arch):
 
 
 def test_model_axis_refusals():
-    for arch in ("mamba2-2.7b", "zamba2-7b", "dbrx-132b",
-                 "llama4-maverick-400b-a17b"):
-        with pytest.raises(ValueError, match="Queue 1, item 16"):
-            check_model_axis(get_config(arch, smoke=True), 2)
-        check_model_axis(get_config(arch, smoke=True), 1)
+    for arch, m, what in (("dbrx-132b", 8, "4 experts"),
+                          ("llama4-maverick-400b-a17b", 8, "4 experts"),
+                          ("mamba2-2.7b", 16, "8 SSM heads"),
+                          ("zamba2-7b", 16, "8 SSM heads")):
+        cfg = get_config(arch, smoke=True)
+        if cfg.family == "moe":            # heads that split over 8
+            cfg = dataclasses.replace(cfg, n_heads=8, n_kv_heads=8,
+                                      head_dim=8)
+        with pytest.raises(ValueError, match=f"{what} do not split.*"
+                           f"Queue 1, item 17"):
+            check_model_axis(cfg, m)
+        for ok in (1, 2):
+            check_model_axis(get_config(arch, smoke=True), ok)
     cfg = get_config("granite-20b", smoke=True)
-    with pytest.raises(ValueError, match="heads do not split"):
+    with pytest.raises(ValueError, match="heads do not split.*item 17"):
         check_model_axis(cfg, 3)
     odd = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3, head_dim=16)
-    with pytest.raises(ValueError, match="K/V heads"):
+    with pytest.raises(ValueError, match="K/V heads.*item 17"):
         check_model_axis(odd, 2)
     check_model_axis(dataclasses.replace(cfg, n_kv_heads=2), 4)
 

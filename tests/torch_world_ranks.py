@@ -226,17 +226,26 @@ def zero1_suite(world, runs) -> list:
 # -- the model axis -------------------------------------------------------------
 AXIS_ARCHS = ("granite-20b", "deepseek-coder-33b", "nemotron-4-340b",
               "h2o-danube-1.8b", "paligemma-3b", "seamless-m4t-medium")
+# the MoE, SSM and hybrid families; an arch with a suffix of VARIANTS
+# runs under its overrides
+MOE_SSM_ARCHS = ("dbrx-132b", "llama4-maverick-400b-a17b", "mamba2-2.7b",
+                 "zamba2-7b")
+VARIANTS = {"+dispatch": dict(opt_moe_dispatch=True),
+            "+fsdp": dict(fsdp=True)}
 ENC_LEN = 16
 
 
 def axis_config(arch, **overrides):
     """``arch``'s SMOKE config (fp32) with its FULL config's ``fsdp`` and
     ``remat``: sequence parallelism and FSDP where the FULL config has
-    them, each layer recomputed in the backward."""
+    them, each layer recomputed in the backward.  ``arch`` with a suffix
+    of :data:`VARIANTS`: under its overrides too (``+dispatch``:
+    ``opt_moe_dispatch``; ``+fsdp``: FSDP and sequence parallelism)."""
     from repro_torch.configs import get_config
-    full = get_config(arch)
-    return get_config(arch, smoke=True, fsdp=full.fsdp, remat=full.remat,
-                      **overrides)
+    arch, plus, variant = arch.partition("+")
+    kw = dict(fsdp=get_config(arch).fsdp, remat=get_config(arch).remat)
+    kw.update(VARIANTS[plus + variant] if plus else {}, **overrides)
+    return get_config(arch, smoke=True, **kw)
 
 
 def axis_batch(cfg, step, batch, seq) -> dict:
@@ -309,12 +318,49 @@ def axis_layout(model, params, opt, world) -> dict:
             "opt": state_cuts(params, opt, world, places)}
 
 
+def _first_grads(opt, world, model, params):
+    """A context that keeps the gradients the train step hands
+    ``adamw_update`` at its first call (this rank's ZeRO-1 slices of its
+    model cuts), gathered whole (a one-element list, filled)."""
+    import contextlib
+
+    from repro_torch.models.common import gather_cuts, tree_leaves
+    from repro_torch.optim import state_cuts
+    from repro_torch.train import steps as steps_mod
+    seen = []
+
+    @contextlib.contextmanager
+    def spying():
+        real = steps_mod.adamw_update
+
+        def spy(p, g, *args, **kw):
+            if not seen:
+                if world is None:
+                    seen.append(_tree_to(g, lambda t: t.clone()))
+                else:
+                    cuts = iter(tree_leaves(state_cuts(
+                        p, opt, world, model.places(p))["m"]))
+                    seen.append(_tree_to(g, lambda t: gather_cuts(
+                        t, next(cuts), world)))
+            return real(p, g, *args, **kw)
+        steps_mod.adamw_update = spy
+        try:
+            yield seen
+        finally:
+            steps_mod.adamw_update = real
+    return spying()
+
+
 def axis_train(world, arch, steps, batch, seq, opt_kw=None,
-               ckpt=None, microbatch=0, card=False) -> dict:
+               ckpt=None, microbatch=0, card=False, grads=False) -> dict:
     """``steps`` steps of ``build_train_step`` over ``world`` (None: one
     device, ``microbatch``) from the seeded init, on the CPU or, with
     ``card``, on this rank's card: the losses, the whole params and state
-    after them (on the host), and, with ``ckpt``, a save there."""
+    after them (on the host), with ``grads`` the first step's gradients
+    as the optimizer takes them, gathered whole, and, with ``ckpt``, a
+    save there."""
+    import contextlib
+
     from repro_torch.ckpt import save_checkpoint
     from repro_torch.launch.train import opt_config_for
     from repro_torch.models import build_model
@@ -329,19 +375,25 @@ def axis_train(world, arch, steps, batch, seq, opt_kw=None,
     state = adamw_init(p, opt, world, model.places(p))
     step = build_train_step(model, opt, microbatch=microbatch)
     losses = []
-    for i in range(steps):
-        b = {k: v.to(dev)
-             for k, v in as_torch(axis_batch(cfg, i, batch, seq)).items()}
-        p, state, met = step(p, state, b)
-        losses.append(float(met["loss"]))
+    spy = (_first_grads(opt, world, model, p) if grads
+           else contextlib.nullcontext([]))
+    with spy as seen:
+        for i in range(steps):
+            b = {k: v.to(dev) for k, v in
+                 as_torch(axis_batch(cfg, i, batch, seq)).items()}
+            p, state, met = step(p, state, b)
+            losses.append(float(met["loss"]))
     if ckpt:
         save_checkpoint(ckpt, steps, {"params": p, "opt": state},
                         world=world, dims=None if world is None else
                         axis_layout(model, p, opt, world))
     host = lambda t: t.cpu() if isinstance(t, torch.Tensor) else t  # noqa
-    return dict(losses=losses, params=_tree_to(model.gather(p), host),
-                state=_tree_to(_gathered_state(model, p, state, opt, world),
-                               host))
+    out = dict(losses=losses, params=_tree_to(model.gather(p), host),
+               state=_tree_to(_gathered_state(model, p, state, opt, world),
+                              host))
+    if grads:
+        out["grads"] = _tree_to(seen[0], host)
+    return out
 
 
 def axis_restore(world, arch, ckpt, steps, opt_kw=None) -> dict:
@@ -369,10 +421,30 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+def _routes_of(fn):
+    """``fn()`` and the ``assign`` of every route the MoE layers took in
+    it, in order."""
+    from repro_torch.models import moe as moe_mod
+    routes, real = [], (moe_mod.route_matching, moe_mod.route_topk)
+
+    def keep(route):
+        def wrapped(*args, **kw):
+            out = route(*args, **kw)
+            routes.append(out[0].clone())
+            return out
+        return wrapped
+    moe_mod.route_matching, moe_mod.route_topk = (keep(r) for r in real)
+    try:
+        return fn(), routes
+    finally:
+        moe_mod.route_matching, moe_mod.route_topk = real
+
+
 def axis_serve(world, arch, batch, seq, decode_steps) -> dict:
-    """The forward's logits, the ``attn_impl="pallas"`` prefill and
-    ``decode_steps`` teacher-forced serve steps, all gathered whole, the
-    KV cache's heads on this rank, and whether ``Model.shard`` of the
+    """The forward's logits (with the routes its MoE layers took), the
+    ``attn_impl="pallas"`` prefill and ``decode_steps`` teacher-forced
+    serve steps, all gathered whole, the KV cache's heads and the SSM
+    state's heads on this rank, and whether ``Model.shard`` of the
     one-device init is this rank's init, leaf for leaf."""
     import dataclasses
     from repro_torch.models import build_model
@@ -384,7 +456,8 @@ def axis_serve(world, arch, batch, seq, decode_steps) -> dict:
     same = all(torch.equal(x, y) and x.shape == y.shape for x, y in zip(
         _leaves(p), _leaves(cut)))
     b = as_torch(axis_batch(cfg, 7, batch, seq))
-    logits = model.gather_logits(model.forward(p, b)[0])
+    logits, routes = _routes_of(
+        lambda: model.gather_logits(model.forward(p, b)[0]))
     pallas = build_model(dataclasses.replace(cfg, attn_impl="pallas"), world)
     prefill = build_prefill_step(pallas)(p, b)
     cache = model.init_cache(batch, decode_steps, enc_len=ENC_LEN,
@@ -396,8 +469,12 @@ def axis_serve(world, arch, batch, seq, decode_steps) -> dict:
     for t in range(decode_steps):
         lg, cache = serve(p, cache, b["tokens"][:, t:t + 1])
         dec.append(lg)
+    kv = cache.get("shared_kv", cache)
     return dict(logits=logits, prefill=prefill, decode=torch.cat(dec, 1),
-                kv_heads=int(cache["k"].shape[3]), shard_is_init=same)
+                kv_heads=int(kv["k"].shape[3]) if "k" in kv else None,
+                ssm=(tuple(cache["h"].shape), tuple(cache["conv"].shape))
+                if "h" in cache else None, routes=routes,
+                shard_is_init=same)
 
 
 def axis_remesh(world, mesh) -> dict:
@@ -412,10 +489,14 @@ def axis_remesh(world, mesh) -> dict:
     return out
 
 
+def axis_jobs(world, jobs) -> dict:
+    """Every job ``(key, function name, args)`` in turn."""
+    return {key: globals()[fn](world, *args) for key, fn, args in jobs}
+
+
 def axis_suite(world, jobs) -> dict:
-    """Every job ``(key, function name, args)`` in turn, and the
-    collectives."""
-    out = {key: globals()[fn](world, *args) for key, fn, args in jobs}
+    """:func:`axis_jobs`, and the collectives."""
+    out = axis_jobs(world, jobs)
     out["collectives"] = axis_collectives(world)
     return out
 

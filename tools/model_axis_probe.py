@@ -1,21 +1,33 @@
-"""Where ``chip_smoke.py`` phase 5d's time goes, on the card.
+"""Where ``chip_smoke.py`` phase 5d's and 5e's time goes, on the card.
 
     python tools/model_axis_probe.py phase
+    python tools/model_axis_probe.py families
+    python tools/model_axis_probe.py bf16-floor
     python tools/model_axis_probe.py collectives
     python tools/model_axis_probe.py save
     python tools/model_axis_probe.py first-step
 
 * ``phase``: phase 5d alone: a gloo world of 2 remeshed as 1 x 2 runs
   ``chip_smoke.axis_serve_rank``, one of 4 remeshed as 2 x 2
-  ``chip_smoke.axis_train_rank``, then ``chip_smoke.model_axis_phase``
+  ``chip_smoke.train_rank``, then ``chip_smoke.model_axis_phase``
   checks them; prints each world's seconds and the phase's;
+* ``families``: phase 5e alone, the same way: ``chip_smoke.
+  family_references`` on one device, then the worlds' ranks (fresh
+  processes: their first steps cost what 5c's and 5d's work pays in the
+  script) and ``chip_smoke.family_axis_phase``;
+* ``bf16-floor``: what bf16 alone moves on one device, for phase 5e's
+  gates: each of ``chip_smoke.AXIS_FAMILIES`` at its cut, the prefill's
+  last logits and ``AXIS_DECODE`` decode steps (teacher-forced on the
+  bf16 run's greedy tokens) in bf16 against the same weights in fp32
+  (the bf16 weights are the fp32 draw rounded), as ``logit_gap`` reads
+  them;
 * ``collectives``: a gloo world of 2 sharing the card, ``all_gather`` and
   ``reduce_scatter_sum`` of 1 GB and 512 MB fp32 card tensors, three calls
   each (the first call at a size against the later ones), once as the
   process starts and once with ``PYTORCH_CUDA_ALLOC_CONF=pinned_use_cuda_
   host_register:True,pinned_num_register_threads:8`` in the ranks'
   environment;
-* ``save``: ``chip_smoke.axis_train_rank`` over 2 x 2 with the checkpoint's
+* ``save``: ``chip_smoke.train_rank`` over 2 x 2 with the checkpoint's
   gathers and writes timed apart;
 * ``first-step``: the 2 x 2 fp32 gate's first three steps, the first under
   ``torch.profiler`` on rank 0 (its 25 most expensive entries by self CPU
@@ -49,8 +61,64 @@ def phase_rank(world, ckpt: str):
     if world.size == 2:
         out = cs.axis_serve_rank(world.remesh((1, 2)))
     else:
-        out = cs.axis_train_rank(world.remesh((2, 2)), ckpt)
+        out = cs.train_rank(world.remesh((2, 2)), ckpt, cs.AXIS_GATE_RUN,
+                            cs.AXIS_BF16_RUN)
     return out, time.perf_counter() - t0
+
+
+def families_rank(world, refs: dict, ckpt: str):
+    """One rank of ``families``: its part of phase 5e, timed."""
+    import chip_smoke as cs
+    t0 = time.perf_counter()
+    if world.size == 2:
+        out = cs.family_serve_rank(world.remesh((1, 2)), refs)
+    else:
+        out = cs.train_rank(world.remesh((2, 2)), ckpt,
+                            cs.AXIS_FAMILY_GATE, cs.AXIS_FAMILY_BF16)
+    return out, time.perf_counter() - t0
+
+
+def bf16_floor() -> list:
+    """Each 5e model's bf16 logits gaps against its fp32 run (module
+    doc)."""
+    import dataclasses
+
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import build_prefill_step, build_serve_step
+    rows = []
+    for arch, cuts, (B, S) in cs.AXIS_FAMILIES:
+        cfg = get_config(arch, **dict(cuts, attn_impl="xla"))
+        runs = {}
+        toks = None
+        for dtype in ("bfloat16", "float32"):
+            model = build_model(dataclasses.replace(cfg, dtype=dtype))
+            params = model.init(cs.LM_SEED)
+            batch = {"tokens": cs.axis_tokens(cfg, B, S).to(cs.CARD)}
+            logits = build_prefill_step(model)(params, batch)[..., :cfg.vocab]
+            if toks is None:
+                toks = [logits[:, -1:].argmax(-1)]
+            serve = build_serve_step(model)
+            cache = model.init_cache(B, cs.AXIS_DECODE)
+            steps = []
+            for t in range(cs.AXIS_DECODE):
+                lg, cache = serve(params, cache, toks[t])
+                steps.append(lg[..., :cfg.vocab])
+                if len(toks) < cs.AXIS_DECODE:
+                    toks.append(lg[:, -1:, :cfg.vocab].argmax(-1))
+            runs[dtype] = (logits, steps)
+            del model, params, cache
+            torch.cuda.empty_cache()
+        (lb, sb), (lf, sf) = runs["bfloat16"], runs["float32"]
+        rows.append(dict(arch=cfg.name, layers=cfg.n_layers,
+                         prefill_gap=cs.logit_gap(lb, lf),
+                         decode_gaps=[cs.logit_gap(a, b)
+                                      for a, b in zip(sb, sf)]))
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
 
 
 def collectives_rank(world) -> dict:
@@ -76,7 +144,7 @@ def collectives_rank(world) -> dict:
 
 
 def save_rank(world, ckpt: str) -> dict:
-    """``axis_train_rank`` over 2 x 2, its save's gathers and writes
+    """Phase 5d's ``train_rank`` over 2 x 2, its save's gathers and writes
     timed apart."""
     import chip_smoke as cs
     import repro_torch.ckpt.checkpoint as ck
@@ -93,7 +161,8 @@ def save_rank(world, ckpt: str) -> dict:
 
     ck.gather_cuts = timed("gathers_s", ck.gather_cuts)
     ck._save_leaf = timed("writes_s", ck._save_leaf)
-    out = cs.axis_train_rank(world.remesh((2, 2)), ckpt)
+    out = cs.train_rank(world.remesh((2, 2)), ckpt, cs.AXIS_GATE_RUN,
+                        cs.AXIS_BF16_RUN)
     return dict(save_s=out["gate"]["save_s"], **acc)
 
 
@@ -106,13 +175,13 @@ def first_step_rank(world) -> dict:
     from repro_torch.optim import adamw_init
     from repro_torch.train import build_train_step
     world = world.remesh((2, 2))
-    cfg = get_config(cs.LM_ARCH, **cs.AXIS_GATE_CUTS)
+    arch, cuts, (B, S, _) = cs.AXIS_GATE_RUN
+    cfg = get_config(arch, **cuts)
     model = build_model(cfg, world)
     params = model.init(cs.TRAIN_SEED)
-    opt = cs.axis_gate_opt()
+    opt = cs.gate_opt(arch)
     state = adamw_init(params, opt, world, model.places(params))
     step = build_train_step(model, opt)
-    B, S, _ = cs.AXIS_GATE
     out = {}
     for s in range(3):
         b = cs.train_batch(cfg, B, S, s, device=world.device)
@@ -136,8 +205,8 @@ def first_step_rank(world) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=("phase", "collectives", "save",
-                                     "first-step"))
+    ap.add_argument("what", choices=("phase", "families", "bf16-floor",
+                                     "collectives", "save", "first-step"))
     args = ap.parse_args()
     import chip_smoke as cs
     from repro_torch.distributed import run_world
@@ -162,6 +231,26 @@ def main() -> int:
                       flush=True)
             cs.model_axis_phase(axis, ckpt)
             print(f"phase 5d: {time.perf_counter() - t0:.1f} s", flush=True)
+        elif args.what == "families":
+            load_library("flash_attention")
+            t0 = time.perf_counter()
+            refs = cs.family_references()
+            print(f"one device's side: {time.perf_counter() - t0:.1f} s",
+                  flush=True)
+            family = {}
+            for size in (2, 4):
+                t = time.perf_counter()
+                got = run_world(families_rank, size, refs, ckpt,
+                                timeout=600)
+                family[size] = [r[0] for r in got]
+                print(f"world of {size}: {time.perf_counter() - t:.1f} s, "
+                      f"its ranks' part {max(r[1] for r in got):.1f} s",
+                      flush=True)
+            got = cs.family_axis_phase(family, refs, ckpt)
+            print(json.dumps(got), flush=True)
+            print(f"phase 5e: {time.perf_counter() - t0:.1f} s", flush=True)
+        elif args.what == "bf16-floor":
+            bf16_floor()
         elif args.what == "collectives":
             for env in (None, HOST_REGISTER):
                 if env:
