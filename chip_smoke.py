@@ -171,6 +171,25 @@ What it does, in order; any failure raises and the exit code is not 0:
    ``data``, the experts and sequence over ``model``): the loss finite and
    equal on every rank, seconds a step, peak bytes a rank and the bytes
    handed to each axis's collectives printed;
+5f. the model axis where ``M`` does not divide the heads: a gloo world
+   of 1 x 3 ranks sharing the card (a spawn of its own, after 5e's
+   checks), bf16, seeded weights at full width cut to two layers:
+   deepseek-coder-33b (``attn_impl="pallas"``, FULL's sequence
+   parallelism; 56 heads 19/19/18 on its 8 replicated K/V heads, every
+   rank's block straddling groups of 7, its K/V expanded to one a query
+   head) with a prefill of B=1 x 3072, and paligemma-3b (8 heads 3/3/2 on
+   its one K/V head, hd 256, ``d_ff`` 16384 as 5462/5462/5460) with B=1 x
+   (256 patches + 2816 tokens); one device's side first: the prefill
+   (after a warm one), a control with the middle layer zeroed (K4's call
+   for it returning zeros; paligemma's block skipped) and 8 greedy decode
+   steps; then the ranks' prefills (K4's counts set to 0 just before,
+   read just after: once a layer a rank, on the tensor-core body) and 8
+   decode steps teacher-forced on one device's tokens: the gathered last
+   logits within ``LOGIT_GAP_TOL`` of one device's, which the control
+   must exceed, and each decode step's too; the walls, each rank's heads,
+   K/V heads, parameter, cache and peak bytes printed; K4 at rank 0's
+   shape (1, 3072, 19, 19, 128), both masks, against its plain version
+   (2e-2), timed beside the plain version, SDPA and its bound;
 6. the serving path: ``repro_torch.serving.MatchingService`` on the card
    over the ladder 16,384² .. 262,144² (edge factor 8, ``max_batch`` 16),
    a 256-request trace (the four families of ``serve_matching.FAMILIES``
@@ -349,9 +368,10 @@ What it does, in order; any failure raises and the exit code is not 0:
    carry their shard-slice checks and times; K1a's launches include the
    exact route's, K4's dbrx's and seamless's prefills' and the model
    axis's ranks' (``launches_model_axis``) and phase 5e's dbrx prefills'
-   (``launches_model_axis_families``), and K4 carries its times at dbrx's
+   (``launches_model_axis_families``) and phase 5f's deepseek prefills'
+   (``launches_model_axis_uneven``), and K4 carries its times at dbrx's
    and seamless's shapes and at a rank's heads under the model axis, for
-   granite's and dbrx's heads), then as its last line
+   granite's, dbrx's and deepseek's uneven heads), then as its last line
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.  It needs a CUDA card and the
@@ -2478,6 +2498,234 @@ def family_axis_phase(family: dict, refs: dict, ckpt: str) -> dict:
     return dict(launches=sum(r["serve"][AXIS_FAMILIES[0][0]]["launches"]
                              ["flash_attention"] for r in family[2]),
                 times=times)
+
+
+# ---------------------------------------------------------------------------
+# the model axis where it does not divide the heads (phase 5f)
+# ---------------------------------------------------------------------------
+# A gloo world of 1 x 3 ranks sharing the card (a spawn of its own), bf16,
+# seed LM_SEED, full width cut in depth: (arch, cuts, (rows, positions of
+# the prefill, the vision prefix's patches included)); then AXIS_DECODE
+# decode steps teacher-forced on one device's greedy tokens.
+# deepseek-coder-33b's 56 heads go 19/19/18 over its 8 replicated K/V heads
+# in groups of 7 (every rank's block straddles groups: its K/V expanded to
+# one a query head, K4 on it, FA_DEEPSEEK_LOCAL); paligemma-3b's 8 heads
+# 3/3/2 on its one K/V head, its d_ff 16384 5462/5462/5460
+UNEVEN_MESH = (1, 3)
+UNEVEN_RUNS = (("deepseek-coder-33b", dict(n_layers=2, attn_impl="pallas"),
+                (1, 3072)),
+               ("paligemma-3b", dict(n_layers=2), (1, 3072)))
+FA_DEEPSEEK_LOCAL = (1, 3072, 19, 19, 128)
+UNEVEN_TIMEOUT = 600
+# phase 5f's K4 launches and times, for the kernels' line
+UNEVEN: dict = {}
+
+
+def uneven_inputs(cfg, batch: int, seq: int) -> dict:
+    """A prefill's inputs on the host (every rank and the parent read the
+    same): seeded tokens, or for the vision prefix ``family_inputs``'
+    tokens and patches."""
+    if cfg.frontend == "vision":
+        return {k: v.cpu() for k, v in family_inputs(cfg, batch,
+                                                     seq).items()}
+    return {"tokens": axis_tokens(cfg, batch, seq)}
+
+
+def uneven_references() -> dict:
+    """Phase 5f's one-device side, before the world runs: for each of
+    UNEVEN_RUNS, the inputs, the prefill's last logits (timed, after a warm
+    one), a control with the middle layer zeroed (K4's call for it
+    returning zeros where the prefill takes K4, else the block skipped)
+    and AXIS_DECODE greedy steps on a fresh cache (the tokens, each step's
+    logits)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import build_prefill_step, build_serve_step
+    out = {}
+    for arch, cuts, (B, S) in UNEVEN_RUNS:
+        cfg = get_config(arch, **cuts)
+        model = build_model(cfg)
+        params = model.init(LM_SEED)
+        inputs = uneven_inputs(cfg, B, S)
+        batch = {k: v.to(CARD) for k, v in inputs.items()}
+        prefill = build_prefill_step(model)
+        V = cfg.vocab                      # the padded columns dropped
+        prefill(params, batch)                         # warm
+        logits, wall, peak = timed(lambda: prefill(params, batch))
+        logits = logits[..., :V]
+        middle = cfg.n_layers // 2
+        if cfg.attn_impl == "pallas":
+            control = with_attention(skip_attention(middle),
+                                     lambda: prefill(params, batch))
+        else:
+            with skip_block(middle):
+                control = prefill(params, batch)
+        serve = build_serve_step(model)
+        cache = model.init_cache(B, AXIS_DECODE)
+        tok = logits[:, -1:].argmax(-1)
+        toks, steps = [], []
+        for _ in range(AXIS_DECODE):
+            toks.append(tok.cpu())
+            lg, cache = serve(params, cache, tok)
+            steps.append(lg[..., :V].cpu())
+            tok = lg[:, -1:, :V].argmax(-1)
+        out[arch] = dict(inputs=inputs, logits=logits.cpu(),
+                         control=control[..., :V].cpu(), prefill_s=wall,
+                         peak_bytes=peak, tokens=torch.cat(toks, 1),
+                         decode=torch.cat(steps, 1))
+        del model, params, cache, logits, control, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def uneven_rank(world, feeds) -> dict:
+    """Phase 5f on one rank, for each of UNEVEN_RUNS: the prefill of
+    ``feeds[arch]``'s inputs (after a warm one; K4's counts set to 0 just
+    before, read just after), then AXIS_DECODE steps teacher-forced on its
+    tokens: the gathered logits, the walls, this rank's heads and K/V
+    heads, its parameter, cache and peak bytes, the collectives' bytes."""
+    use_src()
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import comm
+    from repro_torch.kernels.flash_attention import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import build_prefill_step, build_serve_step
+    out = {}
+    for arch, cuts, (B, S) in UNEVEN_RUNS:
+        cfg = get_config(arch, **cuts)
+        model = build_model(cfg, world)
+        params, init_s, _ = timed(lambda: model.init(LM_SEED))
+        batch = {k: v.to(world.device)
+                 for k, v in feeds[arch]["inputs"].items()}
+        prefill = build_prefill_step(model)
+        prefill(params, batch)                         # warm
+        torch.cuda.synchronize()
+        reset_launches()
+        comm.reset_counts()
+        logits, wall, peak = timed(lambda: prefill(params, batch))
+        V = cfg.vocab
+        row = dict(logits=logits[..., :V].cpu(), prefill_s=wall,
+                   peak_bytes=peak, init_s=init_s, launches=dict(LAUNCHES),
+                   prefill_comm=comm.axis_counts(),
+                   heads=model.par.head_range(cfg),
+                   kv_heads=model.par.kv_range(cfg),
+                   param_bytes=sum(t.numel() * t.element_size()
+                                   for t in tree_leaves(params)))
+        serve = build_serve_step(model)
+        cache = model.init_cache(B, AXIS_DECODE)
+        toks = feeds[arch]["tokens"].to(world.device)
+        steps = []
+        t0 = time.perf_counter()
+        for t in range(AXIS_DECODE):
+            lg, cache = serve(params, cache, toks[:, t:t + 1])
+            steps.append(lg[..., :V].cpu())
+        torch.cuda.synchronize()
+        row.update(decode=torch.cat(steps, 1),
+                   decode_ms_per_step=(time.perf_counter() - t0)
+                   / AXIS_DECODE * 1e3,
+                   cache_bytes=sum(t.numel() * t.element_size()
+                                   for t in cache.values()
+                                   if isinstance(t, torch.Tensor)))
+        out[arch] = row
+        del model, params, cache, logits
+        torch.cuda.empty_cache()
+    return dict(rank=world.rank, backend=world.backend, serve=out)
+
+
+def uneven_checks(refs, results) -> list:
+    """Phase 5f's checks against ``refs`` (one device, the same weights and
+    depth): the ranks' gathered last logits equal, within LOGIT_GAP_TOL of
+    one device's, which the control must exceed; K4 once a layer on every
+    rank, on the tensor-core body, where the model takes it; each decode
+    step's logits within LOGIT_GAP_TOL (argmax agreement printed)."""
+    from repro_torch.configs import get_config
+    rows = []
+    for arch, cuts, (B, S) in UNEVEN_RUNS:
+        ref = refs[arch]
+        cfg = get_config(arch, **cuts)
+        mine = [r["serve"][arch] for r in results]
+        what = (f"{cfg.name} ({cfg.n_layers} layers) over a "
+                f"{UNEVEN_MESH[0]} x {UNEVEN_MESH[1]} world")
+        want = ref["logits"].to(CARD)
+        gap = logit_gap(mine[0]["logits"].to(CARD), want)
+        control_gap = logit_gap(ref["control"].to(CARD), want)
+        gaps = [logit_gap(mine[0]["decode"][:, t:t + 1].to(CARD),
+                          ref["decode"][:, t:t + 1].to(CARD))
+                for t in range(AXIS_DECODE)]
+        agree = sum(int((mine[0]["decode"][:, t].argmax(-1) ==
+                         ref["decode"][:, t].argmax(-1)).sum())
+                    for t in range(AXIS_DECODE))
+        k4 = cfg.attn_impl == "pallas"
+        row = dict(arch=cfg.name, layers=cfg.n_layers,
+                   mesh=f"{UNEVEN_MESH[0]}x{UNEVEN_MESH[1]}",
+                   backend=results[0]["backend"], batch=B, seq=S,
+                   heads_by_rank=[m["heads"] for m in mine],
+                   kv_heads_by_rank=[m["kv_heads"] for m in mine],
+                   logits_gap=gap, control_gap=control_gap,
+                   gate=LOGIT_GAP_TOL,
+                   prefill_s=[m["prefill_s"] for m in mine],
+                   one_device_prefill_s=ref["prefill_s"],
+                   peak_bytes_by_rank=[m["peak_bytes"] for m in mine],
+                   one_device_peak_bytes=ref["peak_bytes"],
+                   param_bytes_by_rank=[m["param_bytes"] for m in mine],
+                   init_s=[m["init_s"] for m in mine],
+                   prefill_collectives=mine[0]["prefill_comm"],
+                   k4_launches_by_rank=[m["launches"]["flash_attention"]
+                                        for m in mine],
+                   decode_gaps=gaps,
+                   decode_argmax_agree=f"{agree}/{B * AXIS_DECODE}",
+                   decode_ms_per_step=[m["decode_ms_per_step"]
+                                       for m in mine],
+                   cache_bytes_by_rank=[m["cache_bytes"] for m in mine])
+        say("model axis, uneven heads, serve:", json.dumps(row))
+        rows.append(row)
+        for m in mine:
+            if not torch.equal(m["logits"], mine[0]["logits"]):
+                fail(f"{what}: the ranks' gathered logits differ")
+            if k4 and (m["launches"]["flash_attention"] != cfg.n_layers or
+                       m["launches"]["flash_attention_tc"] != cfg.n_layers):
+                fail(f"{what}: K4 launched {m['launches']} times for "
+                     f"{cfg.n_layers} layers")
+        if not gap <= LOGIT_GAP_TOL < control_gap:
+            fail(f"{what}: logits gap {gap}, control {control_gap}, gate "
+                 f"{LOGIT_GAP_TOL}")
+        if not max(gaps) <= LOGIT_GAP_TOL:
+            fail(f"{what}: decode logits gaps {gaps} against one device")
+    return rows
+
+
+def uneven_phase() -> dict:
+    """Phase 5f (module doc): one device's side, the world of 1 x 3 ranks,
+    the checks, and K4 at rank 0's heads of deepseek-coder-33b.  Returns
+    K4's launches over the ranks' prefills and its times at that shape."""
+    from repro_torch.distributed import run_world
+    t0 = time.perf_counter()
+    refs = uneven_references()
+    refs_s = time.perf_counter() - t0
+    feeds = {a: dict(inputs=r["inputs"], tokens=r["tokens"])
+             for a, r in refs.items()}
+    t0 = time.perf_counter()
+    results = run_world(uneven_rank, UNEVEN_MESH[0] * UNEVEN_MESH[1], feeds,
+                        mesh=UNEVEN_MESH, timeout=UNEVEN_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    if {r["backend"] for r in results} != {"gloo"}:
+        fail(f"ranks sharing the card chose "
+             f"{[r['backend'] for r in results]}")
+    t0 = time.perf_counter()
+    uneven_checks(refs, results)
+    times = flash_at(FA_DEEPSEEK_LOCAL, torch.Generator(
+        device=CARD).manual_seed(LM_SEED),
+        "deepseek-coder-33b under M = 3 (rank 0's 19 heads, K/V expanded)")
+    say(f"phase 5f, the model axis where it does not divide the heads: "
+        f"one device's side {refs_s:.1f} s, the 1 x 3 world "
+        f"{world_s:.1f} s, its checks and K4 at the local shape "
+        f"{time.perf_counter() - t0:.1f} s")
+    del refs
+    torch.cuda.empty_cache()
+    k4 = UNEVEN_RUNS[0][0]
+    return dict(launches=sum(r["serve"][k4]["launches"]["flash_attention"]
+                             for r in results), times=times)
 
 
 # ---------------------------------------------------------------------------
@@ -5341,7 +5589,8 @@ def main() -> int:
             entry["levels_checked_exact_router"] = k1a_levels
         if entry["name"] == "flash_attention":
             entry["launches"] += (k4 + k4_seamless + AXIS["launches"]
-                                  + AXIS_FAMILY["launches"])
+                                  + AXIS_FAMILY["launches"]
+                                  + UNEVEN["launches"])
             entry["launches_dbrx_prefill"] = k4
             entry["launches_seamless_prefill"] = k4_seamless
             entry["seamless"] = seamless_times
@@ -5349,6 +5598,8 @@ def main() -> int:
             entry["model_axis_local_heads"] = AXIS["times"]
             entry["launches_model_axis_families"] = AXIS_FAMILY["launches"]
             entry["model_axis_dbrx_local_heads"] = AXIS_FAMILY["times"]
+            entry["launches_model_axis_uneven"] = UNEVEN["launches"]
+            entry["model_axis_deepseek_uneven_heads"] = UNEVEN["times"]
 
     say(f"total: {time.perf_counter() - started:.1f} s")
     say(json.dumps({"kernels": kernels}))
@@ -5424,6 +5675,9 @@ def run_phases(pool, paths) -> tuple:
         f"{time.perf_counter() - t0 + family_s + refs_s:.1f} s (one "
         f"device's side {refs_s:.1f} s, its ranks {family_s:.1f} s in "
         f"phase 5c's worlds, its checks {time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    UNEVEN.update(uneven_phase())
+    phase("5f the model axis where it does not divide the heads", t0)
 
     # one line for the kernels, each timed on the main-path graph of its
     # body: kron for WR, the random graph for plain

@@ -24,14 +24,16 @@ each has a card of its own, else gloo.
 ``--mesh DxM`` adds the model axis: a world of ``D x M`` ranks (rank
 ``r`` at data index ``r // M``, model index ``r % M``), each rank holding
 its slices of the model (:mod:`repro_torch.models.common`'s placement:
-tensor parallelism over heads, ``d_ff`` and the vocab, the MoE family's
-experts, the SSM's ``d_inner`` and heads, sequence parallelism and FSDP
-where the config has ``fsdp``); the step is the one-device
-``microbatch=D`` step.  It takes all ten architectures; a model axis that
-a config's heads, ``d_ff``, K/V heads, experts or SSM heads do not split
-is refused (ROADMAP.md, Queue 1, item 17).  On the CPU: ``--mesh 2x2
---device cpu`` (gloo); on the cards, NCCL where each rank has a card of
-its own, gloo where they share one.
+tensor parallelism over heads, ``d_ff`` and the vocab in blocks of
+``ceil(n / M)``, K/V heads that ``M`` does not divide replicated, the MoE
+family's experts, the SSM's ``d_inner`` and heads, sequence parallelism and
+FSDP where the config has ``fsdp``); the step is the one-device
+``microbatch=D`` step.  It takes all ten architectures and any ``M`` that
+divides a config's experts and SSM heads (``--mesh 1x3`` trains granite-20b
+SMOKE, whose 4 heads go 2/2/0); one that does not is refused (ROADMAP.md,
+Queue 1, item 18).  On the CPU: ``--mesh 2x2 --device cpu`` (gloo); on the
+cards, NCCL where each rank has a card of its own, gloo where they share
+one.
 
 Each logged step prints ``loss`` to four places, as the JAX launcher does,
 and the float in full after ``exact``.
@@ -74,9 +76,9 @@ def parse_mesh(mesh: str) -> tuple:
 
 
 def check_mesh(arch: str, mesh: str, smoke: bool = True) -> tuple:
-    """``(D, M)`` of ``--mesh``, refused where ``arch``'s heads, ``d_ff``,
-    K/V heads, experts, SSM heads or vocab do not split over the model
-    axis (ROADMAP.md, Queue 1, item 17)."""
+    """``(D, M)`` of ``--mesh``, refused where ``arch``'s experts or SSM
+    heads do not split over the model axis (ROADMAP.md, Queue 1, item
+    18)."""
     d, m = parse_mesh(mesh)
     check_model_axis(get_config(arch, smoke=smoke), m)
     return d, m

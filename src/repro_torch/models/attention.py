@@ -12,11 +12,20 @@ kernel (``attn_impl="pallas"``, self-attention, causal or full mask) ->
 Over a world's model axis (``par``, a :class:`~.common.Par`) the weights
 given are this rank's: ``wq``, ``wk``, ``wv`` cut by heads (column
 parallel), ``wo`` by heads (row parallel: the output is this rank's part
-of the sum, which the block reduces); GQA stays contiguous, local query
-heads ``[rH/M, (r+1)H/M)`` reading local K/V heads ``[rKV/M, ...)``, or,
-where the K/V weights are replicated (``M`` a multiple of ``n_kv_heads``),
-the one head they share (:func:`kv_weights`).  Every attention function
-then runs on the local heads as it runs on all of them, K4 included.
+of the sum, which the block reduces).  A rank holds a block of
+``ceil(H / M)`` query heads, the last block short or empty, and the K/V
+heads they read (:meth:`~.common.Par.kv_range`): its cut of them, or,
+where the K/V weights are replicated (``M`` does not divide
+``n_kv_heads``), the ones its heads read, sliced from the whole weights
+(:func:`kv_weights`).  Where those heads read them in equal contiguous
+groups, GQA runs on them as it runs on all heads; where a block straddles
+groups unevenly (deepseek-coder-33b's 56 heads in groups of 7 over 3
+ranks), the K/V heads are expanded to one a query head on read
+(:func:`kv_index`, :func:`per_head`; the cache keeps the rank's distinct
+K/V heads).  Every attention function then runs on the local heads as it
+runs on all of them, K4 included.  A rank with no heads skips the
+attention: its part of ``wo``'s product is zero (still a tensor of the
+autograd graph, so its backward joins the block's collectives).
 The flash kernel has no backward, in either package: under autograd
 ``attention`` refuses ``attn_impl="pallas"`` (ROADMAP.md, Queue 1, item
 12) rather than train through other ops.
@@ -29,7 +38,7 @@ head).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,13 +51,40 @@ NEG_INF = -1e30
 
 def kv_weights(params, cfg: ModelConfig, par=None):
     """``(wk, wv)`` of this rank's K/V heads: the weights as given, or,
-    where they are replicated over the model axis, the head this rank's
-    query heads share."""
+    where they are replicated over the model axis, the heads this rank's
+    query heads read."""
     wk, wv = params["wk"], params["wv"]
     if par is not None and par.kv_replicated(cfg):
         lo, hi = par.kv_range(cfg)
         wk, wv = wk[:, lo:hi], wv[:, lo:hi]
     return wk, wv
+
+
+def kv_index(cfg: ModelConfig, par=None) -> Optional[Tuple[int, ...]]:
+    """The local K/V head each of this rank's query heads reads, where its
+    heads do not read its K/V heads in equal contiguous groups (a block
+    straddling groups unevenly); None where they do (or on one device,
+    or with no heads)."""
+    if par is None:
+        return None
+    lo, hi = par.head_range(cfg)
+    klo, khi = par.kv_range(cfg)
+    h, n = hi - lo, khi - klo
+    if h == 0:
+        return None
+    g = cfg.n_heads // cfg.n_kv_heads
+    idx = tuple(x // g - klo for x in range(lo, hi))
+    if h % n == 0 and idx == tuple(i // (h // n) for i in range(h)):
+        return None
+    return idx
+
+
+def per_head(t: torch.Tensor, idx) -> torch.Tensor:
+    """K or V ``(B, T, KV_local, hd)`` with one head a query head where
+    ``idx`` (:func:`kv_index`) is given, else as it is."""
+    if idx is None:
+        return t
+    return t.index_select(2, torch.tensor(idx, device=t.device))
 
 
 def init_attn(gen: torch.Generator, cfg: ModelConfig):
@@ -208,10 +244,13 @@ def attention(params, x, pos, cfg: ModelConfig, *, mask_kind: str,
     ``par``: this rank's heads, its part of the output (module doc)."""
     B, S, D = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
+    if q.shape[2] == 0:                  # a rank with no heads
+        return torch.einsum("bshk,hkd->bsd", q, params["wo"])
     src = x if kv_x is None else kv_x
     wk, wv = kv_weights(params, cfg, par)
-    k = torch.einsum("bsd,dhk->bshk", src, wk)
-    v = torch.einsum("bsd,dhk->bshk", src, wv)
+    idx = kv_index(cfg, par)
+    k = per_head(torch.einsum("bsd,dhk->bshk", src, wk), idx)
+    v = per_head(torch.einsum("bsd,dhk->bshk", src, wv), idx)
     if kv_x is None:
         q, k = rope(q, k, pos, cfg.rope_theta)
         kpos = pos
@@ -272,18 +311,22 @@ def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, max_len: int,
 
 
 def decode_attention(params, x, cache_k, cache_v, cache_idx, pos: int,
-                     cfg: ModelConfig, k_scale=None, v_scale=None):
+                     cfg: ModelConfig, k_scale=None, v_scale=None, par=None):
     """One-token attention against the cache (already holding this token's
     k/v, written by the caller via ``update_cache``).  Rotates q only.  An
-    int8 cache is dequantised in ``cfg.tdtype`` with its bf16 scales."""
+    int8 cache is dequantised in ``cfg.tdtype`` with its bf16 scales.
+    ``par``: this rank's heads over the cache's K/V heads (module doc)."""
     B = x.shape[0]
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])    # (B,1,H,hd)
+    if q.shape[2] == 0:                  # a rank with no heads
+        return torch.einsum("bshk,hkd->bsd", q, params["wo"])
     if k_scale is not None:                               # int8 cache
         cache_k = cache_k.to(cfg.tdtype) * k_scale[..., None]
         cache_v = cache_v.to(cfg.tdtype) * v_scale[..., None]
     posv = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q, _ = rope(q, q, posv, cfg.rope_theta)
-    k, v = cache_k, cache_v                              # (B,Sc,KV,hd)
+    idx = kv_index(cfg, par)
+    k, v = per_head(cache_k, idx), per_head(cache_v, idx)  # (B,Sc,KV,hd)
     valid = (cache_idx >= 0) & (cache_idx <= pos)
     if cfg.attn == "swa":
         valid &= pos - cache_idx < cfg.window

@@ -13,18 +13,26 @@ calls the collectives itself.  What the reference's specs and
 ``fsdp_spec`` say is :func:`leaf_place`: for each leaf of the params tree,
 the dim the ``model`` axis cuts and the dim the ``data`` axis cuts (FSDP,
 where ``cfg.fsdp``), as a :class:`Place`; :class:`Par` is a model's view
-of a world (its axes, FSDP, sequence parallelism).  Where the reference's
-``sanitize_spec`` moves an axis that does not divide, the port has its own
-rule: K/V heads are replicated over ``model`` when ``M`` does not divide
-``n_kv_heads`` (granite's and paligemma's one head; the reference moves the
-axis to ``head_dim``: the same values, another layout), the vocab is cut
-over ``vocab_padded`` (the last rank's block short), and a model axis
-that does not divide ``n_heads``, ``d_ff``, the experts or the SSM heads
-is refused, pointing at ROADMAP.md, Queue 1, item 17
-(:func:`check_model_axis`).  It takes every family: the MoE family's
-experts are cut over it (the expert axis, the router whole), the SSM's
-``d_inner`` and heads (the B/C projections whole), and the hybrid's
-shared attention block is placed as an attention block.
+of a world (its axes, FSDP, sequence parallelism).
+
+Where ``M`` does not divide a dim, the reference's ``sanitize_spec`` moves
+the axis to another dim and GSPMD picks the collectives; at a 16 x 16 mesh
+deepseek-coder-33b's ``wq``/``wk``/``wv`` ``(L, d, H, hd)`` are cut on
+``hd`` and ``wo`` on ``d``, paligemma-3b's on ``d`` and ``hd``,
+llama4-maverick's on the layer axis ``L``.  The port has one rule of its
+own instead, which keeps its tensor-parallel path and its collectives:
+every dim the model axis cuts goes in blocks of ``ceil(n / M)``, the last
+block short or empty (query heads, ``d_ff``, the padded vocab; rank ``i``
+holds ``[i * block, min((i + 1) * block, n))``), and K/V heads that ``M``
+does not divide are replicated over ``model`` (each rank reads the ones
+its query heads read, :meth:`Par.kv_range`).  The values are the
+reference's, in another layout; a save holds whole leaves in either
+package.  Experts and SSM heads that ``M`` does not divide are refused,
+pointing at ROADMAP.md, Queue 1, item 18 (:func:`check_model_axis`).
+Every family takes the axis: the MoE family's experts are cut over it (the
+expert axis, the router whole), the SSM's ``d_inner`` and heads (the B/C
+projections whole), and the hybrid's shared attention block is placed as
+an attention block.
 """
 from __future__ import annotations
 
@@ -240,7 +248,7 @@ def tree_map_paths(fn: Callable, tree: Any,
 # ---------------------------------------------------------------------------
 # placement over a world's mesh (the reference's specs and fsdp_spec)
 # ---------------------------------------------------------------------------
-MODEL_AXIS_ITEM = "ROADMAP.md, Queue 1, item 17"
+MODEL_AXIS_ITEM = "ROADMAP.md, Queue 1, item 18"
 
 # (dim, axis name, whole length, block): rank i along the axis holds
 # [i * block, min((i + 1) * block, whole)) of the dim
@@ -300,6 +308,13 @@ def _whole_shape(path: Tuple[str, ...], cfg: ModelConfig) -> Tuple[int, ...]:
             "unembed": (d, cfg.vocab), "vproj": (d, d)}.get(name, (d,))
 
 
+def model_block(whole: int, m: int) -> int:
+    """The block of a dim of ``whole`` over a model axis of ``m`` ranks:
+    ``ceil(whole / m)``, the last rank's block short or empty (module
+    doc)."""
+    return -(-whole // m)
+
+
 def _refuse(cfg: ModelConfig, m: int, what: str) -> None:
     raise ValueError(f"{cfg.name}: {what} over a model axis of {m} (the "
                      f"reference's sanitize_spec moves the axis to another "
@@ -307,29 +322,15 @@ def _refuse(cfg: ModelConfig, m: int, what: str) -> None:
 
 
 def check_model_axis(cfg: ModelConfig, m: int) -> None:
-    """Refuse a model axis of ``m`` ranks that ``cfg`` cannot take: the
-    attention's heads (the MoE family's, the hybrid's shared block's),
-    ``d_ff`` (a dense FFN's, the shared block's, the MoE shared expert's)
-    or K/V heads that ``m`` does not divide, experts or SSM heads that it
-    does not divide, or a padded vocab it does not divide."""
+    """Refuse a model axis of ``m`` ranks that ``cfg`` cannot take: experts
+    or SSM heads that ``m`` does not divide.  Heads, K/V heads, ``d_ff``
+    and the vocab take any ``m`` (module doc)."""
     if m == 1:
         return
-    attention = cfg.family != "ssm"
-    dense_ffn = cfg.family not in ("ssm", "moe") or cfg.moe_shared_expert
     if cfg.family == "moe" and cfg.n_experts % m:
         _refuse(cfg, m, f"{cfg.n_experts} experts do not split")
     if cfg.family in ("ssm", "hybrid") and cfg.ssm_heads % m:
         _refuse(cfg, m, f"{cfg.ssm_heads} SSM heads do not split")
-    if attention and cfg.n_heads % m:
-        _refuse(cfg, m, f"{cfg.n_heads} heads do not split")
-    if dense_ffn and cfg.d_ff % m:
-        _refuse(cfg, m, f"d_ff {cfg.d_ff} does not split")
-    kv = cfg.n_kv_heads
-    if attention and kv % m and m % kv:
-        _refuse(cfg, m, f"{kv} K/V heads neither split nor divide the axis")
-    if vocab_padded(cfg) % m:
-        raise ValueError(f"{cfg.name}: the padded vocab "
-                         f"{vocab_padded(cfg)} does not split over {m}")
 
 
 def vocab_padded(cfg: ModelConfig) -> int:
@@ -364,9 +365,11 @@ def leaf_place(path: Tuple[str, ...], cfg: ModelConfig,
     dim, its head vectors, ``norm`` and ``out`` on their first), shifted by
     one for the stacked ``(L, ...)`` leaves as ``P(None, *s)``, and with
     ``fsdp_spec``'s data axis on the first dim the model axis leaves free
-    (the first that ``D`` divides); under ``opt_moe_dispatch`` the
-    experts' ``w_in`` and ``w_gate`` take it on ``d_ff`` (the reference's
-    ``P(model, None, data)``)."""
+    (the first that ``D`` divides); the model blocks ``ceil(n / M)``
+    (:func:`model_block`; the vocab's of the padded vocab), K/V heads that
+    ``M`` does not divide whole (``sum_model``); under
+    ``opt_moe_dispatch`` the experts' ``w_in`` and ``w_gate`` take it on
+    ``d_ff`` (the reference's ``P(model, None, data)``)."""
     d, m = mesh
     name = path[-1]
     stacked = path[0] in ("layers", "enc")
@@ -384,10 +387,8 @@ def leaf_place(path: Tuple[str, ...], cfg: ModelConfig,
     if mdim is not None:
         mdim += off
         whole = shape[mdim]
-        if name in ("tok", "unembed"):
-            block = vocab_padded(cfg) // m
-        else:
-            block = whole // m
+        block = model_block(vocab_padded(cfg) if name in ("tok", "unembed")
+                            else whole, m)
         cuts.append((mdim, "model", whole, block))
     if cfg.fsdp and d > 1 and name in _FSDP:
         first = off + (2 if experts and cfg.opt_moe_dispatch
@@ -478,20 +479,26 @@ class Par:
         return Par(world, fsdp=cfg.fsdp and d > 1, sp=cfg.fsdp and m > 1)
 
     def head_range(self, cfg: ModelConfig) -> Tuple[int, int]:
-        """This rank's query heads ``[lo, hi)``."""
-        k = cfg.n_heads // self.model.size
-        return self.model.rank * k, (self.model.rank + 1) * k
+        """This rank's query heads ``[lo, hi)`` (empty on a rank past the
+        last block)."""
+        m = self.model.size
+        return axis_range(cfg.n_heads, model_block(cfg.n_heads, m),
+                          self.model.rank)
 
     def kv_range(self, cfg: ModelConfig) -> Tuple[int, int]:
         """The K/V heads this rank's query heads read, ``[lo, hi)``: its
-        cut of them, or where they are replicated the one they share."""
+        cut of them, or where they are replicated the ones its heads read,
+        ``[lo // G, (hi - 1) // G + 1)`` for heads ``[lo, hi)``, which may
+        straddle groups (empty where the rank has no heads)."""
         kv, m = cfg.n_kv_heads, self.model.size
         if kv % m == 0:
             k = kv // m
             return self.model.rank * k, (self.model.rank + 1) * k
         g = cfg.n_heads // kv
-        lo = self.head_range(cfg)[0] // g
-        return lo, lo + 1
+        lo, hi = self.head_range(cfg)
+        if lo == hi:
+            return lo // g, lo // g
+        return lo // g, (hi - 1) // g + 1
 
     def kv_replicated(self, cfg: ModelConfig) -> bool:
         return cfg.n_kv_heads % self.model.size != 0

@@ -49,9 +49,9 @@ from . import attention as att
 from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .common import (ModelConfig, Par, dense_init, gather_cuts, rms_norm,
-                     take_cuts, tree_leaves, tree_map, tree_map_paths,
-                     tree_places, vocab_padded)
+from .common import (ModelConfig, Par, dense_init, gather_cuts,
+                     model_block, rms_norm, take_cuts, tree_leaves, tree_map,
+                     tree_map_paths, tree_places, vocab_padded)
 
 
 # ---------------------------------------------------------------------------
@@ -143,9 +143,10 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig):
 
 def vocab_block(cfg: ModelConfig, par=None) -> tuple:
     """``(first id, block)`` of this rank's columns of the padded vocab
-    (one device: ``(0, vocab_padded)``)."""
+    (one device: ``(0, vocab_padded)``): blocks of ``ceil(Vp / M)``, the
+    last one's columns past ``Vp`` padding like the padded vocab's."""
     m = 1 if par is None else par.model.size
-    blk = vocab_padded(cfg) // m
+    blk = model_block(vocab_padded(cfg), m)
     return (0 if par is None else par.model.rank) * blk, blk
 
 
@@ -166,9 +167,9 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig, par=None
 def lm_head(params, x: torch.Tensor, cfg: ModelConfig, par=None
             ) -> torch.Tensor:
     """The final norm and the logits over the padded vocab, its padded
-    columns -1e30; over a model axis this rank's columns, ``(B, S,
-    Vp/M)``, from ``x`` entered as a block enters it (``par.sp``: ``x``
-    this rank's sequence shard)."""
+    columns -1e30; over a model axis this rank's block of columns, ``(B,
+    S, ceil(Vp/M))`` (:func:`vocab_block`), from ``x`` entered as a block
+    enters it (``par.sp``: ``x`` this rank's sequence shard)."""
     x = enter(rms_norm(x, params["ln_f"], cfg.norm_eps), par)
     V = cfg.vocab
     lo, blk = vocab_block(cfg, par)
@@ -327,11 +328,13 @@ class Model:
 
     def gather_logits(self, logits: torch.Tensor) -> torch.Tensor:
         """The whole padded vocab's logits from every model rank's columns
-        (the identity on one device)."""
+        (the identity on one device; the last block's columns past the
+        padded vocab dropped)."""
         par = self.par
         if par is None or par.model.size == 1:
             return logits
-        return all_gather(logits.contiguous(), -1, par.model)
+        return all_gather(logits.contiguous(), -1, par.model)[
+            ..., :vocab_padded(self.cfg)]
 
     def _block_kind(self) -> str:
         if self.cfg.family == "moe":
@@ -603,21 +606,26 @@ class Model:
                          cfg, k_scale, v_scale, par)
         x = x + leave(att.decode_attention(lp["attn"], h, cache_k, cache_v,
                                            cache_idx, pos, cfg, k_scale,
-                                           v_scale), par)
+                                           v_scale, par), par)
         if xk is not None:
             h = enter(rms_norm(x, lp["lnx"], cfg.norm_eps), par)
-            x = x + leave(self._cross_decode(lp["xattn"], h, xk, xv), par)
+            x = x + leave(self._cross_decode(lp["xattn"], h, xk, xv, par),
+                          par)
         h = enter(rms_norm(x, lp["ln2"], cfg.norm_eps), par)
         y, _ = ffn_fwd(lp["ffn"], h, cfg, kind, par)
         return x + leave(y, par)
 
-    def _cross_decode(self, p, x, xk, xv):
+    def _cross_decode(self, p, x, xk, xv, par=None):
         """One token's cross-attention over the encoder's K/V (no rope, no
-        mask)."""
+        mask); ``par``: this rank's heads (:mod:`.attention`'s doc)."""
         cfg = self.cfg
         B = x.shape[0]
         q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
         H, hd = q.shape[2], cfg.hd
+        if H == 0:                       # a rank with no heads
+            return torch.einsum("bshk,hkd->bsd", q, p["wo"])
+        idx = att.kv_index(cfg, par)
+        xk, xv = att.per_head(xk, idx), att.per_head(xv, idx)
         KV = xk.shape[2]
         qg = q.reshape(B, KV, H // KV, hd)
         s = torch.einsum("bkgh,btkh->bkgt", qg, xk).float() * hd ** -0.5

@@ -33,7 +33,9 @@ the update.  The global norm counts each leaf once: the model-cut and
 data-cut parts summed over their axes, a leaf whole on every rank once.
 In the factored branch, where an axis cuts one of a leaf's last two dims
 (``wq``'s heads at ``(D, H, hd)``, an FSDP dim), ``vr``, ``vc`` and
-``vr.mean(-1)`` are reduced over that axis.
+``vr.mean(-1)`` are reduced over that axis, each rank taking its slabs by
+the axis's block, so that a rank whose block is short or empty (a model
+axis that does not divide the heads) joins the same collectives.
 
 ``adamw_update`` updates the params and the state in place and returns
 them, as a PyTorch optimizer does (the JAX function returns new trees: at
@@ -357,7 +359,8 @@ def adamw_update(params, grads, state, cfg: OptConfig, world=None,
                 rest[-1] = mine              # w: the slice it updates
         if cfg.factored:
             rest.append((_factorable(_whole(p, pl)),
-                         _last_two_cuts(pl, p.dim(), world)))
+                         _last_two_cuts(pl, p.dim(), world),
+                         _slab_shape(tuple(mine.shape), pl)))
         update(cfg, scale, finish, has_master, mine, *rest, work)
         if d is not None:
             all_gather_into(p, mine, d, world.data)
@@ -374,6 +377,19 @@ def _last_two_cuts(pl: Place, ndim: int, world) -> tuple:
         out.append(None if cut is None or world is None else
                    (getattr(world, cut[1]),
                     cut[2]))
+    return tuple(out)
+
+
+def _slab_shape(shape, pl: Place) -> tuple:
+    """``shape`` (a rank's part of a leaf) with each of its last two dims
+    that an axis cuts taken at the axis's block: every rank of the axis
+    then takes the same slabs (:func:`_matrices`), so that the factored
+    moments' collectives pair up where a rank's block is short or
+    empty."""
+    out = list(shape)
+    for dim, _, _, block in pl.cuts:
+        if dim >= len(out) - 2:
+            out[dim] = block
     return tuple(out)
 
 
@@ -421,10 +437,12 @@ def _factored_update(cfg, scale, finish, has_master, p, g, m, vr, vc, how,
                      work) -> None:
     """The factored update of one leaf: :func:`_factored_leaf` for a
     factorable one, else elementwise with ``vr`` as its second moment.
-    ``how``: (factorable, the cuts of the last two dims)."""
-    factorable, cuts = how
+    ``how``: (factorable, the cuts of the last two dims, the shape its
+    slabs are taken by, :func:`_slab_shape`)."""
+    factorable, cuts, slabs = how
     if factorable:
-        _factored_leaf(cfg, scale, finish, p, g, m, vr, vc, work, cuts)
+        _factored_leaf(cfg, scale, finish, p, g, m, vr, vc, work, cuts,
+                       slabs)
         return
     ins = [_flat(t) for t in (p, g, m, vr)]
     o = [_flat_out(t) for t in (p, m, vr)]
@@ -448,17 +466,18 @@ def _mean(t: torch.Tensor, dim: int, cut) -> torch.Tensor:
 
 
 def _factored_leaf(cfg, scale, finish, p, g, m, vr, vc, work: dict,
-                   cuts=(None, None)) -> None:
+                   cuts=(None, None), slabs=None) -> None:
     """The factored update of a factorable leaf, a slab of whole matrices
     at a time: the row and column moments from the slab's squared
     gradient, then the elementwise rest in blocks of rows.  The slab's two
     fp32 temporaries live in ``work``, reused from slab to slab (on the
     CPU a fresh allocation of that size costs more than the arithmetic).
     ``cuts``: the axes cutting the last and second-last dims (module
-    doc)."""
+    doc); ``slabs``: the shape the slabs are taken by (``p``'s where
+    None)."""
     c = p.shape[-1]
     last, second = cuts
-    for at in _matrices(tuple(p.shape)):
+    for at in _matrices(tuple(p.shape) if slabs is None else slabs):
         ga = g[at]
         gs = torch.mul(ga.float(), scale, out=_work(work, 0, ga))
         g2 = torch.square(gs, out=_work(work, 1, ga)).add_(1e-30)

@@ -46,7 +46,8 @@ def _token_nll(logits: torch.Tensor, labels: torch.Tensor,
         lse = torch.logsumexp(lg, dim=-1)
         gold = torch.gather(lg, -1, labels[..., None].long())[..., 0]
         return lse - gold
-    # vocab-parallel: this rank holds columns [first, first + V/M)
+    # vocab-parallel: this rank holds columns [first, first + ceil(Vp/M)),
+    # those past the vocab -1e30 (the last block's past Vp too)
     m = all_reduce_max_(lg.detach().amax(-1), model_axis)
     sumexp = reduce_from(torch.exp(lg - m[..., None]).sum(-1), model_axis)
     ids = labels.long() - first

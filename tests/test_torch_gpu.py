@@ -694,6 +694,58 @@ def test_cuda_flash_attention_at_local_head_shapes():
 
 
 @pytest.mark.gpu
+def test_cuda_flash_attention_on_straddling_heads():
+    """K4 on a rank's heads that straddle K/V groups unevenly:
+    deepseek-coder-33b over a model axis of 3, rank 0's 19 of 56 query
+    heads on K/V heads 0-2 (7, 7 and 5 of them), the K/V expanded to one a
+    query head (``attention.per_head``: G = 1 on the rank), bf16 and fp32,
+    both masks, against the plain version of each group on its own K/V
+    head; then a 1 x 3 gloo world sharing the card runs deepseek SMOKE with
+    8 heads (3/3/2; rank 1's heads read K/V heads 0, 1, 1): K4 launched
+    once a layer on each rank, the gathered ``pallas`` prefill the card's
+    one device's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from repro_torch.models.attention import kv_index, per_head
+    from repro_torch.models.common import Par
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("deepseek-coder-33b")
+    world = type("W", (), {"mesh": (1, 3), "model": type(
+        "A", (), {"rank": 0, "size": 3})()})()
+    idx = kv_index(cfg, Par(world, fsdp=False, sp=True))
+    assert idx == (0,) * 7 + (1,) * 7 + (2,) * 5
+    fa.reset_launches()
+    n = 0
+    for S, dtype in [(512, torch.bfloat16), (256, torch.float32)]:
+        tol = 2e-5 if dtype == torch.float32 else 2e-2
+        q, k, v = _qkv(1, S, 19, 3, 128, dtype, seed=S + 19)
+        for causal in (True, False):
+            got = fa.flash_attention(q.cuda(), per_head(k.cuda(), idx),
+                                     per_head(v.cuda(), idx), causal=causal)
+            torch.cuda.synchronize()
+            want = torch.cat([fa.flash_attention_ref(
+                q[:, :, lo:hi], k[:, :, j:j + 1], v[:, :, j:j + 1],
+                causal=causal) for j, (lo, hi) in enumerate(
+                    ((0, 7), (7, 14), (14, 19)))], 2)
+            torch.testing.assert_close(got.cpu().float(), want.float(),
+                                       rtol=tol, atol=tol)
+            n += 1
+    assert fa.LAUNCHES["flash_attention"] == n
+    import torch_world_ranks as ranks
+    from repro_torch.distributed import run_world
+    arch = "deepseek-coder-33b+h8"
+    out = run_world(ranks.axis_card_prefill, 3, arch, 2, 48, mesh=(1, 3),
+                    timeout=300)
+    single = ranks.axis_card_prefill(None, arch, 2, 48)
+    layers = get_config("deepseek-coder-33b", smoke=True).n_layers
+    assert single["launches"]["flash_attention"] == layers
+    for r in out:
+        assert r["launches"]["flash_attention"] == layers
+        torch.testing.assert_close(r["logits"], single["logits"],
+                                   rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
 def test_cuda_flash_attention_refuses_what_it_has_no_kernel_for():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")

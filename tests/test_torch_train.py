@@ -300,10 +300,10 @@ def test_flash_kernel_is_refused_under_autograd():
         assert torch.isfinite(model.forward(params, batch)[0]).all()
 
 
-def _train(ckpt, *extra, steps=6, arch="mamba2-2.7b"):
+def _train(ckpt, *extra, steps=6, arch="mamba2-2.7b", seq=64):
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           arch, "--smoke", "--batch", "4", "--seq", "64",
+           arch, "--smoke", "--batch", "4", "--seq", str(seq),
            "--steps", str(steps), "--ckpt-dir", ckpt, "--device", "cpu",
            *extra]
     return subprocess.run(cmd, env=env, capture_output=True, text=True,
@@ -334,15 +334,22 @@ def test_launch_train_crash_restart_bitexact(tmp_path):
 def test_launch_train_refuses_a_mesh(tmp_path):
     """A model axis (``DxM``, ``M > 1``) runs for every family: granite-20b,
     mamba2-2.7b and dbrx-132b SMOKE at ``--mesh 2x2`` exit 0 with one
-    logged loss (held to one device in ``tests/test_torch_train_world.py``).
-    A model axis that the heads do not split (granite's 4 at ``--mesh
-    1x3``) is refused, naming ROADMAP item 17."""
+    logged loss (held to one device in ``tests/test_torch_train_world.py``),
+    and so does one that the heads do not split (granite's 4 at ``--mesh
+    1x3``, 2/2/0; held to one device in
+    ``tests/test_torch_model_axis_uneven.py``).  A model axis that the SSM
+    heads do not split (mamba2's 8 at ``--mesh 1x3``) is refused, naming
+    ROADMAP item 18."""
     for arch in ("granite-20b", "mamba2-2.7b", "dbrx-132b"):
         r = _train(str(tmp_path / arch), "--mesh", "2x2", steps=1, arch=arch)
         assert r.returncode == 0, r.stderr[-3000:]
         assert len(_exact_losses(r.stdout)) == 1
     r = _train(str(tmp_path / "odd"), "--mesh", "1x3", steps=1,
-               arch="granite-20b")
+               arch="granite-20b", seq=48)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert len(_exact_losses(r.stdout)) == 1
+    r = _train(str(tmp_path / "ssm"), "--mesh", "1x3", steps=1,
+               arch="mamba2-2.7b")
     assert r.returncode != 0
-    assert "heads do not split" in r.stderr
-    assert "Queue 1, item 17" in r.stderr
+    assert "8 SSM heads do not split" in r.stderr
+    assert "Queue 1, item 18" in r.stderr

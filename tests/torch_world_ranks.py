@@ -231,7 +231,11 @@ AXIS_ARCHS = ("granite-20b", "deepseek-coder-33b", "nemotron-4-340b",
 MOE_SSM_ARCHS = ("dbrx-132b", "llama4-maverick-400b-a17b", "mamba2-2.7b",
                  "zamba2-7b")
 VARIANTS = {"+dispatch": dict(opt_moe_dispatch=True),
-            "+fsdp": dict(fsdp=True)}
+            "+fsdp": dict(fsdp=True),
+            # query heads a model axis does not divide (head_dim kept even)
+            "+h6": dict(n_heads=6, head_dim=16),
+            "+h8": dict(n_heads=8, head_dim=16),
+            "+h6kv6": dict(n_heads=6, n_kv_heads=6, head_dim=16, d_ff=126)}
 ENC_LEN = 16
 
 

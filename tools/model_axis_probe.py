@@ -1,7 +1,10 @@
-"""Where ``chip_smoke.py`` phase 5d's and 5e's time goes, on the card.
+"""Where ``chip_smoke.py`` phase 5d's, 5e's and 5f's time goes, on the
+card, and the model axis at the reference's production width.
 
     python tools/model_axis_probe.py phase
     python tools/model_axis_probe.py families
+    python tools/model_axis_probe.py uneven
+    python tools/model_axis_probe.py heads16
     python tools/model_axis_probe.py bf16-floor
     python tools/model_axis_probe.py collectives
     python tools/model_axis_probe.py save
@@ -15,6 +18,18 @@
   family_references`` on one device, then the worlds' ranks (fresh
   processes: their first steps cost what 5c's and 5d's work pays in the
   script) and ``chip_smoke.family_axis_phase``;
+* ``uneven``: phase 5f alone (``chip_smoke.uneven_phase``: one device's
+  side, a world of 1 x 3 ranks, the checks, K4 at rank 0's heads);
+* ``heads16``: deepseek-coder-33b FULL at depth 1 over a gloo world of 1 x
+  16 ranks sharing the card, the model axis of the reference's production
+  mesh (56 heads in blocks of 4, ranks 14 and 15 with none; the 8 K/V
+  heads replicated; ``attn_impl="pallas"``, FULL's sequence
+  parallelism): the prefill B=1 x 4096 (after a warm one) held to one
+  device's within ``chip_smoke.LOGIT_GAP_TOL``, which a control with the
+  layer's attention zeroed must exceed; K4's launches a rank; the wall,
+  each rank's heads, parameter and peak bytes; and each rank's parameter
+  bytes at the full 62 layers from ``leaf_place``'s cuts, beside an even
+  share (the whole tree's bytes / 16);
 * ``bf16-floor``: what bf16 alone moves on one device, for phase 5e's
   gates: each of ``chip_smoke.AXIS_FAMILIES`` at its cut, the prefill's
   last logits and ``AXIS_DECODE`` decode steps (teacher-forced on the
@@ -76,6 +91,129 @@ def families_rank(world, refs: dict, ckpt: str):
         out = cs.train_rank(world.remesh((2, 2)), ckpt,
                             cs.AXIS_FAMILY_GATE, cs.AXIS_FAMILY_BF16)
     return out, time.perf_counter() - t0
+
+
+HEADS16 = ("deepseek-coder-33b", dict(n_layers=1, attn_impl="pallas"),
+           (1, 4096))
+HEADS16_MESH = (1, 16)
+
+
+def heads16_rank(world, tokens):
+    """One rank of ``heads16``: the prefill of ``tokens`` over the world's
+    model axis (after a warm one; K4's counts set to 0 just before, read
+    just after), its heads, K/V heads, parameter and peak bytes."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.train import build_prefill_step
+    cs.use_src()
+    arch, cuts, _ = HEADS16
+    cfg = get_config(arch, **cuts)
+    model = build_model(cfg, world)
+    params, init_s, _ = cs.timed(lambda: model.init(cs.LM_SEED))
+    batch = {"tokens": tokens.to(world.device)}
+    prefill = build_prefill_step(model)
+    prefill(params, batch)                             # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    logits, wall, peak = cs.timed(lambda: prefill(params, batch))
+    return dict(logits=logits[..., :cfg.vocab].cpu(), prefill_s=wall,
+                peak_bytes=peak, init_s=init_s, launches=dict(LAUNCHES),
+                heads=model.par.head_range(cfg),
+                kv_heads=model.par.kv_range(cfg),
+                param_bytes=sum(t.numel() * t.element_size()
+                                for t in tree_leaves(params)))
+
+
+def rank_param_bytes(cfg, params, mesh, layers: int) -> list:
+    """Each model rank's parameter bytes of ``cfg`` at ``layers`` layers
+    from ``leaf_place``'s cuts of ``params`` (a whole tree of ``cfg``,
+    its stacked leaves counted ``layers`` times a layer)."""
+    import math
+
+    from repro_torch.models.common import (axis_range, leaf_place,
+                                           tree_map_paths)
+    leaves = []
+    tree_map_paths(lambda p, t: leaves.append((p, t)), params)
+    out = []
+    for mi in range(mesh[1]):
+        total = 0
+        for path, t in leaves:
+            shape = list(t.shape)
+            for dim, axis, whole, block in leaf_place(path, cfg, mesh).cuts:
+                lo, hi = axis_range(whole, block, 0 if axis == "data"
+                                    else mi)
+                shape[dim] = hi - lo
+            n = math.prod(shape) * t.element_size()
+            if path[0] in ("layers", "enc"):
+                n = n // t.shape[0] * layers
+            total += n
+        out.append(total)
+    return out
+
+
+def heads16() -> dict:
+    """``heads16`` (module doc)."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import run_world
+    from repro_torch.models import build_model
+    from repro_torch.train import build_prefill_step
+    arch, cuts, (B, S) = HEADS16
+    cfg = get_config(arch, **cuts)
+    model = build_model(cfg)
+    params = model.init(cs.LM_SEED)
+    tokens = cs.axis_tokens(cfg, B, S)
+    batch = {"tokens": tokens.to(cs.CARD)}
+    prefill = build_prefill_step(model)
+    prefill(params, batch)                             # warm
+    want, one_s, one_peak = cs.timed(lambda: prefill(params, batch))
+    want = want[..., :cfg.vocab]
+    control = cs.with_attention(cs.skip_attention(0), lambda: prefill(
+        params, batch))[..., :cfg.vocab]
+    full = get_config(arch)
+    per_rank = rank_param_bytes(cfg, params, HEADS16_MESH, full.n_layers)
+    whole = rank_param_bytes(cfg, params, (1, 1), full.n_layers)[0]
+    del model, params, batch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_world(heads16_rank, HEADS16_MESH[0] * HEADS16_MESH[1],
+                      tokens, mesh=HEADS16_MESH, timeout=900)
+    world_s = time.perf_counter() - t0
+    gap = cs.logit_gap(ranks[0]["logits"].to(cs.CARD), want)
+    control_gap = cs.logit_gap(control, want)
+    k4 = [r["launches"]["flash_attention"] for r in ranks]
+    out = dict(arch=cfg.name, layers=cfg.n_layers,
+               mesh=f"{HEADS16_MESH[0]}x{HEADS16_MESH[1]}",
+               backend="gloo", batch=B, seq=S, logits_gap=gap,
+               control_gap=control_gap, gate=cs.LOGIT_GAP_TOL,
+               world_s=world_s, prefill_s=[r["prefill_s"] for r in ranks],
+               one_device_prefill_s=one_s,
+               peak_bytes_by_rank=[r["peak_bytes"] for r in ranks],
+               one_device_peak_bytes=one_peak,
+               init_s=[r["init_s"] for r in ranks],
+               heads_by_rank=[r["heads"] for r in ranks],
+               kv_heads_by_rank=[r["kv_heads"] for r in ranks],
+               param_bytes_by_rank=[r["param_bytes"] for r in ranks],
+               k4_launches_by_rank=k4,
+               full_depth_param_bytes_by_rank=per_rank,
+               full_depth_even_share=whole / HEADS16_MESH[1],
+               full_depth_busiest_over_even=max(per_rank)
+               / (whole / HEADS16_MESH[1]))
+    print(json.dumps(out), flush=True)
+    ok = (gap <= cs.LOGIT_GAP_TOL < control_gap and all(
+        torch.equal(r["logits"], ranks[0]["logits"]) for r in ranks)
+        and all(n == (cfg.n_layers if r["heads"][1] > r["heads"][0] else 0)
+                for n, r in zip(k4, ranks)))
+    print("heads16:", "ok" if ok else "FAILED", flush=True)
+    out["ok"] = ok
+    return out
 
 
 def bf16_floor() -> list:
@@ -205,8 +343,9 @@ def first_step_rank(world) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=("phase", "families", "bf16-floor",
-                                     "collectives", "save", "first-step"))
+    ap.add_argument("what", choices=("phase", "families", "uneven",
+                                     "heads16", "bf16-floor", "collectives",
+                                     "save", "first-step"))
     args = ap.parse_args()
     import chip_smoke as cs
     from repro_torch.distributed import run_world
@@ -249,6 +388,15 @@ def main() -> int:
             got = cs.family_axis_phase(family, refs, ckpt)
             print(json.dumps(got), flush=True)
             print(f"phase 5e: {time.perf_counter() - t0:.1f} s", flush=True)
+        elif args.what == "uneven":
+            load_library("flash_attention")
+            t0 = time.perf_counter()
+            print(json.dumps(cs.uneven_phase()), flush=True)
+            print(f"phase 5f: {time.perf_counter() - t0:.1f} s", flush=True)
+        elif args.what == "heads16":
+            load_library("flash_attention")
+            if not heads16()["ok"]:
+                return 1
         elif args.what == "bf16-floor":
             bf16_floor()
         elif args.what == "collectives":
