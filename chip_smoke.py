@@ -190,6 +190,31 @@ What it does, in order; any failure raises and the exit code is not 0:
    K/V heads, parameter, cache and peak bytes printed; K4 at rank 0's
    shape (1, 3072, 19, 19, 128), both masks, against its plain version
    (2e-2), timed beside the plain version, SDPA and its bound;
+5g. experts and SSM heads that ``M`` does not divide: a gloo world of 1 x
+   3 ranks sharing the card (a spawn of its own, after 5f), run as 5e(a)
+   is: dbrx-132b at 2 layers (16 experts 6/6/4, 48 heads 16/16/16 over its
+   8 replicated K/V heads, each rank's K/V expanded to one a query head,
+   ``attn_impl="pallas"``) with a prefill of B=1 x 3072, mamba2-2.7b at 4
+   layers (80 SSM heads 27/27/26) and zamba2-7b at 7 in fp32 (112 SSM
+   heads 38/38/36, one shared-block invocation after the seventh; in bf16
+   its decode drifts past the gate by rounding alone) with prefills of
+   B=1 x 4096:
+   5e(a)'s checks (the gathered logits within ``LOGIT_GAP_TOL`` of one
+   device's, which the skipped-block control must exceed, 8 decode steps
+   teacher-forced on one device's greedy tokens within it, their argmax
+   agreement printed as 5f's, each rank's SSM state its share of the
+   heads), and each of K4's calls on every rank held against
+   its plain version (2e-2) in a prefill under one device's routes; K4 at
+   rank 0's shape (1, 3072, 16, 16, 128) against its plain version, timed
+   beside the plain version, SDPA and its bound;
+5h. the dry run (``repro_torch.launch.dryrun``, one rank traced on the
+   ``meta`` device) held to the card: (a) in step 9, granite-20b's
+   prefill: the dry run's parameter bytes equal the card's, its FLOPs
+   ``hlo_cost``'s over the card's prefill (K4's recorded work included),
+   its peak estimate within 0.75-1.25x the card's measured peak, its
+   compute term printed beside the wall; (b) after 5g, 5f's
+   deepseek-coder-33b prefill traced dry for each rank of 1 x 3: its
+   collectives (calls and bytes by axis and op) equal the gloo ranks';
 6. the serving path: ``repro_torch.serving.MatchingService`` on the card
    over the ladder 16,384² .. 262,144² (edge factor 8, ``max_batch`` 16),
    a 256-request trace (the four families of ``serve_matching.FAMILIES``
@@ -369,9 +394,11 @@ What it does, in order; any failure raises and the exit code is not 0:
    exact route's, K4's dbrx's and seamless's prefills' and the model
    axis's ranks' (``launches_model_axis``) and phase 5e's dbrx prefills'
    (``launches_model_axis_families``) and phase 5f's deepseek prefills'
-   (``launches_model_axis_uneven``), and K4 carries its times at dbrx's
-   and seamless's shapes and at a rank's heads under the model axis, for
-   granite's, dbrx's and deepseek's uneven heads), then as its last line
+   (``launches_model_axis_uneven``) and phase 5g's dbrx prefills'
+   (``launches_model_axis_experts_heads``), and K4 carries its times at
+   dbrx's and seamless's shapes and at a rank's heads under the model
+   axis, for granite's, dbrx's, deepseek's uneven heads and dbrx's under
+   ``M = 3``), then as its last line
    ``{"ok": true, "device": {...}}``.
 
 It imports neither JAX nor the JAX package.  It needs a CUDA card and the
@@ -2285,9 +2312,9 @@ def skip_block(index: int):
     return ctx()
 
 
-def family_references() -> dict:
-    """Phase 5e(a)'s one-device side, before the world runs: for each of
-    AXIS_FAMILIES at its cut, the prefill's last logits (timed, after a
+def family_references(runs=AXIS_FAMILIES) -> dict:
+    """Phase 5e(a)'s (or 5g's) one-device side, before the world runs: for
+    each of ``runs`` at its cut, the prefill's last logits (timed, after a
     warm one) and its routes, a control with the middle block skipped,
     AXIS_DECODE greedy steps (the tokens, each step's logits and routes)
     and the SSM state's bytes.  The ranks replay dbrx's routes and
@@ -2296,7 +2323,7 @@ def family_references() -> dict:
     from repro_torch.models import build_model
     from repro_torch.train import build_prefill_step, build_serve_step
     out = {}
-    for arch, cuts, (B, S) in AXIS_FAMILIES:
+    for arch, cuts, (B, S) in runs:
         cfg = get_config(arch, **cuts)
         model = build_model(cfg)
         params = model.init(LM_SEED)
@@ -2330,13 +2357,16 @@ def family_references() -> dict:
     return out
 
 
-def family_serve_rank(world, refs) -> dict:
-    """Phase 5e(a) on one rank, for each of AXIS_FAMILIES: the prefill
+def family_serve_rank(world, refs, runs=AXIS_FAMILIES,
+                      check_k4: bool = False) -> dict:
+    """Phase 5e(a) (or 5g) on one rank, for each of ``runs``: the prefill
     (after a warm one; K4's counts set to 0 just before, read just after)
     with its routes' digest, for dbrx again under one device's routes
     (``refs``), then AXIS_DECODE steps teacher-forced on one device's
     greedy tokens (dbrx's under its decode routes): the gathered logits,
-    the walls, the cache's bytes on this rank, the collectives' bytes."""
+    the walls, the cache's bytes on this rank, the collectives' bytes;
+    with ``check_k4``, once more under one device's routes with each of
+    K4's calls held against its plain version (``k4_checked``)."""
     use_src()
     from repro_torch.configs import get_config
     from repro_torch.distributed import comm
@@ -2344,7 +2374,7 @@ def family_serve_rank(world, refs) -> dict:
     from repro_torch.models import build_model
     from repro_torch.train import build_prefill_step, build_serve_step
     out = {}
-    for arch, cuts, (B, S) in AXIS_FAMILIES:
+    for arch, cuts, (B, S) in runs:
         ref = refs[arch]
         cfg = get_config(arch, **cuts)
         model = build_model(cfg, world)
@@ -2370,6 +2400,11 @@ def family_serve_rank(world, refs) -> dict:
         if moe:
             with pinned_or_free(ref["routes"], world.device):
                 row["pinned"] = prefill(params, batch)[..., :V].cpu()
+        if check_k4 and cfg.attn_impl == "pallas":
+            with pinned_or_free(ref["routes"] if moe else None,
+                                world.device):
+                row["k4_checked"] = k4_held_to_plain(
+                    lambda: prefill(params, batch))
         serve = build_serve_step(model)
         cache = model.init_cache(B, AXIS_DECODE)
         toks = ref["tokens"].to(world.device)
@@ -2397,22 +2432,55 @@ def family_serve_rank(world, refs) -> dict:
     return dict(rank=world.rank, backend=world.backend, serve=out)
 
 
-def family_serve_checks(refs, results) -> dict:
-    """Phase 5e(a)'s checks against ``refs`` (one device, the same
-    weights and depth): the gathered last logits (the vocab's columns)
-    within LOGIT_GAP_TOL, which the control with the middle block skipped
-    must exceed (dbrx also under one device's routes), the routes' digest
-    equal on both
-    ranks, K4 once a layer a rank on the tensor-core body where the model
-    takes it, each decode step's logits within LOGIT_GAP_TOL and its
-    argmax one device's, and half the SSM state's bytes a rank."""
+def k4_held_to_plain(fn) -> list:
+    """``fn()`` with each of K4's calls in the model's attention held
+    against its plain version on the same inputs: per call, the shape,
+    the largest absolute difference and the values outside rtol = atol =
+    ``FA_TOL`` (bf16)."""
+    from repro_torch.models import attention as att
+    seen = []
+
+    def check(args, out):
+        (q, k, v), causal = args, True
+        want = fa_plain(q, k, v, causal).float()
+        err = (out.float() - want).abs()
+        tol = FA_TOL[q.dtype]
+        return dict(shape=tuple(q.shape) + (k.shape[2],),
+                    max_abs_err=float(err.max()),
+                    outside=int((err > tol + tol * want.abs()).sum()),
+                    finite=bool(torch.isfinite(out.float()).all()))
+
+    with spying(att, "flash_attention", seen, check):
+        fn()
+    return seen
+
+
+def family_serve_checks(refs, results, runs=AXIS_FAMILIES,
+                        mesh=(1, 2), argmax_gate: bool = True) -> dict:
+    """Phase 5e(a)'s (or 5g's) checks against ``refs`` (one device, the
+    same weights and depth) over a world of ``mesh``: the gathered last
+    logits (the vocab's columns) within LOGIT_GAP_TOL, which the control
+    with the middle block skipped must exceed (dbrx also under one
+    device's routes), the routes' digest equal on every rank, K4 once a
+    layer a rank on the tensor-core body where the model takes it (and,
+    where the ranks held them, each call against its plain version), each
+    decode step's logits within LOGIT_GAP_TOL and, with ``argmax_gate``,
+    its argmax one device's (printed either way: over 3 ranks bf16's
+    near-ties flip, as in 5f), and each rank's share of the SSM state's
+    bytes its share of the SSM heads (blocks of ``ceil(Hs / M)``)."""
     from repro_torch.configs import get_config
+    from repro_torch.models.common import axis_range, model_block
     rows = []
-    for arch, cuts, (B, S) in AXIS_FAMILIES:
+    for arch, cuts, (B, S) in runs:
         ref = refs[arch]
         cfg = get_config(arch, **cuts)
         mine = [r["serve"][arch] for r in results]
-        what = f"{cfg.name} ({cfg.n_layers} layers) over a 1 x 2 world"
+        what = (f"{cfg.name} ({cfg.n_layers} layers) over a {mesh[0]} x "
+                f"{mesh[1]} world")
+        size = mesh[1]
+        blocks = {n: [hi - lo for lo, hi in (
+            axis_range(n, model_block(n, size), i) for i in range(size))]
+            for n in (cfg.ssm_heads, cfg.n_experts, cfg.n_heads)}
         want = ref["logits"].to(CARD)
         gap = logit_gap(mine[0]["logits"].to(CARD), want)
         control_gap = logit_gap(ref["control"].to(CARD), want)
@@ -2426,8 +2494,18 @@ def family_serve_checks(refs, results) -> dict:
                                    ref["decode"][:, t].argmax(-1)))
                   for t in range(AXIS_DECODE)]
         k4 = cfg.attn_impl == "pallas"
-        row = dict(arch=cfg.name, layers=cfg.n_layers, mesh="1x2",
+        row = dict(arch=cfg.name, layers=cfg.n_layers,
+                   mesh=f"{mesh[0]}x{mesh[1]}",
                    backend=results[0]["backend"], batch=B, seq=S,
+                   heads_by_rank=blocks[cfg.n_heads],
+                   experts_by_rank=(blocks[cfg.n_experts]
+                                    if cfg.family == "moe" else None),
+                   ssm_heads_by_rank=(blocks[cfg.ssm_heads]
+                                      if ref["h_bytes"] else None),
+                   k4_checked_by_rank=[
+                       [(c["max_abs_err"], c["outside"])
+                        for c in x["k4_checked"]]
+                       for x in mine if "k4_checked" in x] or None,
                    logits_gap=gap, control_gap=control_gap,
                    pinned_gap=pinned_gap, gate=LOGIT_GAP_TOL,
                    routes_differing_from_one_device=[
@@ -2460,17 +2538,26 @@ def family_serve_checks(refs, results) -> dict:
                 fail(f"{what}: logits gap {g} (under one device's routes "
                      f"{pinned_gap}), control {control_gap}, gate "
                      f"{LOGIT_GAP_TOL}")
-        if not max(gaps) <= LOGIT_GAP_TOL or not all(argmax):
+        if not max(gaps) <= LOGIT_GAP_TOL or (argmax_gate and
+                                              not all(argmax)):
             fail(f"{what}: decode against one device: gaps {gaps}, argmax "
                  f"equal {argmax}")
-        for m in mine:
-            if k4 and (m["launches"]["flash_attention"] != cfg.n_layers or
-                       m["launches"]["flash_attention_tc"] != cfg.n_layers):
-                fail(f"{what}: K4 launched {m['launches']} times for "
+        for i, r in enumerate(mine):
+            if k4 and (r["launches"]["flash_attention"] != cfg.n_layers or
+                       r["launches"]["flash_attention_tc"] != cfg.n_layers):
+                fail(f"{what}: K4 launched {r['launches']} times for "
                      f"{cfg.n_layers} layers")
-            if ref["h_bytes"] and 2 * m["h_bytes"] != ref["h_bytes"]:
-                fail(f"{what}: {m['h_bytes']} bytes of SSM state a rank "
-                     f"against one device's {ref['h_bytes']}")
+            held = r.get("k4_checked")
+            if held is not None and (len(held) != cfg.n_layers or any(
+                    c["outside"] or not c["finite"] for c in held)):
+                fail(f"{what}: K4's calls on rank {i} against the plain "
+                     f"version: {held}")
+            heads = blocks[cfg.ssm_heads][i]
+            if ref["h_bytes"] and \
+                    r["h_bytes"] * cfg.ssm_heads != ref["h_bytes"] * heads:
+                fail(f"{what}: {r['h_bytes']} bytes of SSM state on rank "
+                     f"{i} ({heads} of {cfg.ssm_heads} heads) against one "
+                     f"device's {ref['h_bytes']}")
     return rows
 
 
@@ -2725,7 +2812,171 @@ def uneven_phase() -> dict:
     torch.cuda.empty_cache()
     k4 = UNEVEN_RUNS[0][0]
     return dict(launches=sum(r["serve"][k4]["launches"]["flash_attention"]
+                             for r in results), times=times,
+                prefill_comm=[r["serve"][k4]["prefill_comm"]
+                              for r in results])
+
+
+# ---------------------------------------------------------------------------
+# experts and SSM heads that the model axis does not divide (phase 5g)
+# ---------------------------------------------------------------------------
+# A gloo world of 1 x 3 ranks sharing the card (a spawn of its own), bf16,
+# seed LM_SEED, full width cut in depth (dbrx 2 layers, mamba2 4, zamba2 7
+# with its shared block after the seventh: the script's time), run as
+# phase 5e's: dbrx-132b's 16
+# experts 6/6/4 and 48 heads 16/16/16 over its 8 replicated K/V heads (each
+# rank's block straddles groups of 6 unevenly: K/V expanded to one a query
+# head, K4 on it, FA_DBRX_UNEVEN), mamba2-2.7b's 80 SSM heads 27/27/26,
+# zamba2-7b's 112 SSM heads 38/38/36 (its shared block's 32 heads
+# 11/11/10) with one shared-block invocation; dbrx's prefill of 3072
+# positions, which its FULL config's sequence parallelism splits over 3.
+# zamba2 runs in fp32: in bf16 at 14 layers its teacher-forced decode over
+# 1 x 3 drifts from one device's by bf16's rounding alone (0.027 at the
+# first step, 0.051 at the eighth; 0.025-0.048 over phase 5e's 1 x 2,
+# where bf16 alone moves it 0.049), past LOGIT_GAP_TOL, which then tests
+# the rounding, not the model axis
+FAMILY_UNEVEN_MESH = (1, 3)
+FAMILY_UNEVEN_RUNS = (("dbrx-132b", dict(n_layers=2, attn_impl="pallas"),
+                       (1, 3072)),
+                      ("mamba2-2.7b", dict(n_layers=4), (1, 4096)),
+                      ("zamba2-7b", dict(n_layers=7, shared_every=7,
+                                         dtype="float32"), (1, 4096)))
+FA_DBRX_UNEVEN = (1, 3072, 16, 16, 128)
+FAMILY_UNEVEN_TIMEOUT = 600
+# phase 5g's K4 launches and times, for the kernels' line
+FAMILY_UNEVEN: dict = {}
+
+
+def family_uneven_phase() -> dict:
+    """Phase 5g (module doc): one device's side, the world of 1 x 3 ranks
+    (each rank's K4 calls also held against the plain version), phase
+    5e's checks over it, and K4 at rank 0's heads of dbrx-132b.  Returns
+    K4's launches over the ranks' prefills and its times at that
+    shape."""
+    from repro_torch.distributed import run_world
+    t0 = time.perf_counter()
+    refs = family_references(FAMILY_UNEVEN_RUNS)
+    refs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    size = FAMILY_UNEVEN_MESH[0] * FAMILY_UNEVEN_MESH[1]
+    results = run_world(family_serve_rank, size, refs, FAMILY_UNEVEN_RUNS,
+                        True, mesh=FAMILY_UNEVEN_MESH,
+                        timeout=FAMILY_UNEVEN_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    if {r["backend"] for r in results} != {"gloo"}:
+        fail(f"ranks sharing the card chose "
+             f"{[r['backend'] for r in results]}")
+    t0 = time.perf_counter()
+    family_serve_checks(refs, results, FAMILY_UNEVEN_RUNS,
+                        FAMILY_UNEVEN_MESH, argmax_gate=False)
+    times = flash_at(FA_DBRX_UNEVEN, torch.Generator(
+        device=CARD).manual_seed(LM_SEED),
+        "dbrx-132b under M = 3 (rank 0's 16 heads, K/V expanded)")
+    say(f"phase 5g, experts and SSM heads the model axis does not divide: "
+        f"one device's side {refs_s:.1f} s, the 1 x 3 world {world_s:.1f} "
+        f"s, its checks and K4 at the local shape "
+        f"{time.perf_counter() - t0:.1f} s")
+    del refs
+    torch.cuda.empty_cache()
+    k4 = FAMILY_UNEVEN_RUNS[0][0]
+    return dict(launches=sum(r["serve"][k4]["launches"]["flash_attention"]
                              for r in results), times=times)
+
+
+# ---------------------------------------------------------------------------
+# the dry run held to the card (phase 5h)
+# ---------------------------------------------------------------------------
+# The dry run (repro_torch.launch.dryrun) traces one rank on the meta
+# device.  (a) granite-20b FULL's prefill of lm_main_path (B=PREFILL_BATCH x
+# PREFILL_SEQ, attn_impl="pallas", one device): its parameter bytes and its
+# FLOPs (hlo_cost over the card's prefill, K4's recorded work included)
+# exactly, its peak estimate within DRY_PEAK_RATIO of the card's, its
+# compute term printed beside the wall; (b) phase 5f's deepseek-coder-33b
+# prefill over 1 x 3: every rank's collectives (calls and bytes by axis and
+# op) exactly the gloo ranks' counts
+DRY_PEAK_RATIO = (0.75, 1.25)
+DRYRUN: dict = {}
+
+
+def dry_granite(model, params, batch, prefill, wall: float, peak: int,
+                before: int) -> dict:
+    """Phase 5h(a) (above), from lm_main_path's prefill (``wall`` s,
+    ``peak`` bytes allocated at most, ``before`` allocated before it):
+    the card's side under ``hlo_cost``, then the dry trace at (1, 1)."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_cost import analyze
+    from repro_torch.models.common import tree_leaves
+    t0 = time.perf_counter()
+    card = analyze(prefill, params, batch)
+    del card["result"]
+    nbytes = lambda tree: sum(t.numel() * t.element_size()  # noqa: E731
+                              for t in tree_leaves(tree))
+    param_bytes, args = nbytes(params), nbytes(params) + nbytes(batch)
+    # the step's own peak: what was allocated besides its arguments before
+    # it (earlier phases' tensors) taken out
+    measured = peak - (before - args)
+    B, S = batch["tokens"].shape
+    dry = dryrun.trace_rank(model.cfg, ShapeCell("prefill", S, B, "prefill"),
+                            (1, 1), exact=True)
+    row = dict(arch=model.cfg.name, batch=B, seq=S, mesh="1x1",
+               param_bytes=param_bytes, dry_param_bytes=dry["param_bytes"],
+               flops=card["flops"], dry_flops=dry["flops"],
+               k4=card["kernels"], dry_k4=dry["kernels"],
+               bytes=card["bytes"], dry_bytes=dry["bytes"],
+               peak_bytes=measured, peak_bytes_raw=peak,
+               dry_peak_bytes=dry["peak_bytes"],
+               peak_ratio=dry["peak_bytes"] / measured,
+               card_hlo_cost_peak_bytes=card["peak_bytes"],
+               wall_s=wall, dry_terms=dryrun.terms(dry),
+               seconds=time.perf_counter() - t0)
+    say("dry run against the card:", json.dumps(row))
+    if dry["param_bytes"] != param_bytes:
+        fail(f"dry run: {dry['param_bytes']} parameter bytes against the "
+             f"card's {param_bytes}")
+    if dry["flops"] != card["flops"] or not card["kernels"]:
+        fail(f"dry run: {dry['flops']} FLOPs against hlo_cost's "
+             f"{card['flops']} over the card's prefill ({card['kernels']})")
+    lo, hi = DRY_PEAK_RATIO
+    if not lo <= row["peak_ratio"] <= hi:
+        fail(f"dry run: peak estimate {dry['peak_bytes']} against the "
+             f"card's {measured} ({row['peak_ratio']:.3f}, allowed "
+             f"{DRY_PEAK_RATIO})")
+    return row
+
+
+def _counted(axis_counts: dict) -> dict:
+    """``comm.axis_counts()`` without the ops of no calls."""
+    return {a: {op: c for op, c in ops.items() if c["calls"]}
+            for a, ops in axis_counts.items()
+            if any(c["calls"] for c in ops.values())}
+
+
+def dry_collectives(ranks_comm: list) -> dict:
+    """Phase 5h(b) (above): phase 5f's deepseek prefill traced dry for
+    every rank of 1 x 3, its collectives against ``ranks_comm`` (each gloo
+    rank's ``comm.axis_counts()`` over its prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import dryrun
+    arch, cuts, (B, S) = UNEVEN_RUNS[0]
+    cfg = get_config(arch, **cuts)
+    t0 = time.perf_counter()
+    rows = []
+    for rank, real in enumerate(ranks_comm):
+        dry = dryrun.trace_rank(cfg, ShapeCell("prefill", S, B, "prefill"),
+                                UNEVEN_MESH, rank, exact=True)
+        rows.append(dict(rank=rank, dry=dry["collective_detail"],
+                         gloo=_counted(real)))
+        if dry["collective_detail"] != rows[-1]["gloo"]:
+            fail(f"dry run: {cfg.name} rank {rank}'s collectives "
+                 f"{dry['collective_detail']} against the gloo rank's "
+                 f"{rows[-1]['gloo']}")
+    row = dict(arch=cfg.name, mesh=f"{UNEVEN_MESH[0]}x{UNEVEN_MESH[1]}",
+               batch=B, seq=S, ranks=rows,
+               seconds=time.perf_counter() - t0)
+    say("dry run against the gloo ranks:", json.dumps(row))
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3831,6 +4082,7 @@ def lm_main_path() -> int:
     prefill = build_prefill_step(model)
     prefill(params, {"tokens": batch["tokens"][:1, :128]})   # warm-up
     reset_launches()
+    before = torch.cuda.memory_allocated()
     logits, wall, peak = timed(lambda: prefill(params, batch))
     launches, by_body = LAUNCHES["flash_attention"], dict(LAUNCHES)
     tokens = PREFILL_BATCH * PREFILL_SEQ
@@ -3846,6 +4098,8 @@ def lm_main_path() -> int:
             not torch.isfinite(logits.float()).all():
         fail(f"prefill logits {tuple(logits.shape)} not finite or not of "
              f"shape ({PREFILL_BATCH}, 1, {cfg.vocab})")
+    DRYRUN["granite"] = dry_granite(model, params, batch, prefill, wall,
+                                    peak, before)
 
     xla = build_prefill_step(build_model(
         dataclasses.replace(cfg, attn_impl="xla")))
@@ -4724,6 +4978,7 @@ def seamless_phase(gen) -> tuple:
     prefill = build_prefill_step(model)
     prefill(params, {k: t[:1, :128] for k, t in batch.items()})  # warm-up
     reset_launches()
+    before = torch.cuda.memory_allocated()
     logits, wall, peak = timed(lambda: prefill(params, batch))
     launches, by_body = LAUNCHES["flash_attention"], dict(LAUNCHES)
     n_k4 = cfg.enc_layers + cfg.n_layers
@@ -5590,7 +5845,8 @@ def main() -> int:
         if entry["name"] == "flash_attention":
             entry["launches"] += (k4 + k4_seamless + AXIS["launches"]
                                   + AXIS_FAMILY["launches"]
-                                  + UNEVEN["launches"])
+                                  + UNEVEN["launches"]
+                                  + FAMILY_UNEVEN["launches"])
             entry["launches_dbrx_prefill"] = k4
             entry["launches_seamless_prefill"] = k4_seamless
             entry["seamless"] = seamless_times
@@ -5600,6 +5856,9 @@ def main() -> int:
             entry["model_axis_dbrx_local_heads"] = AXIS_FAMILY["times"]
             entry["launches_model_axis_uneven"] = UNEVEN["launches"]
             entry["model_axis_deepseek_uneven_heads"] = UNEVEN["times"]
+            entry["launches_model_axis_experts_heads"] = \
+                FAMILY_UNEVEN["launches"]
+            entry["model_axis_dbrx_uneven_heads"] = FAMILY_UNEVEN["times"]
 
     say(f"total: {time.perf_counter() - started:.1f} s")
     say(json.dumps({"kernels": kernels}))
@@ -5678,6 +5937,13 @@ def run_phases(pool, paths) -> tuple:
     t0 = time.perf_counter()
     UNEVEN.update(uneven_phase())
     phase("5f the model axis where it does not divide the heads", t0)
+    t0 = time.perf_counter()
+    FAMILY_UNEVEN.update(family_uneven_phase())
+    phase("5g experts and SSM heads the model axis does not divide", t0)
+    t0 = time.perf_counter()
+    DRYRUN["collectives"] = dry_collectives(UNEVEN.pop("prefill_comm"))
+    phase(f"5h the dry run against the card (granite's part "
+          f"{DRYRUN['granite']['seconds']:.1f} s in phase 9)", t0)
 
     # one line for the kernels, each timed on the main-path graph of its
     # body: kron for WR, the random graph for plain

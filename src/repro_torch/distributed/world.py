@@ -233,6 +233,35 @@ def init_world(rank: Optional[int] = None, size: Optional[int] = None,
     return _CURRENT
 
 
+def init_dry_world(rank: int, mesh) -> World:
+    """Join this process to a dry world as ``rank`` of a mesh ``(D, M)``:
+    a world that moves nothing.  Every rank's device is ``meta``, so
+    tensors have shapes and no storage, and the axes' groups belong to
+    torch's fake process group (``torch.testing._internal.distributed.
+    fake_pg``), whose collectives return at once.  So one process traces
+    one rank of a world of any size (the dry run, :mod:`repro_torch.
+    launch.dryrun`): every :mod:`.comm` op counts its calls and bytes as
+    on a real world and moves nothing.  Asked for by name only;
+    :func:`init_world` never picks it.  Close it with :func:`close_world`
+    (in a ``finally``: a process has one default group)."""
+    global _CURRENT
+    if _CURRENT is not None or dist.is_initialized():
+        raise RuntimeError("init_dry_world: this process is already in a "
+                           "world; close_world() first")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    shape = tuple(int(x) for x in mesh)
+    size = shape[0] * shape[1]
+    if not 0 <= rank < size:
+        raise ValueError(f"rank {rank} is not in a world of {size}")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=size)
+    data, model = _axes(rank, size, mesh_shape(size, shape))
+    _CURRENT = World(rank=rank, size=size, backend="fake",
+                     devices=(torch.device("meta"),) * size,
+                     ident=next(_IDS), mesh=shape, data=data, model=model)
+    return _CURRENT
+
+
 def close_world() -> None:
     """Leave the current world (a no-op without one)."""
     global _CURRENT

@@ -22,7 +22,10 @@ first copied into a contiguous tensor, which the same kernel then reads.
 
 On CUDA tensors it launches the kernel (built at its first launch by
 :mod:`repro_torch.kernels._build`, never at import); on CPU tensors it
-returns the plain version (:mod:`.ref`).  Inputs of another dtype than
+returns the plain version (:mod:`.ref`); on ``meta`` tensors (the dry
+run) it returns the empty output and computes nothing.  On the card and
+on ``meta`` it records the call's work (:func:`work`) for a cost model
+(:mod:`repro_torch.kernels.work`).  Inputs of another dtype than
 float32 or bfloat16, of mixed devices or dtypes, or of mismatched shapes
 raise on either device; on the card a head dim outside :data:`HEAD_DIMS`
 raises too.  :data:`LAUNCHES` counts the kernel's launches: in all under
@@ -36,6 +39,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.kernels import work as kernel_work
 from repro_torch.kernels._build import load_library
 
 from .ref import flash_attention_ref
@@ -145,6 +149,17 @@ def _check(q, k, v, *, for_kernel: bool) -> None:
                              f"launch grid)")
 
 
+def work(q: torch.Tensor, k: torch.Tensor, causal: bool) -> Tuple[int, int]:
+    """``(FLOPs, bytes)`` of one call: q.k and p.v, ``2 hd`` each per
+    (query, key) pair the mask keeps; q, k and v read once, the output
+    written once."""
+    B, S, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    pairs = S * (S + 1) // 2 if causal else S * Sk
+    return (4 * B * H * hd * pairs,
+            q.element_size() * hd * B * (2 * S * H + 2 * Sk * KV))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (B,S,H,hd); k/v: (B,Sk,KV,hd).  Returns (B,S,H,hd) in q's dtype."""
@@ -152,10 +167,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, for_kernel=dev is not None and dev.type == "cuda")
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=bool(causal))
+    if dev.type == "meta":
+        kernel_work.record("flash_attention", *work(q, k, bool(causal)))
+        return q.new_empty(q.shape)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {dev}")
     B, S, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
+    if kernel_work.SINKS:
+        kernel_work.record("flash_attention", *work(q, k, bool(causal)))
     body = _route(q.dtype, hd)
     if body == "tc":
         q, k, v = (t if _tma_ready(t) else

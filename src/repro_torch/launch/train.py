@@ -28,12 +28,12 @@ tensor parallelism over heads, ``d_ff`` and the vocab in blocks of
 ``ceil(n / M)``, K/V heads that ``M`` does not divide replicated, the MoE
 family's experts, the SSM's ``d_inner`` and heads, sequence parallelism and
 FSDP where the config has ``fsdp``); the step is the one-device
-``microbatch=D`` step.  It takes all ten architectures and any ``M`` that
-divides a config's experts and SSM heads (``--mesh 1x3`` trains granite-20b
-SMOKE, whose 4 heads go 2/2/0); one that does not is refused (ROADMAP.md,
-Queue 1, item 18).  On the CPU: ``--mesh 2x2 --device cpu`` (gloo); on the
-cards, NCCL where each rank has a card of its own, gloo where they share
-one.
+``microbatch=D`` step.  It takes all ten architectures at any ``M``,
+experts and SSM heads in blocks of ``ceil(n / M)`` too (``--mesh 1x3``
+trains granite-20b SMOKE, whose 4 heads go 2/2/0, and mamba2-2.7b SMOKE,
+whose 8 SSM heads go 3/3/2).  On the CPU: ``--mesh 2x2 --device cpu``
+(gloo); on the cards, NCCL where each rank has a card of its own, gloo
+where they share one.
 
 Each logged step prints ``loss`` to four places, as the JAX launcher does,
 and the float in full after ``exact``.
@@ -53,7 +53,7 @@ from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.data import DataConfig, synthetic_batch
 from repro_torch.distributed import close_world, init_world, run_world
 from repro_torch.models import build_model
-from repro_torch.models.common import check_model_axis, tree_map_paths
+from repro_torch.models.common import tree_map_paths
 from repro_torch.optim import OptConfig, adamw_init, state_cuts
 from repro_torch.train import build_train_step
 
@@ -75,15 +75,6 @@ def parse_mesh(mesh: str) -> tuple:
     return (parts[0], parts[1] if len(parts) == 2 else 1)
 
 
-def check_mesh(arch: str, mesh: str, smoke: bool = True) -> tuple:
-    """``(D, M)`` of ``--mesh``, refused where ``arch``'s experts or SSM
-    heads do not split over the model axis (ROADMAP.md, Queue 1, item
-    18)."""
-    d, m = parse_mesh(mesh)
-    check_model_axis(get_config(arch, smoke=smoke), m)
-    return d, m
-
-
 def _torchrun() -> bool:
     return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
@@ -96,7 +87,7 @@ def run(arch: str, steps: int, smoke: bool, batch: int, seq: int,
     world of ranks started here (``mesh`` D > 1, or DxM) the params and
     state stay in the ranks: returns (None, None, rank 0's logged
     losses)."""
-    shape = check_mesh(arch, mesh, smoke)
+    shape = parse_mesh(mesh)
     ranks = shape[0] * shape[1]
     args = (arch, steps, smoke, batch, seq, ckpt_dir, simulate_failure,
             microbatch, log_every, lr)
@@ -195,7 +186,7 @@ def main():
                     help="default: the CUDA card; 'cpu' to run on the CPU")
     args = ap.parse_args()
     try:
-        check_mesh(args.arch, args.mesh, args.smoke)
+        parse_mesh(args.mesh)
     except ValueError as e:
         ap.error(str(e))
     run(args.arch, args.steps, args.smoke, args.batch, args.seq,

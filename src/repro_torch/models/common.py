@@ -27,12 +27,14 @@ holds ``[i * block, min((i + 1) * block, n))``), and K/V heads that ``M``
 does not divide are replicated over ``model`` (each rank reads the ones
 its query heads read, :meth:`Par.kv_range`).  The values are the
 reference's, in another layout; a save holds whole leaves in either
-package.  Experts and SSM heads that ``M`` does not divide are refused,
-pointing at ROADMAP.md, Queue 1, item 18 (:func:`check_model_axis`).
-Every family takes the axis: the MoE family's experts are cut over it (the
-expert axis, the router whole), the SSM's ``d_inner`` and heads (the B/C
-projections whole), and the hybrid's shared attention block is placed as
-an attention block.
+package.  Experts and SSM heads go in blocks of ``ceil(n / M)`` too, and
+the SSM's ``d_inner`` in blocks of whole heads, ``ceil(Hs / M) *
+ssm_headdim`` channels (:func:`leaf_place`), so that no head is cut in
+two.  So every configuration takes every ``M``
+(:func:`check_model_axis`).  Every family takes the axis: the MoE
+family's experts are cut over it (the expert axis, the router whole), the
+SSM's ``d_inner`` and heads (the B/C projections whole), and the hybrid's
+shared attention block is placed as an attention block.
 """
 from __future__ import annotations
 
@@ -149,11 +151,21 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 # initializers and the shared numerics
 # ---------------------------------------------------------------------------
+class MetaDraws:
+    """The generator of an init on the ``meta`` device (the dry run): its
+    draws have shapes and no values (torch has no meta generator)."""
+
+    device = torch.device("meta")
+
+
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype,
                in_axis=0) -> torch.Tensor:
     """Normal(0, 1/fan_in) drawn in fp32 on ``gen``'s device, cast to
     ``dtype``.  ``fan_in`` is ``shape[in_axis]`` (the JAX package's rule:
-    ``wo`` of shape (H, hd, D) has ``fan_in = H``)."""
+    ``wo`` of shape (H, hd, D) has ``fan_in = H``).  On ``meta``
+    (:class:`MetaDraws`) an empty tensor of the shape."""
+    if gen.device.type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device=gen.device)
     axes = [in_axis] if isinstance(in_axis, int) else list(in_axis)
     fan_in = math.prod(shape[i] for i in axes)
     std = 1.0 / math.sqrt(max(1, fan_in))
@@ -248,8 +260,6 @@ def tree_map_paths(fn: Callable, tree: Any,
 # ---------------------------------------------------------------------------
 # placement over a world's mesh (the reference's specs and fsdp_spec)
 # ---------------------------------------------------------------------------
-MODEL_AXIS_ITEM = "ROADMAP.md, Queue 1, item 18"
-
 # (dim, axis name, whole length, block): rank i along the axis holds
 # [i * block, min((i + 1) * block, whole)) of the dim
 Cut = Tuple[int, str, int, int]
@@ -315,22 +325,11 @@ def model_block(whole: int, m: int) -> int:
     return -(-whole // m)
 
 
-def _refuse(cfg: ModelConfig, m: int, what: str) -> None:
-    raise ValueError(f"{cfg.name}: {what} over a model axis of {m} (the "
-                     f"reference's sanitize_spec moves the axis to another "
-                     f"dim; the port refuses it, {MODEL_AXIS_ITEM})")
-
-
 def check_model_axis(cfg: ModelConfig, m: int) -> None:
-    """Refuse a model axis of ``m`` ranks that ``cfg`` cannot take: experts
-    or SSM heads that ``m`` does not divide.  Heads, K/V heads, ``d_ff``
-    and the vocab take any ``m`` (module doc)."""
-    if m == 1:
-        return
-    if cfg.family == "moe" and cfg.n_experts % m:
-        _refuse(cfg, m, f"{cfg.n_experts} experts do not split")
-    if cfg.family in ("ssm", "hybrid") and cfg.ssm_heads % m:
-        _refuse(cfg, m, f"{cfg.ssm_heads} SSM heads do not split")
+    """A model axis of ``m`` ranks: every configuration takes any ``m >=
+    1`` (ceil blocks, module doc); an axis of no ranks is refused."""
+    if m < 1:
+        raise ValueError(f"{cfg.name}: a model axis of {m} ranks")
 
 
 def vocab_padded(cfg: ModelConfig) -> int:
@@ -348,6 +347,8 @@ _MODEL_DIM = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "w_in": 1, "w_gate": 1,
               "w_out": 0, "tok": 0, "unembed": 1, "sh_in": 1, "sh_gate": 1,
               "sh_out": 0, "wz": 1, "wx": 1, "wdt": 1, "conv_x": 1,
               "A_log": 0, "Dp": 0, "dt_bias": 0, "norm": 0, "out": 0}
+# the SSM's d_inner leaves, cut in blocks of whole heads
+_D_INNER = ("wz", "wx", "conv_x", "norm", "out")
 # whole on every model rank, each rank's gradient a part: the MoE router
 # and the SSM's B/C projections and convolutions
 _SUM_MODEL = ("router", "wB", "wC", "conv_B", "conv_C")
@@ -366,7 +367,8 @@ def leaf_place(path: Tuple[str, ...], cfg: ModelConfig,
     one for the stacked ``(L, ...)`` leaves as ``P(None, *s)``, and with
     ``fsdp_spec``'s data axis on the first dim the model axis leaves free
     (the first that ``D`` divides); the model blocks ``ceil(n / M)``
-    (:func:`model_block`; the vocab's of the padded vocab), K/V heads that
+    (:func:`model_block`; the vocab's of the padded vocab; ``d_inner``'s
+    of whole SSM heads, ``ceil(Hs / M) * ssm_headdim``), K/V heads that
     ``M`` does not divide whole (``sum_model``); under
     ``opt_moe_dispatch`` the experts' ``w_in`` and ``w_gate`` take it on
     ``d_ff`` (the reference's ``P(model, None, data)``)."""
@@ -387,8 +389,11 @@ def leaf_place(path: Tuple[str, ...], cfg: ModelConfig,
     if mdim is not None:
         mdim += off
         whole = shape[mdim]
-        block = model_block(vocab_padded(cfg) if name in ("tok", "unembed")
-                            else whole, m)
+        if "mix" in path and name in _D_INNER:    # whole SSM heads
+            block = model_block(cfg.ssm_heads, m) * cfg.ssm_headdim
+        else:
+            block = model_block(vocab_padded(cfg) if name in
+                                ("tok", "unembed") else whole, m)
         cuts.append((mdim, "model", whole, block))
     if cfg.fsdp and d > 1 and name in _FSDP:
         first = off + (2 if experts and cfg.opt_moe_dispatch
@@ -499,6 +504,20 @@ class Par:
         if lo == hi:
             return lo // g, lo // g
         return lo // g, (hi - 1) // g + 1
+
+    def expert_range(self, cfg: ModelConfig) -> Tuple[int, int]:
+        """This rank's experts ``[lo, hi)`` (empty on a rank past the last
+        block)."""
+        return axis_range(cfg.n_experts, model_block(cfg.n_experts,
+                                                     self.model.size),
+                          self.model.rank)
+
+    def ssm_head_range(self, cfg: ModelConfig) -> Tuple[int, int]:
+        """This rank's SSM heads ``[lo, hi)``; its ``d_inner`` channels are
+        theirs, ``[lo * ssm_headdim, hi * ssm_headdim)``."""
+        return axis_range(cfg.ssm_heads, model_block(cfg.ssm_heads,
+                                                     self.model.size),
+                          self.model.rank)
 
     def kv_replicated(self, cfg: ModelConfig) -> bool:
         return cfg.n_kv_heads % self.model.size != 0

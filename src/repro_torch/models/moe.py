@@ -15,15 +15,20 @@ The local dispatch (``opt_moe_dispatch``) runs the one-shard form the JAX
 function takes with no mesh; over a world's data axis each rank's rows are
 the reference's data shard (the train step's ``microbatch=D`` form).
 
-Over a world's model axis (``axis``, the expert axis) the experts are cut:
-rank ``r`` holds experts ``[r E/M, (r+1) E/M)`` of ``w_in``, ``w_gate`` and
-``w_out``, and the shared expert column- and row-parallel as the MLP is.
+Over a world's model axis (``axis``, the expert axis) the experts are cut
+in blocks of ``ceil(E / M)``, the last block short or empty: rank ``r``
+holds experts ``[r b, min((r+1) b, E))`` of ``w_in``, ``w_gate`` and
+``w_out`` (``b`` the block), and the shared expert column- and
+row-parallel as the MLP is.
 Tokens are replicated, not exchanged: every model rank is given the same
 tokens, computes the same router logits and routes them the same way (the
 same ``assign``, ``slot`` and ``prob``, the capacity of those ``T``
 tokens), keeps in its slot table only the instances routed to its own
-experts (every other one goes to the dump row), runs its experts over
-``(E/M, C, D)`` and combines its own instances, weighted.  Its output is
+experts (every other one goes to the dump row, whose output is zero), runs its
+experts over ``(E_loc, C, D)`` and combines its own instances, weighted;
+a rank with no experts sends every instance to the dump row, and its
+zero output is still a tensor of the autograd graph, so that it joins
+the block's reduction forward and backward.  Its output is
 this rank's part of the sum, which the block reduces over the axis with the
 shared expert's.  There is no all-to-all.  ``lb_loss`` is computed alike on
 every rank; its gradient flows from the axis's rank 0 alone, so that the
@@ -39,7 +44,8 @@ import torch.nn.functional as F
 
 from repro_torch.moe import route_matching, route_topk
 
-from .common import ModelConfig, activate, dense_init, gelu
+from .common import (ModelConfig, activate, axis_range, dense_init, gelu,
+                     model_block)
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig):
@@ -133,7 +139,8 @@ def _routed(params, x: torch.Tensor, cfg: ModelConfig, axis=None
     assign, slot, prob = _router(cfg)(logits, k, C)
 
     El = params["w_in"].shape[0]                   # this rank's experts
-    first = 0 if axis is None else axis.rank * El
+    first = 0 if axis is None else axis_range(
+        E, model_block(E, axis.size), axis.rank)[0]
     flat_e = assign.reshape(T * k)
     keep = flat_e >= 0
     mine = keep & (flat_e >= first) & (flat_e < first + El)
@@ -143,10 +150,8 @@ def _routed(params, x: torch.Tensor, cfg: ModelConfig, axis=None
     inst = xt[:, None].expand(T, k, D).reshape(T * k, D)
     buf = x.new_zeros((El * C + 1, D)).index_copy_(0, slot_id, inst)
     out_buf = _expert_ffn(params, buf[: El * C].reshape(El, C, D), cfg)
-
-    gathered = torch.where(
-        mine[:, None],
-        out_buf.reshape(El * C, D)[slot_id.clamp(0, El * C - 1)], 0.0)
+    # the dump row's output is zero (a rank with no experts: every row)
+    gathered = F.pad(out_buf.reshape(El * C, D), (0, 0, 0, 1))[slot_id]
     w = prob.reshape(T * k, 1).to(x.dtype)
     return (gathered * w).reshape(T, k, D), _once(
         _aux(logits, assign, keep, E, T * k), axis)

@@ -19,13 +19,15 @@ the decays in float32), so bfloat16 rounds where the JAX function rounds.
 Over a world's model axis (``axis``) the weights given are this rank's:
 ``d_inner`` and the heads cut (``wz``, ``wx``, ``wdt``, ``conv_x`` on
 their last dim, ``A_log``, ``Dp``, ``dt_bias``, ``norm`` and ``out`` on
-their first; the B/C projections and convolutions whole), so the block
-runs on its ``H/M`` heads and ``d_inner/M`` channels, the causal
-convolution on the local channels, and ``out`` is row-parallel: the
-output is this rank's part of the sum, which the block reduces.  The
-gated norm's mean of squares is over the whole ``d_inner``: the ranks'
-sums of squares all-reduced, one all-reduce a layer, whose backward is an
-all-reduce too (``copy_to(reduce_from(...))``).
+their first; the B/C projections and convolutions whole) in blocks of
+``ceil(H / M)`` heads, the last short or empty, ``d_inner`` in the same
+blocks of whole heads; so the block runs on the rank's heads and their
+channels, none included, the causal convolution on the local channels,
+and ``out`` is row-parallel: the output is this rank's part of the sum,
+which the block reduces.  The gated norm's mean of squares is over the
+whole ``d_inner``: the ranks' sums of squares all-reduced and divided by
+``d_inner``, one all-reduce a layer, whose backward is an all-reduce too
+(``copy_to(reduce_from(...))``).
 """
 from __future__ import annotations
 
@@ -81,15 +83,15 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _gated_norm(y, z, scale, eps, axis=None):
-    """The gated RMS norm over ``d_inner``; over a model axis, of which
-    each rank holds ``y``'s channels (module doc)."""
+def _gated_norm(y, z, scale, eps, d_inner: int, axis=None):
+    """The gated RMS norm over the ``d_inner`` channels; over a model
+    axis, of which each rank holds ``y``'s (module doc)."""
     y = y * F.silu(z)
     if axis is None or axis.size == 1:
         var = y.float().square().mean(dim=-1, keepdim=True)
     else:
         ss = y.float().square().sum(dim=-1, keepdim=True)
-        var = copy_to(reduce_from(ss, axis), axis) / (y.shape[-1] * axis.size)
+        var = copy_to(reduce_from(ss, axis), axis) / d_inner
     return (y.float() * torch.rsqrt(var + eps)
             * (1.0 + scale)).to(y.dtype)
 
@@ -173,20 +175,22 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     # jnp.repeat repeats each head's D_h hd times (Tensor.repeat would tile)
     y = (y_intra + y_inter).reshape(B, S, di) \
         + xs * params["Dp"].repeat_interleave(hd)[None, None, :].to(dtype)
-    y = _gated_norm(y, z, params["norm"], cfg.norm_eps, axis)
+    y = _gated_norm(y, z, params["norm"], cfg.norm_eps, cfg.d_inner, axis)
     return torch.einsum("bse,ed->bsd", y, params["out"]), h
 
 
 def init_ssm_cache(cfg: ModelConfig, n_layers: int, batch: int,
                    dtype: Optional[torch.dtype] = None, *, device,
-                   model: int = 1) -> Dict[str, torch.Tensor]:
+                   heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The state ``h`` (L, B, H, hd, N) and the convolution's last K-1
     inputs ``conv`` (L, B, K-1, di + 2N), in the order x, B, C; over a
-    model axis of ``model`` ranks a rank's: ``H/M`` heads, ``di/M``
-    channels (the B/C inputs whole)."""
+    model axis a rank's: its ``heads`` (:meth:`~.common.Par.
+    ssm_head_range`) and their ``heads * hd`` channels (the B/C inputs
+    whole)."""
     dtype = dtype or cfg.tdtype
-    H, hd, N = cfg.ssm_heads // model, cfg.ssm_headdim, cfg.ssm_state
-    K, di = cfg.ssm_conv, cfg.d_inner // model
+    H = cfg.ssm_heads if heads is None else heads
+    hd, N, K = cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_conv
+    di = H * hd
     return {"h": torch.zeros((n_layers, batch, H, hd, N), dtype=dtype,
                              device=device),
             "conv": torch.zeros((n_layers, batch, K - 1, di + 2 * N),
@@ -222,6 +226,7 @@ def mamba_decode_step(params, x: torch.Tensor, h: torch.Tensor,
         "bh,bhp,bn->bhpn", dt.to(x.dtype), xs, Bc)
     y = torch.einsum("bhpn,bn->bhp", h, Cc) \
         + xs * params["Dp"][None, :, None].to(x.dtype)
-    y = _gated_norm(y.reshape(B, di), z, params["norm"], cfg.norm_eps, axis)
+    y = _gated_norm(y.reshape(B, di), z, params["norm"], cfg.norm_eps,
+                    cfg.d_inner, axis)
     out = torch.einsum("be,ed->bd", y, params["out"])[:, None]
     return out, h, conv_state

@@ -49,7 +49,7 @@ from . import attention as att
 from . import mlp as mlp_mod
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .common import (ModelConfig, Par, dense_init, gather_cuts,
+from .common import (MetaDraws, ModelConfig, Par, dense_init, gather_cuts,
                      model_block, rms_norm, take_cuts, tree_leaves, tree_map,
                      tree_map_paths, tree_places, vocab_padded)
 
@@ -264,14 +264,19 @@ class Model:
              ) -> Dict[str, Any]:
         """Parameters drawn from ``rng`` (a seed, or a generator whose
         device is then used); in a world this rank's slices of them, drawn
-        whole a layer at a time (on the rank's device by default)."""
-        if isinstance(rng, torch.Generator):
+        whole a layer at a time (on the rank's device by default).  On
+        ``meta`` their shapes alone (:class:`~.common.MetaDraws`)."""
+        if isinstance(rng, (torch.Generator, MetaDraws)):
             gen = rng
         else:
             if device is None and self.world is not None:
                 device = self.world.device
-            gen = torch.Generator(device=resolve_device(device))
-            gen.manual_seed(int(rng))
+            device = resolve_device(device)
+            if device.type == "meta":       # shapes only (the dry run)
+                gen = MetaDraws()
+            else:
+                gen = torch.Generator(device=device)
+                gen.manual_seed(int(rng))
         cfg = self.cfg
         cut = None
         if self.world is not None:
@@ -504,9 +509,10 @@ class Model:
         cache: Dict[str, Any] = {"pos": 0}
         par = self.par
         if cfg.family in ("ssm", "hybrid"):
+            lo, hi = (0, cfg.ssm_heads) if par is None else \
+                par.ssm_head_range(cfg)
             cache.update(ssm_mod.init_ssm_cache(
-                cfg, cfg.n_layers, batch_size, device=dev,
-                model=1 if par is None else par.model.size))
+                cfg, cfg.n_layers, batch_size, device=dev, heads=hi - lo))
             if cfg.family == "hybrid" and cfg.shared_every:
                 # each invocation sees other activations: its own slice
                 n_inv = cfg.n_layers // cfg.shared_every

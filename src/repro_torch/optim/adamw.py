@@ -254,7 +254,9 @@ def _zip(*trees):
 
 
 def _block(t: torch.Tensor) -> int:
-    return SLAB if t.device.type == "cuda" else CPU_BLOCK
+    """:data:`CPU_BLOCK` on the CPU, else :data:`SLAB` (the card's; on
+    ``meta`` the dry run prices the card's update)."""
+    return CPU_BLOCK if t.device.type == "cpu" else SLAB
 
 
 def _blocks(n: int, block: int) -> list:

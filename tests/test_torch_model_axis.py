@@ -11,10 +11,10 @@ its padded length).
   whole, where the reference moves the axis to ``head_dim``); a model axis
   that does not divide the heads or K/V heads is taken (blocks of
   ``ceil(H / M)``; worlds of such axes are
-  ``test_torch_model_axis_uneven.py``'s), one that does not divide the
-  experts or SSM heads is refused, naming "item 18" (the MoE, SSM and
-  hybrid families over the model axis are
-  ``test_torch_model_axis_moe_ssm.py``'s);
+  ``test_torch_model_axis_uneven.py``'s), and so is every model axis of
+  every architecture from 2 to 16 (the MoE, SSM and hybrid families over
+  the model axis are ``test_torch_model_axis_moe_ssm.py``'s and
+  ``test_torch_model_axis_experts_heads.py``'s);
 * each rank's ``init`` its slices of the one-device init bit for bit
   (``Model.shard``); the forward's logits (gathered over ``model``)
   against the port's one device within ``rtol = atol = 1e-5``, and against the JAX package's
@@ -50,7 +50,7 @@ import torch_world_ranks as ranks
 from repro.configs import get_config as jax_get_config
 from repro.models import build_model as jax_build_model
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.distributed import run_world
 from repro_torch.interop import lm_params_to_reference
 from repro_torch.models import build_model
@@ -128,22 +128,15 @@ def test_placement_follows_reference_specs(arch):
 
 
 def test_model_axis_refusals():
-    for arch, m, what in (("dbrx-132b", 8, "4 experts"),
-                          ("llama4-maverick-400b-a17b", 8, "4 experts"),
-                          ("mamba2-2.7b", 16, "8 SSM heads"),
-                          ("zamba2-7b", 16, "8 SSM heads")):
-        cfg = get_config(arch, smoke=True)
-        if cfg.family == "moe":            # heads that split over 8
-            cfg = dataclasses.replace(cfg, n_heads=8, n_kv_heads=8,
-                                      head_dim=8)
-        with pytest.raises(ValueError, match=f"{what} do not split.*"
-                           f"Queue 1, item 18"):
-            check_model_axis(cfg, m)
-        for ok in (1, 2):
-            check_model_axis(get_config(arch, smoke=True), ok)
-    # heads and K/V heads that M does not divide are taken (ceil blocks,
-    # K/V heads replicated): granite's 4 heads over 3, 6 heads on 3 K/V
-    # heads over 2
+    """Nothing is refused any more: every architecture, FULL and SMOKE,
+    takes every model axis from 2 to 16 (experts and SSM heads in ceil
+    blocks too); heads and K/V heads that ``M`` does not divide are
+    taken (granite's 4 heads over 3, 6 heads on 3 K/V heads over 2)."""
+    for arch in ARCH_NAMES:
+        for smoke in (False, True):
+            cfg = get_config(arch, smoke=smoke)
+            for m in range(2, 17):
+                check_model_axis(cfg, m)
     cfg = get_config("granite-20b", smoke=True)
     check_model_axis(cfg, 3)
     odd = dataclasses.replace(cfg, n_heads=6, n_kv_heads=3, head_dim=16)

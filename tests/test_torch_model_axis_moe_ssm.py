@@ -11,10 +11,9 @@ with their FULL configs' ``fsdp`` and ``remat``.
   and off: the dim ``model`` cuts and the dim ``data`` cuts; the leaves
   whole on every model rank whose gradient is a rank's part
   (``sum_model``: the router, the B/C projections and convolutions);
-  ``check_model_axis`` accepting every FULL config of the four families
-  at ``M`` = 2, 4, 8 and 16 (llama4-maverick's 40 heads at 16 in blocks
-  of 3), and refusing experts and SSM heads that ``M`` does not divide
-  (item 18);
+  ``check_model_axis`` accepting every config of the four families at
+  every ``M`` from 2 to 16 (llama4-maverick's 40 heads at 16 in blocks
+  of 3; experts and SSM heads in ceil blocks);
 * each rank's ``init`` its slices of the one-device init bit for bit; the
   forward's logits (gathered over ``model``) within ``rtol = atol =
   1e-5`` of the port's one device and of the JAX package's forward from
@@ -131,26 +130,20 @@ def test_placement_follows_reference_specs(arch, dispatch):
 
 
 def test_model_axis_refusals():
-    """Every FULL config of the four families takes ``M`` of 2, 4, 8 and
-    16, llama4-maverick's 40 attention heads at 16 too (blocks of 3, the
-    last two ranks empty); experts and SSM heads that ``M`` does not
-    divide are refused, pointing at item 18, and nothing else is: a
-    ``d_ff`` or heads that ``M`` does not divide are taken."""
+    """Every FULL and SMOKE config of the four families takes every ``M``
+    from 2 to 16, llama4-maverick's 40 attention heads at 16 too (blocks of
+    3, the last two ranks empty): experts and SSM heads that ``M`` does
+    not divide go in ceil blocks, as a ``d_ff`` or heads do."""
     for arch in FAMILIES:
-        cfg = get_config(arch)
-        for m in (1, 2, 4, 8, 16):
-            check_model_axis(cfg, m)
+        for smoke in (False, True):
+            cfg = get_config(arch, smoke=smoke)
+            for m in range(1, 17):
+                check_model_axis(cfg, m)
     moe = get_config("dbrx-132b", smoke=True)
-    with pytest.raises(ValueError, match="4 experts do not split.*item 18"):
-        check_model_axis(dataclasses.replace(moe, n_heads=8, n_kv_heads=8,
-                                             head_dim=16), 8)
-    ssm = get_config("mamba2-2.7b", smoke=True)
-    with pytest.raises(ValueError, match="8 SSM heads do not split.*item 18"):
-        check_model_axis(ssm, 16)
-    check_model_axis(ssm, 8)                # no attention heads to split
+    check_model_axis(dataclasses.replace(moe, n_heads=8, n_kv_heads=8,
+                                         head_dim=16), 8)
     hybrid = get_config("zamba2-7b", smoke=True)
     check_model_axis(dataclasses.replace(hybrid, d_ff=126), 4)
-    check_model_axis(hybrid, 8)             # 4 heads over 8: 1/1/1/1/0/...
 
 
 @pytest.mark.parametrize("arch", ARCHS)

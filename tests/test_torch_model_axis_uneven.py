@@ -32,9 +32,9 @@ one a query head where its block straddles groups unevenly).
   bit, and one more step from it is that step from the world's tree bit
   for bit and within the gate of the uninterrupted one-device run;
 * (iv) placement alone, no world, every FULL config at ``M`` in {2, 3, 4,
-  8, 16} and ``D`` in {1, 2, 16}: ``check_model_axis`` refuses only
-  experts or SSM heads that ``M`` does not divide (naming item 18); the
-  model blocks of every leaf tile its dim exactly once; ``kv_range``
+  8, 16} and ``D`` in {1, 2, 16}: ``check_model_axis`` takes every ``M``
+  from 2 to 16; the model blocks of every leaf tile its dim exactly once
+  (the SSM's ``d_inner`` in blocks of whole heads); ``kv_range``
   covers exactly the K/V heads each rank's heads read, and ``kv_index``
   maps each local head to its own; at SMOKE size, the bytes a rank keeps
   (``take_cuts`` of the whole tree) are the sum of ``leaf_place``'s cuts.
@@ -290,43 +290,33 @@ def paths():
     return {a: _paths(a) for a in ARCH_NAMES}
 
 
-def _refused(cfg, m) -> str:
-    if cfg.family == "moe" and cfg.n_experts % m:
-        return "experts"
-    if cfg.family in ("ssm", "hybrid") and cfg.ssm_heads % m:
-        return "SSM heads"
-    return ""
-
-
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_check_model_axis_refuses_only_experts_and_ssm_heads(arch):
+    """No model axis is refused any more: every FULL config takes every
+    ``M`` from 2 to 16, experts and SSM heads in ceil blocks."""
     cfg = get_config(arch)
-    for m in MESH_M:
-        what = _refused(cfg, m)
-        if what:
-            with pytest.raises(ValueError, match=f"{what} do not split.*"
-                               f"Queue 1, item 18"):
-                check_model_axis(cfg, m)
-        else:
-            check_model_axis(cfg, m)
+    for m in range(2, 17):
+        check_model_axis(cfg, m)
     # the three FULL configs whose heads M = 16 does not divide
     if arch in ("deepseek-coder-33b", "paligemma-3b",
                 "llama4-maverick-400b-a17b"):
-        assert cfg.n_heads % 16 and not _refused(cfg, 16)
+        assert cfg.n_heads % 16
 
 
 @pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_model_blocks_tile_every_leaf(arch, paths):
     cfg = get_config(arch)
     for m in MESH_M:
-        if _refused(cfg, m):
-            continue
         for d in MESH_D:
             for path in paths[arch]:
                 place = leaf_place(path, cfg, (d, m))
                 for dim, axis, whole, block in place.cuts:
                     n = m if axis == "model" else d
-                    assert block == -(-whole // n) or (
+                    d_inner = "mix" in path and path[-1] in (
+                        "wz", "wx", "conv_x", "norm", "out")
+                    assert block == (
+                        -(-cfg.ssm_heads // n) * cfg.ssm_headdim if d_inner
+                        and axis == "model" else -(-whole // n)) or (
                         path[-1] in ("tok", "unembed") and axis == "model")
                     spans = [axis_range(whole, block, i) for i in range(n)]
                     assert spans[0][0] == 0 and spans[-1][1] == whole
@@ -347,8 +337,6 @@ def test_kv_range_covers_the_heads_read(arch):
     H, KV = cfg.n_heads, cfg.n_kv_heads
     G = H // KV
     for m in MESH_M:
-        if _refused(cfg, m):
-            continue
         seen = []
         for i in range(m):
             par = _par(cfg, 1, m, mi=i)
@@ -412,8 +400,6 @@ def test_rank_bytes_are_the_sum_of_the_cuts(arch):
     leaves = []
     tree_map_paths(lambda p, t: leaves.append((p, t)), whole)
     for m in MESH_M:
-        if _refused(cfg, m):
-            continue
         for d in MESH_D:
             cfg_m = dataclasses.replace(cfg, fsdp=True) if d > 1 else cfg
             for mi in range(m):

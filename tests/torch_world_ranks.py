@@ -235,7 +235,9 @@ VARIANTS = {"+dispatch": dict(opt_moe_dispatch=True),
             # query heads a model axis does not divide (head_dim kept even)
             "+h6": dict(n_heads=6, head_dim=16),
             "+h8": dict(n_heads=8, head_dim=16),
-            "+h6kv6": dict(n_heads=6, n_kv_heads=6, head_dim=16, d_ff=126)}
+            "+h6kv6": dict(n_heads=6, n_kv_heads=6, head_dim=16, d_ff=126),
+            # two SSM heads of 64 channels: 1/1/0 over a model axis of 3
+            "+ssm2": dict(ssm_headdim=64)}
 ENC_LEN = 16
 
 
@@ -479,6 +481,70 @@ def axis_serve(world, arch, batch, seq, decode_steps) -> dict:
                 ssm=(tuple(cache["h"].shape), tuple(cache["conv"].shape))
                 if "h" in cache else None, routes=routes,
                 shard_is_init=same)
+
+
+def axis_mamba(world, arch, batch, seq) -> dict:
+    """The first mamba block's mixer (``mamba_forward``) of ``arch``'s
+    seeded init on this rank's SSM heads and their ``d_inner`` channels,
+    cut here in blocks of ``ceil(Hs / M)`` heads, not by ``leaf_place``:
+    its output (this rank's part of the sum) and its final state."""
+    from repro_torch.models import build_model, ssm
+    from repro_torch.models.common import axis_range, model_block, tree_map
+    cfg = axis_config(arch)
+    Hs, m = cfg.ssm_heads, world.model.size
+    lo, hi = axis_range(Hs, model_block(Hs, m), world.model.rank)
+    hd = cfg.ssm_headdim
+    heads, chans = slice(lo, hi), slice(lo * hd, hi * hd)
+    whole = tree_map(lambda t: t[0], build_model(cfg).init(
+        0, device="cpu")["layers"]["mix"])
+    cut = {"wz": (1, chans), "wx": (1, chans), "conv_x": (1, chans),
+           "wdt": (1, heads), "A_log": (0, heads), "Dp": (0, heads),
+           "dt_bias": (0, heads), "norm": (0, chans), "out": (0, chans)}
+    mine = {k: (t if k not in cut else t.narrow(
+        cut[k][0], cut[k][1].start, cut[k][1].stop - cut[k][1].start))
+        for k, t in whole.items()}
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (batch, seq, cfg.d_model)).astype(np.float32))
+    y, h = ssm.mamba_forward(mine, x, cfg, axis=world.model)
+    return dict(y=y, h=h)
+
+
+def dry_step_costs(world, arch, kind, batch, seq) -> dict:
+    """One ``kind`` step ("train", "prefill" or "decode") of ``arch``'s
+    SMOKE config (its FULL config's ``fsdp`` and ``remat``) over
+    ``world`` (None: one device) on the CPU, as the dry run builds it,
+    from the seeded init: its costs under ``hlo_cost.analyze`` (the
+    collectives' calls and bytes by axis and op among them)."""
+    from repro_torch.configs.shapes import ShapeCell, make_inputs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_cost import analyze
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import (batch_rows, build_prefill_step,
+                                   build_serve_step, build_train_step)
+    cfg = axis_config(arch)
+    shape = ShapeCell(kind, seq, batch, kind)
+    model = build_model(cfg, world)
+    p = model.init(0, device="cpu")
+    inputs = make_inputs(cfg, shape, seed=1, device="cpu")
+    if kind == "train":
+        opt = dryrun.opt_config_for(cfg)
+        state = adamw_init(p, opt, world,
+                           None if world is None else model.places(p))
+        cost = analyze(build_train_step(model, opt), p, state, inputs)
+    elif kind == "prefill":
+        cost = analyze(build_prefill_step(model), p,
+                       batch_rows(inputs, world))
+    else:
+        enc_len = max(cfg.frontend_len, 1024) if cfg.enc_layers else 0
+        cache = model.init_cache(
+            batch // (1 if world is None else world.data.size), seq,
+            enc_len=enc_len, device="cpu")
+        cache["pos"] = seq - 1
+        cost = analyze(build_serve_step(model), p, cache,
+                       batch_rows(inputs, world)["tokens"])
+    cost.pop("result")
+    return cost
 
 
 def axis_remesh(world, mesh) -> dict:
