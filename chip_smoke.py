@@ -104,9 +104,22 @@ What it does, in order; any failure raises and the exit code is not 0:
    walls, each rank's peak device memory, bytes handed to each merge and
    whether gloo took the card tensors printed; the world of 2 then trains
    mamba2-2.7b at full width cut to 4 layers two steps (ZeRO-1) and saves
-   collectively; (b) a world of one NCCL rank in this process: kron-21
+   collectively; before that, the world of 2 runs the service's lane over
+   a world: rank 0 a ``MatchingService`` over step 6's ladder with a mesh
+   of the world, rank 1 ``serve_followers``; kron-21 (past the ladder's
+   top) takes ``route="sharded"``, certified, at scipy's cardinality, every
+   rank's state step 2's (by digest); an in-bucket graph takes
+   ``route="bucket"`` on rank 0 alone (no header sent); on step 5b's
+   oversize graph a poisoned request is quarantined, a flush thread killed
+   before a sharded dispatch is restarted, and one more request is served
+   on both ranks; ``close()`` releases rank 1, whose served count equals
+   rank 0's ``sharded`` metric; K1a launched once a level on each rank of
+   each lane run (counts set to 0 just before each run on rank 0 and
+   before rank 1's loop, read just after), the lane's wall printed beside
+   the kron row's; (b) a world of one NCCL rank in this process: kron-21
    cold and warm, step 2's state and host syncs (the merge captured in the
-   level's graph), and mamba2-2.7b FULL two steps through the world's train
+   level's graph), the same through the service's lane (its host syncs
+   step 2's), and mamba2-2.7b FULL two steps through the world's train
    step (ZeRO-1; the peak memory printed beside the one-device step's
    50.02 GB recorded in PERF.md), held in step 18
    to its first two steps on one device (``TRAIN_GATE_RTOL``; bit for bit
@@ -1583,10 +1596,85 @@ def world_solve(world, g, path: str, kw: dict, ws: str) -> dict:
                 peak_bytes=torch.cuda.max_memory_allocated(), **m.last_counts)
 
 
+def lane_service(world, faults=None):
+    """A ``MatchingService`` over step 6's ladder whose oversize lane spans
+    ``world`` (this must be rank 0)."""
+    from repro_torch.matching import MatcherConfig, make_mesh
+    from repro_torch.serving import Bucketizer, MatchingService, ladder
+    return MatchingService(
+        bucketizer=Bucketizer(ladder(**SERVE_LADDER), oversize="shard",
+                              validate=True, device=world.device),
+        config=MatcherConfig(), warm_start="cheap",
+        mesh=make_mesh((world.size,), ("data",)), faults=faults)
+
+
+def lane_run(svc, g, **kw) -> dict:
+    """One request through ``svc``, K1a counted from 0 just before and read
+    just after; its route, state digest, counts, cardinality and wall."""
+    from repro_torch.kernels.frontier_expand import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = svc.submit(g, **kw).result(timeout=600)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1a = LAUNCHES["frontier_expand_fused_wr"]
+    out = dict(route=res.route, wall_s=wall, k1a=k1a,
+               digest=digest(res.state.cmatch, res.state.rmatch),
+               phases=int(res.state.phases),
+               fallbacks=int(res.state.fallbacks), certified=res.certified,
+               cardinality=res.cardinality)
+    if res.route == "sharded":
+        counts = svc.sharded_matcher().last_counts
+        out.update(levels=counts["push_levels"],
+                   host_syncs=counts["host_syncs"], variant=res.stats.variant)
+    return out
+
+
+def lane_rank(world, graph_files: dict) -> dict:
+    """Phase 5c(a)'s lane on a rank of the gloo world of 2 (module doc):
+    rank 0 serves kron-21, an in-bucket graph and the chaos pair on step
+    5b's oversize graph; rank 1 follows, K1a counted over its loop."""
+    from repro_torch.graphs import random_bipartite
+    from repro_torch.kernels.frontier_expand import LAUNCHES, reset_launches
+    from repro_torch.serving import FaultInjector, serve_followers
+    if world.rank:
+        torch.cuda.synchronize()
+        reset_launches()
+        out = serve_followers(world)
+        torch.cuda.synchronize()
+        out["k1a"] = LAUNCHES["frontier_expand_fused_wr"]
+        return out
+    faults = FaultInjector(seed=0)
+    t0 = time.perf_counter()
+    svc = lane_service(world, faults)
+    out = dict(start_s=time.perf_counter() - t0)
+    out["kron"] = lane_run(svc, load_graph(graph_files[KRON]))
+    sent = svc.lane.sent["run"]
+    n = SERVE_LADDER["min_vertices"] * 5 // 8         # the ladder's first
+    out["bucket"] = lane_run(svc, random_bipartite(n, n, 4.0, seed=7))
+    out["bucket"]["headers"] = svc.lane.sent["run"] - sent
+    big = load_graph(graph_files["big"])
+    faults.poison("bad")
+    bad = svc.submit(big, tag="bad").exception(timeout=600)
+    faults.cure("bad")
+    faults.kill_thread_after(0)
+    killed = svc.submit(big).exception(timeout=600)
+    out["chaos"] = dict(poisoned=type(bad).__name__,
+                        killed=type(killed).__name__)
+    out["after"] = lane_run(svc, big)
+    t0 = time.perf_counter()
+    svc.close()
+    out.update(close_s=time.perf_counter() - t0,
+               snap=svc.metrics.snapshot(), sent=dict(svc.lane.sent))
+    return out
+
+
 def world_rank(world, graph_files: dict, runs, train: bool, ckpt: str,
                axis_ckpt: str, refs: dict, family_ckpt: str):
     """A rank of phase 5c: every run of ``runs`` (cold, and warm where
-    WORLD_WARM says), then, with ``train``, WORLD_TRAIN_STEPS data-parallel
+    WORLD_WARM says), then, in the world of 2, the service's lane
+    (``lane_rank``), then, with ``train``, WORLD_TRAIN_STEPS data-parallel
     steps of mamba2 cut to WORLD_TRAIN_CUTS, saved at ``ckpt``.  Then the
     same ranks as phase 5d's mesh (``World.remesh``: a world of 2 as 1 x 2,
     of 4 as 2 x 2) run phase 5d's part (saving at ``axis_ckpt``) and phase
@@ -1610,6 +1698,12 @@ def world_rank(world, graph_files: dict, runs, train: bool, ckpt: str,
         compile_cache_clear()
     del graphs
     torch.cuda.empty_cache()
+    if world.size == 2:
+        t0 = time.perf_counter()
+        out["lane"] = lane_rank(world, graph_files)
+        out["lane_s"] = time.perf_counter() - t0
+        compile_cache_clear()
+        torch.cuda.empty_cache()
     dynamo.join()
     if train:
         out["train"] = world_train(world, ckpt)
@@ -1727,6 +1821,66 @@ def world_checks(size, results, phase2, wants_digest) -> dict:
     return launches
 
 
+def world_lane_checks(results, phase2, wants, wants_digest,
+                      big_want) -> int:
+    """Phase 5c(a)'s lane checks (module doc) on the gloo world of 2's
+    results; returns the K1a launches of its runs on every rank."""
+    lane, follower = results[0]["lane"], results[1]["lane"]
+    single_row, single = phase2[(KRON, "jnp")]
+    kron, after, snap = lane["kron"], lane["after"], lane["snap"]
+    kron_row = results[0]["runs"][0]["cold"]
+    say("world lane:", json.dumps(dict(
+        ranks=2, backend="gloo", kron_wall_s=kron["wall_s"],
+        world_kron_cold_wall_s=kron_row["wall_s"],
+        single_warm_wall_s=single_row["warm_wall_s"],
+        **{k: lane[k] for k in ("start_s", "close_s", "chaos", "sent")},
+        kron=kron, bucket=lane["bucket"], after=after,
+        follower={k: follower[k] for k in ("served", "failed", "idle",
+                                           "k1a", "errors")},
+        lane_s=results[0]["lane_s"])))
+    for what, run, want, digest_want in (
+            ("kron-21", kron, wants[KRON], wants_digest[(KRON, "jnp")]),
+            ("the oversize graph after the chaos pair", after, big_want,
+             follower["runs"][1]["digest"] if len(follower["runs"]) > 1
+             else None)):
+        if run["route"] != "sharded" or run["variant"] != \
+                "sharded-apfb-gpubfs_wr-ct@2":
+            fail(f"the lane: {what} took {run['route']} "
+                 f"({run.get('variant')})")
+        if not run["certified"] or run["cardinality"] != want:
+            fail(f"the lane: {what} at {run['cardinality']} (scipy's "
+                 f"{want}), certified {run['certified']}")
+        if run["digest"] != digest_want:
+            fail(f"the lane: {what}'s state on rank 0 differs from "
+                 f"{'step 2' if run is kron else 'rank 1'}'s")
+        if not 0 < run["k1a"] == run["levels"]:
+            fail(f"the lane: {what}: K1a launched {run['k1a']} times on "
+                 f"rank 0 for {run['levels']} levels")
+    if follower["served"] != 2 or follower["failed"] or \
+            follower["runs"][0]["digest"] != kron["digest"] or \
+            [kron["phases"], kron["fallbacks"], kron["certified"]] != \
+            list(single[2:]):
+        fail(f"the lane: rank 1 served {follower['served']}, failed "
+             f"{follower['failed']} ({follower['errors']}), or kron's state "
+             f"differs from step 2's")
+    if follower["k1a"] != kron["levels"] + after["levels"]:
+        fail(f"the lane: K1a launched {follower['k1a']} times on rank 1 for "
+             f"{kron['levels'] + after['levels']} levels")
+    if lane["bucket"]["route"] != "bucket" or lane["bucket"]["headers"]:
+        fail(f"the in-bucket request took {lane['bucket']['route']} with "
+             f"{lane['bucket']['headers']} headers sent")
+    if lane["chaos"] != dict(poisoned="PoisonedGraphFault",
+                             killed="FlushThreadDiedError") or \
+            snap["quarantined"] != 1 or snap["restarts"] != 1:
+        fail(f"the lane's chaos pair: {lane['chaos']}, quarantined "
+             f"{snap['quarantined']}, restarts {snap['restarts']}")
+    if snap["sharded"] != follower["served"] or lane["sent"]["run"] != 2 \
+            or lane["sent"]["stop"] != 1:
+        fail(f"the lane: rank 0's sharded metric {snap['sharded']}, rank "
+             f"1 served {follower['served']}, headers {lane['sent']}")
+    return kron["k1a"] + after["k1a"] + follower["k1a"]
+
+
 def nccl_world_of_one(graphs, phase2, wants_digest) -> dict:
     """Phase 5c(b): a world of one NCCL rank in this process.  kron-21
     under ``MatcherConfig()`` / cheap, cold then warm: phase 2's state,
@@ -1771,6 +1925,23 @@ def nccl_world_of_one(graphs, phase2, wants_digest) -> dict:
                      f"for {row['levels']} levels")
             for body in KERNELS:
                 launches[body] += row["launches"][body]
+        # the service's lane over this world (no other rank to follow)
+        svc = lane_service(world)
+        row = lane_run(svc, graphs[KRON])
+        svc.close()
+        say("world lane, nccl 1:", json.dumps(dict(
+            single_host_syncs=single_row["host_syncs"],
+            single_warm_wall_s=single_row["warm_wall_s"], **row)))
+        if row["route"] != "sharded" or \
+                row["digest"] != wants_digest[(KRON, "jnp")] or \
+                row["host_syncs"] != single_row["host_syncs"] or \
+                not 0 < row["k1a"] == row["levels"]:
+            fail(f"the lane over an NCCL world of one: route "
+                 f"{row['route']}, {row['host_syncs']} host syncs (step 2: "
+                 f"{single_row['host_syncs']}), K1a {row['k1a']} for "
+                 f"{row['levels']} levels, or the state differs from step "
+                 f"2's")
+        launches["frontier_expand_fused_wr"] += row["k1a"]
         compile_cache_clear()
         torch.cuda.empty_cache()
 
@@ -1858,18 +2029,20 @@ def world_train_checks(result, ckpt: str) -> dict:
 
 
 def world_phase(graphs, phase2, axis_ckpt: str, refs: dict,
-                family_ckpt: str) -> tuple:
+                family_ckpt: str, wants, extra) -> tuple:
     """Phase 5c (module doc): (a) gloo worlds of WORLD_SIZES ranks on the
-    card, the world of 2 also training, (b) an NCCL world of one rank in
-    this process, (c) the world of 2's training against one device.
-    ``phase2``: (graph index, path) -> (row, warm outcome) of phase 2.
+    card, the world of 2 also running the service's lane and training, (b)
+    an NCCL world of one rank in this process, (c) the world of 2's
+    training against one device.  ``phase2``: (graph index, path) -> (row,
+    warm outcome) of phase 2; ``wants``: scipy's cardinalities of the
+    main-path graphs; ``extra``: phase 5b's pending graphs.
     The worlds of (a) then run phase 5d's ranks (saving at
     ``axis_ckpt``) and phase 5e's (against ``refs``, saving at
     ``family_ckpt``).  Returns (per kernel body the launches of every
     rank's runs, phase 5d's and phase 5e's rank results by world size,
     the seconds the ranks spent on each)."""
     from repro_torch.distributed import run_world
-    wants = {k: digest(v[1][0], v[1][1]) for k, v in phase2.items()}
+    wants_digest = {k: digest(v[1][0], v[1][1]) for k, v in phase2.items()}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_world_")
     ckpt = os.path.join(HERE, "build", "chip_smoke_world_ckpt")
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -1880,6 +2053,10 @@ def world_phase(graphs, phase2, axis_ckpt: str, refs: dict,
         for gi in {r[0] for r in SHARDED_RUNS}:
             files[gi] = os.path.join(tmp, f"graph{gi}.npz")
             save_graph(graphs[gi], files[gi])
+        big, big_want, *_ = extra[1].get()
+        files["big"] = os.path.join(tmp, "big.npz")
+        save_graph(big, files["big"])
+        del big
         trained = None
         for size in WORLD_SIZES:
             t0 = time.perf_counter()
@@ -1890,23 +2067,28 @@ def world_phase(graphs, phase2, axis_ckpt: str, refs: dict,
             axis_s += max(r["axis_s"] for r in results)
             family[size] = [r["family"] for r in results]
             family_s += max(r["family_s"] for r in results)
+            lane = (f"the service's lane {results[0]['lane_s']:.1f} s, "
+                    if "lane_s" in results[0] else "")
             say(f"phase 5c, a gloo world of {size} on the card: "
-                f"{time.perf_counter() - t0:.1f} s, of which phase 5d's "
-                f"ranks {max(r['axis_s'] for r in results):.1f} s, phase "
-                f"5e's {max(r['family_s'] for r in results):.1f} s")
+                f"{time.perf_counter() - t0:.1f} s, of which {lane}phase "
+                f"5d's ranks {max(r['axis_s'] for r in results):.1f} s, "
+                f"phase 5e's {max(r['family_s'] for r in results):.1f} s")
             if {r["backend"] for r in results} != {"gloo"}:
                 fail(f"ranks sharing the card chose "
                      f"{[r['backend'] for r in results]}")
             for body, n in world_checks(size, results, phase2,
-                                        wants).items():
+                                        wants_digest).items():
                 launches[body] += n
             if size == 2:
+                launches["frontier_expand_fused_wr"] += world_lane_checks(
+                    results, phase2, wants, wants_digest, big_want)
                 trained = results[0]["train"]
                 if any(r["train"]["losses"] != trained["losses"]
                        for r in results):
                     fail("the ranks' losses differ")
         t0 = time.perf_counter()
-        for body, n in nccl_world_of_one(graphs, phase2, wants).items():
+        for body, n in nccl_world_of_one(graphs, phase2,
+                                         wants_digest).items():
             launches[body] += n
         say(f"phase 5c, the NCCL world of one: "
             f"{time.perf_counter() - t0:.1f} s")
@@ -5918,7 +6100,7 @@ def run_phases(pool, paths) -> tuple:
     for d in (axis_ckpt, family_ckpt):
         shutil.rmtree(d, ignore_errors=True)
     world, (axis, family), (axis_s, family_s) = world_phase(
-        graphs, phase2, axis_ckpt, refs, family_ckpt)
+        graphs, phase2, axis_ckpt, refs, family_ckpt, wants, extra)
     say(f"phase 5c worlds of ranks: "
         f"{time.perf_counter() - t0 - axis_s - family_s:.1f} s (less phase "
         f"5d's ranks, {axis_s:.1f} s, and 5e's, {family_s:.1f} s)")

@@ -69,8 +69,9 @@ class World:
     """This process's place in a world: its ``rank`` of ``size``, the
     ``backend``, every rank's device (``devices[r]``), ``ident``, a
     number no other world of this process has had (captured programs and
-    cache entries are keyed by it), and the ``mesh`` ``(D, M)`` with this
-    rank's ``data`` and ``model`` axes."""
+    cache entries are keyed by it), the ``mesh`` ``(D, M)`` with this
+    rank's ``data`` and ``model`` axes, and the ``timeout`` (seconds) a
+    collective may wait for a peer."""
 
     rank: int
     size: int
@@ -80,6 +81,7 @@ class World:
     mesh: Tuple[int, int]
     data: Axis
     model: Axis
+    timeout: float = DEFAULT_TIMEOUT
 
     @property
     def device(self) -> torch.device:
@@ -229,7 +231,8 @@ def init_world(rank: Optional[int] = None, size: Optional[int] = None,
         timeout=datetime.timedelta(seconds=timeout), **kw)
     data, model = _axes(rank, size, shape)
     _CURRENT = World(rank=rank, size=size, backend=backend, devices=devices,
-                     ident=next(_IDS), mesh=shape, data=data, model=model)
+                     ident=next(_IDS), mesh=shape, data=data, model=model,
+                     timeout=float(timeout))
     return _CURRENT
 
 

@@ -12,15 +12,22 @@ warmup, per-family, and service-level metrics.
     python -m repro_torch.launch.serve_matching --smoke --device cpu
     python -m repro_torch.launch.serve_matching --rate 500 --requests 256
     python -m repro_torch.launch.serve_matching --smoke --chaos  # + drill
+    python -m repro_torch.launch.serve_matching --smoke --device cpu --world 2
 
 ``--smoke`` shrinks the trace and asserts cardinality parity against a
 direct ``Matcher.run`` for every request and, where the service has a
-mesh, sends one graph larger than every bucket down the sharded lane.
-``--device`` picks where the service runs (default: the CUDA card).  The
-mesh: ``--shards D`` puts D shards on that device; by default none.  (The
-JAX package's default, a mesh over every card when there are several,
-needs a world of ranks, and the service is one process: the launcher says
-so and serves without the lane, ROADMAP.md, Queue 1, item 15.)  ``--chaos`` arms a seeded
+mesh, sends one graph larger than every bucket down the sharded lane, its
+state the direct run's bit for bit.  ``--device`` picks where the service
+runs (default: the CUDA card).  The mesh, as the JAX package's default:
+over every card where there are several, a world of one rank per card
+(NCCL, :func:`repro_torch.distributed.run_world`) whose rank 0 runs the
+service and whose other ranks join each oversize request's solve
+(:func:`repro_torch.serving.serve_followers`).  ``--world N`` makes that
+world of N ranks from the service's device (every rank on it on the CPU or
+a one-card host, gloo: the counterpart of the reference's forced-device
+host; round the cards from it on a host with several); ``--shards D`` puts D shards on
+the service's device in one process; with one device and neither, no
+lane.  ``--chaos`` arms a seeded
 :class:`repro_torch.serving.FaultInjector` and, after the replay, runs a fault
 drill: poisons one tagged request among innocents (asserting bisection
 isolates exactly it), then kills the flush thread mid-batch (asserting the
@@ -35,8 +42,10 @@ import time
 from typing import Callable, Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.csr import BipartiteCSR
+from repro_torch.distributed import run_world
 from repro_torch.graphs import (grid_graph, kron_graph, random_bipartite,
                                 scaled_free)
 from repro_torch.matching import Matcher, MatcherConfig, TorchCSR, make_mesh
@@ -44,7 +53,11 @@ from repro_torch.matching.sharded import every_device
 from repro_torch.serving import (Bucketizer, FaultInjector,
                                  FlushThreadDiedError, MatchingService,
                                  PoisonedGraphFault, SizeBucket, ladder,
-                                 percentile)
+                                 percentile, serve_followers)
+
+FIELDS = ("cmatch", "rmatch", "phases", "fallbacks", "certified")
+# seconds a world's replay may take, each of its collectives too
+WORLD_TIMEOUT = 1800.0
 
 FAMILIES: Dict[str, Callable[[int, int], BipartiteCSR]] = {
     # name -> (size hint n, seed) -> instance
@@ -124,20 +137,23 @@ def chaos_drill(service: MatchingService, injector: FaultInjector,
 
 
 def build_mesh(shards: int, device):
-    """The oversize lane's mesh: ``shards`` shards on ``device``.  With
-    ``shards`` 0 and one card, none.  With several cards, none either: the
-    service is one process, and a lane over cards needs a world of ranks
-    (ROADMAP.md, Queue 1, item 15); said, and no lane."""
+    """The one-process lane's mesh: ``shards`` shards on ``device`` (0:
+    none)."""
     if shards:
         return make_mesh((shards,), ("data",),
                          every_device(device)[:1] * shards)
-    devices = every_device(device)
-    if len(devices) > 1:
-        print(f"[serve_matching] {len(devices)} cards, no sharded lane: the "
-              f"service is one process, and a lane over cards needs a "
-              f"torch.distributed world (ROADMAP.md, Queue 1, item 15); "
-              f"--shards D puts D shards on one card")
     return None
+
+
+def world_size(args) -> int:
+    """The ranks of the service's world: ``--world``, else one a card where
+    there are several and no ``--shards``; 0: no world."""
+    if args.world:
+        return args.world
+    if args.shards:
+        return 0
+    n = len(every_device(args.device))
+    return n if n > 1 else 0
 
 
 def main(argv=None) -> int:
@@ -163,9 +179,41 @@ def main(argv=None) -> int:
                     help="where the service runs (default: the CUDA card)")
     ap.add_argument("--shards", type=int, default=0,
                     help="edge shards of the oversize lane's mesh, all on "
-                         "the service's device (default: no lane)")
+                         "the service's device, in one process")
+    ap.add_argument("--world", type=int, default=0,
+                    help="ranks of the oversize lane's world, from the "
+                         "service's device (default: one a card where "
+                         "there are several)")
     args = ap.parse_args(argv)
+    if args.world and args.shards:
+        ap.error("--world and --shards are two lanes; give one")
+    size = world_size(args)
+    if not size:
+        return serve(args, build_mesh(args.shards, args.device))[0]
+    results = run_world(world_rank, size, args, device=args.device,
+                        timeout=WORLD_TIMEOUT)
+    code, sharded = results[0]
+    for r, got in enumerate(results[1:], 1):
+        ok = got["served"] == sharded and not got["failed"]
+        print(f"[serve_matching] rank {r} of {size} joined {got['served']} "
+              f"sharded runs of rank 0's {sharded} "
+              f"({'ok' if ok else 'FAIL'})")
+        code = code or (0 if ok else 1)
+    return code
 
+
+def world_rank(world, args):
+    """A rank of the service's world: rank 0 serves (its exit code and
+    sharded count), the others join the lane (what they served)."""
+    if world.rank:
+        return serve_followers(world)
+    args.device = world.device
+    return serve(args, make_mesh((world.size,), ("data",)))
+
+
+def serve(args, mesh) -> tuple:
+    """Warm up, replay and check the service over ``mesh`` (None: no
+    oversize lane); (exit code, requests served on the sharded lane)."""
     if args.smoke:
         args.requests, args.rate, args.size = 12, 500.0, 224
         buckets = (SizeBucket(256, 256, 2048),)
@@ -173,11 +221,11 @@ def main(argv=None) -> int:
     else:
         buckets = ladder(max_vertices=max(256, args.size * 2))
 
-    mesh = build_mesh(args.shards, args.device)
     injector = FaultInjector(seed=args.chaos_seed) if args.chaos else None
     service = MatchingService(
         bucketizer=Bucketizer(buckets,
-                              oversize="shard" if mesh else "reject",
+                              oversize="shard" if mesh is not None
+                              else "reject",
                               validate=True, device=args.device),
         config=MatcherConfig(algo="apfb", kernel="gpubfs_wr", schedule="ct"),
         warm_start="cheap", max_batch=args.max_batch,
@@ -212,8 +260,9 @@ def main(argv=None) -> int:
         res = service.submit(big).result(timeout=300)
         direct = Matcher(service.config, service.warm_start).run(
             TorchCSR.from_host(big, device=service.device).bucketed())
-        ok = (res.route == "sharded"
-              and res.cardinality == int(direct.cardinality))
+        ok = (res.route == "sharded" and all(
+            torch.equal(getattr(res.state, f), getattr(direct, f))
+            for f in FIELDS))
         print(f"[serve_matching] oversize route={res.route} "
               f"|M|={res.cardinality} ({'ok' if ok else 'FAIL'})")
         failures += 0 if ok else 1
@@ -238,7 +287,7 @@ def main(argv=None) -> int:
         assert snap["dispatches"] <= snap["submitted"], \
             "batched path must not dispatch more than once per request"
         print(f"[serve_matching] smoke {'OK' if not failures else 'FAILED'}")
-    return 1 if failures else 0
+    return (1 if failures else 0), snap["sharded"]
 
 
 if __name__ == "__main__":

@@ -44,9 +44,11 @@ sweeps its shard into its winner vector, and the merge is one
 ``all_reduce_min_`` of the ``(nr+1,)`` winners a level, where the
 reference's ``lax.pmin`` stands.  Every test of a loop reads the merged
 winners or the whole state, equal on every rank, so the ranks never
-disagree.  Under NCCL the collective is captured with the level step, under
-the same WHILE node, and a solve makes the single-device host syncs.
-gloo cannot be captured, so there the host drives the level loop: each
+disagree.  In an NCCL world of one rank the collective is captured with
+the level step, under the same WHILE node, and a solve makes the
+single-device host syncs.  gloo cannot be captured, and NCCL's collective
+across several ranks, captured, cannot sit in a WHILE node's body
+(instantiating it fails), so there the host drives the level loop: each
 level it reads the loop's flag (a counted host sync), replays the sweep's
 graph, merges, and replays the fold's; a phase of ``k`` levels makes ``k +
 1`` more host syncs than on one device.  The warm start and the

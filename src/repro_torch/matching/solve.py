@@ -602,10 +602,12 @@ class Solver:
 
     ``world``: the edge-sharded solve over the ranks of a world, this rank
     holding one shard.  Each level sweeps that shard and merges the ranks'
-    winners with one ``all_reduce_min_`` inside the level step: under NCCL
-    captured with it; under gloo, which no capture can hold, the entry's
-    program runs uncaptured (:class:`MatcherProgram`), the host testing
-    every loop's flag (a counted host sync a test on a card).  The
+    winners with one ``all_reduce_min_`` inside the level step: in an NCCL
+    world of one rank captured with it; under gloo, which no capture can
+    hold, and across several NCCL ranks, whose captured collective no WHILE
+    node's body can hold, the entry's program runs uncaptured
+    (:class:`MatcherProgram`), the host testing every loop's flag (a
+    counted host sync a test on a card).  The
     ``degrade_maximal`` round is then the matcher's, on rank 0 over the
     whole edge list.
     """
@@ -735,7 +737,8 @@ class Solver:
 
     def _level(self, B: Buffers) -> None:
         """One BFS level: the sweep (:meth:`_sweep`), over a world's ranks
-        the merge (under NCCL, captured with the step), then the fold."""
+        the merge (in an NCCL world of one, captured with the step), then
+        the fold."""
         winner = self._sweep(B)
         if self.world is not None:
             all_reduce_min_(winner, self.world)
@@ -929,8 +932,8 @@ class MatcherProgram:
     ``degrade_maximal`` round still run over the whole edge list.
     ``world``: the solve over the ranks of a world, ``nnz_pad`` this rank's
     shard's (the warm start and the degrade round are then the matcher's).
-    Under gloo, whose collectives no CUDA graph can hold, its program runs
-    uncaptured on a card too.
+    Under gloo, whose collectives no CUDA graph can hold, and across
+    several NCCL ranks, its program runs uncaptured on a card too.
     """
 
     lanes: tuple = ()           # one graph; a batch's entry has (B,)
@@ -962,8 +965,11 @@ class MatcherProgram:
         nc, nr, m = self.nc, self.nr, self.nnz_pad
         # every loop ends within nc + nr + 4 iterations (levels, ALTERNATE
         # steps, warm-start rounds); the guard stops a runaway past that
-        gloo = self.world is not None and self.world.backend != "nccl"
-        P = Program(device, capture=False if gloo else None,
+        # a WHILE node's body cannot hold NCCL's captured collective across
+        # ranks: instantiating it fails (CUDA error 1, read on four H100s)
+        w = self.world
+        host_loops = w is not None and (w.backend != "nccl" or w.size > 1)
+        P = Program(device, capture=False if host_loops else None,
                     loop_limit=nc + nr + 8)
 
         def alloc(name, n, dtype=I32):

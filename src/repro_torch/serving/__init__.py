@@ -13,7 +13,9 @@ and everything observable (:mod:`metrics`)::
                    │ oversize                    (1 dispatch/flush)
                    ├─► OversizeGraphError (oversize="reject", the default)
                    └─► the sharded lane (oversize="shard", mesh=...):
-                       one ShardedMatcher.run per request
+                       one ShardedMatcher.run per request; over a world's
+                       ranks (:mod:`world_lane`) rank 0 serves and every
+                       other rank joins each run (serve_followers)
 
 ``python -m repro_torch.launch.serve_matching`` replays a synthetic
 open-loop traffic trace against this service.
@@ -29,6 +31,7 @@ from .service import (DeadlineExceededError, FlushThreadDiedError,
                       ServiceClosedError, SheddedError)
 from .warmup import (WarmupGrid, WarmupReport, synthetic_bucket_graph,
                      warm_up)
+from .world_lane import LaneRankError, WorldLane, serve_followers
 
 __all__ = [
     "Admission", "Bucketizer", "OversizeGraphError", "SizeBucket", "ladder",
@@ -40,4 +43,5 @@ __all__ = [
     "DeadlineExceededError", "FlushThreadDiedError", "QueueFullError",
     "SheddedError",
     "WarmupGrid", "WarmupReport", "synthetic_bucket_graph", "warm_up",
+    "LaneRankError", "WorldLane", "serve_followers",
 ]

@@ -12,7 +12,10 @@ no bucket is rejected with the typed :class:`OversizeGraphError`, so the
 caller can tell admission failure from solver failure, unless
 ``oversize="shard"``: then it is admitted whole (its edge capacity bucketed,
 no vertex padding) with ``route="sharded"`` and ``bucket=None``, for the
-service's edge-sharded lane (``MatchingService(mesh=...)``).
+service's edge-sharded lane (``MatchingService(mesh=...)``).  Where that
+lane spans a world of ranks (``keep_host``), the oversize graph stays on
+the host, its edge capacity bucketed there, and each rank uploads its own
+shard of it.
 """
 from __future__ import annotations
 
@@ -78,9 +81,10 @@ def ladder(max_vertices: int = 4096, min_vertices: int = 256,
 
 @dataclasses.dataclass(frozen=True)
 class Admission:
-    """One admitted request: the bucket-shaped device graph + accounting."""
+    """One admitted request: the bucket-shaped device graph (on the lane
+    over a world's ranks, the edge-bucketed host graph) + accounting."""
 
-    graph: TorchCSR
+    graph: Union[TorchCSR, BipartiteCSR]
     bucket: Optional[SizeBucket]
     route: str                        # "bucket" | "sharded"
     nc: int                           # true sizes of the submitted graph
@@ -96,6 +100,18 @@ class Admission:
     def pad_vertex_slots(self) -> int:
         """Wasted vertex slots (isolated padding columns + rows)."""
         return (self.graph.nc - self.nc) + (self.graph.nr - self.nr)
+
+
+def _bucket_host_edges(g: BipartiteCSR) -> BipartiteCSR:
+    """``TorchCSR.from_host(g).bucketed()`` on the host: the edge arrays
+    grown to the canonical capacity with sentinel slots."""
+    extra = bucket_nnz(g.nnz_pad) - g.nnz_pad
+    if not extra:
+        return g
+    grow = lambda a, fill: np.concatenate(                     # noqa: E731
+        [np.asarray(a, np.int32), np.full(extra, fill, np.int32)])
+    return dataclasses.replace(g, cadj=grow(g.cadj, g.nr),
+                               ecol=grow(g.ecol, g.nc))
 
 
 def _pad_host_vertices(g: BipartiteCSR, nc: int, nr: int,
@@ -147,7 +163,8 @@ class Bucketizer:
         return None
 
     def admit(self, graph: Union[BipartiteCSR, TorchCSR],
-              csc: Optional[bool] = None) -> Admission:
+              csc: Optional[bool] = None,
+              keep_host: bool = False) -> Admission:
         """Place ``graph`` in a bucket (pad + upload) or reject it.
 
         Accepts the host container or an uploaded single ``TorchCSR`` (on
@@ -155,6 +172,10 @@ class Bucketizer:
         every constructor lays them out).  ``csc`` overrides ``build_csc``
         per admission (the service passes ``config.dirop``); the mirror is
         built on the bucket-shaped graph, so it pads and stacks with it.
+        ``keep_host``: an oversize graph is admitted as the host graph, its
+        edge capacity bucketed as :meth:`TorchCSR.bucketed` would, and no
+        mirror (the lane over a world's ranks, where each rank uploads its
+        shard, the mirror's slice too).
         """
         csc = self.build_csc if csc is None else csc
         if isinstance(graph, BipartiteCSR):
@@ -187,6 +208,11 @@ class Bucketizer:
         if b is None:
             if self.oversize == "reject":
                 raise OversizeGraphError(nc, nr, nnz, self.buckets[-1])
+            if keep_host:
+                host = (graph.to_host() if isinstance(graph, TorchCSR)
+                        else graph)
+                return Admission(graph=_bucket_host_edges(host), bucket=None,
+                                 route="sharded", nc=nc, nr=nr, nnz=nnz)
             dev = (graph if isinstance(graph, TorchCSR)
                    else TorchCSR.from_host(graph, device=self.device)
                    ).bucketed()

@@ -61,6 +61,22 @@ service has a ``mesh``: then the bucketizer admits them whole
 thread serves each with one :class:`~repro_torch.matching.ShardedMatcher`
 run over the mesh (``route="sharded"``, ``bucket=None``), taking the
 oldest of the batched flushes and the sharded requests first.
+
+The world lane.  A ``mesh`` over the ranks of a ``torch.distributed``
+world (``make_mesh`` inside one) puts the service on rank 0, and the other
+ranks run :func:`~repro_torch.serving.world_lane.serve_followers`.
+Admission keeps an oversize graph on the host (edge-bucketed); the flush
+thread, the only thread that talks to the other ranks, sends each one a
+header and the host graph's arrays and solves it with them, every rank
+uploading its own shard (:mod:`repro_torch.serving.world_lane`).  In-bucket
+requests are batched and served on rank 0 alone.  The fault hooks run
+before the header, so a quarantined request or a flush thread that dies
+leaves the other ranks waiting for the next one, in step; a failure on any
+rank quarantines the request on rank 0.  Whenever a quarter of the
+world's timeout passes with no header (no traffic, or in-bucket traffic
+alone), the flush thread sends an idle header, between two dispatches if
+it is busy; ``close()`` sends ``stop`` once, after the drain, which releases the other
+ranks.  Under NCCL the flush thread sets its device first.
 """
 from __future__ import annotations
 
@@ -86,6 +102,7 @@ from .bucketizer import (Admission, Bucketizer, OversizeGraphError,
 from .faults import FaultInjector, FlushThreadDeath
 from .metrics import ServiceMetrics
 from .scheduler import Flush, MicroBatcher, batch_bucket
+from .world_lane import WorldLane
 
 QUARANTINE_SCHEMA = "repro-serving-quarantine/1"
 
@@ -182,7 +199,10 @@ class MatchingService:
     service builds itself uploads (None: the mesh's device where there is
     a mesh, else the CUDA card); a bucketizer passed in brings its own.
     ``mesh`` / ``shard_axis``: the sharded lane for oversize graphs (the
-    service's own bucketizer then admits them, ``oversize="shard"``).
+    service's own bucketizer then admits them, ``oversize="shard"``); a
+    mesh over a world's ranks (one axis, ``shard_axis``, of every rank) is
+    the world lane (module doc): construct the service on rank 0 while
+    every other rank calls ``serve_followers``.
     """
 
     def __init__(self, bucketizer: Optional[Bucketizer] = None,
@@ -231,6 +251,18 @@ class MatchingService:
         self._matchers: Dict[Tuple[MatcherConfig, str], Matcher] = {}
         self._sharded: Dict[Tuple[MatcherConfig, str], ShardedMatcher] = {}
         self.matcher()     # validate the default config/warm start eagerly
+        self.lane: Optional[WorldLane] = None
+        world = getattr(mesh, "world", None)
+        if world is not None:
+            if world.rank != 0 or mesh.size != world.size or \
+                    mesh.shape.get(shard_axis) != world.size:
+                raise ValueError(
+                    f"a service over a world's ranks runs on rank 0, its "
+                    f"mesh one axis {shard_axis!r} of every rank; this is "
+                    f"rank {world.rank}, the mesh {mesh.shape} over "
+                    f"{world.size} ranks (the other ranks call "
+                    f"serve_followers)")
+            self.lane = WorldLane(world)
         self._cond = threading.Condition()
         self._ready: List[Flush] = []
         self._sharded_q: List[_Request] = []
@@ -285,6 +317,19 @@ class MatchingService:
             m = self._matchers[key] = Matcher(cfg, ws)
         return m
 
+    def sharded_matcher(self, config: Optional[MatcherConfig] = None,
+                        warm_start: Optional[str] = None) -> ShardedMatcher:
+        """The oversize lane's matcher of ``config`` and ``warm_start`` (the
+        service's defaults where None), one per pair, as :meth:`matcher`;
+        its ``last_counts`` are the last sharded request's."""
+        key = (config if config is not None else self.config,
+               warm_start if warm_start is not None else self.warm_start)
+        m = self._sharded.get(key)
+        if m is None:
+            m = self._sharded[key] = ShardedMatcher(
+                self.mesh, self.shard_axis, *key)
+        return m
+
     def warm_up(self, grid=None):
         """Build and capture the declared grid ahead of traffic (see
         :mod:`repro_torch.serving.warmup`)."""
@@ -317,7 +362,8 @@ class MatchingService:
         try:
             # dirop configs solve through the CSC mirror: admission attaches
             # it so the dispatched batch keys the entry warm-up built
-            adm = self.bucketizer.admit(graph, csc=cfg.dirop or None)
+            adm = self.bucketizer.admit(graph, csc=cfg.dirop or None,
+                                        keep_host=self.lane is not None)
         except (OversizeGraphError, GraphValidationError):
             self.metrics.record_reject()
             raise
@@ -420,6 +466,9 @@ class MatchingService:
             # it sees _stop within one interval; a daemon thread still
             # asleep when the interpreter exits can abort the process
             self._supervisor.join(timeout=10)
+        if self.lane is not None and not self._thread.is_alive():
+            # the flush thread sends it as it exits; here where it died
+            self.lane.stop()
         stranded: List[_Request] = []
         with self._cond:
             for flush in self._ready:
@@ -450,6 +499,8 @@ class MatchingService:
 
     # -- the flush thread -----------------------------------------------------
     def _loop(self) -> None:
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)   # a world's rank: its card
         try:
             self._loop_impl()
         except FlushThreadDeath:
@@ -457,9 +508,12 @@ class MatchingService:
             # the unresolved in-flight set is already parked in _taken and
             # recovery (fail over + restart) belongs to the supervisor
             return
+        if self.lane is not None:
+            self.lane.stop()                     # after the drain
 
     def _loop_impl(self) -> None:
         while True:
+            self._keep_lane()
             with self._cond:
                 while True:
                     now = time.perf_counter()
@@ -474,6 +528,13 @@ class MatchingService:
                     deadline = self._batcher.next_deadline()
                     timeout = (None if deadline is None
                                else max(0.0, deadline - now))
+                    due = self.lane.next_idle() if self.lane else None
+                    if due is not None:
+                        quiet = due - time.monotonic()
+                        if quiet <= 0:
+                            break            # the idle header first
+                        timeout = quiet if timeout is None else \
+                            min(timeout, quiet)
                     self._cond.wait(timeout)
                 ready, self._ready = self._ready, []
                 sharded, self._sharded_q = self._sharded_q, []
@@ -490,6 +551,7 @@ class MatchingService:
                         self._dispatch(flush)
                     except Exception as e:
                         self._fail([q.payload for q in flush.items], e)
+                    self._keep_lane()
                 for req in sharded:
                     try:
                         self._dispatch_sharded(req)
@@ -514,6 +576,15 @@ class MatchingService:
             for r in leak:
                 self._fail([r], RuntimeError(
                     "request dropped by dispatch without resolution"))
+
+    def _keep_lane(self) -> None:
+        """The world lane's idle header where one is due: on every pass of
+        the flush thread and after each in-bucket flush, so that the
+        followers' wait stays within the world's timeout however busy
+        rank 0 is (a collective: never under the lock)."""
+        due = self.lane.next_idle() if self.lane is not None else None
+        if due is not None and due <= time.monotonic():
+            self.lane.idle()
 
     # -- the supervisor -------------------------------------------------------
     def _supervise(self, interval_s: float) -> None:
@@ -651,21 +722,23 @@ class MatchingService:
 
     def _dispatch_sharded(self, req: _Request) -> None:
         """The oversize lane: one edge-sharded ``ShardedMatcher`` run over
-        the mesh; a failure quarantines the request."""
+        the mesh (over a world's ranks, with every rank: ``lane.run``); a
+        failure quarantines the request."""
         reqs = self._claim([req])
         if not reqs:
             return
         t0 = time.perf_counter()
-        key = (req.config, req.warm_start)
-        m = self._sharded.get(key)
-        if m is None:
-            m = self._sharded[key] = ShardedMatcher(
-                self.mesh, self.shard_axis, req.config, req.warm_start)
+        m = self.sharded_matcher(req.config, req.warm_start)
         try:
             if self.faults is not None:
+                # before the world lane's header: a request failed here,
+                # or a thread killed here, leaves the other ranks in step
                 self.faults.before_dispatch(reqs)
-            graph = req.admission.graph.shard(self.mesh, self.shard_axis)
-            out = m.run(graph)
+            if self.lane is not None:
+                out = self.lane.run(m, req.admission.graph, req.tag)
+            else:
+                out = m.run(req.admission.graph.shard(self.mesh,
+                                                      self.shard_axis))
             if out.cmatch.is_cuda:
                 torch.cuda.current_stream(out.cmatch.device).synchronize()
         except FlushThreadDeath:
@@ -702,7 +775,9 @@ class MatchingService:
         os.makedirs(self.quarantine_dir, exist_ok=True)
         g = req.admission.graph
         nnz = int(g.nnz)
-        ecol, cadj = g.ecol[:nnz].cpu().numpy(), g.cadj[:nnz].cpu().numpy()
+        if isinstance(g, TorchCSR):
+            g = g.to_host()
+        ecol, cadj = g.ecol[:nnz], g.cadj[:nnz]
         name = req.tag or f"req_{id(req):x}"
         out = os.path.join(self.quarantine_dir, f"quarantine_{name}.json")
         with open(out, "w") as f:

@@ -1923,6 +1923,69 @@ def test_cuda_nccl_world_of_one_captures_the_merge(tmp_path):
         assert launches[_WORLD_PATHS[path]] > 0
 
 
+# the world lane's runs: (solve path, warm start) and the kernel body each
+# launches on every rank, once a level
+_LANE_RUNS = {("jnp", "cheap"): "frontier_expand_fused_wr",
+              ("legacy", "cheap"): "frontier_expand_wr",
+              ("dirop_pallas", "cheap"): "frontier_expand_pull_wr"}
+
+
+def _lane_checks(out, big, size):
+    """The world lane's results: rank 0's state and every follower's the
+    card's single-device run of the bucketed graph bit for bit, every
+    rank's kernels launched."""
+    import torch_world_ranks as ranks
+    from repro_torch.serving.world_lane import matching_digest
+    for i, (path, ws) in enumerate(_LANE_RUNS):
+        cfg = SOLVE_PATHS[path].configure(MatcherConfig())
+        t = TorchCSR.from_host(big).bucketed()
+        want = ranks.outcome(Matcher(cfg, ws).run(
+            t.with_csc() if cfg.dirop else t))
+        res = out[0]["got"][i]
+        assert res["route"] == "sharded", res
+        assert res["variant"] == f"sharded-{cfg.name}@{size}"
+        for a, b in zip(res["state"], want):
+            assert (a == b).all(), (path, ws)
+        for follower in out[1:]:
+            run = follower["got"]["runs"][i]
+            assert run["digest"] == matching_digest(want[0], want[1])
+            assert [run["phases"], run["fallbacks"], run["certified"]] == \
+                [int(want[2]), int(want[3]), bool(want[4])]
+    for rank, r in enumerate(out):
+        for body in _LANE_RUNS.values():
+            assert r["launches"][body] > 0, (rank, body, r["launches"])
+
+
+@pytest.mark.gpu
+def test_cuda_world_lane_over_gloo_ranks_sharing_the_card():
+    """``MatchingService`` over a gloo world of two ranks sharing the card:
+    rank 0 serves, rank 1 joins each oversize request's solve; every
+    rank's state the card's single-device one, K1a / K2a / K3a launched on
+    every rank."""
+    _card()
+    import torch_world_ranks as ranks
+    from repro_torch.distributed import run_world
+    big = random_bipartite(3000, 2800, 4.0, seed=31)
+    out = run_world(ranks.lane_runs, 2, big, list(_LANE_RUNS), timeout=300)
+    _lane_checks(out, big, 2)
+
+
+@pytest.mark.gpu
+def test_cuda_world_lane_over_four_nccl_cards():
+    """The same lane over an NCCL world of four ranks, one card each (across
+    several NCCL ranks the host drives the loops; the merge is not
+    captured)."""
+    _card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices: an NCCL world takes a card "
+                    "a rank")
+    import torch_world_ranks as ranks
+    from repro_torch.distributed import run_world
+    big = random_bipartite(3000, 2800, 4.0, seed=31)
+    out = run_world(ranks.lane_runs, 4, big, list(_LANE_RUNS), timeout=300)
+    _lane_checks(out, big, 4)
+
+
 @pytest.mark.gpu
 def test_cuda_nccl_model_axis_trains_and_saves(tmp_path):
     """A 2 x 2 world of NCCL ranks, one card each: granite-20b and

@@ -473,26 +473,41 @@ def test_synthetic_bucket_graph_shape():
     assert synthetic_bucket_graph(BUCKET, csc=True, device="cpu").has_csc
 
 
+# the world lane's names: the reference's one controller drives its mesh
+# and has no other ranks to serve
+WORLD_LANE_NAMES = {"LaneRankError", "WorldLane", "serve_followers"}
+
+
 def test_metrics_snapshot_keys_and_public_names_equal_the_reference():
     assert set(ServiceMetrics().snapshot()) == \
         set(ref_serving.ServiceMetrics().snapshot())
-    assert set(serving.__all__) == set(ref_serving.__all__)
-    for name in serving.__all__:
+    assert set(serving.__all__) - WORLD_LANE_NAMES == \
+        set(ref_serving.__all__)
+    assert WORLD_LANE_NAMES <= set(serving.__all__)
+    for name in ref_serving.__all__:
         ours, ref = getattr(serving, name), getattr(ref_serving, name)
         if inspect.isclass(ref) and issubclass(ref, BaseException):
             assert [c.__name__ for c in ours.__mro__] == \
                 [c.__name__ for c in ref.__mro__], name
 
 
-@pytest.mark.parametrize("extra", [[], ["--chaos"], ["--shards", "4"]],
-                         ids=["smoke", "chaos", "sharded"])
-def test_serve_matching_smoke_on_cpu(extra, capsys):
+@pytest.mark.parametrize("extra", [[], ["--chaos"], ["--shards", "4"],
+                                   ["--world", "2"]],
+                         ids=["smoke", "chaos", "sharded", "world"])
+def test_serve_matching_smoke_on_cpu(extra, capfd):
     """``python -m repro_torch.launch.serve_matching --smoke --device cpu``
-    (and with the fault drill, and with four shards for the oversize
-    lane) exits 0: every request at the direct matcher's cardinality, the
-    poison isolated, the thread restarted, the oversize graph sharded."""
+    (and with the fault drill, with four shards for the oversize lane, and
+    with the lane over a world of two ranks, whose rank 0 prints from its
+    own process) exits 0: every request at the direct matcher's
+    cardinality, the poison isolated, the thread restarted, the oversize
+    graph sharded, its state the direct run's bit for bit."""
     from repro_torch.launch.serve_matching import main
     assert main(["--smoke", "--device", "cpu", *extra]) == 0
-    out = capsys.readouterr().out
+    out = capfd.readouterr().out
     assert "smoke OK" in out
-    assert ("oversize route=sharded" in out) == ("--shards" in extra)
+    lane = "--shards" in extra or "--world" in extra
+    assert ("oversize route=sharded" in out) == lane
+    if lane:
+        assert "(ok)" in out.split("oversize route=sharded")[1]
+    assert ("rank 1 of 2 joined 1 sharded runs" in out) == \
+        ("--world" in extra)

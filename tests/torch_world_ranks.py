@@ -629,3 +629,158 @@ def axis_card_prefill(world, arch, batch, seq) -> dict:
     logits = build_prefill_step(model)(p, b)
     torch.cuda.synchronize()
     return dict(logits=logits.cpu(), launches=dict(fa.LAUNCHES))
+
+
+# -- the service's oversize lane over a world ------------------------------------
+LANE_BUCKET = (256, 256, 2048)
+
+
+def _lane_service(world, faults=None, **kw):
+    from repro_torch.matching import MatcherConfig, make_mesh
+    from repro_torch.serving import Bucketizer, MatchingService, SizeBucket
+    return MatchingService(
+        bucketizer=Bucketizer((SizeBucket(*LANE_BUCKET),), oversize="shard",
+                              validate=True, device=world.device),
+        config=MatcherConfig(), warm_start="cheap", max_batch=4,
+        mesh=make_mesh((world.size,), ("data",)), faults=faults,
+        supervisor_interval_s=0.02, **kw)
+
+
+def _result(fut) -> dict:
+    """A resolved request: its route, variant and state, or its error."""
+    exc = fut.exception(timeout=120)
+    if exc is not None:
+        return dict(error=type(exc).__name__, message=str(exc))
+    res = fut.result()
+    return dict(route=res.route, variant=res.stats.variant,
+                bucket=res.bucket, state=outcome(res.state))
+
+
+def _lane_config(path: str):
+    from repro_torch.matching import SOLVE_PATHS, MatcherConfig
+    return SOLVE_PATHS[path].configure(MatcherConfig())
+
+
+LANE_REFUSED = ("legacy", "none")   # the pair a follower cannot take
+
+
+def _refusing_followers(world):
+    """``serve_followers`` on a rank whose matchers refuse the
+    ``LANE_REFUSED`` (solve path, warm start) pair."""
+    from repro_torch.matching import Matcher
+    from repro_torch.serving import serve_followers, world_lane
+    real = world_lane.ShardedMatcher
+    path, ws = LANE_REFUSED
+    refused = (Matcher(_lane_config(path), ws).config, ws)  # as sent
+
+    def refusing(mesh, axis, config, warm_start):
+        if (config, warm_start) == refused:
+            raise RuntimeError("this rank refuses the request")
+        return real(mesh, axis, config, warm_start)
+
+    world_lane.ShardedMatcher = refusing
+    try:
+        return serve_followers(world)
+    finally:
+        world_lane.ShardedMatcher = real
+
+
+def _keep_busy(svc, small, seconds: float, pending: int = 12) -> list:
+    """Keep ``pending`` in-bucket requests (the ``small`` graphs) queued
+    on ``svc`` for ``seconds``, so that a batch is ready on every pass of
+    its flush thread; the routes of all of them."""
+    futs, done, end = [], [], time.monotonic() + seconds
+    while time.monotonic() < end:
+        done += [f for f in futs if f.done()]
+        futs = [f for f in futs if not f.done()]
+        while len(futs) < pending:
+            futs.append(svc.submit(small[len(futs) % len(small)]))
+        time.sleep(0.001)
+    return [f.result(timeout=120).route for f in done + futs]
+
+
+def lane_suite(world, big, small, runs, store, idle_timeout):
+    """``test_torch_serving_world``'s rank: rank 0 serves, the others
+    follow.  (1) ``big`` under each (solve path, warm start) of ``runs``,
+    the ``small`` graphs (in-bucket), the poisoned request, a flush thread
+    killed before a sharded dispatch, one more ``big``, a request the
+    followers refuse (``LANE_REFUSED``); (2) a service without a
+    supervisor whose flush thread dies, closed; (3) in a world re-made with
+    ``idle_timeout`` (the store at ``store``), an idle lane past that
+    timeout, then ``big``; then in-bucket traffic alone, a batch always
+    ready, for longer than the timeout, then ``big``."""
+    from repro_torch.distributed import close_world, init_world
+    from repro_torch.serving import FaultInjector, serve_followers
+    out = {"rank": world.rank}
+    faults = FaultInjector(seed=0)
+    if world.rank:
+        out["suite"] = _refusing_followers(world)
+        out["dead"] = serve_followers(world)
+    else:
+        svc = _lane_service(world, faults)
+        got = {}
+        for path, ws in runs:
+            got[(path, ws)] = _result(svc.submit(
+                big, config=_lane_config(path), warm_start=ws))
+        before = dict(svc.lane.sent)
+        futs = [svc.submit(g) for g in small]
+        svc.drain()
+        got["small"] = [_result(f) for f in futs]
+        out["sent_around_small"] = (before, dict(svc.lane.sent))
+        faults.poison("bad")
+        got["poisoned"] = _result(svc.submit(big, tag="bad"))
+        faults.cure("bad")
+        faults.kill_thread_after(0)
+        got["killed"] = _result(svc.submit(big))
+        got["after"] = _result(svc.submit(big))
+        got["follower-bad"] = _result(svc.submit(
+            big, config=_lane_config(LANE_REFUSED[0]),
+            warm_start=LANE_REFUSED[1], tag="follower-bad"))
+        svc.close()
+        out.update(suite=got, snap=svc.metrics.snapshot(),
+                   sent=dict(svc.lane.sent))
+        # the flush thread dies, nothing restarts it: close() stops the lane
+        faults.kill_thread_after(0)
+        dead = _lane_service(world, faults, supervise=False)
+        fut = dead.submit(big)
+        dead._thread.join(timeout=60)
+        dead.close()
+        out["dead"] = dict(result=_result(fut), sent=dict(dead.lane.sent))
+    rank, size = world.rank, world.size
+    close_world()
+    world = init_world(rank, size, "file://" + store, device="cpu",
+                       timeout=idle_timeout)
+    if rank:
+        out["idle"] = serve_followers(world)
+    else:
+        svc = _lane_service(world)
+        time.sleep(2.5 * idle_timeout)
+        out["idle"] = dict(result=_result(svc.submit(big)),
+                           timeout=world.timeout, idle_s=svc.lane.idle_s,
+                           sent=dict(svc.lane.sent))
+        routes = _keep_busy(svc, small, 1.5 * idle_timeout)
+        out["busy"] = dict(routes=routes, sent=dict(svc.lane.sent),
+                           result=_result(svc.submit(big)))
+        svc.close()
+        out["busy"]["closed"] = dict(svc.lane.sent)
+    return out
+
+
+def lane_runs(world, big, runs):
+    """``big`` through the lane once per (solve path, warm start) of
+    ``runs``: rank 0's results, the others' runs, and on a card each
+    rank's kernel launches over them."""
+    from repro_torch.serving import serve_followers
+    card = world.device.type == "cuda"
+    if card:
+        from repro_torch.kernels.frontier_expand import (LAUNCHES,
+                                                         reset_launches)
+        reset_launches()
+    if world.rank:
+        got = serve_followers(world)
+    else:
+        svc = _lane_service(world)
+        got = [_result(svc.submit(big, config=_lane_config(path),
+                                  warm_start=ws)) for path, ws in runs]
+        svc.close()
+    return dict(got=got, launches=dict(LAUNCHES) if card else None)
